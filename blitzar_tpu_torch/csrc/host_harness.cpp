@@ -1,12 +1,14 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
-// fp25519.cuh and edwards25519.cuh are compiled here by a host C++ compiler
-// (BTT_HD is plain inline then), so tests/test_torch_native_arith.py can
-// hold the very code the CUDA kernels run against blitzar_tpu without a
-// card. Each function loops over n elements in the public layout: a field
-// batch is a (16, n) int32 array, a point batch (4, 16, n), a niels batch
-// (3, 16, n).
+// fp25519.cuh, edwards25519.cuh, mont.cuh and weierstrass.cuh are compiled
+// here by a host C++ compiler (BTT_HD is plain inline then), so
+// tests/test_torch_native_arith.py can hold the very code the CUDA kernels
+// run against blitzar_tpu and the plain versions without a card. Each
+// function loops over n elements in the public layout: a field batch is a
+// (nlimbs, n) int32 array, an Edwards point batch (4, 16, n), a niels batch
+// (3, 16, n), a Weierstrass point batch (3, nlimbs, n).
 #include "edwards25519.cuh"
+#include "weierstrass.cuh"
 
 using namespace btt;
 
@@ -34,9 +36,62 @@ ge_niels load_niels(const int32_t* base, int64_t n, int64_t i) {
   return r;
 }
 
+// op: 0 mul, 1 sq, 2 add, 3 sub, 4 neg, 5 inv over the base field of C
+template <class C>
+void host_mont(int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
+  using F = typename C::F;
+  for (int64_t i = 0; i < n; ++i) {
+    mfe<F> x = mf_load<F>(a + i, n);
+    mfe<F> y = mf_load<F>(b + i, n);
+    mfe<F> r;
+    switch (op) {
+      case 0: r = mf_mul<F>(x, y); break;
+      case 1: r = mf_sq<F>(x); break;
+      case 2: r = mf_add<F>(x, y); break;
+      case 3: r = mf_sub<F>(x, y); break;
+      case 4: r = mf_neg<F>(x); break;
+      default: r = mf_inv<F>(x); break;
+    }
+    mf_store<F>(out + i, n, r);
+  }
+}
+
+// op: 0 complete add, 1 complete double on C
+template <class C>
+void host_w(int op, const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
+  const int64_t nl = 2 * C::F::K;
+  wpoint_ptrs pp = {{p, p + nl * n, p + 2 * nl * n}, n};
+  wpoint_ptrs qq = {{q, q + nl * n, q + 2 * nl * n}, n};
+  wpoint_out_ptrs oo = {{out, out + nl * n, out + 2 * nl * n}, n};
+  for (int64_t i = 0; i < n; ++i) {
+    wpoint<C> a = w_load<C>(pp, i);
+    w_store<C>(oo, i, op == 0 ? w_add<C>(a, w_load<C>(qq, i)) : w_double<C>(a));
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// curve: 1 bls12-381 G1, 2 bn254 G1, 3 Grumpkin (its base field for
+// btt_host_mont); returns -1 for another id
+int btt_host_mont(int curve, int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
+  switch (curve) {
+    case Bls12381G1::id: host_mont<Bls12381G1>(op, a, b, out, n); return 0;
+    case Bn254G1::id: host_mont<Bn254G1>(op, a, b, out, n); return 0;
+    case Grumpkin::id: host_mont<Grumpkin>(op, a, b, out, n); return 0;
+    default: return -1;
+  }
+}
+
+int btt_host_w(int curve, int op, const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
+  switch (curve) {
+    case Bls12381G1::id: host_w<Bls12381G1>(op, p, q, out, n); return 0;
+    case Bn254G1::id: host_w<Bn254G1>(op, p, q, out, n); return 0;
+    case Grumpkin::id: host_w<Grumpkin>(op, p, q, out, n); return 0;
+    default: return -1;
+  }
+}
 
 // op: 0 mul, 1 sq, 2 invert, 3 add, 4 sub, 5 pow22523
 void btt_host_field(int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {

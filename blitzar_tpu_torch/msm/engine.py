@@ -1,10 +1,12 @@
-"""Pedersen-commitment MSM entry of the port (blitzar_tpu/msm/engine.py).
+"""Pedersen-commitment MSM entry of the port (blitzar_tpu/msm/engine.py),
+curve-generic: ristretto255 (the ``curves.edwards25519`` module) or a
+short-Weierstrass curve (``curves.weierstrass.WCurve``).
 
 Every MSM over at most 2^20 generators takes the handle path of
-``msm/fixed.py``, through a small cache of handles keyed by tensor identity
-and a content digest. blitzar_tpu sends a fresh small generator set
-through a streamed build+query instead (engine.py:380-412), a TPU latency
-device; the point that comes out is the same.
+``msm/fixed.py``, through a small cache of handles keyed by the curve,
+tensor identity and a content digest. blitzar_tpu sends a fresh small
+generator set through a streamed build+query instead (engine.py:380-412), a
+TPU latency device; the point that comes out is the same.
 """
 
 from __future__ import annotations
@@ -49,15 +51,20 @@ def prepare_scalars(data_list, nbytes_list, signed_list, n_max=None):
     return scalars, signs, n
 
 
-# handles over recently used generator sets: [coordinate x, n, digest, handle]
+# handles over recently used generator sets: [curve, coordinate x, n, digest, handle]
 _HANDLE_CACHE: list = []
 _HANDLE_CACHE_SLOTS = 4
 
 
-def _content_digest(points: ed.PointP3, n: int) -> bytes:
-    """Digest of n and the x and y limbs of the first and last four and 64
-    evenly spaced points: logically equal generators in a fresh tensor
-    (a slice, a copy) find their handle."""
+def _curve_name(curve) -> str:
+    return "ristretto255" if curve is ed else curve.name
+
+
+def _content_digest(points, n: int, curve=ed) -> bytes:
+    """Digest of the curve, n and the x and y limbs of the first and last
+    four and 64 evenly spaced points: logically equal generators in a fresh
+    tensor (a slice, a copy) find their handle, and equal limbs on two
+    curves do not share one."""
     k = min(64, n)
     idx = np.unique(
         np.concatenate(
@@ -65,24 +72,27 @@ def _content_digest(points: ed.PointP3, n: int) -> bytes:
         )
     )
     h = hashlib.blake2b(digest_size=16)
+    h.update(_curve_name(curve).encode())
     h.update(n.to_bytes(8, "little"))
     sample = torch.as_tensor(idx, device=points.x.device)
     for c in (points.x, points.y):
-        h.update(F.canonicalize(c[:, sample]).cpu().numpy().tobytes())
+        c = c[:, sample]
+        # ristretto255 limbs need not be canonical; Montgomery limbs are
+        h.update((F.canonicalize(c) if curve is ed else c).cpu().numpy().tobytes())
     return h.digest()
 
 
-def cached_handle(points: ed.PointP3, n: int) -> fixed.MultiexpHandle:
+def cached_handle(points, n: int, curve=ed) -> fixed.MultiexpHandle:
     for entry in _HANDLE_CACHE:
-        if entry[0] is points.x and entry[1] == n:
-            return entry[3]
-    digest = _content_digest(points, n)
+        if entry[0] is curve and entry[1] is points.x and entry[2] == n:
+            return entry[4]
+    digest = _content_digest(points, n, curve)
     for entry in _HANDLE_CACHE:
-        if entry[1] == n and entry[2] == digest and entry[3].device == points.x.device:
-            entry[0] = points.x
-            return entry[3]
-    handle = fixed.MultiexpHandle(points, n=n)
-    _HANDLE_CACHE.append([points.x, n, digest, handle])
+        if entry[0] is curve and entry[2] == n and entry[3] == digest and entry[4].device == points.x.device:
+            entry[1] = points.x
+            return entry[4]
+    handle = fixed.MultiexpHandle(points, curve=curve, n=n)
+    _HANDLE_CACHE.append([curve, points.x, n, digest, handle])
     if len(_HANDLE_CACHE) > _HANDLE_CACHE_SLOTS:
         _HANDLE_CACHE.pop(0)
     return handle
@@ -92,18 +102,18 @@ def clear_handle_cache() -> None:
     _HANDLE_CACHE.clear()
 
 
-def msm(points: ed.PointP3, data_list, nbytes_list, signed_list) -> ed.PointP3:
-    """Generalized Pedersen MSM over shared generators -> (O,) points on the
-    generators' device."""
+def msm(points, data_list, nbytes_list, signed_list, curve=ed):
+    """Generalized Pedersen MSM over shared generators of ``curve`` -> (O,)
+    points on the generators' device."""
     scalars, signs, n = prepare_scalars(data_list, nbytes_list, signed_list)
     num_outputs = scalars.shape[0]
     if n == 0 or num_outputs == 0:
-        return ed.identity((num_outputs,), points.x.device)
+        return curve.identity((num_outputs,), points.x.device)
     if n > fixed.MAX_HANDLE_POINTS:
         raise NotImplementedError(fixed.STREAMING_TODO)
     if points.x.shape[1] < n:
         raise ValueError(f"{n} scalars but only {points.x.shape[1]} generators")
-    handle = cached_handle(points, n)
+    handle = cached_handle(points, n, curve)
     if any(signed_list):
         return fixed.fixed_multiexponentiation_signed(handle, scalars, signs)
     return fixed.fixed_multiexponentiation(handle, scalars)

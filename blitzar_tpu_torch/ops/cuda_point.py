@@ -24,6 +24,10 @@ wrapper                replaces                                 source
 ``ed_add``             ``_add_tiled`` :237                      ed_add.cu
 ``elligator_form``     ``_elligator_form_tiled`` :212           elligator_form.cu
 =====================  ======================================  ==========
+
+The Weierstrass kernels (``w_build_table``, ``w_lookup_msm``, ``wadd``,
+``wdouble``) have their wrappers in ``ops/cuda_wpoint.py``; their launches
+are counted here too, so ``KERNELS`` and ``LAUNCHES`` cover every kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +45,10 @@ KERNELS = (
     "doubling_combine",
     "ed_add",
     "elligator_form",
+    "w_build_table",
+    "w_lookup_msm",
+    "wadd",
+    "wdouble",
 )
 
 # launches of each kernel since the last reset_launches()
@@ -70,8 +78,8 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def _limb_major(t: torch.Tensor) -> bool:
-    """(16, *batch) with the batch contiguous inside each limb row."""
-    if t.dim() < 2 or t.shape[0] != F.NLIMBS or t.dtype != torch.int32:
+    """(nlimbs, *batch) with the batch contiguous inside each limb row."""
+    if t.dim() < 2 or t.dtype != torch.int32:
         return False
     expected = 1
     for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
@@ -81,30 +89,32 @@ def _limb_major(t: torch.Tensor) -> bool:
     return True
 
 
-def _field_arg(t: torch.Tensor, device, batch) -> tuple[torch.Tensor, int]:
-    """Check one (16, *batch) int32 field tensor for a launch; returns the
-    tensor (made limb-major if it was not) and its limb stride."""
+def _field_arg(t: torch.Tensor, device, batch, nlimbs: int = F.NLIMBS) -> tuple[torch.Tensor, int]:
+    """Check one (nlimbs, *batch) int32 field tensor for a launch; returns
+    the tensor (made limb-major if it was not) and its limb stride."""
     if t.device != device:
         raise ValueError(f"tensor on {t.device}, expected {device}")
     if t.dtype != torch.int32:
         raise TypeError(f"expected int32 limbs, got {t.dtype}")
-    if tuple(t.shape) != (F.NLIMBS,) + tuple(batch):
-        raise ValueError(f"expected shape {(F.NLIMBS,) + tuple(batch)}, got {tuple(t.shape)}")
+    if tuple(t.shape) != (nlimbs,) + tuple(batch):
+        raise ValueError(f"expected shape {(nlimbs,) + tuple(batch)}, got {tuple(t.shape)}")
     if not _limb_major(t):
         t = t.contiguous()
     return t, t.stride(0)
 
 
-def _point_arg(p: ed.PointP3, device, batch) -> tuple[list[torch.Tensor], int]:
-    coords = [_field_arg(c, device, batch)[0] for c in p]
+def _point_arg(p, device, batch, nlimbs: int = F.NLIMBS) -> tuple[list[torch.Tensor], int]:
+    """Check a point batch (any number of coordinates) for a launch: its
+    coordinates, limb-major with one limb stride, and that stride."""
+    coords = [_field_arg(c, device, batch, nlimbs)[0] for c in p]
     if len({c.stride(0) for c in coords}) != 1:
         coords = [c.contiguous() for c in coords]
     return coords, coords[0].stride(0)
 
 
-def _empty_point(batch, device) -> ed.PointP3:
-    return ed.PointP3(
-        *(torch.empty((F.NLIMBS,) + tuple(batch), dtype=torch.int32, device=device) for _ in range(4))
+def _empty_point(batch, device, point=ed.PointP3, nlimbs: int = F.NLIMBS):
+    return point(
+        *(torch.empty((nlimbs,) + tuple(batch), dtype=torch.int32, device=device) for _ in point._fields)
     )
 
 
@@ -129,8 +139,8 @@ def _ptrs(coords) -> list[int]:
 
 
 def limbs_to_words(c: torch.Tensor) -> torch.Tensor:
-    """Canonical (16, *batch) limbs -> (*batch, 8) int32 holding the 32-bit
-    words' bit patterns."""
+    """Canonical (2K, *batch) 16-bit limbs -> (*batch, K) int32 holding the
+    32-bit words' bit patterns."""
     c = c.to(torch.int64)
     w = c[0::2] | (c[1::2] << 16)
     w = torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
@@ -138,9 +148,9 @@ def limbs_to_words(c: torch.Tensor) -> torch.Tensor:
 
 
 def words_to_limbs(w: torch.Tensor) -> torch.Tensor:
-    """(*batch, 8) int32 words -> (16, *batch) int32 limbs."""
+    """(*batch, K) int32 words -> (2K, *batch) int32 limbs."""
     w = w.to(torch.int64) & 0xFFFFFFFF
-    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(tuple(w.shape[:-1]) + (F.NLIMBS,))
+    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(tuple(w.shape[:-1]) + (2 * w.shape[-1],))
     return limbs.movedim(-1, 0).to(torch.int32)
 
 
@@ -266,10 +276,12 @@ def lookup_chunks(groups: int, rows: int) -> tuple[int, int]:
     return chunk_groups, -(-groups // chunk_groups)
 
 
-def _check_query(table: torch.Tensor, scalars: torch.Tensor, signs, w: int):
+def _check_query(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, words: int = 8) -> int:
+    """Check a query's table ((G, 2^w, 3, words) int32), scalars and signs;
+    returns G."""
     groups, entries = table.shape[0], table.shape[1]
-    if entries != 1 << w or tuple(table.shape[2:]) != (3, 8) or table.dtype != torch.int32:
-        raise ValueError(f"table {tuple(table.shape)} {table.dtype} is no (G, 2^{w}, 3, 8) int32 table")
+    if entries != 1 << w or tuple(table.shape[2:]) != (3, words) or table.dtype != torch.int32:
+        raise ValueError(f"table {tuple(table.shape)} {table.dtype} is no (G, 2^{w}, 3, {words}) int32 table")
     if scalars.dtype != torch.uint8 or scalars.dim() != 3 or scalars.shape[1] != groups * w:
         raise ValueError(f"scalars {tuple(scalars.shape)} {scalars.dtype}: expected (O, {groups * w}, nbytes) uint8")
     if signs is not None and (signs.dtype != torch.uint8 or tuple(signs.shape) != tuple(scalars.shape[:2])):
@@ -293,22 +305,37 @@ def query_index(scalars: torch.Tensor, signs, w: int) -> torch.Tensor:
     return (rows << weights).sum(dim=-1)
 
 
-def ed_lookup_msm_plain(table, scalars, signs, w: int) -> ed.PointP3:
+def lookup_walk(table, scalars, signs, w: int, chunks=None):
+    """The plain lookups' walk over a query, in the kernels' order: the
+    number of (chunk, row) partials (K, R), then for each step s of a chunk
+    the (K, R) indices and the (K, R, 3, words) entries they pick (padded
+    groups pick entry 0). ``chunks`` (a 1-D index tensor) walks only those
+    chunks."""
     groups = table.shape[0]
     idx = query_index(scalars, signs, w)  # (R, G)
     rows = idx.shape[0]
     chunk_groups, nchunks = lookup_chunks(groups, rows)
-    device = table.device
     idx = torch.nn.functional.pad(idx, (0, nchunks * chunk_groups - groups))
     idx = idx.reshape(rows, nchunks, chunk_groups).permute(2, 1, 0)  # (cg, K, R)
-    flat = table.reshape(groups << w, 3, 8)
-    acc = ed.identity((nchunks, rows), device)
-    chunk_start = torch.arange(nchunks, device=device)[:, None] * chunk_groups
-    for s in range(chunk_groups):
-        ix = idx[s].to(torch.int64)  # (K, R); padded groups have idx 0
-        g = torch.clamp(chunk_start + s, max=groups - 1)
-        entry = unpack_niels(flat[(g << w) + ix])
-        acc = ed.select(acc, ed._madd_impl(acc, entry), ix != 0)
+    chunk_ids = torch.arange(nchunks, device=table.device) if chunks is None else chunks.to(table.device)
+    idx = idx[:, chunk_ids]
+    flat = table.reshape(groups << w, 3, table.shape[-1])
+    chunk_start = chunk_ids[:, None] * chunk_groups
+
+    def steps():
+        for s in range(chunk_groups):
+            ix = idx[s].to(torch.int64)
+            g = torch.clamp(chunk_start + s, max=groups - 1)
+            yield ix, flat[(g << w) + ix]
+
+    return (len(chunk_ids), rows), steps()
+
+
+def ed_lookup_msm_plain(table, scalars, signs, w: int) -> ed.PointP3:
+    shape, steps = lookup_walk(table, scalars, signs, w)
+    acc = ed.identity(shape, table.device)
+    for ix, entries in steps:
+        acc = ed.select(acc, ed._madd_impl(acc, unpack_niels(entries)), ix != 0)
     return acc
 
 

@@ -1,0 +1,201 @@
+"""The CUDA kernels of the short-Weierstrass commitment path (bls12-381 G1,
+bn254 G1, Grumpkin): wrappers, plain versions, counts.
+
+Each wrapper takes the curve (``curves/weierstrass.py``) and tensors in the
+public layout (field batches (nlimbs, *batch) int32 Montgomery limbs, point
+batches ``PointP2`` of three of them, limb axis leading). On a tensor that
+lies on the CPU it runs the plain PyTorch version beside it; on a CUDA
+tensor it checks device, dtype, shape and layout, allocates the outputs,
+launches its kernel from ``csrc/`` on the current stream and adds one to
+``cuda_point.LAUNCHES[name]``, or raises. The plain versions serve the CPU
+tests and the comparisons of ``chip_smoke.py``; nothing on the card's main
+path calls them. One template per kernel covers the three curves; the
+launcher picks the instantiation by ``curve.kernel_id``.
+
+The kernels and the TPU kernels they replace (all in
+``blitzar_tpu/ops/pallas_point.py``):
+
+=================  =================================================  ===============
+wrapper            replaces                                           source
+=================  =================================================  ===============
+``w_build_table``  ``_build_split_tiled`` :806 (Weierstrass, :789)     w_build_table.cu
+``w_lookup_msm``   ``_w_lookup_tiled`` :636                           w_lookup_msm.cu
+``wadd``           ``_wadd_tiled`` :891                               wadd.cu
+``wdouble``        ``_wdouble_tiled`` :907                            wdouble.cu
+=================  =================================================  ===============
+
+A handle's table is (G, 2^w, 3, K) int32 words: entry v of group g holds the
+projective (X, Y, Z) of its subset sum as K = nlimbs / 2 canonical 32-bit
+Montgomery words each (96 bytes an entry for bn254 and Grumpkin, 144 for
+bls12-381).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..curves.weierstrass import PointP2, WCurve
+from . import build
+from .cuda_point import (
+    _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, limbs_to_words, lookup_chunks,
+    lookup_walk, words_to_limbs,
+)
+
+# ---------------------------------------------------------------------------
+# table entries
+# ---------------------------------------------------------------------------
+
+
+def pack_points(p: PointP2) -> torch.Tensor:
+    """PointP2 (nlimbs, *batch) -> (*batch, 3, K) int32 table entries."""
+    return torch.stack([limbs_to_words(c) for c in p], dim=-2)
+
+
+def unpack_points(entries: torch.Tensor) -> PointP2:
+    """(*batch, 3, K) table entries -> PointP2 (2K, *batch)."""
+    return PointP2(*(words_to_limbs(entries[..., k, :]) for k in range(3)))
+
+
+# ---------------------------------------------------------------------------
+# wadd  (replaces pallas_point.py:_wadd_tiled :891 / wadd :943)
+# ---------------------------------------------------------------------------
+
+
+def wadd_plain(curve: WCurve, p: PointP2, q: PointP2) -> PointP2:
+    return curve._add_impl(p, q)
+
+
+def wadd(curve: WCurve, p: PointP2, q: PointP2) -> PointP2:
+    """Elementwise complete p + q over equal batch shapes.
+
+    Kernel csrc/wadd.cu, one thread per element. Bound: integer multiplies
+    at large batches (14 field multiplies per element); launch latency for
+    the few outputs of a ladder step."""
+    if not _on_card(p.x):
+        return wadd_plain(curve, p, q)
+    batch = tuple(p.x.shape[1:])
+    pc, ps = _point_arg(p, p.x.device, batch, curve.nlimbs)
+    qc, qs = _point_arg(q, p.x.device, batch, curve.nlimbs)
+    out = _empty_point(batch, p.x.device, PointP2, curve.nlimbs)
+    _launch(
+        "wadd", build.library().btt_wadd,
+        curve.kernel_id, *_ptrs(pc), ps, *_ptrs(qc), qs, p.x[0].numel(), *_ptrs(out), _stream(p.x.device),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wdouble  (replaces pallas_point.py:_wdouble_tiled :907 / wdouble :948)
+# ---------------------------------------------------------------------------
+
+
+def wdouble_plain(curve: WCurve, p: PointP2) -> PointP2:
+    return curve._double_impl(p)
+
+
+def wdouble(curve: WCurve, p: PointP2) -> PointP2:
+    """Elementwise complete 2p.
+
+    Kernel csrc/wdouble.cu, one thread per element. Bound: integer
+    multiplies at large batches (9 field multiplies per element); launch
+    latency for the few outputs of a ladder step."""
+    if not _on_card(p.x):
+        return wdouble_plain(curve, p)
+    batch = tuple(p.x.shape[1:])
+    pc, ps = _point_arg(p, p.x.device, batch, curve.nlimbs)
+    out = _empty_point(batch, p.x.device, PointP2, curve.nlimbs)
+    _launch(
+        "wdouble", build.library().btt_wdouble,
+        curve.kernel_id, *_ptrs(pc), ps, p.x[0].numel(), *_ptrs(out), _stream(p.x.device),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# w_build_table  (replaces pallas_point.py:_build_split_tiled :806, W form)
+# ---------------------------------------------------------------------------
+
+
+def w_build_table_plain(curve: WCurve, points: PointP2, w: int) -> torch.Tensor:
+    """Subset sums by w doubling concatenations (table_{j+1} = [table_j |
+    table_j + G_j], blitzar_tpu's order), projective, packed."""
+    groups = points.x.shape[1] // w
+    pts = curve.reshape_batch(points, (groups, w))
+    table = curve.identity((groups, 1), points.x.device)
+    for j in range(w):
+        gj = PointP2(*(c[:, :, j : j + 1].expand_as(tc) for c, tc in zip(pts, table)))
+        table = curve.cat([table, curve._add_impl(table, gj)], dim=2)
+    return pack_points(table)
+
+
+def w_build_table(curve: WCurve, points: PointP2, w: int) -> torch.Tensor:
+    """Partition table of points (nlimbs, G*w): (G, 2^w, 3, K) int32 words,
+    entry v of group g = the sum of points g*w + j over the set bits j of v,
+    projective and in blitzar_tpu's order of additions (so equal to its
+    table bit for bit); entry 0 is the identity (0, 1, 0).
+
+    Kernel csrc/w_build_table.cu, thread (group, low w/2 bits of the entry)
+    builds its 2^(w - w/2) entries by one complete add each. Bound: integer
+    multiplies (2^w - 1 adds of 14 field multiplies per group)."""
+    n_pad = points.x.shape[1]
+    if n_pad % w:
+        raise ValueError(f"point count {n_pad} is not a multiple of the window {w}")
+    groups = n_pad // w
+    if not _on_card(points.x):
+        return w_build_table_plain(curve, points, w)
+    coords, stride = _point_arg(points, points.x.device, (n_pad,), curve.nlimbs)
+    table = torch.empty((groups, 1 << w, 3, curve.nlimbs // 2), dtype=torch.int32, device=points.x.device)
+    _launch(
+        "w_build_table", build.library().btt_w_build_table,
+        curve.kernel_id, *_ptrs(coords), stride, w, groups, table.data_ptr(), _stream(points.x.device),
+    )
+    return table
+
+
+# ---------------------------------------------------------------------------
+# w_lookup_msm  (replaces pallas_point.py:_w_lookup_tiled :636)
+# ---------------------------------------------------------------------------
+
+
+def w_lookup_msm_plain(curve: WCurve, table, scalars, signs, w: int, chunks=None) -> PointP2:
+    """The partials of :func:`w_lookup_msm`, in the kernel's order of
+    additions. ``chunks`` (a 1-D index tensor) computes only those chunks,
+    (nlimbs, len(chunks), R): the comparison of a full-size run on a sample."""
+    shape, steps = lookup_walk(table, scalars, signs, w, chunks)
+    acc = curve.identity(shape, table.device)
+    for ix, entries in steps:
+        acc = curve.select(acc, curve._add_impl(acc, unpack_points(entries)), ix != 0)
+    return acc
+
+
+def w_lookup_msm(curve: WCurve, table: torch.Tensor, scalars: torch.Tensor, signs, w: int) -> PointP2:
+    """Per-chunk partition products of a query: (nlimbs, K, R) partials
+    whose sum over K is row r's sum over groups g of table[g, idx[r, g]]
+    (rows and indices as ``cuda_point.query_index``; ``lookup_chunks`` gives
+    K). scalars: (O, G*w, nbytes) uint8 magnitudes; signs: (O, G*w) uint8
+    (1 = negative) or None.
+
+    Kernel csrc/w_lookup_msm.cu, thread (k, r) gathers projective entries and
+    accumulates with complete adds, skipping entry 0. Bound: integer
+    multiplies, 14 field multiplies per nonzero index."""
+    groups = _check_query(table, scalars, signs, w, curve.nlimbs // 2)
+    if not _on_card(table):
+        return w_lookup_msm_plain(curve, table, scalars, signs, w)
+    device = table.device
+    for t in (scalars, signs):
+        if t is not None and t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+    table, scalars = table.contiguous(), scalars.contiguous()
+    if table.data_ptr() % 16:
+        table = table.clone()  # the kernel gathers entries with 16-byte loads
+    signs = None if signs is None else signs.contiguous()
+    num_outputs, n_pad, nbytes = scalars.shape
+    rows = (2 if signs is not None else 1) * num_outputs * 8 * nbytes
+    chunk_groups, nchunks = lookup_chunks(groups, rows)
+    out = _empty_point((nchunks, rows), device, PointP2, curve.nlimbs)
+    _launch(
+        "w_lookup_msm", build.library().btt_w_lookup_msm,
+        curve.kernel_id, table.data_ptr(), scalars.data_ptr(), None if signs is None else signs.data_ptr(),
+        num_outputs, n_pad, nbytes, w, chunk_groups, nchunks, *_ptrs(out), _stream(device),
+    )
+    return out

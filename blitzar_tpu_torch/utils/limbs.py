@@ -1,13 +1,15 @@
 """Conversions between Python ints, numpy limb arrays and the port's tensors.
 
-The port keeps ``blitzar_tpu``'s public field layout: ``(16, *batch)``
-radix-2^16 limbs, limb axis leading, held in int32. So a ``blitzar_tpu``
-point batch ((16, n) uint32 per coordinate) crosses over by a dtype change;
-:func:`from_jax_points` and :func:`to_jax_points` do that for point batches
-stacked as ``(4, 16, n)`` arrays, and :func:`handle_from_jax_table` turns the
-arrays that ``blitzar_tpu.msm.fixed.MultiexpHandle.write_to_file`` saves into
-the port's handle. Nothing here imports ``blitzar_tpu``: the arrays are
-plain numpy.
+The port keeps ``blitzar_tpu``'s public field layout: ``(nlimbs, *batch)``
+radix-2^16 limbs, limb axis leading, held in int32 (16 limbs for curve25519,
+bn254 and Grumpkin, 24 for bls12-381; Montgomery form on the Weierstrass
+curves). So a ``blitzar_tpu`` point batch ((nlimbs, n) uint32 per
+coordinate) crosses over by a dtype change; :func:`from_jax_points` and
+:func:`to_jax_points` do that for point batches stacked as
+``(coords, nlimbs, n)`` arrays (4 coordinates for ristretto255, 3 for a
+Weierstrass curve), and :func:`handle_from_jax_table` turns the arrays that
+``blitzar_tpu.msm.fixed.MultiexpHandle.write_to_file`` saves into the port's
+handle. Nothing here imports ``blitzar_tpu``: the arrays are plain numpy.
 """
 
 from __future__ import annotations
@@ -51,30 +53,49 @@ def to_tensor(arr, device="cpu") -> torch.Tensor:
 
 def from_jax_points(coords: np.ndarray, device="cuda"):
     """(4, 16, n) uint32 limbs (a ``blitzar_tpu`` PointP3 stacked) -> the
-    port's PointP3 on ``device`` (the card unless the caller asks for the CPU)."""
+    port's PointP3, or (3, nlimbs, n) (a ``blitzar_tpu`` PointP2 stacked,
+    Montgomery form) -> the port's PointP2, on ``device`` (the card unless
+    the caller asks for the CPU)."""
     from ..curves.edwards25519 import PointP3
+    from ..curves.weierstrass import PointP2
 
     coords = np.asarray(coords)
-    return PointP3(*(to_tensor(coords[k], device) for k in range(4)))
+    point = {4: PointP3, 3: PointP2}[coords.shape[0]]
+    return point(*(to_tensor(c, device) for c in coords))
 
 
 def to_jax_points(p) -> np.ndarray:
-    """The port's PointP3 -> (4, 16, *batch) uint32 with canonical limbs,
-    ready for ``jnp.asarray`` and ``blitzar_tpu``'s PointP3."""
+    """The port's PointP3 -> (4, 16, *batch) uint32 with canonical limbs, or
+    PointP2 -> (3, nlimbs, *batch) uint32 Montgomery limbs (canonical
+    already), ready for ``jnp.asarray`` and ``blitzar_tpu``'s points."""
+    from ..curves.weierstrass import PointP2
     from ..fields import fp25519 as F
 
+    if isinstance(p, PointP2):
+        return np.stack([c.cpu().numpy().astype(np.uint32) for c in p])
     return np.stack([F.canonicalize(c).cpu().numpy().astype(np.uint32) for c in p])
 
 
-def handle_from_jax_table(coord0, coord1, coord2, coord3, n: int | None = None, device="cuda"):
+def handle_from_jax_table(*coords, n: int | None = None, curve=None, device="cuda"):
     """A ``blitzar_tpu`` handle's saved table -> the port's handle.
 
-    ``coord0..coord3`` are the extended (16, G, V) uint32 arrays that
+    ``coords`` are the (nlimbs, G, V) uint32 arrays ``coord0..`` that
     ``MultiexpHandle.write_to_file`` stores (blitzar_tpu/msm/fixed.py:422-429);
-    V = 2^w gives the window width. The entries are re-encoded in the port's
-    niels layout on ``device``."""
-    from ..curves.edwards25519 import PointP3
+    V = 2^w gives the window width. Four extended coordinates with no
+    ``curve`` are a ristretto255 table, re-encoded in the port's niels
+    layout; three projective ones need their ``curve``
+    (``curves.weierstrass.WCurve``, named by the file's ``curve`` entry) and
+    are packed as they are. The table goes to ``device``."""
+    from ..curves import edwards25519 as ed
+    from ..curves.weierstrass import PointP2
     from ..msm.fixed import MultiexpHandle
 
-    table = PointP3(*(to_tensor(c, device) for c in (coord0, coord1, coord2, coord3)))
-    return MultiexpHandle.from_point_table(table, n=n)
+    if curve is None:
+        if len(coords) != 4:
+            raise ValueError(f"a ristretto255 table has 4 coordinates, got {len(coords)}; pass the curve")
+        table, curve = ed.PointP3(*(to_tensor(c, device) for c in coords)), ed
+    else:
+        if len(coords) != 3 or np.shape(coords[0])[0] != curve.nlimbs:
+            raise ValueError(f"a {curve.name} table has 3 coordinates of {curve.nlimbs} limbs")
+        table = PointP2(*(to_tensor(c, device) for c in coords))
+    return MultiexpHandle.from_point_table(table, n=n, curve=curve)

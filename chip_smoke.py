@@ -5,28 +5,41 @@
 
 Phases, each fatal on failure:
 
-1. build the five CUDA kernels from ``blitzar_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print the card's name and power limit;
-2. run each kernel at the shapes the 2^20 commitment gives it and hold it
-   against its plain PyTorch version on the same inputs (canonical values
-   must be equal), timing both; where the plain version is too large to run
-   whole, on a sample spread over the whole output, its last element included;
+1. build the nine CUDA kernels from ``blitzar_tpu_torch/csrc`` (nvcc,
+   sm_90a; one process per source, all at once), print their registers and
+   spills and the card's name and power limit;
+2. run each kernel at the shapes a 2^20 commitment gives it (ristretto255
+   for the five Edwards kernels, bn254 G1 for the four Weierstrass ones) and
+   hold it against its plain PyTorch version on the same inputs (canonical
+   values must be equal), timing both; where the plain version is too large
+   to run whole, on a sample spread over the whole output, its last element
+   included;
 3. the upstream end-to-end vectors through ``api.compute_curve25519_commitments``
    on the card, and a signed multi-output case against the plain CPU run;
-4. full width: canonical generators with counter scalars at 2^16 and 2^20
-   (compressed result = the pinned digest) and ten 32-byte outputs at
-   n = 100000 (blake2b digest pinned), with the generator derivation, the
-   handle build and the median of five queries timed at 2^20;
-5. every kernel must have launched during phases 3-4.
+4. the bn254 G1, Grumpkin and bls12-381 G1 commitment entries at n = 100
+   (signed and unsigned columns, three outputs) against the oracle's sums
+   (``blitzar_tpu_torch/refimpl/weierstrass.py``);
+5. ristretto255 full width: canonical generators with counter scalars at
+   2^16 and 2^20 (compressed result = the pinned digest) and ten 32-byte
+   outputs at n = 100000 (blake2b digest pinned), with the generator
+   derivation, the handle build and the median of five queries timed at 2^20;
+6. Weierstrass full width: bn254 G1 at 2^20, then Grumpkin and bls12-381 G1
+   at 2^16, one column of 32-byte counter scalars over 521 oracle points
+   tiled to n (a prime period: a lookup that read the wrong group could not
+   pass); the result must equal the oracle's collapsed sum
+   sum_j (sum_{i = j mod 521} s_i) G_j. Cold and warm commitments, the handle
+   build and the median of five queries are timed;
+7. every one of the nine kernels must have launched during phases 3-6.
 
 The second-to-last line is ``{"kernels": [...]}`` (per kernel: launches in
-phases 3-4, time, plain time, bound, error), the line before it the card as
+phases 3-6, time, plain time, bound, error), the line before it the card as
 ``nvidia-smi`` names it, the last ``{"ok": true, "device": {...}}``. Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -61,6 +74,18 @@ MULS_ELLIGATOR_FORM = 2 * MULS_ELLIGATOR + MULS_ADD
 # Y/Z, x*y and 2d*x*y (4 multiplies)
 MULS_BATCH_INVERT_PER_ELEMENT = 3
 MULS_NIELS_FROM_ZINV = 4
+
+
+# 32-bit multiplies per Montgomery multiply of csrc/mont.cuh for K words
+# (CIOS: K^2 word products a_j b_i and K^2 u m_j, lo and hi each, plus K
+# multiplies for u); field multiplies per complete Weierstrass add and
+# double of csrc/weierstrass.cuh, the constant multiplies by 3b included
+IMAD_PER_MONT_MUL = {8: 4 * 8 * 8 + 8, 12: 4 * 12 * 12 + 12}
+MULS_WADD = 12 + 2
+MULS_WDOUBLE = 8 + 1
+# the oracle points a Weierstrass full-width run tiles to n (a prime period)
+W_PERIOD = 521
+W_KERNELS = ("w_build_table", "w_lookup_msm", "wadd", "wdouble")
 
 
 def muls_niels_table_group(w: int) -> int:
@@ -153,6 +178,42 @@ def bound(bytes_moved: float, imads: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_record(results, name, replaces, source, ms, plain_ms, err, bytes_moved, imads, plain_fraction=1.0):
+    """One kernel's entry of the {"kernels": [...]} line; the kernel must
+    equal its plain version exactly."""
+    b_ms, b_by = bound(bytes_moved, imads)
+    results[name] = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "plain_fraction": plain_fraction,
+    }
+    check(err == 0, f"{name}: kernel equals plain, tolerance 0 on canonical limbs (max abs err {err}; "
+                    f"{ms:.3f} ms vs plain {plain_ms:.1f} ms)")
+
+
+def spread_indices(torch, dev, count: int, total: int):
+    """count indices evenly over range(total), the first and last included"""
+    return torch.linspace(0, total - 1, count, device=dev).round().long()
+
+
+def point_err(a, b, canonical=lambda t: t) -> int:
+    """Largest limb difference between two point batches, coordinate by
+    coordinate, after ``canonical``."""
+    return max(int((canonical(x).long() - canonical(y).long()).abs().max()) for x, y in zip(a, b))
+
+
+def lookup_work(torch, scalars, w: int, groups: int) -> tuple[int, int]:
+    """What a lookup query's data make it do: its nonzero indices (one add
+    each) and the distinct nonzero table entries they touch (each read once)."""
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    idx = cp.query_index(scalars, None, w).long()
+    touched = torch.zeros((groups, 1 << w), dtype=torch.bool, device=idx.device)
+    touched[torch.arange(groups, device=idx.device)[None, :].expand_as(idx), idx] = True
+    return int((idx != 0).sum()), int(touched[:, 1:].sum())
+
+
 def phase_kernels(torch, dev) -> dict:
     """Each kernel at the shapes of one 2^20 commitment with 32-byte counter
     scalars, against its plain version."""
@@ -166,24 +227,9 @@ def phase_kernels(torch, dev) -> dict:
     w = 8
     groups = n // w
     results = {}
-
-    def point_err(a, b) -> int:
-        return max(int((F.canonicalize(x).long() - F.canonicalize(y).long()).abs().max()) for x, y in zip(a, b))
-
-    def record(name, replaces, source, ms, plain_ms, err, bytes_moved, imads, plain_fraction=1.0):
-        b_ms, b_by = bound(bytes_moved, imads)
-        results[name] = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": 0, "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "plain_fraction": plain_fraction,
-        }
-        check(err == 0, f"{name}: kernel equals plain, tolerance 0 on canonical limbs (max abs err {err}; "
-                        f"{ms:.3f} ms vs plain {plain_ms:.1f} ms)")
-
-    def spread(count: int, total: int):
-        """count indices evenly over range(total), the first and last included"""
-        return torch.linspace(0, total - 1, count, device=dev).round().long()
+    record = functools.partial(kernel_record, results)
+    spread = functools.partial(spread_indices, torch, dev)
+    ed_err = functools.partial(point_err, canonical=F.canonicalize)
 
     # elligator_form: all n generators; plain on 2^16 of them spread over all n
     # (its temporaries at 2^20 are ~2 GB per multiply)
@@ -196,7 +242,7 @@ def phase_kernels(torch, dev) -> dict:
     s0, s1 = r0[:, sample], r1[:, sample]
     plain_ms = cuda_ms(torch, lambda: cp.elligator_form_plain(s0, s1), reps=1)
     plain = cp.elligator_form_plain(s0, s1)
-    err = point_err(ed.index_batch(gens, sample), plain)
+    err = ed_err(ed.index_batch(gens, sample), plain)
     record("elligator_form", "blitzar_tpu/ops/pallas_point.py:212", "blitzar_tpu_torch/csrc/elligator_form.cu",
            ms, plain_ms, err, n * (2 * 64 + 4 * 64), n * MULS_ELLIGATOR_FORM * IMAD_PER_FIELD_MUL, m / n)
 
@@ -219,14 +265,10 @@ def phase_kernels(torch, dev) -> dict:
     partials = cp.ed_lookup_msm(table, scalars, None, w)
     plain_ms = cuda_ms(torch, lambda: cp.ed_lookup_msm_plain(table, scalars, None, w), reps=1)
     plain = cp.ed_lookup_msm_plain(table, scalars, None, w)
-    err = point_err(partials, plain)
+    err = ed_err(partials, plain)
     # the data decide the work: madds for the nonzero indices, table bytes
-    # for the distinct nonzero entries they touch (each read once)
-    idx = cp.query_index(scalars, None, w).long()
-    nonzero = int((idx != 0).sum())
-    touched = torch.zeros((groups, 1 << w), dtype=torch.bool, device=dev)
-    touched[torch.arange(groups, device=dev)[None, :].expand_as(idx), idx] = True
-    entries = int(touched[:, 1:].sum())
+    # for the distinct nonzero entries they touch
+    nonzero, entries = lookup_work(torch, scalars, w, groups)
     record("ed_lookup_msm", "blitzar_tpu/ops/pallas_point.py:533", "blitzar_tpu_torch/csrc/ed_lookup_msm.cu",
            ms, plain_ms, err, scalars.numel() + entries * 96 + partials.x.numel() * 16,
            nonzero * MULS_MADD * IMAD_PER_FIELD_MUL)
@@ -240,7 +282,7 @@ def phase_kernels(torch, dev) -> dict:
     ms = cuda_ms(torch, lambda: cp.ed_add(lo, hi))
     out = cp.ed_add(lo, hi)
     plain_ms = cuda_ms(torch, lambda: cp.ed_add_plain(lo, hi), reps=1)
-    err = point_err(out, cp.ed_add_plain(lo, hi))
+    err = ed_err(out, cp.ed_add_plain(lo, hi))
     count = lo.x[0].numel()
     record("ed_add", "blitzar_tpu/ops/pallas_point.py:237", "blitzar_tpu_torch/csrc/ed_add.cu",
            ms, plain_ms, err, count * 3 * 256, count * MULS_ADD * IMAD_PER_FIELD_MUL)
@@ -250,9 +292,127 @@ def phase_kernels(torch, dev) -> dict:
     ms = cuda_ms(torch, lambda: cp.doubling_combine(products))
     out = cp.doubling_combine(products)
     plain_ms = cuda_ms(torch, lambda: cp.doubling_combine_plain(products), reps=1)
-    err = point_err(out, cp.doubling_combine_plain(products))
+    err = ed_err(out, cp.doubling_combine_plain(products))
     record("doubling_combine", "blitzar_tpu/ops/pallas_point.py:982", "blitzar_tpu_torch/csrc/doubling_combine.cu",
            ms, plain_ms, err, 256 * 256 + 256, 255 * (MULS_DOUBLE + MULS_ADD) * IMAD_PER_FIELD_MUL)
+    return results
+
+
+def tiled_generators(curve, n: int, dev):
+    """The oracle's W_PERIOD points random_points(521, seed=7), tiled to n
+    on the card: (points, the oracle points)."""
+    import torch
+
+    pts = curve.oracle.random_points(W_PERIOD, seed=7)
+    base = curve.from_affine_ints(pts, dev)
+    return curve.index_batch(base, torch.arange(n, device=dev) % W_PERIOD), pts
+
+
+def collapsed_scalars(rows: np.ndarray) -> list[int]:
+    """sum_{i = j mod W_PERIOD} of the little-endian scalar rows[i], for each
+    j < W_PERIOD: then sum_i s_i G_(i mod P) = sum_j S_j G_j. The sums are
+    exact (32-bit words summed in uint64), not reduced."""
+    n, nbytes = rows.shape
+    padded = np.pad(rows, ((0, (-n) % W_PERIOD), (0, (-nbytes) % 4)))
+    words = padded.view("<u4").astype(np.uint64)
+    sums = words.reshape(-1, W_PERIOD, words.shape[1]).sum(axis=0)
+    return [sum(int(v) << (32 * k) for k, v in enumerate(row)) for row in sums]
+
+
+def w_output_equals(curve, got, o: int, pt) -> bool:
+    """Output o of a Weierstrass commitment entry equals the oracle's affine
+    point pt (None for the identity): zcash-compressed bytes for bls12-381
+    G1, the (x, y, infinity) struct for bn254 G1 and Grumpkin."""
+    from blitzar_tpu_torch.refimpl.weierstrass import compress_bls12_381
+
+    if curve.name == "bls12_381_g1":
+        return bytes(got[o]) == compress_bls12_381(pt)
+    if pt is None:
+        return bool(got["infinity"][o] == 1 and not got["x"][o].any() and not got["y"][o].any())
+    nb = curve.field.nbytes
+    return bool(got["infinity"][o] == 0 and bytes(got["x"][o]) == pt[0].to_bytes(nb, "little")
+                and bytes(got["y"][o]) == pt[1].to_bytes(nb, "little"))
+
+
+def phase_wkernels(torch, dev) -> dict:
+    """The four Weierstrass kernels at the shapes of one bn254 G1 2^20
+    commitment with 32-byte counter scalars, against their plain versions."""
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    curve = wc.BN254_G1
+    n, w = 1 << 20, 8
+    groups = n // w
+    words = curve.nlimbs // 2
+    imad = IMAD_PER_MONT_MUL[words]
+    point_bytes = 3 * curve.nlimbs * 4  # a public (X, Y, Z) in int32 limbs
+    entry_bytes = 3 * words * 4
+    results: dict = {}
+    record = functools.partial(kernel_record, results)
+    spread = functools.partial(spread_indices, torch, dev)
+
+    gens, _ = tiled_generators(curve, n, dev)
+
+    # w_build_table: all groups; plain on 512 groups spread over all of them
+    ms = cuda_ms(torch, lambda: cw.w_build_table(curve, gens, w), reps=1)
+    table = cw.w_build_table(curve, gens, w)
+    g_plain = min(groups, 512)
+    sel = spread(g_plain, groups)
+    members = curve.index_batch(gens, (sel[:, None] * w + torch.arange(w, device=dev)).reshape(-1))
+    plain_ms = cuda_ms(torch, lambda: cw.w_build_table_plain(curve, members, w), reps=1)
+    err = int((table[sel].long() - cw.w_build_table_plain(curve, members, w).long()).abs().max())
+    record("w_build_table", "blitzar_tpu/ops/pallas_point.py:806", "blitzar_tpu_torch/csrc/w_build_table.cu",
+           ms, plain_ms, err, n * point_bytes + table.numel() * 4,
+           groups * ((1 << w) - 1) * MULS_WADD * imad, g_plain / groups)
+
+    # w_lookup_msm: one 32-byte output; plain on 16 of the chunks, spread
+    scalars = torch.from_numpy(counter_scalars(n, 32)[None]).to(dev)
+    ms = cuda_ms(torch, lambda: cw.w_lookup_msm(curve, table, scalars, None, w))
+    partials = cw.w_lookup_msm(curve, table, scalars, None, w)
+    k = partials.x.shape[1]
+    chunks = spread(min(k, 16), k)
+    plain_ms = cuda_ms(torch, lambda: cw.w_lookup_msm_plain(curve, table, scalars, None, w, chunks), reps=1)
+    err = point_err(curve.index_batch(partials, chunks), cw.w_lookup_msm_plain(curve, table, scalars, None, w, chunks))
+    # the data decide the work: complete adds for the nonzero indices, table
+    # bytes for the distinct nonzero entries they touch
+    nonzero, entries = lookup_work(torch, scalars, w, groups)
+    record("w_lookup_msm", "blitzar_tpu/ops/pallas_point.py:636", "blitzar_tpu_torch/csrc/w_lookup_msm.cu",
+           ms, plain_ms, err, scalars.numel() + entries * entry_bytes + partials.x.numel() * 4 * 3,
+           nonzero * MULS_WADD * imad, len(chunks) / k)
+    results["w_lookup_msm"]["nonzero_lookups"] = nonzero
+    results["w_lookup_msm"]["table_entries_touched"] = entries
+
+    # wadd: the first level of the tree reduce over the lookup's partials
+    lo = curve.index_batch(partials, slice(0, k // 2))
+    hi = curve.index_batch(partials, slice(k // 2, 2 * (k // 2)))
+    ms = cuda_ms(torch, lambda: cw.wadd(curve, lo, hi))
+    out = cw.wadd(curve, lo, hi)
+    plain_ms = cuda_ms(torch, lambda: cw.wadd_plain(curve, lo, hi), reps=1)
+    err = point_err(out, cw.wadd_plain(curve, lo, hi))
+    count = lo.x[0].numel()
+    record("wadd", "blitzar_tpu/ops/pallas_point.py:891", "blitzar_tpu_torch/csrc/wadd.cu",
+           ms, plain_ms, err, count * 3 * point_bytes, count * MULS_WADD * imad)
+
+    # wdouble: timed at a ladder step's shape (one point: the lowest bit-row
+    # product, not the identity), held against plain there and on all 256
+    # bit-row products (the upper 128 are the identity with counter
+    # scalars); no point but the identity is its own double, so a kernel
+    # that kept its input would fail the second check
+    products = curve.tree_reduce(partials, k)
+    acc = curve.index_batch(products, slice(0, 1))
+    ms = cuda_ms(torch, lambda: cw.wdouble(curve, acc), reps=100)
+    plain_ms = cuda_ms(torch, lambda: cw.wdouble_plain(curve, acc), reps=1)
+    err = max(point_err(cw.wdouble(curve, p), cw.wdouble_plain(curve, p)) for p in (acc, products))
+    doubled = cw.wdouble(curve, products)
+    finite = (products.z != 0).any(0)
+    changed = torch.stack([(d != p).any(0) for d, p in zip(doubled, products)]).any(0)
+    check(bool(finite[0]) and bool(changed[finite].all()),
+          f"wdouble moves each of the {int(finite.sum())} bit-row products that are not the identity")
+    record("wdouble", "blitzar_tpu/ops/pallas_point.py:907", "blitzar_tpu_torch/csrc/wdouble.cu",
+           ms, plain_ms, err, 2 * point_bytes, MULS_WDOUBLE * imad)
+    # the whole ladder of that query: 255 wdouble and 255 wadd launches
+    results["wdouble"]["ladder_ms"] = cuda_ms(torch, lambda: fixed.doubling_combine(products, 1, 256, curve))
     return results
 
 
@@ -285,6 +445,30 @@ def phase_api_small(torch) -> None:
     check(np.array_equal(got, want), "signed 3-output 16-byte commitment on cuda equals the plain CPU run")
 
 
+def phase_w_api_small(torch) -> None:
+    """The three Weierstrass commitment entries on the card at n = 100: a
+    signed 8-byte, a signed 16-byte (shorter) and an unsigned 32-byte
+    column against the oracle's sums."""
+    from blitzar_tpu_torch import api
+    from blitzar_tpu_torch.curves import weierstrass as wc
+
+    n = 100
+    rng = np.random.default_rng(21)
+    for curve in wc.CURVES:
+        pts = curve.oracle.random_points(n, seed=22)
+        s8 = [int(v) for v in rng.integers(-(1 << 62), 1 << 62, size=n)]
+        s16 = [int(v) * (1 << 60) + int(u) for v, u in zip(rng.integers(-(1 << 60), 1 << 60, size=n - 9),
+                                                            rng.integers(0, 1 << 60, size=n - 9))]
+        s16[:3] = [-(1 << 127), (1 << 127) - 1, -1]
+        u32 = [int.from_bytes(rng.integers(0, 256, size=32, dtype=np.uint8).tobytes(), "little") for _ in range(n)]
+        descs = (descriptors_from_ints(api, [s8], 8, True) + descriptors_from_ints(api, [s16], 16, True)
+                 + descriptors_from_ints(api, [u32], 32, False))
+        got = api.COMMITMENT_ENTRIES[curve](descs, curve.from_affine_ints(pts, api.device()))
+        want = [curve.oracle.msm(vals, pts) for vals in (s8, s16, u32)]
+        check(all(w_output_equals(curve, got, o, pt) for o, pt in enumerate(want)),
+              f"{curve.name}: signed and unsigned 3-output commitment at n = {n} on cuda equals the oracle")
+
+
 def timed(torch, fn):
     """(result, ms) of fn on the host clock, synchronised on both sides."""
     torch.cuda.synchronize()
@@ -308,15 +492,13 @@ def warm_stages(torch, desc) -> dict:
     return {"prepare_scalars": prepare_ms, "handle_cache_lookup": cache_ms, "query": query_ms, "encode": encode_ms}
 
 
-def profile_commitment(torch, desc, expected: str) -> dict:
-    """Device time by kernel (and copy) over one warm commitment, from
-    torch.profiler, and the device's busy share of the host wall time. The
-    commitment itself must succeed and equal ``expected``; only a profiler
+def profile_commitment(torch, run, verify, what: str) -> dict:
+    """Device time by kernel (and copy) over one warm commitment ``run()``,
+    from torch.profiler, and the device's busy share of the host wall time.
+    The commitment itself must succeed and pass ``verify``; only a profiler
     that fails to start, stop or report is reported instead of failing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from blitzar_tpu_torch import api
 
     torch.cuda.synchronize()
     try:
@@ -325,7 +507,7 @@ def profile_commitment(torch, desc, expected: str) -> dict:
     except Exception as e:  # the profiler is untried on this machine: report, do not fail
         return {"error": repr(e)}
     t0 = time.perf_counter()
-    got = api.compute_curve25519_commitments([desc])
+    got = run()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     try:
@@ -333,7 +515,7 @@ def profile_commitment(torch, desc, expected: str) -> dict:
         events, error = prof.events(), None
     except Exception as e:
         events, error = None, repr(e)
-    check(digest(got) == expected, "profiled commitment equals the pinned digest")
+    check(verify(got), f"profiled {what}")
     if events is None:
         return {"error": error}
     by_name: dict = {}
@@ -368,7 +550,9 @@ def phase_full_width(torch, timings: dict) -> dict:
             timings["commit_2^20_warm_ms_all"] = warm
             timings["commit_2^20_warm_ms_median"] = float(np.median(warm))
             timings["stages_commit_2^20_warm_ms"] = warm_stages(torch, desc)
-            timings["profile_commit_2^20_warm"] = profile_commitment(torch, desc, PINNED_RISTRETTO_MSM[log_n])
+            timings["profile_commit_2^20_warm"] = profile_commitment(
+                torch, lambda: api.compute_curve25519_commitments([desc]),
+                lambda got: digest(got) == PINNED_RISTRETTO_MSM[20], "2^20 commitment equals the pinned digest")
 
     n, outputs = 100000, 10
     descs = [api.SequenceDescriptor(32, n, counter_scalars(n, 32, output=o)) for o in range(outputs)]
@@ -379,7 +563,8 @@ def phase_full_width(torch, timings: dict) -> dict:
     # the stages of a 2^20 commitment, apart
     n = 1 << 20
     gens, timings["generators_2^20_ms"] = timed(torch, lambda: generators.ristretto_generators(n, 0, "cuda"))
-    handle, timings["handle_build_2^20_ms"] = timed(torch, lambda: api.multiexp_handle_new(gens))
+    handle, timings["handle_build_2^20_ms"] = timed(
+        torch, lambda: api.multiexp_handle_new(api.SXT_CURVE_RISTRETTO255, gens))
     scalars = counter_scalars(n, 32)[None]
     queries = []
     for _ in range(5):
@@ -388,6 +573,54 @@ def phase_full_width(torch, timings: dict) -> dict:
     timings["query_2^20_ms_all"] = queries
     timings["query_2^20_ms_median"] = float(np.median(queries))
     check(digest(api.compress_ristretto255(res)) == PINNED_RISTRETTO_MSM[20], "timed 2^20 query equals the pinned digest")
+    return per_commitment
+
+
+def phase_w_full_width(torch, timings: dict) -> dict:
+    """bn254 G1 at 2^20, Grumpkin and bls12-381 G1 at 2^16 against the
+    oracle's collapsed sums; returns the kernel launches of the first (cold)
+    bn254 G1 2^20 commitment."""
+    from blitzar_tpu_torch import api
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    per_commitment = {}
+    for curve, log_n in ((wc.BN254_G1, 20), (wc.GRUMPKIN, 16), (wc.BLS12381_G1, 16)):
+        n = 1 << log_n
+        key = f"{curve.name}_2^{log_n}"
+        gens, pts = tiled_generators(curve, n, api.device())
+        rows = counter_scalars(n, 32)
+        t0 = time.perf_counter()
+        expected = curve.oracle.msm(collapsed_scalars(rows), pts)
+        timings[f"{key}_oracle_s"] = time.perf_counter() - t0
+        desc = api.SequenceDescriptor(32, n, rows)
+        entry = api.COMMITMENT_ENTRIES[curve]
+        before = dict(cp.LAUNCHES)
+        got, ms = timed(torch, lambda: entry([desc], gens))
+        check(w_output_equals(curve, got, 0, expected), f"{key} commitment equals the oracle's collapsed sum ({ms:.1f} ms)")
+        timings[f"{key}_commit_cold_ms"] = ms
+        if log_n == 20:
+            per_commitment = {k: cp.LAUNCHES[k] - before[k] for k in cp.KERNELS}
+        warm = []
+        for _ in range(3):
+            got, ms = timed(torch, lambda: entry([desc], gens))
+            warm.append(ms)
+        check(w_output_equals(curve, got, 0, expected), f"{key} warm commitment equals the oracle's collapsed sum")
+        timings[f"{key}_commit_warm_ms_all"] = warm
+        timings[f"{key}_commit_warm_ms_median"] = float(np.median(warm))
+        if log_n == 20:
+            timings[f"profile_{key}_commit_warm"] = profile_commitment(
+                torch, lambda: entry([desc], gens), lambda got: w_output_equals(curve, got, 0, expected),
+                f"{key} commitment equals the oracle's collapsed sum")
+        handle, timings[f"{key}_handle_build_ms"] = timed(torch, lambda: api.multiexp_handle_new(api.CURVE_IDS[curve], gens))
+        queries = []
+        for _ in range(5):
+            res, ms = timed(torch, lambda: api.fixed_multiexponentiation(handle, rows[None]))
+            queries.append(ms)
+        timings[f"{key}_query_ms_all"] = queries
+        timings[f"{key}_query_ms_median"] = float(np.median(queries))
+        check(curve.to_affine_ints(res) == [expected], f"{key} timed query equals the oracle's collapsed sum")
+        del handle, gens
     return per_commitment
 
 
@@ -416,18 +649,24 @@ def main() -> int:
         log = (build.BUILD_ROOT / build.digest() / "ptxas.log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if line.startswith("==") or "registers" in line or "spill" in line:
+                if line.startswith("==") or "Compiling entry" in line or "registers" in line or "spill" in line:
                     print(f"    {line.strip()}")
 
         results = phase_kernels(torch, torch.device("cuda"))
+        results.update(phase_wkernels(torch, torch.device("cuda")))
 
         api.init("gpu")
         cp.reset_launches()
         phase_api_small(torch)
+        phase_w_api_small(torch)
         per_commitment = phase_full_width(torch, report["timings"])
+        per_commitment.update({k: v for k, v in phase_w_full_width(torch, report["timings"]).items()
+                               if k in W_KERNELS})
         launches = dict(cp.LAUNCHES)
         for name in cp.KERNELS:
             results[name]["launches"] = launches[name]
+            # launches in the cold 2^20 commitment: ristretto255 for the
+            # Edwards kernels, bn254 G1 for the Weierstrass ones
             results[name]["launches_per_2^20_commitment"] = per_commitment.get(name)
         check(all(launches[k] > 0 for k in cp.KERNELS), f"every kernel launched on the main path: {launches}")
         report["kernels"] = [results[k] for k in cp.KERNELS]

@@ -184,3 +184,100 @@ def test_import_loads_neither_jax_nor_blitzar_tpu():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd="/", timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("[]"), out.stdout
+
+
+# ---------------------------------------------------------------------------
+# curve ids, the handle signature and the handle cache (all four curves)
+# ---------------------------------------------------------------------------
+
+
+def test_multiexp_handle_new_takes_the_curve_id_first():
+    """sxt_multiexp_handle_new(curve_id, generators, n) (reference
+    blitzar_api.h:631), as blitzar_tpu.api.multiexp_handle_new."""
+    from blitzar_tpu_torch.curves import edwards25519 as ted
+    from blitzar_tpu_torch.curves import weierstrass as twc
+
+    api.init("cpu")
+    assert {k: getattr(api, k) for k in dir(japi) if k.startswith("SXT_CURVE_")} == {
+        k: getattr(japi, k) for k in dir(japi) if k.startswith("SXT_CURVE_")}
+    assert api.CURVES == {0: ted, 1: twc.BLS12381_G1, 2: twc.BN254_G1, 3: twc.GRUMPKIN}
+    gens = api.get_ristretto255_generators(4)
+    handle = api.multiexp_handle_new(api.SXT_CURVE_RISTRETTO255, gens)
+    scalars = np.stack([[np.frombuffer(int(v).to_bytes(4, "little"), np.uint8) for v in row] for row in RUST_DATA])
+    got = api.compress_ristretto255(api.fixed_multiexponentiation(handle, scalars))
+    assert [bytes(g) for g in got] == RUST_EXPECTED
+    pts = twc.BN254_G1.oracle.random_points(5, seed=1)
+    whandle = api.multiexp_handle_new(api.SXT_CURVE_BN_254, twc.BN254_G1.from_affine_ints(pts, "cpu"), n=3)
+    assert whandle.curve is twc.BN254_G1 and whandle.n == 3
+    one = np.zeros((1, 3, 1), np.uint8)
+    one[0, 2, 0] = 1
+    assert twc.BN254_G1.to_affine_ints(api.fixed_multiexponentiation(whandle, one)) == [pts[2]]
+    with pytest.raises(ValueError, match="curve id"):
+        api.multiexp_handle_new(7, gens)
+    with pytest.raises(TypeError):
+        api.multiexp_handle_new(gens)
+
+
+def test_curve_maps_name_each_curve_once():
+    """CURVE_IDS inverts CURVES; COMMITMENT_ENTRIES gives each Weierstrass
+    curve the entry that blitzar_tpu names alike, and the README's bn254
+    example runs through it."""
+    from blitzar_tpu_torch.curves import weierstrass as twc
+
+    assert {api.CURVES[i]: i for i in api.CURVES} == api.CURVE_IDS
+    assert set(api.COMMITMENT_ENTRIES) == set(twc.CURVES)
+    assert all(callable(getattr(japi, e.__name__)) for e in api.COMMITMENT_ENTRIES.values())
+    api.init("cpu")
+    desc = api.SequenceDescriptor(element_nbytes=4, n=3, data=np.arange(12, dtype=np.uint8))
+    g = (1, 2)
+    pts = [g, (g[0], twc.BN254_G1.field.modulus - g[1]), None]
+    structs = api.COMMITMENT_ENTRIES[twc.BN254_G1]([desc], twc.BN254_G1.from_affine_ints(pts, api.device()))
+    s = [int.from_bytes(bytes(desc.rows()[i]), "little") for i in range(3)]
+    want = twc.BN254_G1.oracle.msm([s[0] - s[1]], [g])
+    assert (bytes(structs["x"][0]), bytes(structs["y"][0])) == (want[0].to_bytes(32, "little"), want[1].to_bytes(32, "little"))
+
+
+def test_handle_cache_keeps_curves_apart():
+    """Generators of two curves with equal limbs (here the very same
+    tensors) get two handles, each of its own curve; a Weierstrass batch
+    sharing its x tensor with a ristretto255 one too."""
+    from blitzar_tpu_torch.curves import edwards25519 as ted
+    from blitzar_tpu_torch.curves import weierstrass as twc
+    from blitzar_tpu_torch.msm import engine
+
+    engine.clear_handle_cache()
+    n = 8
+    x = twc.BN254_G1.from_affine_ints([None] * n, "cpu").x
+    w_pts = twc.PointP2(x, x.clone(), x.clone())
+    ed_pts = ted.PointP3(x, x.clone(), x.clone(), x.clone())
+    handles = [
+        engine.cached_handle(w_pts, n, twc.BN254_G1),
+        engine.cached_handle(w_pts, n, twc.GRUMPKIN),
+        engine.cached_handle(ed_pts, n),
+    ]
+    assert [h.curve for h in handles] == [twc.BN254_G1, twc.GRUMPKIN, ted]
+    assert len({id(h) for h in handles}) == 3
+    assert engine.cached_handle(w_pts, n, twc.GRUMPKIN) is handles[1]
+    copy = twc.PointP2(x.clone(), x.clone(), x.clone())  # equal limbs in fresh tensors
+    assert engine.cached_handle(copy, n, twc.BN254_G1) is handles[0]
+    assert engine.cached_handle(copy, n, twc.GRUMPKIN) is handles[1]
+    assert engine._content_digest(w_pts, n, twc.BN254_G1) != engine._content_digest(w_pts, n, twc.GRUMPKIN)
+    engine.clear_handle_cache()
+
+
+def test_weierstrass_entries_validate_and_keep_the_device():
+    from blitzar_tpu_torch.curves import weierstrass as twc
+
+    api.init("cpu")
+    gens = twc.GRUMPKIN.from_affine_ints(twc.GRUMPKIN.oracle.random_points(2, seed=2), "cpu")
+    assert api.compute_grumpkin_uncompressed_commitments_with_generators([], gens).shape == (0,)
+    assert api.compute_bls12_381_g1_commitments_with_generators([], gens).shape == (0, 48)
+    with pytest.raises(ValueError):
+        api.compute_grumpkin_uncompressed_commitments_with_generators(
+            [api.SequenceDescriptor(33, 1, np.zeros(33, np.uint8))], gens)
+    elsewhere = twc.PointP2(*(c.to("meta") for c in gens))
+    with pytest.raises(ValueError, match="backend"):
+        api.compute_grumpkin_uncompressed_commitments_with_generators(
+            [api.SequenceDescriptor(1, 2, np.ones(2, np.uint8))], elsewhere)
+    with pytest.raises(ValueError, match="backend"):
+        api.multiexp_handle_new(api.SXT_CURVE_GRUMPKIN, elsewhere)

@@ -93,3 +93,81 @@ def test_api_on_cuda_matches_cpu(dev):
     cpu = engine.msm(generators.ristretto_generators(50, 0, "cpu"), [rows, rows], [16, 16], [True, True])
     assert np.array_equal(got, rst.encode(cpu).numpy().T)
     api.reset_backend_for_testing()
+
+
+# ---------------------------------------------------------------------------
+# the Weierstrass kernels (bls12-381 G1, bn254 G1, Grumpkin)
+# ---------------------------------------------------------------------------
+
+from blitzar_tpu_torch.curves import weierstrass as wc  # noqa: E402
+from blitzar_tpu_torch.ops import cuda_wpoint as cw  # noqa: E402
+
+
+def _on(p, device):
+    return type(p)(*(c.to(device) for c in p))
+
+
+def _w_same(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_wadd_wdouble_kernels_on_views(dev, curve):
+    pts = curve.oracle.random_points(22, seed=11) + [None, None]
+    grid = curve.reshape_batch(curve.from_affine_ints(pts, "cpu"), (4, 6))
+    lo, hi = curve.index_batch(grid, slice(0, 2)), curve.index_batch(grid, slice(2, 4))
+    glo, ghi = curve.index_batch(_on(grid, dev), slice(0, 2)), curve.index_batch(_on(grid, dev), slice(2, 4))
+    assert _w_same(cw.wadd(curve, glo, ghi), cw.wadd_plain(curve, lo, hi))
+    assert _w_same(cw.wadd(curve, glo, glo), cw.wadd_plain(curve, lo, lo))
+    assert _w_same(cw.wdouble(curve, ghi), cw.wdouble_plain(curve, hi))
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+@pytest.mark.parametrize("signed", [False, True])
+def test_w_table_and_lookup_kernels(dev, curve, signed):
+    w, n = 4, 40
+    pts = curve.from_affine_ints(curve.oracle.random_points(n - 3, seed=12) + [None] * 3, "cpu")
+    table = cw.w_build_table_plain(curve, pts, w)
+    got_table = cw.w_build_table(curve, _on(pts, dev), w)
+    assert torch.equal(got_table.cpu(), table)
+    rng = np.random.default_rng(13)
+    scalars = torch.from_numpy(rng.integers(0, 256, size=(3, n, 2), dtype=np.uint8))
+    signs = torch.from_numpy(rng.integers(0, 2, size=(3, n), dtype=np.uint8)) if signed else None
+    want = cw.w_lookup_msm_plain(curve, table, scalars, signs, w)
+    got = cw.w_lookup_msm(curve, got_table, scalars.to(dev), None if signs is None else signs.to(dev), w)
+    assert _w_same(got, want)
+
+
+def test_w_wrappers_reject_bad_inputs(dev):
+    curve = wc.BN254_G1
+    table = torch.zeros((2, 16, 3, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        cw.w_lookup_msm(curve, table, torch.zeros((1, 7, 1), dtype=torch.uint8, device=dev), None, 4)
+    with pytest.raises(ValueError):
+        cw.w_lookup_msm(wc.BLS12381_G1, table, torch.zeros((1, 8, 1), dtype=torch.uint8, device=dev), None, 4)
+    p = curve.identity((3,), dev)
+    with pytest.raises(TypeError):
+        cw.wadd(curve, p, wc.PointP2(*(c.to(torch.int64) for c in p)))
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_w_commitments_on_cuda_match_oracle(dev, curve):
+    api.reset_backend_for_testing()
+    api.init("gpu")
+    n = 37
+    orc = curve.oracle
+    pts = orc.random_points(n, seed=14)
+    rng = np.random.default_rng(15)
+    raw = rng.integers(-(2**62), 2**62, size=(2, n), dtype=np.int64)
+    descs = [api.SequenceDescriptor(8, n, raw[o].astype("<i8").view(np.uint8).reshape(n, 8), True) for o in range(2)]
+    got = api.COMMITMENT_ENTRIES[curve](descs, curve.from_affine_ints(pts))
+    want = [orc.msm([int(v) for v in raw[o]], pts) for o in range(2)]
+    for o, pt in enumerate(want):
+        if curve is wc.BLS12381_G1:
+            from blitzar_tpu_torch.refimpl.weierstrass import compress_bls12_381
+
+            assert bytes(got[o]) == compress_bls12_381(pt)
+        else:
+            assert pt is not None and not got["infinity"][o]
+            assert bytes(got["x"][o]) == pt[0].to_bytes(32, "little") and bytes(got["y"][o]) == pt[1].to_bytes(32, "little")
+    api.reset_backend_for_testing()

@@ -1,7 +1,10 @@
-"""The kernels' own arithmetic (csrc/fp25519.cuh, csrc/edwards25519.cuh),
-compiled for the host with g++ through csrc/host_harness.cpp, against
-blitzar_tpu on a few hundred seeded values: the one check of the CUDA code's
-carries that needs no card."""
+"""The kernels' own arithmetic (csrc/fp25519.cuh, csrc/edwards25519.cuh,
+csrc/mont.cuh, csrc/weierstrass.cuh), compiled for the host with g++ through
+csrc/host_harness.cpp, against blitzar_tpu (curve25519) and the plain
+PyTorch versions (the Montgomery fields and the Weierstrass curves, which
+tests/test_torch_mont.py and tests/test_torch_weierstrass.py hold against
+blitzar_tpu) on seeded values and edge cases: the one check of the CUDA
+code's carries that needs no card."""
 
 import ctypes
 import functools
@@ -17,6 +20,7 @@ import pytest
 from blitzar_tpu.curves import edwards25519 as jed
 from blitzar_tpu.fields import fp25519 as JF
 from blitzar_tpu_torch.curves import edwards25519 as ted
+from blitzar_tpu_torch.curves import weierstrass as wc
 from blitzar_tpu_torch.ops import build, cuda_point
 from blitzar_tpu_torch.utils.limbs import ints_to_limbs, to_jax_points, to_tensor
 
@@ -132,3 +136,63 @@ def test_elligator_form_matches_plain(harness):
     got = _run(harness.btt_host_elligator_form, r[0], r[1], out_shape=(4, 16, 64))
     want = to_jax_points(cuda_point.elligator_form_plain(to_tensor(r[0]), to_tensor(r[1])))
     assert np.array_equal(got.astype(np.uint32), want)
+
+
+# ---------------------------------------------------------------------------
+# Montgomery fields and Weierstrass curves (mont.cuh, weierstrass.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _mont_values(field, seed: int, count: int = 120):
+    """Edge values (0, 1, m - 1, (m -+ 1) / 2, R mod m, ...) and seeded
+    random ones, as a canonical Montgomery-form (nlimbs, n) tensor."""
+    m = field.modulus
+    edges = [0, 1, 2, m - 1, m - 2, (m - 1) // 2, (m + 1) // 2, field.r, (1 << (field.radix_bits - 1)) % m]
+    rng = np.random.default_rng(seed)
+    rand = [int.from_bytes(rng.bytes(field.nbytes), "little") % m for _ in range(count)]
+    return field.from_ints(edges + rand, "cpu")
+
+
+MONT_OPS = {
+    "mul": (0, lambda F, a, b: F.mul(a, b)),
+    "sq": (1, lambda F, a, b: F.sq(a)),
+    "add": (2, lambda F, a, b: F.add(a, b)),
+    "sub": (3, lambda F, a, b: F.sub(a, b)),
+    "neg": (4, lambda F, a, b: F.neg(a)),
+    # against exact inverses (tests/test_torch_mont.py holds the plain inv
+    # against blitzar_tpu; its ~1.5 * 381 multiplies are slow here)
+    "inv": (5, lambda F, a, b: F.from_ints([pow(v, F.modulus - 2, F.modulus) for v in F.to_ints(a)], "cpu")),
+}
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+@pytest.mark.parametrize("op", sorted(MONT_OPS))
+def test_mont_ops_match_plain(harness, curve, op):
+    field = curve.field
+    a, b = _mont_values(field, 1), _mont_values(field, 2).flip(1)
+    code, plain = MONT_OPS[op]
+    fn = functools.partial(harness.btt_host_mont, ctypes.c_int(curve.kernel_id), ctypes.c_int(code))
+    got = _run(fn, a.numpy(), b.numpy(), out_shape=tuple(a.shape))
+    assert np.array_equal(got, plain(field, a, b).numpy())
+
+
+def _stack(p) -> np.ndarray:
+    return np.stack([c.numpy() for c in p])
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_weierstrass_add_double_match_plain(harness, curve):
+    """Projective inputs with z != 1 (doubles of affine points), the
+    identity, P + P and P + (-P)."""
+    orc = curve.oracle
+    pts = orc.random_points(10, seed=3)
+    ps = pts + [None, pts[0], pts[1], pts[2]]
+    qs = orc.random_points(10, seed=4) + [pts[3], pts[0], orc.neg(pts[1]), None]
+    p = curve._double_impl(curve.from_affine_ints(ps, "cpu"))
+    q = curve._double_impl(curve.from_affine_ints(qs, "cpu"))
+    fn = functools.partial(harness.btt_host_w, ctypes.c_int(curve.kernel_id))
+    got = _run(functools.partial(fn, ctypes.c_int(0)), _stack(p), _stack(q), out_shape=_stack(p).shape)
+    assert np.array_equal(got, _stack(curve._add_impl(p, q)))
+    got = _run(functools.partial(fn, ctypes.c_int(1)), _stack(p), _stack(q), out_shape=_stack(p).shape)
+    assert np.array_equal(got, _stack(curve._double_impl(p)))
+    assert curve.to_affine_ints(curve._add_impl(p, q))[-3:] == [orc.add(orc.add(a, a), orc.add(b, b)) for a, b in zip(ps[-3:], qs[-3:])]
