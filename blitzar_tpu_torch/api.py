@@ -1,6 +1,7 @@
 """Public API of the port (blitzar_tpu/api.py): ristretto255 commitments
 and generators, bls12-381 G1 / bn254 G1 / Grumpkin commitments with
-generators, and fixed-generator handles of any of the four curves.
+generators, fixed-generator handles of any of the four curves, the
+inner-product argument over ristretto255 and the sumcheck prover.
 
 Entry points follow the reference C ABI (cbindings/blitzar_api.h): ``init``
 is one-shot, ristretto255 generators default to the canonical precomputed
@@ -24,6 +25,10 @@ from .curves import ristretto as rst
 from .curves import weierstrass as wc
 from .msm import engine as _engine
 from .msm import fixed as _fixed
+from .ops import cuda_mont as _cm
+from .proof import ceil_log2
+from .proof import inner_product as _ipa
+from .proof import sumcheck as _sc
 
 BACKENDS = {"auto": "cuda", "gpu": "cuda", "cpu": "cpu"}
 
@@ -40,6 +45,11 @@ CURVES = {
     SXT_CURVE_GRUMPKIN: wc.GRUMPKIN,
 }
 CURVE_IDS = {curve: curve_id for curve_id, curve in CURVES.items()}
+
+# field ids (reference blitzar_api.h:33-34) and the sumcheck's codec of each
+SXT_FIELD_SCALAR255 = _cm.SXT_FIELD_SCALAR255
+SXT_FIELD_GRUMPKIN = _cm.SXT_FIELD_GRUMPKIN
+FIELD_CODECS = _sc.CODECS
 
 
 @dataclasses.dataclass
@@ -263,3 +273,67 @@ def fixed_multiexponentiation(handle: _fixed.MultiexpHandle, scalars):
     handle's curve."""
     device()
     return _fixed.fixed_multiexponentiation(handle, scalars)
+
+
+# ---------------------------------------------------------------------------
+# inner-product argument (reference blitzar_api.h:566-631)
+# ---------------------------------------------------------------------------
+
+
+def _ipa_generators(n: int, generators_offset: int):
+    """G = generators[offset, offset + np) and Q = generators[offset + np],
+    np = 2^ceil(lg n), on the backend's device."""
+    np_ = 1 << ceil_log2(n)
+    dev = device()
+    return (_gen.get_precomputed_generators(np_, generators_offset, dev),
+            _gen.get_precomputed_generators(1, generators_offset + np_, dev))
+
+
+def prove_inner_product(transcript, n: int, generators_offset: int, a_vector, b_vector):
+    """Reference sxt_curve25519_prove_inner_product (blitzar_api.h:566):
+    ``transcript`` is a ``proof.transcript.Transcript``; a and b are n
+    scalars ((n, 32) uint8 rows, ints or 32-byte strings). Returns
+    (l_vector (rounds, 32) uint8, r_vector (rounds, 32) uint8, ap_value
+    int)."""
+    g_vector, q_value = _ipa_generators(n, generators_offset)
+    return _ipa.prove_inner_product(transcript, a_vector, b_vector, g_vector, q_value)
+
+
+def verify_inner_product(
+    transcript, n: int, generators_offset: int, b_vector, product, a_commit: ed.PointP3,
+    l_vector, r_vector, ap_value,
+) -> bool:
+    """Reference sxt_curve25519_verify_inner_product (blitzar_api.h:611):
+    ``a_commit`` is a (1,) point on the backend's device."""
+    g_vector, q_value = _ipa_generators(n, generators_offset)
+    _check_generators(a_commit, g_vector.x.device)
+    return _ipa.verify_inner_product(
+        transcript, b_vector, product, a_commit, l_vector, r_vector, ap_value, g_vector, q_value
+    )
+
+
+# ---------------------------------------------------------------------------
+# sumcheck (reference blitzar_api.h:766)
+# ---------------------------------------------------------------------------
+
+
+def prove_sumcheck(
+    field_id: int, mles, product_table, product_terms, n: int, transcript=None, challenge_callback=None
+):
+    """Reference sxt_prove_sumcheck (blitzar_api.h:766) over the field
+    ``field_id`` (``SXT_FIELD_SCALAR255`` or ``SXT_FIELD_GRUMPKIN``). mles:
+    (num_mles, n, 32) uint8 ABI rows or num_mles rows of ints; the
+    challenges come from a Merlin ``transcript``
+    (``proof.transcript.Transcript``) or from ``challenge_callback``
+    (polynomial -> int, the C callback flavour). Returns
+    (round_polynomials, evaluation_point)."""
+    if field_id not in FIELD_CODECS:
+        raise ValueError(f"unknown field id {field_id}: expected one of {sorted(FIELD_CODECS)}")
+    codec = FIELD_CODECS[field_id]
+    if challenge_callback is not None:
+        tr = _sc.CallbackSumcheckTranscript(challenge_callback)
+    elif transcript is not None:
+        tr = _sc.ReferenceSumcheckTranscript(transcript, codec)
+    else:
+        raise ValueError("pass a transcript or a challenge_callback")
+    return _sc.prove_sum(tr, mles, product_table, product_terms, n, codec, device())

@@ -1,13 +1,15 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
-// fp25519.cuh, edwards25519.cuh, mont.cuh and weierstrass.cuh are compiled
-// here by a host C++ compiler (BTT_HD is plain inline then), so
+// fp25519.cuh, edwards25519.cuh, mont.cuh, weierstrass.cuh and sumcheck.cuh
+// are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
 // (nlimbs, n) int32 array, an Edwards point batch (4, 16, n), a niels batch
-// (3, 16, n), a Weierstrass point batch (3, nlimbs, n).
+// (3, 16, n), a Weierstrass point batch (3, nlimbs, n), a sumcheck MLE table
+// (16, m, 2 mid).
 #include "edwards25519.cuh"
+#include "sumcheck.cuh"
 #include "weierstrass.cuh"
 
 using namespace btt;
@@ -36,10 +38,9 @@ ge_niels load_niels(const int32_t* base, int64_t n, int64_t i) {
   return r;
 }
 
-// op: 0 mul, 1 sq, 2 add, 3 sub, 4 neg, 5 inv over the base field of C
-template <class C>
-void host_mont(int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
-  using F = typename C::F;
+// op: 0 mul, 1 sq, 2 add, 3 sub, 4 neg, 5 inv over the field F
+template <class F>
+void host_mont_field(int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
   for (int64_t i = 0; i < n; ++i) {
     mfe<F> x = mf_load<F>(a + i, n);
     mfe<F> y = mf_load<F>(b + i, n);
@@ -53,6 +54,51 @@ void host_mont(int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t
       default: r = mf_inv<F>(x); break;
     }
     mf_store<F>(out + i, n, r);
+  }
+}
+
+// the same over the base field of the curve C
+template <class C>
+void host_mont(int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
+  host_mont_field<typename C::F>(op, a, b, out, n);
+}
+
+// The sumcheck round of mont_sum_round.cu with one lane after another: the
+// lanes' shares summed in order into out (16, D + 1).
+template <class F, int D>
+void host_sum_round(const int32_t* mles, int64_t m, int64_t mid, const int32_t* mults, int num_products,
+                    const int32_t* lengths, const int32_t* terms, int32_t* out) {
+  mle_ptrs t = {mles, m * 2 * mid, 2 * mid};
+  product_ptrs p = {mults, lengths, terms, num_products};
+  mfe<F> acc[D + 1];
+  for (int k = 0; k <= D; ++k) acc[k] = mf_zero<F>();
+  for (int64_t i = 0; i < mid; ++i) sum_lane<F, D>(t, mid, i, p, acc);
+  for (int k = 0; k <= D; ++k) mf_store<F>(out + k, D + 1, acc[k]);
+}
+
+template <class F>
+int host_sum_round_degree(int degree, const int32_t* mles, int64_t m, int64_t mid, const int32_t* mults,
+                          int num_products, const int32_t* lengths, const int32_t* terms, int32_t* out) {
+  switch (degree) {
+    case 1: host_sum_round<F, 1>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
+    case 2: host_sum_round<F, 2>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
+    case 3: host_sum_round<F, 3>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
+    case 4: host_sum_round<F, 4>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
+    case 5: host_sum_round<F, 5>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
+    default: return -1;
+  }
+}
+
+// the fold of mont_fold_round.cu: out (16, m, mid) from mles (16, m, 2 mid)
+template <class F>
+void host_fold_round(const int32_t* mles, int64_t m, int64_t mid, const int32_t* r, int32_t* out) {
+  mle_ptrs t = {mles, m * 2 * mid, 2 * mid};
+  const mfe<F> rr = mf_load<F>(r, 1);
+  for (int64_t tt = 0; tt < m; ++tt) {
+    for (int64_t i = 0; i < mid; ++i) {
+      mfe<F> v = fold_lane<F>(mle_load<F>(t, (int)tt, i), mle_load<F>(t, (int)tt, mid + i), rr);
+      mf_store<F>(out + tt * mid + i, m * mid, v);
+    }
   }
 }
 
@@ -80,6 +126,35 @@ int btt_host_mont(int curve, int op, const int32_t* a, const int32_t* b, int32_t
     case Bls12381G1::id: host_mont<Bls12381G1>(op, a, b, out, n); return 0;
     case Bn254G1::id: host_mont<Bn254G1>(op, a, b, out, n); return 0;
     case Grumpkin::id: host_mont<Grumpkin>(op, a, b, out, n); return 0;
+    default: return -1;
+  }
+}
+
+// field: 0 the curve25519 scalar field, 1 the Grumpkin base field (their
+// SXT_FIELD_* ids); ops as btt_host_mont; returns -1 for another id
+int btt_host_field_mont(int field, int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
+  switch (field) {
+    case kFieldScalar255: host_mont_field<Scalar25519>(op, a, b, out, n); return 0;
+    case kFieldGrumpkin: host_mont_field<Bn254Fr>(op, a, b, out, n); return 0;
+    default: return -1;
+  }
+}
+
+int btt_host_sum_round(int field, int degree, const int32_t* mles, int64_t m, int64_t mid, const int32_t* mults,
+                       int num_products, const int32_t* lengths, const int32_t* terms, int32_t* out) {
+  switch (field) {
+    case kFieldScalar255:
+      return host_sum_round_degree<Scalar25519>(degree, mles, m, mid, mults, num_products, lengths, terms, out);
+    case kFieldGrumpkin:
+      return host_sum_round_degree<Bn254Fr>(degree, mles, m, mid, mults, num_products, lengths, terms, out);
+    default: return -1;
+  }
+}
+
+int btt_host_fold_round(int field, const int32_t* mles, int64_t m, int64_t mid, const int32_t* r, int32_t* out) {
+  switch (field) {
+    case kFieldScalar255: host_fold_round<Scalar25519>(mles, m, mid, r, out); return 0;
+    case kFieldGrumpkin: host_fold_round<Bn254Fr>(mles, m, mid, r, out); return 0;
     default: return -1;
   }
 }

@@ -1,6 +1,7 @@
-// Montgomery-form prime-field arithmetic for the Weierstrass kernels of
-// blitzar_tpu_torch: bn254 Fp, bn254 Fr (the Grumpkin base field) and
-// bls12-381 Fp, one template over the field's word count.
+// Montgomery-form prime-field arithmetic for the Weierstrass and proof
+// kernels of blitzar_tpu_torch: bn254 Fp, bn254 Fr (the Grumpkin base field),
+// bls12-381 Fp and the curve25519 scalar field, one template over the
+// field's word count.
 //
 // An element is K 32-bit little-endian words (K = 8 for the 254-bit fields,
 // 12 for bls12-381) holding a canonical value in [0, m) in Montgomery form,
@@ -65,6 +66,32 @@ struct Bn254Fr {
     for (int i = 0; i < K; ++i) r[i] = w[i];
   }
 };
+
+// The curve25519 scalar field (mod l = 2^252 + 27742...8493), R = 2^256: the
+// field of the IPA and of the sumcheck's SXT_FIELD_SCALAR255.
+struct Scalar25519 {
+  static constexpr int K = 8;
+  static constexpr uint32_t N0 = 0x12547e1bu;
+  BTT_HD static void modulus(uint32_t* m) {
+    const uint32_t w[K] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu,
+                           0x00000000u, 0x00000000u, 0x00000000u, 0x10000000u};
+#pragma unroll
+    for (int i = 0; i < K; ++i) m[i] = w[i];
+  }
+  BTT_HD static void one(uint32_t* r) {
+    const uint32_t w[K] = {0x8d98951du, 0xd6ec3174u, 0x737dcf70u, 0xc6ef5bf4u,
+                           0xfffffffeu, 0xffffffffu, 0xffffffffu, 0x0fffffffu};
+#pragma unroll
+    for (int i = 0; i < K; ++i) r[i] = w[i];
+  }
+};
+
+// The proof kernels' fields by their id in the reference C ABI
+// (blitzar_api.h:33-34), by which their launchers pick an instantiation:
+// SXT_FIELD_SCALAR255 is Scalar25519, SXT_FIELD_GRUMPKIN the Grumpkin base
+// field Bn254Fr.
+constexpr int kFieldScalar255 = 0;
+constexpr int kFieldGrumpkin = 1;
 
 struct Bls12381Fp {
   static constexpr int K = 12;
@@ -170,8 +197,10 @@ BTT_HD mfe<F> mf_neg(const mfe<F>& a) {
   return mf_sub<F>(mf_zero<F>(), a);
 }
 
-// a * b * R^-1 mod m (CIOS). With a, b < m the running value stays below
-// 2m, so t needs K + 2 words and one conditional subtraction ends it.
+// a * b * R^-1 mod m (CIOS). The result before the last step is
+// (a b + U m) / R with U < R, below 2m whenever a b < m R: so one
+// conditional subtraction ends it for a, b < m, and also for b < m with a
+// any K-word value below R (how the proof kernels reduce raw 256-bit rows).
 template <class F>
 BTT_HD mfe<F> mf_mul(const mfe<F>& a, const mfe<F>& b) {
   constexpr int K = F::K;

@@ -1,5 +1,5 @@
 """Montgomery-form prime-field arithmetic in plain PyTorch (bn254 Fp and Fr,
-bls12-381 Fp).
+bls12-381 Fp, the curve25519 scalar field).
 
 Representation (the public layout of ``blitzar_tpu.fields.mont``): a batch
 of elements is one int32 tensor of shape ``(nlimbs, *batch)``: radix-2^16
@@ -13,8 +13,8 @@ by Montgomery's reduction on whole numbers; carries settle by parallel
 passes and a look-ahead (:func:`_settle`), and each op's final conditional
 subtraction is settled beside it in the same pass. Every output is canonical, so any correct method gives the same
 limbs: this is the plain version behind the CUDA kernels of
-``ops/cuda_wpoint.py``, whose own arithmetic (``csrc/mont.cuh``) works in 8
-or 12 32-bit words with the same R.
+``ops/cuda_wpoint.py`` and ``ops/cuda_mont.py``, whose own arithmetic
+(``csrc/mont.cuh``) works in 8 or 12 32-bit words with the same R.
 """
 
 from __future__ import annotations
@@ -256,3 +256,36 @@ class MontField:
         std = self.from_mont(a)
         pairs = torch.stack([std & 0xFF, std >> 8], dim=1)
         return pairs.reshape((self.nbytes,) + tuple(a.shape[1:])).to(torch.uint8)
+
+    # -- reductions ------------------------------------------------------------
+
+    def lane_sum(self, a: torch.Tensor) -> torch.Tensor:
+        """(nlimbs, *rest, L) -> (nlimbs, *rest): the sums over the last
+        axis, canonical. The limb columns are summed exactly in int64 (each
+        below 2^16 L) on ``a``'s device and reduced mod m on the host in
+        Python integers (a Montgomery sum reduces like a plain one)."""
+        rest = tuple(a.shape[1:-1])
+        cols = a.to(torch.int64).sum(dim=-1).reshape(self.nlimbs, -1).cpu().numpy()
+        values = [sum(int(v) << (16 * i) for i, v in enumerate(cols[:, j])) % self.modulus for j in range(cols.shape[1])]
+        out = np.array([self.int_limbs(v) for v in values], dtype=np.int32).reshape((len(values), self.nlimbs))
+        return torch.from_numpy(np.ascontiguousarray(out.T)).reshape((self.nlimbs,) + rest).to(a.device)
+
+
+def rows_to_limbs(rows, nlimbs: int, device="cpu") -> torch.Tensor:
+    """(n, nbytes <= 2 nlimbs) uint8 little-endian rows -> (nlimbs, n) int32
+    radix-2^16 limbs of the values as they are (no reduction); missing high
+    bytes are zero."""
+    if isinstance(rows, torch.Tensor):
+        rows = rows.cpu().numpy()
+    rows = np.asarray(rows, np.uint8)
+    padded = np.zeros((rows.shape[0], 2 * nlimbs), np.uint8)
+    padded[:, : rows.shape[1]] = rows
+    limbs = padded.view("<u2").astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(limbs.T)).to(device)
+
+
+def limbs_to_rows(limbs: torch.Tensor) -> torch.Tensor:
+    """(nlimbs, n) radix-2^16 limbs -> (n, 2 nlimbs) uint8 little-endian
+    rows, on the limbs' device."""
+    pairs = torch.stack([limbs & 0xFF, (limbs >> 8) & 0xFF], dim=-1)  # (nlimbs, n, 2)
+    return pairs.permute(1, 0, 2).reshape(limbs.shape[1], -1).to(torch.uint8)

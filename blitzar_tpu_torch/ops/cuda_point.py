@@ -26,8 +26,10 @@ wrapper                replaces                                 source
 =====================  ======================================  ==========
 
 The Weierstrass kernels (``w_build_table``, ``w_lookup_msm``, ``wadd``,
-``wdouble``) have their wrappers in ``ops/cuda_wpoint.py``; their launches
-are counted here too, so ``KERNELS`` and ``LAUNCHES`` cover every kernel.
+``wdouble``) have their wrappers in ``ops/cuda_wpoint.py``, the proof
+kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``) in
+``ops/cuda_mont.py``; their launches are counted here too, so ``KERNELS``
+and ``LAUNCHES`` cover every kernel.
 """
 
 from __future__ import annotations
@@ -49,6 +51,9 @@ KERNELS = (
     "w_lookup_msm",
     "wadd",
     "wdouble",
+    "mont_mul_ew",
+    "mont_fold_round",
+    "mont_sum_round",
 )
 
 # launches of each kernel since the last reset_launches()

@@ -4,8 +4,10 @@ The port keeps ``blitzar_tpu``'s public field layout: ``(nlimbs, *batch)``
 radix-2^16 limbs, limb axis leading, held in int32 (16 limbs for curve25519,
 bn254 and Grumpkin, 24 for bls12-381; Montgomery form on the Weierstrass
 curves). So a ``blitzar_tpu`` point batch ((nlimbs, n) uint32 per
-coordinate) crosses over by a dtype change; :func:`from_jax_points` and
-:func:`to_jax_points` do that for point batches stacked as
+coordinate) crosses over by a dtype change; :func:`from_jax_mont` and
+:func:`to_jax_mont` do that for Montgomery field arrays (the proofs' MLE
+tables and scalar vectors), :func:`from_jax_points` and
+:func:`to_jax_points` for point batches stacked as
 ``(coords, nlimbs, n)`` arrays (4 coordinates for ristretto255, 3 for a
 Weierstrass curve), and :func:`handle_from_jax_table` turns the arrays that
 ``blitzar_tpu.msm.fixed.MultiexpHandle.write_to_file`` saves into the port's
@@ -49,6 +51,23 @@ def limbs_to_ints(arr) -> list[int]:
 def to_tensor(arr, device="cpu") -> torch.Tensor:
     """numpy limbs (any integer dtype, values < 2^31) -> int32 tensor."""
     return torch.from_numpy(np.ascontiguousarray(np.asarray(arr).astype(np.int32))).to(device)
+
+
+def from_jax_mont(arr, device="cuda") -> torch.Tensor:
+    """A ``blitzar_tpu`` Montgomery array ((nlimbs, *batch) uint32 16-bit
+    limbs, as numpy: a field batch, an MLE table, round coefficients) ->
+    the port's (nlimbs, *batch) int32 tensor on ``device`` (the card unless
+    the caller asks for the CPU). Limbs must be below 2^16."""
+    arr = np.asarray(arr)
+    if arr.size and int(arr.max()) > 0xFFFF:
+        raise ValueError("limbs above 2^16: not a radix-2^16 Montgomery array")
+    return to_tensor(arr, device)
+
+
+def to_jax_mont(t: torch.Tensor) -> np.ndarray:
+    """The port's (nlimbs, *batch) Montgomery limbs -> (nlimbs, *batch)
+    uint32 numpy, ready for ``jnp.asarray`` and ``blitzar_tpu``'s fields."""
+    return t.cpu().numpy().astype(np.uint32)
 
 
 def from_jax_points(coords: np.ndarray, device="cuda"):

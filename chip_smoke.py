@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Build blitzar_tpu_torch's kernels and drive its commitment path on one GPU.
+"""Build blitzar_tpu_torch's kernels and drive its commitment and proof paths
+on one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases, each fatal on failure:
 
-1. build the nine CUDA kernels from ``blitzar_tpu_torch/csrc`` (nvcc,
+1. build the twelve CUDA kernels from ``blitzar_tpu_torch/csrc`` (nvcc,
    sm_90a; one process per source, all at once), print their registers and
    spills and the card's name and power limit;
-2. run each kernel at the shapes a 2^20 commitment gives it (ristretto255
-   for the five Edwards kernels, bn254 G1 for the four Weierstrass ones) and
-   hold it against its plain PyTorch version on the same inputs (canonical
-   values must be equal), timing both; where the plain version is too large
-   to run whole, on a sample spread over the whole output, its last element
+2. run each kernel at the shapes its path gives it at full width
+   (ristretto255 2^20 commitment for the five Edwards kernels, bn254 G1 for
+   the four Weierstrass ones, a 2^20 IPA round and a 2^20 sumcheck round
+   for the three proof kernels, in both proof fields) and hold it against
+   its plain PyTorch version on the same inputs (canonical values must be
+   equal), timing both (a kernel's time is the median device time of one
+   launch, see ``device_ms``); where the plain version is too large to run
+   whole, on a sample spread over the whole output, its last element
    included;
 3. the upstream end-to-end vectors through ``api.compute_curve25519_commitments``
    on the card, and a signed multi-output case against the plain CPU run;
@@ -29,10 +33,23 @@ Phases, each fatal on failure:
    pass); the result must equal the oracle's collapsed sum
    sum_j (sum_{i = j mod 521} s_i) G_j. Cold and warm commitments, the handle
    build and the median of five queries are timed;
-7. every one of the nine kernels must have launched during phases 3-6.
+7. every commitment kernel must have launched during phases 3-6 (the
+   commitment path, counts from 0);
+8. the frozen IPA (n = 4, 7) and sumcheck (both fields, n = 8 and 37)
+   vectors of ``tests/torch_proof_vectors.py`` through the entry points;
+9. the benchmark's sumcheck at 2^20 in both fields: the verifier accepts
+   against the sum over the cube, the final sum equals the MLEs folded to
+   the evaluation point, a tampered coefficient is rejected; cold and warm
+   proofs and the per-stage split of one more timed;
+10. the benchmark's IPA at 2^20: the proof verifies against the port's own
+   commitment to a, not with a flipped L byte or ap + 1; cold and warm
+   proofs, the per-stage split of one proof and the verifier timed;
+11. the proof kernels and the ristretto255 kernels the proofs use must
+   have launched during phases 8-10 (the proof path, counts from 0, run
+   from empty generator and handle caches: the proofs derive G and Q).
 
-The second-to-last line is ``{"kernels": [...]}`` (per kernel: launches in
-phases 3-6, time, plain time, bound, error), the line before it the card as
+The second-to-last line is ``{"kernels": [...]}`` (per kernel: launches on
+its path, time, plain time, bound, error), the line before it the card as
 ``nvidia-smi`` names it, the last ``{"ok": true, "device": {...}}``. Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -41,6 +58,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import heapq
 import json
 import os
 import subprocess
@@ -159,7 +177,9 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = 3) -> float:
-    """Mean device time of fn over reps runs after one warm-up (CUDA events)."""
+    """Mean time of fn over reps runs launched back to back after one
+    warm-up, between two CUDA events: the host's launch time counts wherever
+    it is longer than the device's work (the plain versions, the ladder)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -170,6 +190,33 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, reps: int = 3) -> float:
+    """Median device time of one fn() over reps, after one warm-up: a
+    kernel's ``ms``. The reps queue behind a sleep kernel, each between its
+    own pair of CUDA events, so the host's time to make a launch (argument
+    checks, the output's allocation, the ctypes call) falls outside every
+    pair. The sleep must still be running once the host has queued the last
+    pair; else it is made longer and the reading taken again."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 25  # ~17 ms at the H100's 1.98 GHz
+    for _ in range(4):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        slept = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        slept.record()
+        for start, stop in pairs:
+            start.record()
+            fn()
+            stop.record()
+        queued = not slept.query()
+        torch.cuda.synchronize()
+        if queued:
+            return float(np.median([start.elapsed_time(stop) for start, stop in pairs]))
+        cycles *= 4
+    raise Failure("device_ms: the launches could not be queued behind the sleep")
 
 
 def bound(bytes_moved: float, imads: float) -> tuple[float, str]:
@@ -235,7 +282,7 @@ def phase_kernels(torch, dev) -> dict:
     # (its temporaries at 2^20 are ~2 GB per multiply)
     r0, r1 = generators._xorshift_limbs(np.arange(n, dtype=np.uint64))
     r0, r1 = to_tensor(r0, dev), to_tensor(r1, dev)
-    ms = cuda_ms(torch, lambda: cp.elligator_form(r0, r1))
+    ms = device_ms(torch, lambda: cp.elligator_form(r0, r1))
     gens = cp.elligator_form(r0, r1)
     m = min(n, 1 << 16)
     sample = spread(m, n)
@@ -247,7 +294,7 @@ def phase_kernels(torch, dev) -> dict:
            ms, plain_ms, err, n * (2 * 64 + 4 * 64), n * MULS_ELLIGATOR_FORM * IMAD_PER_FIELD_MUL, m / n)
 
     # build_niels_table: all groups; plain on 512 groups spread over all of them
-    ms = cuda_ms(torch, lambda: cp.build_niels_table(gens, w), reps=1)
+    ms = device_ms(torch, lambda: cp.build_niels_table(gens, w), reps=1)
     table = cp.build_niels_table(gens, w)
     g_plain = min(groups, 512)
     sel = spread(g_plain, groups)
@@ -261,7 +308,7 @@ def phase_kernels(torch, dev) -> dict:
 
     # ed_lookup_msm: one 32-byte output, as the 2^20 pinned commitment
     scalars = torch.from_numpy(counter_scalars(n, 32)[None]).to(dev)
-    ms = cuda_ms(torch, lambda: cp.ed_lookup_msm(table, scalars, None, w))
+    ms = device_ms(torch, lambda: cp.ed_lookup_msm(table, scalars, None, w))
     partials = cp.ed_lookup_msm(table, scalars, None, w)
     plain_ms = cuda_ms(torch, lambda: cp.ed_lookup_msm_plain(table, scalars, None, w), reps=1)
     plain = cp.ed_lookup_msm_plain(table, scalars, None, w)
@@ -279,7 +326,7 @@ def phase_kernels(torch, dev) -> dict:
     k = partials.x.shape[1]
     lo = ed.index_batch(partials, slice(0, k // 2))
     hi = ed.index_batch(partials, slice(k // 2, 2 * (k // 2)))
-    ms = cuda_ms(torch, lambda: cp.ed_add(lo, hi))
+    ms = device_ms(torch, lambda: cp.ed_add(lo, hi))
     out = cp.ed_add(lo, hi)
     plain_ms = cuda_ms(torch, lambda: cp.ed_add_plain(lo, hi), reps=1)
     err = ed_err(out, cp.ed_add_plain(lo, hi))
@@ -289,7 +336,7 @@ def phase_kernels(torch, dev) -> dict:
 
     # doubling_combine: the 256 bit-row products of the one output
     products = ed.reshape_batch(ed.tree_reduce(partials, k), (1, 256))
-    ms = cuda_ms(torch, lambda: cp.doubling_combine(products))
+    ms = device_ms(torch, lambda: cp.doubling_combine(products))
     out = cp.doubling_combine(products)
     plain_ms = cuda_ms(torch, lambda: cp.doubling_combine_plain(products), reps=1)
     err = ed_err(out, cp.doubling_combine_plain(products))
@@ -355,7 +402,7 @@ def phase_wkernels(torch, dev) -> dict:
     gens, _ = tiled_generators(curve, n, dev)
 
     # w_build_table: all groups; plain on 512 groups spread over all of them
-    ms = cuda_ms(torch, lambda: cw.w_build_table(curve, gens, w), reps=1)
+    ms = device_ms(torch, lambda: cw.w_build_table(curve, gens, w), reps=1)
     table = cw.w_build_table(curve, gens, w)
     g_plain = min(groups, 512)
     sel = spread(g_plain, groups)
@@ -368,7 +415,7 @@ def phase_wkernels(torch, dev) -> dict:
 
     # w_lookup_msm: one 32-byte output; plain on 16 of the chunks, spread
     scalars = torch.from_numpy(counter_scalars(n, 32)[None]).to(dev)
-    ms = cuda_ms(torch, lambda: cw.w_lookup_msm(curve, table, scalars, None, w))
+    ms = device_ms(torch, lambda: cw.w_lookup_msm(curve, table, scalars, None, w))
     partials = cw.w_lookup_msm(curve, table, scalars, None, w)
     k = partials.x.shape[1]
     chunks = spread(min(k, 16), k)
@@ -386,7 +433,7 @@ def phase_wkernels(torch, dev) -> dict:
     # wadd: the first level of the tree reduce over the lookup's partials
     lo = curve.index_batch(partials, slice(0, k // 2))
     hi = curve.index_batch(partials, slice(k // 2, 2 * (k // 2)))
-    ms = cuda_ms(torch, lambda: cw.wadd(curve, lo, hi))
+    ms = device_ms(torch, lambda: cw.wadd(curve, lo, hi))
     out = cw.wadd(curve, lo, hi)
     plain_ms = cuda_ms(torch, lambda: cw.wadd_plain(curve, lo, hi), reps=1)
     err = point_err(out, cw.wadd_plain(curve, lo, hi))
@@ -401,7 +448,7 @@ def phase_wkernels(torch, dev) -> dict:
     # that kept its input would fail the second check
     products = curve.tree_reduce(partials, k)
     acc = curve.index_batch(products, slice(0, 1))
-    ms = cuda_ms(torch, lambda: cw.wdouble(curve, acc), reps=100)
+    ms = device_ms(torch, lambda: cw.wdouble(curve, acc), reps=100)
     plain_ms = cuda_ms(torch, lambda: cw.wdouble_plain(curve, acc), reps=1)
     err = max(point_err(cw.wdouble(curve, p), cw.wdouble_plain(curve, p)) for p in (acc, products))
     doubled = cw.wdouble(curve, products)
@@ -624,6 +671,327 @@ def phase_w_full_width(torch, timings: dict) -> dict:
     return per_commitment
 
 
+# ---------------------------------------------------------------------------
+# the proofs: the sumcheck prover and the inner-product argument
+# ---------------------------------------------------------------------------
+
+# the benchmark's sumcheck problem (benchmarks/run_benchmarks.py:302-320):
+# three MLEs, two products of degree 3; and a degree-5 table for the kernel
+# over seven MLEs, no factor shared, so that no product reuses another's
+SUMCHECK_BENCH = ([(1, 3), (1, 3)], [0, 1, 2, 1, 2, 0])
+SUMCHECK_DEG5 = ([(7, 5), (11, 2)], [0, 1, 2, 3, 4, 5, 6])
+PROOF_KERNELS = ("mont_mul_ew", "mont_fold_round", "mont_sum_round")
+# the kernels every proof path launches (the IPA's generators G and Q, its
+# handles of them, its queries and L + R; the sumcheck's rounds)
+PROOF_PATH_KERNELS = PROOF_KERNELS + ("elligator_form", "build_niels_table", "ed_lookup_msm", "ed_add",
+                                      "doubling_combine")
+
+
+def merge_muls(length: int) -> int:
+    """Field multiplies of the cheapest expansion I know of a product of
+    ``length`` linear polynomials: merge the two of lowest degree first
+    (Huffman order), a merge of degrees a and b costing a + b + 1 multiplies
+    (pointwise at a + b + 1 points, Toom-Cook; carrying a partial product to
+    more points takes small integer combinations, counted as additions)."""
+    degrees = [1] * length
+    muls = 0
+    while len(degrees) > 1:
+        a, b = heapq.heappop(degrees), heapq.heappop(degrees)
+        muls += a + b + 1
+        heapq.heappush(degrees, a + b)
+    return muls
+
+
+def sum_round_muls(product_table, product_terms, lanes: int) -> int:
+    """The least field multiplies of one sumcheck round over ``lanes``:
+    products of the same factors count once (their multipliers add up),
+    each distinct product of len factors costs merge_muls(len) a lane, and
+    once a round its len + 1 lane sums are interpolated to coefficients and
+    scaled by the multiplier ((len + 1)(len + 2) constant multiplies). The
+    kernel itself spends (len - 1)(len + 2) + 2 a lane on every product."""
+    distinct = set()
+    first = 0
+    for _, k in product_table:
+        distinct.add(tuple(sorted(product_terms[first : first + k])))
+        first += k
+    return sum(lanes * merge_muls(len(p)) + (len(p) + 1) * (len(p) + 2) for p in distinct)
+
+
+def random_canonical(torch, field, shape, dev, seed: int):
+    """Random canonical Montgomery limbs on the card: 16-bit limbs with the
+    top limb cut below the modulus's top limb (so every value is below m)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    limbs = torch.randint(0, 1 << 16, (field.nlimbs,) + tuple(shape), generator=gen, device=dev, dtype=torch.int32)
+    top = field.modulus >> (16 * (field.nlimbs - 1))
+    limbs[-1] %= top
+    return limbs
+
+
+def phase_mont_kernels(torch, dev) -> dict:
+    """The three proof kernels at the 2^20 shapes of the proofs, for both
+    fields, against their plain versions on the whole output: mont_mul_ew
+    as an IPA round's exponent multiply (full b) and fold (broadcast b),
+    mont_fold_round and mont_sum_round on a (16, 3, 2^20) table (the
+    sumcheck benchmark's first round, degree 3), mont_sum_round also at
+    degree 5 on a (16, 7, 2^20) table. Each result must also differ from
+    its input."""
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+
+    n, m = 1 << 20, 3
+    imad = IMAD_PER_MONT_MUL[8]
+    results: dict = {}
+    for index, field in enumerate(cm.FIELDS.values()):
+        fr: dict = {}
+        record = functools.partial(kernel_record, fr)
+        elem = field.nlimbs * 4  # bytes of one element in int32 limbs
+        a = random_canonical(torch, field, (n,), dev, 1)
+        b = random_canonical(torch, field, (n,), dev, 2)
+        table = random_canonical(torch, field, (m, n), dev, 3)
+        r = random_canonical(torch, field, (1,), dev, 4)
+
+        ms = device_ms(torch, lambda: cm.mont_mul_ew(field, a, b), reps=10)
+        out = cm.mont_mul_ew(field, a, b)
+        plain_ms = cuda_ms(torch, lambda: cm.mont_mul_ew_plain(field, a, b), reps=1)
+        err = int((out.long() - cm.mont_mul_ew_plain(field, a, b).long()).abs().max())
+        bcast = cm.mont_mul_ew(field, a, b[:, :1])
+        err = max(err, int((bcast.long() - cm.mont_mul_ew_plain(field, a, b[:, :1]).long()).abs().max()))
+        check(bool((out != a).any(0).float().mean() > 0.99), f"{field.name} mont_mul_ew moves its input")
+        record("mont_mul_ew", "blitzar_tpu/ops/pallas_point.py:1139", "blitzar_tpu_torch/csrc/mont_mul_ew.cu",
+               ms, plain_ms, err, 3 * n * elem, n * imad)
+        fr["mont_mul_ew"]["broadcast_ms"] = device_ms(torch, lambda: cm.mont_mul_ew(field, a, b[:, :1]), reps=10)
+
+        ms = device_ms(torch, lambda: cm.mont_fold_round(field, table, r), reps=10)
+        out = cm.mont_fold_round(field, table, r)
+        plain_ms = cuda_ms(torch, lambda: cm.mont_fold_round_plain(field, table, r), reps=1)
+        err = int((out.long() - cm.mont_fold_round_plain(field, table, r).long()).abs().max())
+        check(bool((out != table[..., : n // 2]).any(0).float().mean() > 0.99), f"{field.name} mont_fold_round moves its input")
+        record("mont_fold_round", "blitzar_tpu/ops/pallas_point.py:1172", "blitzar_tpu_torch/csrc/mont_fold_round.cu",
+               ms, plain_ms, err, (m * n + m * n // 2 + 1) * elem, m * (n // 2) * imad)
+
+        wide = random_canonical(torch, field, (7, n), dev, 5)
+        for key, mles, (ptable, pterms) in (("degree3", table, SUMCHECK_BENCH), ("degree5", wide, SUMCHECK_DEG5)):
+            degree = max(k for _, k in ptable)
+            mults = field.from_ints([mu for mu, _ in ptable], dev)
+            lengths = torch.tensor([k for _, k in ptable], dtype=torch.int32, device=dev)
+            terms = torch.tensor(pterms, dtype=torch.int32, device=dev)
+            ms = device_ms(torch, lambda: cm.mont_sum_round(field, mles, mults, lengths, terms, degree), reps=10)
+            out = cm.mont_sum_round(field, mles, mults, lengths, terms, degree)
+            plain_ms = cuda_ms(torch, lambda: cm.mont_sum_round_plain(field, mles, mults, lengths, terms, degree),
+                               reps=1)
+            err = int((out.long() - cm.mont_sum_round_plain(field, mles, mults, lengths, terms, degree).long())
+                      .abs().max())
+            check(bool((out != 0).any(0).all()), f"{field.name} mont_sum_round degree {degree}: every coefficient nonzero")
+            muls = sum_round_muls(ptable, pterms, n // 2)
+            sub: dict = {}
+            kernel_record(sub, "mont_sum_round", "blitzar_tpu/ops/pallas_point.py:1077",
+                          "blitzar_tpu_torch/csrc/mont_sum_round.cu", ms, plain_ms, err, mles.shape[1] * n * elem,
+                          muls * imad)
+            sub["mont_sum_round"]["least_field_muls"] = muls
+            if key == "degree3":
+                fr["mont_sum_round"] = sub["mont_sum_round"]
+            else:
+                fr["mont_sum_round"]["degree5"] = sub["mont_sum_round"]
+        if index == 0:
+            results = fr
+        else:
+            for name in PROOF_KERNELS:
+                results[name][field.name] = fr[name]
+        del a, b, table, wide
+    return results
+
+
+def phase_proof_vectors(torch) -> None:
+    """The frozen IPA and sumcheck vectors (tests/torch_proof_vectors.py)
+    through the entry points on the card."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_proof_vectors as vec
+    from blitzar_tpu_torch import api
+    from blitzar_tpu_torch.proof.transcript import Transcript
+
+    for n, frozen in vec.IPA.items():
+        a, b = vec.ipa_inputs(n)
+        l, r, ap = api.prove_inner_product(Transcript(vec.IPA_LABEL), n, 0, a, b)
+        check([bytes(x).hex() for x in l] == frozen["L"] and [bytes(x).hex() for x in r] == frozen["R"]
+              and ap == frozen["ap"], f"IPA frozen vector n = {n} on cuda")
+        rows = np.stack([np.frombuffer(v.to_bytes(32, "little"), np.uint8) for v in a])
+        a_commit, _ = api.decompress_ristretto255(api.compute_curve25519_commitments([api.SequenceDescriptor(32, n, rows)]))
+        product = sum(x * y for x, y in zip(a, b))
+        check(api.verify_inner_product(Transcript(vec.IPA_LABEL), n, 0, b, product, a_commit, l, r, ap),
+              f"IPA n = {n}: the frozen proof verifies on cuda")
+    for fid, codec in api.FIELD_CODECS.items():
+        for case, (n, ptable, pterms) in vec.SUMCHECK_CASES.items():
+            frozen = vec.SUMCHECK[(codec.name, case)]
+            got = api.prove_sumcheck(fid, vec.sumcheck_inputs(n), ptable, pterms, n,
+                                     transcript=Transcript(vec.SUMCHECK_LABEL))
+            check(got == (frozen["polynomials"], frozen["evaluation_point"]),
+                  f"sumcheck frozen vector {codec.name} {case} on cuda")
+
+
+def bench_rows(rng, shape) -> np.ndarray:
+    """(*shape, 32) uint8 rows of 62-bit values drawn as the benchmark draws
+    them (low 8 bytes from rng, the rest zero)."""
+    rows = np.zeros(tuple(shape) + (32,), np.uint8)
+    rows[..., :8] = rng.integers(1, 2**62, size=shape, dtype=np.uint64).view(np.uint8).reshape(tuple(shape) + (8,))
+    return rows
+
+
+def phase_sumcheck_full_width(torch, timings: dict) -> None:
+    """The benchmark's sumcheck at n = 2^20 (three MLEs of 62-bit rows from
+    seed 4, two products of degree 3) for both fields: the claimed sum
+    computed apart (sum over the cube of prod MLE, plain PyTorch on the
+    card), the verifier's acceptance, the final evaluation (each MLE folded
+    to the evaluation point by the plain fold), a tampered proof rejected;
+    cold and warm (median of 3) proof times, and the split of one more
+    proof between building the table, the two round kernels, the
+    transcript and the rest."""
+    from blitzar_tpu_torch import api
+    from blitzar_tpu_torch.fields.mont import rows_to_limbs
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+    from blitzar_tpu_torch.proof import sumcheck as tsc
+    from blitzar_tpu_torch.proof.transcript import Transcript
+
+    n = 1 << 20
+    ptable, pterms = SUMCHECK_BENCH
+    degree = 3
+    rows = bench_rows(np.random.default_rng(4), (3, n))
+    for fid, codec in api.FIELD_CODECS.items():
+        key, field = codec.name, codec.field
+
+        def prove():
+            return api.prove_sumcheck(fid, rows, ptable, pterms, n, transcript=Transcript(b"bench"))
+
+        (polys, point), ms = timed(torch, prove)
+        timings[f"sumcheck_{key}_2^20_cold_ms"] = ms
+        warm = [timed(torch, prove)[1] for _ in range(3)]
+        timings[f"sumcheck_{key}_2^20_warm_ms_all"] = warm
+        timings[f"sumcheck_{key}_2^20_warm_ms_median"] = float(np.median(warm))
+        stages = {"table_from_rows": [(tsc, "mles_to_table")], "mont_sum_round": [(cm, "mont_sum_round")],
+                  "mont_fold_round": [(cm, "mont_fold_round")],
+                  "transcript": [(tsc.ReferenceSumcheckTranscript, "round_challenge")]}
+        with StageTimer(torch, stages) as st:
+            again, total = timed(torch, prove)
+        check(again == (polys, point), f"sumcheck {key} 2^20: the timed proofs agree")
+        timings[f"sumcheck_{key}_2^20_split_ms"] = {
+            "total": total, "rounds": len(polys), **st.ms, "host_and_rest": total - sum(st.ms.values())}
+        # the table as the rows stand for it, by the plain field: 62-bit
+        # standard-form values (scalar25519) or Montgomery residues (grumpkin)
+        raw = rows_to_limbs(rows.reshape(3 * n, 32), field.nlimbs, "cuda")
+        table = (field.to_mont(raw) if fid == api.SXT_FIELD_SCALAR255 else raw).reshape(field.nlimbs, 3, n)
+        claimed = 0
+        first = 0
+        for mult, k in ptable:
+            prod = table[:, pterms[first]]
+            for t in pterms[first + 1 : first + k]:
+                prod = field.mul(prod, table[:, t])
+            first += k
+            claimed += mult * field.to_ints(field.lane_sum(prod).reshape(field.nlimbs, 1))[0]
+        claimed %= field.modulus
+        ok, vpoint, final = tsc.verify_sumcheck_no_evaluation(
+            claimed, tsc.ReferenceSumcheckTranscript(Transcript(b"bench"), codec), polys, degree, len(polys), codec)
+        check(ok and vpoint == point, f"sumcheck {key} 2^20: the verifier accepts against the sum over the cube "
+                                      f"({timings[f'sumcheck_{key}_2^20_warm_ms_median']:.1f} ms warm)")
+        for rch in point:
+            table = cm.mont_fold_round_plain(field, table, field.from_ints([rch], "cuda"))
+        at_point = field.to_ints(table.reshape(field.nlimbs, 3))
+        want_final = 0
+        first = 0
+        for mult, k in ptable:
+            prod = mult
+            for t in pterms[first : first + k]:
+                prod = prod * at_point[t] % field.modulus
+            first += k
+            want_final += prod
+        check(final == want_final % field.modulus, f"sumcheck {key} 2^20: the final sum equals sum mult prod MLE(r)")
+        tampered = [list(p) for p in polys]
+        tampered[5][1] = (tampered[5][1] + 1) % field.modulus
+        bad, _, _ = tsc.verify_sumcheck_no_evaluation(
+            claimed, tsc.ReferenceSumcheckTranscript(Transcript(b"bench"), codec), tampered, degree, len(polys), codec)
+        check(not bad, f"sumcheck {key} 2^20: a tampered coefficient is rejected")
+        del table, raw
+
+
+class StageTimer:
+    """Host-clock time of named module functions or class methods
+    (synchronised around each call) while active: the per-stage split of a
+    proof. Only the timed
+    run pays the synchronisations."""
+
+    def __init__(self, torch, stages: dict):
+        self.torch, self.stages = torch, stages  # name -> [(module, attribute)]
+        self.ms = dict.fromkeys(stages, 0.0)
+        self.saved = []
+
+    def __enter__(self):
+        for name, targets in self.stages.items():
+            for module, attr in targets:
+                fn = getattr(module, attr)
+                self.saved.append((module, attr, fn))
+                setattr(module, attr, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed_fn(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.ms[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return timed_fn
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+
+
+def phase_ipa_full_width(torch, timings: dict) -> None:
+    """The benchmark's IPA at n = 2^20 (62-bit a and b rows from seed 3, the
+    canonical generators): prove cold and warm (median of 3), the per-round
+    split of one more proof, verify; product = <a, b> mod l on the host,
+    a_commit the port's own commitment to a over G[0, n); the proof must
+    verify, and must not with one L byte flipped or with ap + 1."""
+    from blitzar_tpu_torch import api
+    from blitzar_tpu_torch.curves import ristretto as rst
+    from blitzar_tpu_torch.proof import inner_product as tipa
+    from blitzar_tpu_torch.proof.transcript import Transcript
+
+    n = 1 << 20
+    rng = np.random.default_rng(3)
+    a, b = bench_rows(rng, (n,)), bench_rows(rng, (n,))
+
+    def prove():
+        return api.prove_inner_product(Transcript(b"bench"), n, 0, a, b)
+
+    (l, r, ap), timings["ipa_2^20_prove_cold_ms"] = timed(torch, prove)
+    warm = [timed(torch, prove)[1] for _ in range(3)]
+    timings["ipa_2^20_prove_warm_ms_all"] = warm
+    timings["ipa_2^20_prove_warm_ms_median"] = float(np.median(warm))
+    stages = {"query": [(tipa, "_query")], "encode": [(rst, "encode")],
+              "exponents_cross_terms_fold": [(tipa, "_round_exponents"), (tipa, "_cross_terms"), (tipa, "_fold")]}
+    with StageTimer(torch, stages) as st:
+        (l2, r2, ap2), total = timed(torch, prove)
+    check(np.array_equal(l2, l) and np.array_equal(r2, r) and ap2 == ap, "IPA 2^20: the timed proofs agree")
+    split = dict(st.ms)
+    split["host_and_rest"] = total - sum(st.ms.values())
+    timings["ipa_2^20_prove_split_ms"] = {"total": total, "rounds": len(l), **split}
+
+    av = np.frombuffer(a[:, :8].tobytes(), "<u8").tolist()
+    bv = np.frombuffer(b[:, :8].tobytes(), "<u8").tolist()
+    product = sum(x * y for x, y in zip(av, bv)) % tipa.ORDER
+    a_commit, _ = api.decompress_ristretto255(api.compute_curve25519_commitments([api.SequenceDescriptor(32, n, a)]))
+
+    def verify(lv=l, apv=ap):
+        return api.verify_inner_product(Transcript(b"bench"), n, 0, b, product, a_commit, lv, r, apv)
+
+    ok, timings["ipa_2^20_verify_ms"] = timed(torch, verify)
+    check(ok, f"IPA 2^20: the proof verifies (prove {timings['ipa_2^20_prove_warm_ms_median']:.1f} ms warm, "
+              f"verify {timings['ipa_2^20_verify_ms']:.1f} ms)")
+    flipped = l.copy()
+    flipped[3, 7] ^= 0x01
+    check(not verify(lv=flipped), "IPA 2^20: one flipped L byte is rejected")
+    check(not verify(apv=(ap + 1) % tipa.ORDER), "IPA 2^20: ap + 1 is rejected")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "blitzar_tpu_torch", "csrc")):
         print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -634,7 +1002,8 @@ def main() -> int:
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from blitzar_tpu_torch import api
+    from blitzar_tpu_torch import api, generators
+    from blitzar_tpu_torch.msm import engine
     from blitzar_tpu_torch.ops import build
     from blitzar_tpu_torch.ops import cuda_point as cp
 
@@ -654,7 +1023,9 @@ def main() -> int:
 
         results = phase_kernels(torch, torch.device("cuda"))
         results.update(phase_wkernels(torch, torch.device("cuda")))
+        results.update(phase_mont_kernels(torch, torch.device("cuda")))
 
+        # the commitment path: launches counted from 0 over phases 3-6
         api.init("gpu")
         cp.reset_launches()
         phase_api_small(torch)
@@ -662,13 +1033,29 @@ def main() -> int:
         per_commitment = phase_full_width(torch, report["timings"])
         per_commitment.update({k: v for k, v in phase_w_full_width(torch, report["timings"]).items()
                                if k in W_KERNELS})
-        launches = dict(cp.LAUNCHES)
+        commit_launches = dict(cp.LAUNCHES)
+        # the proof path: launches counted from 0 over phases 8-10, from empty
+        # generator and handle caches, so that the proofs derive their own G
+        # and Q and build their own handles
+        generators.CACHE.reset()
+        engine.clear_handle_cache()
+        cp.reset_launches()
+        phase_proof_vectors(torch)
+        phase_sumcheck_full_width(torch, report["timings"])
+        phase_ipa_full_width(torch, report["timings"])
+        proof_launches = dict(cp.LAUNCHES)
         for name in cp.KERNELS:
-            results[name]["launches"] = launches[name]
+            results[name]["launches"] = (proof_launches if name in PROOF_KERNELS else commit_launches)[name]
+            results[name]["launches_commitment_path"] = commit_launches[name]
+            results[name]["launches_proof_path"] = proof_launches[name]
             # launches in the cold 2^20 commitment: ristretto255 for the
             # Edwards kernels, bn254 G1 for the Weierstrass ones
             results[name]["launches_per_2^20_commitment"] = per_commitment.get(name)
-        check(all(launches[k] > 0 for k in cp.KERNELS), f"every kernel launched on the main path: {launches}")
+        commit_kernels = [k for k in cp.KERNELS if k not in PROOF_KERNELS]
+        check(all(commit_launches[k] > 0 for k in commit_kernels),
+              f"every commitment kernel launched on the commitment path: {commit_launches}")
+        check(all(proof_launches[k] > 0 for k in PROOF_PATH_KERNELS),
+              f"every proof kernel launched on the proof path: {proof_launches}")
         report["kernels"] = [results[k] for k in cp.KERNELS]
         report["card"] = card
         report["device"] = torch.cuda.get_device_name(0)

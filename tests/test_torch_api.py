@@ -237,6 +237,24 @@ def test_curve_maps_name_each_curve_once():
     assert (bytes(structs["x"][0]), bytes(structs["y"][0])) == (want[0].to_bytes(32, "little"), want[1].to_bytes(32, "little"))
 
 
+def test_field_table_names_each_field_once():
+    """The proof fields' C ABI ids equal blitzar_tpu's; each id's codec
+    works in the field the kernels take for that id; the frozen sumcheck
+    vectors are keyed by the codecs' names."""
+    import torch_proof_vectors as vec
+    from blitzar_tpu_torch.fields import params as tparams
+    from blitzar_tpu_torch.ops import cuda_mont
+
+    assert (api.SXT_FIELD_SCALAR255, api.SXT_FIELD_GRUMPKIN) == (japi.SXT_FIELD_SCALAR255, japi.SXT_FIELD_GRUMPKIN)
+    assert sorted(api.FIELD_CODECS) == sorted(cuda_mont.FIELDS)
+    for field_id, codec in api.FIELD_CODECS.items():
+        assert codec.field_id == field_id and codec.field is cuda_mont.FIELDS[field_id]
+        assert cuda_mont._field_id(codec.field) == field_id
+    assert {name for name, _ in vec.SUMCHECK} == {c.name for c in api.FIELD_CODECS.values()}
+    with pytest.raises(ValueError):
+        cuda_mont._field_id(tparams.BN254_FP)
+
+
 def test_handle_cache_keeps_curves_apart():
     """Generators of two curves with equal limbs (here the very same
     tensors) get two handles, each of its own curve; a Weierstrass batch

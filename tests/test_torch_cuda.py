@@ -171,3 +171,84 @@ def test_w_commitments_on_cuda_match_oracle(dev, curve):
             assert pt is not None and not got["infinity"][o]
             assert bytes(got["x"][o]) == pt[0].to_bytes(32, "little") and bytes(got["y"][o]) == pt[1].to_bytes(32, "little")
     api.reset_backend_for_testing()
+
+
+# ---------------------------------------------------------------------------
+# the proof kernels (curve25519 scalar field, Grumpkin base field) and the
+# proofs on the card
+# ---------------------------------------------------------------------------
+
+from blitzar_tpu_torch.ops import cuda_mont as cm  # noqa: E402
+from blitzar_tpu_torch.proof import sumcheck as tsc  # noqa: E402
+from blitzar_tpu_torch.proof.transcript import Transcript  # noqa: E402
+
+PROOF_FIELDS = list(cm.FIELDS.values())
+
+
+def _field_batch(field, shape, seed):
+    rng = np.random.default_rng(seed)
+    count = int(np.prod(shape))
+    vals = [int.from_bytes(rng.bytes(32), "little") for _ in range(count)]
+    return field.from_ints(vals, "cpu").reshape((field.nlimbs,) + tuple(shape))
+
+
+@pytest.mark.parametrize("field", PROOF_FIELDS, ids=lambda f: f.name)
+def test_mont_mul_ew_kernel(dev, field):
+    a, b = _field_batch(field, (1000,), 1), _field_batch(field, (1000,), 2)
+    assert torch.equal(cm.mont_mul_ew(field, a.to(dev), b.to(dev)).cpu(), cm.mont_mul_ew_plain(field, a, b))
+    s = b[:, 7:8]
+    assert torch.equal(cm.mont_mul_ew(field, a.to(dev), s.to(dev)).cpu(), cm.mont_mul_ew_plain(field, a, s))
+    # a strided view of a, and raw limbs below R reduced by to_mont
+    view = _field_batch(field, (3, 64), 3)[:, 1]
+    assert torch.equal(cm.mont_mul_ew(field, view.to(dev), b[:, :64].to(dev)).cpu(),
+                       cm.mont_mul_ew_plain(field, view, b[:, :64]))
+    raw = torch.from_numpy(np.random.default_rng(4).integers(0, 1 << 16, size=(16, 300)).astype(np.int32))
+    assert torch.equal(cm.to_mont(field, raw.to(dev)).cpu(), cm.to_mont(field, raw))
+
+
+@pytest.mark.parametrize("field", PROOF_FIELDS, ids=lambda f: f.name)
+def test_mont_fold_and_sum_round_kernels(dev, field):
+    m, mid = 3, 700
+    mles = _field_batch(field, (m, 2 * mid), 5)
+    r = _field_batch(field, (1,), 6)
+    assert torch.equal(cm.mont_fold_round(field, mles.to(dev), r.to(dev)).cpu(), cm.mont_fold_round_plain(field, mles, r))
+    for degree in range(1, 6):
+        lengths = torch.tensor(list(range(1, degree + 1)), dtype=torch.int32)
+        terms = torch.from_numpy(np.random.default_rng(degree).integers(0, m, size=int(lengths.sum())).astype(np.int32))
+        mults = _field_batch(field, (degree,), 7 + degree)
+        got = cm.mont_sum_round(field, mles.to(dev), mults.to(dev), lengths.to(dev), terms.to(dev), degree)
+        assert torch.equal(got.cpu(), cm.mont_sum_round_plain(field, mles, mults, lengths, terms, degree)), degree
+
+
+@pytest.mark.parametrize("field_id", sorted(cm.FIELDS))
+def test_prove_sumcheck_on_cuda_matches_cpu(dev, field_id):
+    n = 37
+    rng = np.random.default_rng(8)
+    rows = np.zeros((3, n, 32), np.uint8)
+    rows[:, :, :8] = rng.integers(0, 2**62, size=(3, n), dtype=np.uint64).view(np.uint8).reshape(3, n, 8)
+    table, terms = [(3, 5), (1, 2)], [0, 1, 2, 0, 1, 2, 2]
+    codec = api.FIELD_CODECS[field_id]
+    want = tsc.prove_sum(tsc.ReferenceSumcheckTranscript(Transcript(b"t"), codec), rows, table, terms, n, codec, "cpu")
+    api.reset_backend_for_testing()
+    api.init("gpu")
+    assert api.prove_sumcheck(field_id, rows, table, terms, n, transcript=Transcript(b"t")) == want
+    api.reset_backend_for_testing()
+
+
+def test_inner_product_on_cuda_matches_cpu(dev):
+    from blitzar_tpu_torch.proof import inner_product as tipa
+
+    n = 7
+    a, b = [3 * i + 1 for i in range(n)], [5 * i + 2 for i in range(n)]
+    g, q = generators.ristretto_generators(8, 0, "cpu"), generators.ristretto_generators(1, 8, "cpu")
+    want = tipa.prove_inner_product(Transcript(b"ipa-vec"), a, b, g, q)
+    api.reset_backend_for_testing()
+    api.init("gpu")
+    got = api.prove_inner_product(Transcript(b"ipa-vec"), n, 0, a, b)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]) and got[2] == want[2]
+    data = np.stack([np.frombuffer(v.to_bytes(32, "little"), np.uint8) for v in a])
+    a_commit, _ = api.decompress_ristretto255(api.compute_curve25519_commitments([api.SequenceDescriptor(32, n, data)]))
+    product = sum(x * y for x, y in zip(a, b)) % tipa.ORDER
+    assert api.verify_inner_product(Transcript(b"ipa-vec"), n, 0, b, product, a_commit, *got)
+    assert not api.verify_inner_product(Transcript(b"ipa-vec"), n, 0, b, product, a_commit, got[0], got[1], got[2] + 1)
+    api.reset_backend_for_testing()

@@ -16,6 +16,7 @@ import subprocess
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from blitzar_tpu.curves import edwards25519 as jed
 from blitzar_tpu.fields import fp25519 as JF
@@ -196,3 +197,73 @@ def test_weierstrass_add_double_match_plain(harness, curve):
     got = _run(functools.partial(fn, ctypes.c_int(1)), _stack(p), _stack(q), out_shape=_stack(p).shape)
     assert np.array_equal(got, _stack(curve._double_impl(p)))
     assert curve.to_affine_ints(curve._add_impl(p, q))[-3:] == [orc.add(orc.add(a, a), orc.add(b, b)) for a, b in zip(ps[-3:], qs[-3:])]
+
+
+# ---------------------------------------------------------------------------
+# the proof fields and the sumcheck kernels' lane code (mont.cuh Scalar25519
+# and Bn254Fr by SXT_FIELD_* id, sumcheck.cuh)
+# ---------------------------------------------------------------------------
+
+from blitzar_tpu_torch.fields import params as tparams  # noqa: E402
+from blitzar_tpu_torch.ops import cuda_mont  # noqa: E402
+
+PROOF_FIELDS = [(0, tparams.SCALAR25519), (1, tparams.BN254_FR)]
+
+
+@pytest.mark.parametrize("field_id,field", PROOF_FIELDS, ids=["scalar25519", "bn254_fr"])
+@pytest.mark.parametrize("op", sorted(MONT_OPS))
+def test_proof_field_ops_match_plain(harness, field_id, field, op):
+    """The Scalar25519 instantiation (and Bn254Fr by its field id) against
+    the plain field, which tests/test_torch_proof_kernels.py holds against
+    blitzar_tpu."""
+    a, b = _mont_values(field, 3), _mont_values(field, 4).flip(1)
+    code, plain = MONT_OPS[op]
+    fn = functools.partial(harness.btt_host_field_mont, ctypes.c_int(field_id), ctypes.c_int(code))
+    got = _run(fn, a.numpy(), b.numpy(), out_shape=tuple(a.shape))
+    assert np.array_equal(got, plain(field, a, b).numpy())
+
+
+@pytest.mark.parametrize("field_id,field", PROOF_FIELDS, ids=["scalar25519", "bn254_fr"])
+def test_mul_reduces_raw_rows_below_r(harness, field_id, field):
+    """mf_mul with a below R (not m) and b canonical, as cuda_mont.to_mont
+    and reduce_residues use it: the canonical a b R^-1."""
+    rng = np.random.default_rng(5)
+    raw = [0, field.modulus, field.modulus + 1, 2 * field.modulus - 1, (1 << 256) - 1] + [
+        int.from_bytes(rng.bytes(32), "little") for _ in range(40)]
+    a = torch.from_numpy(np.array([field.int_limbs(v) for v in raw], np.int32).T.copy())
+    b = torch.from_numpy(np.array([field.int_limbs(field.r2)] * len(raw), np.int32).T.copy())
+    got = _run(functools.partial(harness.btt_host_field_mont, ctypes.c_int(field_id), ctypes.c_int(0)),
+               a.numpy(), b.numpy(), out_shape=tuple(a.shape))
+    assert field.to_ints(torch.from_numpy(got)) == [v % field.modulus for v in raw]
+    assert torch.equal(torch.from_numpy(got), cuda_mont.to_mont(field, a))
+
+
+def _i32(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+@pytest.mark.parametrize("field_id,field", PROOF_FIELDS, ids=["scalar25519", "bn254_fr"])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5])
+def test_sum_and_fold_lanes_match_plain(harness, field_id, field, degree):
+    """sumcheck.cuh's sum_lane (every product length up to the degree, a
+    repeated MLE) and fold_lane, lane after lane, against the plain
+    versions of ops/cuda_mont.py."""
+    m, mid = 3, 5
+    rng = np.random.default_rng(degree)
+    mles = field.from_ints([int.from_bytes(rng.bytes(32), "little") for _ in range(m * 2 * mid)], "cpu")
+    mles = mles.reshape(field.nlimbs, m, 2 * mid).contiguous()
+    lengths = list(range(1, degree + 1))
+    terms = [int(t) for t in rng.integers(0, m, size=sum(lengths))]
+    mults = field.from_ints([int(v) for v in rng.integers(1, 2**62, size=degree)], "cpu")
+    lt, tt = torch.tensor(lengths, dtype=torch.int32), torch.tensor(terms, dtype=torch.int32)
+    out = torch.zeros((field.nlimbs, degree + 1), dtype=torch.int32)
+    rc = harness.btt_host_sum_round(ctypes.c_int(field_id), ctypes.c_int(degree), _i32(mles), ctypes.c_int64(m),
+                                    ctypes.c_int64(mid), _i32(mults), ctypes.c_int(degree), _i32(lt), _i32(tt),
+                                    _i32(out))
+    assert rc == 0
+    assert torch.equal(out, cuda_mont.mont_sum_round_plain(field, mles, mults, lt, tt, degree))
+    r = field.from_ints([int.from_bytes(rng.bytes(32), "little")], "cpu")
+    folded = torch.zeros((field.nlimbs, m, mid), dtype=torch.int32)
+    assert harness.btt_host_fold_round(ctypes.c_int(field_id), _i32(mles), ctypes.c_int64(m), ctypes.c_int64(mid),
+                                       _i32(r), _i32(folded)) == 0
+    assert torch.equal(folded, cuda_mont.mont_fold_round_plain(field, mles, r))
