@@ -20,6 +20,14 @@ struct ge_niels {
   fe a, b, t;
 };
 
+// Projective precomputed table entry (libsodium's ge25519_cached): (Y + X,
+// Y - X, Z, 2d*T). It needs no inversion to build, so it is the form of the
+// tables a streamed query builds and drops (blitzar_tpu/curves/
+// edwards25519.py:119-157).
+struct ge_cached {
+  fe a, b, z, t;
+};
+
 BTT_HD fe fe_d() {
   return fe_const(0x135978a3u, 0x75eb4dcau, 0x4141d8abu, 0x00700a4du,
                   0x7779e898u, 0x8cc74079u, 0x2b6ffe73u, 0x52036ceeu);
@@ -95,6 +103,24 @@ BTT_HD ge_p3 ge_madd(const ge_p3& p, const ge_niels& n) {
   return r;
 }
 
+// Addition of an extended point and a cached entry: 8 multiplies.
+BTT_HD ge_p3 ge_cadd(const ge_p3& p, const ge_cached& q) {
+  fe a = fe_mul(fe_sub(p.Y, p.X), q.b);
+  fe b = fe_mul(fe_add(p.Y, p.X), q.a);
+  fe c = fe_mul(p.T, q.t);
+  fe d = fe_mul_small(fe_mul(p.Z, q.z), 2);
+  fe e = fe_sub(b, a);
+  fe f = fe_sub(d, c);
+  fe g = fe_add(d, c);
+  fe h = fe_add(b, a);
+  ge_p3 r;
+  r.X = fe_mul(e, f);
+  r.Y = fe_mul(g, h);
+  r.Z = fe_mul(f, g);
+  r.T = fe_mul(e, h);
+  return r;
+}
+
 BTT_HD ge_p3 ge_double(const ge_p3& p) {
   fe a = fe_sq(p.X);
   fe b = fe_sq(p.Y);
@@ -121,6 +147,16 @@ BTT_HD ge_niels ge_to_niels(const ge_p3& p) {
   n.b = fe_sub(y, x);
   n.t = fe_mul(fe_mul(x, y), fe_d2());
   return n;
+}
+
+// Extended -> cached: two additions and one multiply by 2d.
+BTT_HD ge_cached ge_to_cached(const ge_p3& p) {
+  ge_cached c;
+  c.a = fe_add(p.Y, p.X);
+  c.b = fe_sub(p.Y, p.X);
+  c.z = p.Z;
+  c.t = fe_mul(p.T, fe_d2());
+  return c;
 }
 
 // SQRT_RATIO_M1 of ristretto255: x = sqrt(u/v) if u/v is square, else
@@ -217,6 +253,30 @@ BTT_HD ge_niels niels_load(const uint32_t* entry) {
     n.t.v[k] = entry[16 + k];
   }
   return n;
+}
+
+// A cached table entry is 32 consecutive words: a, b, z, t, each canonical.
+BTT_HD void cached_store(uint32_t* entry, const ge_cached& c) {
+  fe a = fe_canonical(c.a), b = fe_canonical(c.b), z = fe_canonical(c.z), t = fe_canonical(c.t);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    entry[k] = a.v[k];
+    entry[8 + k] = b.v[k];
+    entry[16 + k] = z.v[k];
+    entry[24 + k] = t.v[k];
+  }
+}
+
+BTT_HD ge_cached cached_load(const uint32_t* entry) {
+  ge_cached c;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    c.a.v[k] = entry[k];
+    c.b.v[k] = entry[8 + k];
+    c.z.v[k] = entry[16 + k];
+    c.t.v[k] = entry[24 + k];
+  }
+  return c;
 }
 
 }  // namespace btt

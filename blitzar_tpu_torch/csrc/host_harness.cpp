@@ -1,15 +1,16 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
-// fp25519.cuh, edwards25519.cuh, mont.cuh, weierstrass.cuh and sumcheck.cuh
-// are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
+// fp25519.cuh, edwards25519.cuh, mont.cuh, weierstrass.cuh, sumcheck.cuh and
+// tree_reduce.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
 // (nlimbs, n) int32 array, an Edwards point batch (4, 16, n), a niels batch
-// (3, 16, n), a Weierstrass point batch (3, nlimbs, n), a sumcheck MLE table
-// (16, m, 2 mid).
+// (3, 16, n), a cached batch (4, 16, n), a Weierstrass point batch (3,
+// nlimbs, n), a sumcheck MLE table (16, m, 2 mid).
 #include "edwards25519.cuh"
 #include "sumcheck.cuh"
+#include "tree_reduce.cuh"
 #include "weierstrass.cuh"
 
 using namespace btt;
@@ -115,6 +116,30 @@ void host_w(int op, const int32_t* p, const int32_t* q, int32_t* out, int64_t n)
   }
 }
 
+ge_cached load_cached(const int32_t* base, int64_t n, int64_t i) {
+  ge_cached r;
+  r.a = fe_load(base + i, n);
+  r.b = fe_load(base + 16 * n + i, n);
+  r.z = fe_load(base + 32 * n + i, n);
+  r.t = fe_load(base + 48 * n + i, n);
+  return r;
+}
+
+// The block of tree_reduce_lanes.cu for each column in turn: the threads'
+// serial sums, then the same halving levels in shared memory.
+template <class G>
+void host_tree(const typename G::In& in, int64_t size, int64_t cols, const typename G::Out& out) {
+  const int T = tree_threads(size);
+  typename G::P sums[128];
+  for (int64_t c = 0; c < cols; ++c) {
+    for (int t = 0; t < T; ++t) sums[t] = tree_thread_sum<G>(in, size, cols, c, t, T);
+    for (int h = T >> 1; h > 0; h >>= 1) {
+      for (int t = 0; t < h; ++t) sums[t] = G::add(sums[t], sums[t + h]);
+    }
+    G::store(out, c, sums[0]);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -211,6 +236,46 @@ void btt_host_to_niels(const int32_t* p, int32_t* niels, int64_t n) {
     fe_store(niels + i, n, r.a);
     fe_store(niels + 16 * n + i, n, r.b);
     fe_store(niels + 32 * n + i, n, r.t);
+  }
+}
+
+void btt_host_to_cached(const int32_t* p, int32_t* cached, int64_t n) {
+  point_ptrs pp = in_points(p, n);
+  for (int64_t i = 0; i < n; ++i) {
+    ge_cached r = ge_to_cached(ge_load(pp, i));
+    fe_store(cached + i, n, r.a);
+    fe_store(cached + 16 * n + i, n, r.b);
+    fe_store(cached + 32 * n + i, n, r.z);
+    fe_store(cached + 48 * n + i, n, r.t);
+  }
+}
+
+void btt_host_ed_cadd(const int32_t* p, const int32_t* cached, int32_t* out, int64_t n) {
+  point_ptrs pp = in_points(p, n);
+  point_out_ptrs oo = out_points(out, n);
+  for (int64_t i = 0; i < n; ++i) ge_store(oo, i, ge_cadd(ge_load(pp, i), load_cached(cached, n, i)));
+}
+
+// curve: the reference C ABI id (0 ristretto255, 1-3 as btt_host_w); in:
+// (coords, nlimbs, size * cols) with element (s, c) at s * cols + c; out:
+// (coords, nlimbs, cols). Returns -1 for another id.
+int btt_host_tree_reduce(int curve, const int32_t* in, int64_t size, int64_t cols, int32_t* out) {
+  const int64_t m = size * cols;
+  if (curve == 0) {
+    host_tree<EdGroup>(in_points(in, m), size, cols, out_points(out, cols));
+    return 0;
+  }
+  auto run = [&](auto group, int64_t nl) {
+    using G = decltype(group);
+    wpoint_ptrs pp = {{in, in + nl * m, in + 2 * nl * m}, m};
+    wpoint_out_ptrs oo = {{out, out + nl * cols, out + 2 * nl * cols}, cols};
+    host_tree<G>(pp, size, cols, oo);
+  };
+  switch (curve) {
+    case Bls12381G1::id: run(WGroup<Bls12381G1>(), 24); return 0;
+    case Bn254G1::id: run(WGroup<Bn254G1>(), 16); return 0;
+    case Grumpkin::id: run(WGroup<Grumpkin>(), 16); return 0;
+    default: return -1;
   }
 }
 

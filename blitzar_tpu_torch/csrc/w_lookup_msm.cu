@@ -15,7 +15,9 @@
 // projective entry with 16-byte loads and accumulates with w_add in
 // registers, skipping entry 0 (the identity; the rows of a counter scalar's
 // zero upper bytes select nothing else). It writes one partial per (k, r);
-// the caller sums the partials of a row with wadd halving levels.
+// the caller sums the partials of a row with tree_reduce_lanes. Output o's
+// scalars start at o * row_stride elements, so a streamed chunk reads its
+// slice of the whole upload in place.
 //
 // Signed queries run two halves of rows against the same table: a bit counts
 // in the first half where the element's sign is 0 and in the second where
@@ -48,7 +50,7 @@ __device__ __forceinline__ wpoint<C> w_gather(const uint32_t* entry) {
 template <class C>
 __global__ void __launch_bounds__(128)
 w_lookup_kernel(const uint32_t* table, const uint8_t* scalars, const uint8_t* signs,
-                int64_t n_pad, int nbytes, int w, int64_t groups, int64_t rows_per_half,
+                int64_t row_stride, int nbytes, int w, int64_t groups, int64_t rows_per_half,
                 int halves, int64_t chunk_groups, int64_t nchunks, wpoint_out_ptrs out) {
   constexpr int E = 3 * C::F::K;
   int64_t rows = rows_per_half * halves;
@@ -61,8 +63,8 @@ w_lookup_kernel(const uint32_t* table, const uint8_t* scalars, const uint8_t* si
   int nbits = 8 * nbytes;
   int64_t o = rem / nbits;
   int b = (int)(rem % nbits);
-  const uint8_t* srow = scalars + o * n_pad * nbytes + (b >> 3);
-  const uint8_t* sg = signs ? signs + o * n_pad : nullptr;
+  const uint8_t* srow = scalars + o * row_stride * nbytes + (b >> 3);
+  const uint8_t* sg = signs ? signs + o * row_stride : nullptr;
   uint32_t shift = (uint32_t)(b & 7);
   int64_t g0 = k * chunk_groups;
   int64_t g1 = g0 + chunk_groups < groups ? g0 + chunk_groups : groups;
@@ -82,25 +84,26 @@ w_lookup_kernel(const uint32_t* table, const uint8_t* scalars, const uint8_t* si
 
 template <class C>
 static void launch_lookup(const uint32_t* table, const uint8_t* scalars, const uint8_t* signs,
-                          int64_t n_pad, int nbytes, int w, int64_t rows_per_half, int halves,
-                          int64_t chunk_groups, int64_t nchunks, wpoint_out_ptrs out,
+                          int64_t n_pad, int64_t row_stride, int nbytes, int w, int64_t rows_per_half,
+                          int halves, int64_t chunk_groups, int64_t nchunks, wpoint_out_ptrs out,
                           cudaStream_t stream) {
   const int threads = 128;
   int64_t total = rows_per_half * halves * nchunks;
   int64_t blocks = (total + threads - 1) / threads;
   w_lookup_kernel<C><<<(unsigned)blocks, threads, 0, stream>>>(
-      table, scalars, signs, n_pad, nbytes, w, n_pad / w, rows_per_half, halves, chunk_groups,
+      table, scalars, signs, row_stride, nbytes, w, n_pad / w, rows_per_half, halves, chunk_groups,
       nchunks, out);
 }
 
 // curve: 1 bls12-381 G1, 2 bn254 G1, 3 Grumpkin. table: (groups, 2^w, 3, K)
-// words, 16-byte aligned; scalars: (O, n_pad, nbytes) bytes; signs:
-// (O, n_pad) bytes or null (unsigned); out: three (2K, nchunks, rows) int32
+// words, 16-byte aligned; scalars: O rows of n_pad elements of nbytes bytes,
+// row o at o * row_stride elements; signs: O rows of n_pad bytes at the same
+// row stride, or null (unsigned); out: three (2K, nchunks, rows) int32
 // coordinate arrays, rows = halves * O * 8 * nbytes.
 extern "C" int btt_w_lookup_msm(int curve, const void* table, const void* scalars,
                                 const void* signs, int64_t num_outputs, int64_t n_pad,
-                                int nbytes, int w, int64_t chunk_groups, int64_t nchunks,
-                                void* ox, void* oy, void* oz, void* stream) {
+                                int64_t row_stride, int nbytes, int w, int64_t chunk_groups,
+                                int64_t nchunks, void* ox, void* oy, void* oz, void* stream) {
   int halves = signs ? 2 : 1;
   int64_t rows_per_half = num_outputs * 8 * nbytes;
   int64_t total = rows_per_half * halves * nchunks;
@@ -112,15 +115,15 @@ extern "C" int btt_w_lookup_msm(int curve, const void* table, const void* scalar
     cudaStream_t s = (cudaStream_t)stream;
     switch (curve) {
       case Bls12381G1::id:
-        launch_lookup<Bls12381G1>(t, sc, sg, n_pad, nbytes, w, rows_per_half, halves, chunk_groups,
+        launch_lookup<Bls12381G1>(t, sc, sg, n_pad, row_stride, nbytes, w, rows_per_half, halves, chunk_groups,
                                   nchunks, out, s);
         break;
       case Bn254G1::id:
-        launch_lookup<Bn254G1>(t, sc, sg, n_pad, nbytes, w, rows_per_half, halves, chunk_groups,
+        launch_lookup<Bn254G1>(t, sc, sg, n_pad, row_stride, nbytes, w, rows_per_half, halves, chunk_groups,
                                nchunks, out, s);
         break;
       case Grumpkin::id:
-        launch_lookup<Grumpkin>(t, sc, sg, n_pad, nbytes, w, rows_per_half, halves, chunk_groups,
+        launch_lookup<Grumpkin>(t, sc, sg, n_pad, row_stride, nbytes, w, rows_per_half, halves, chunk_groups,
                                 nchunks, out, s);
         break;
       default: return (int)cudaErrorInvalidValue;

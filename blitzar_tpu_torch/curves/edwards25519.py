@@ -48,6 +48,18 @@ class Niels(NamedTuple):
     t: torch.Tensor
 
 
+class Cached(NamedTuple):
+    """Projective precomputed form (y + x, y - x, z, 2d*t), the
+    z-unnormalised niels (libsodium's ge25519_cached): built from extended
+    coordinates with two adds and one multiply, no inversion, so it is the
+    storage form of the tables a streamed query builds and drops."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    z: torch.Tensor
+    t: torch.Tensor
+
+
 def identity(batch_shape=(), device="cpu") -> PointP3:
     zero = F.zeros(batch_shape, device)
     one = F.from_int(1, batch_shape, device)
@@ -93,6 +105,19 @@ def _madd_impl(p: PointP3, n: Niels) -> PointP3:
     return PointP3(F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
 
 
+def _cadd_impl(p: PointP3, c: Cached) -> PointP3:
+    """Extended + cached entry: 8 multiplies (t2 pre-scaled by 2d)."""
+    a = F.mul(F.sub(p.y, p.x), c.b)
+    b = F.mul(F.add(p.y, p.x), c.a)
+    cc = F.mul(p.t, c.t)
+    d = F.mul_small(F.mul(p.z, c.z), 2)
+    e = F.sub(b, a)
+    f = F.sub(d, cc)
+    g = F.add(d, cc)
+    h = F.add(b, a)
+    return PointP3(F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
+
+
 def _double_impl(p: PointP3) -> PointP3:
     a = F.sq(p.x)
     b = F.sq(p.y)
@@ -123,6 +148,17 @@ def niels_to_p3(n: Niels) -> PointP3:
     y = F.mul_const(F.add(n.a, n.b), INV2_INT)
     one = F.from_int(1, x.shape[1:], x.device)
     return PointP3(x, y, one, F.mul_const(n.t, INV_D2_INT))
+
+
+def to_cached(p: PointP3) -> Cached:
+    return Cached(F.add(p.y, p.x), F.sub(p.y, p.x), p.z, F.mul_const(p.t, D2_INT))
+
+
+def cached_to_p3(c: Cached) -> PointP3:
+    """(a, b, z, 2d*t) -> extended (x, y, z, t) with x*y = t*z."""
+    x = F.mul_const(F.sub(c.a, c.b), INV2_INT)
+    y = F.mul_const(F.add(c.a, c.b), INV2_INT)
+    return PointP3(x, y, c.z, F.mul_const(c.t, INV_D2_INT))
 
 
 def add(p: PointP3, q: PointP3) -> PointP3:
@@ -177,10 +213,9 @@ def points_equal(p: PointP3, q: PointP3):
 
 
 def tree_reduce(p: PointP3, axis_size: int) -> PointP3:
-    """Sum along the FIRST batch axis by halving adds: (size, *rest) ->
-    (*rest). For a 1-D batch this is ``blitzar_tpu``'s ``tree_reduce``;
-    each half is a slice of the leading axis, which the ``ed_add`` kernel
-    reads in place."""
+    """Sum along the FIRST batch axis by halving plain adds: (size, *rest)
+    -> (*rest), the plain version of ``tree_reduce_lanes`` on every device.
+    For a 1-D batch this is ``blitzar_tpu``'s ``tree_reduce``."""
     cur = p
     size = axis_size
     if size == 0:
@@ -189,7 +224,7 @@ def tree_reduce(p: PointP3, axis_size: int) -> PointP3:
         half = size // 2
         lo = index_batch(cur, slice(0, half))
         hi = index_batch(cur, slice(half, 2 * half))
-        s = add(lo, hi)
+        s = _add_impl(lo, hi)
         if size % 2:
             s = cat([s, index_batch(cur, slice(2 * half, size))])
         cur = s

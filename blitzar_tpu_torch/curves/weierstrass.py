@@ -140,17 +140,17 @@ class WCurve:
         return PointP2(*(torch.cat(cs, dim=dim) for cs in zip(*points)))
 
     def tree_reduce(self, p: PointP2, axis_size: int) -> PointP2:
-        """Sum along the FIRST batch axis by halving adds: (size, *rest) ->
-        (*rest). Each half is a slice of the leading axis, which the ``wadd``
-        kernel reads in place. (blitzar_tpu pairs neighbours along the last
-        axis instead; the sum is the same point, its coordinates may differ.)"""
+        """Sum along the FIRST batch axis by halving plain adds: (size, *rest)
+        -> (*rest), the plain version of ``tree_reduce_lanes`` on every
+        device. (blitzar_tpu pairs neighbours along the last axis instead;
+        the sum is the same point, its coordinates may differ.)"""
         cur = p
         size = axis_size
         if size == 0:
             return self.identity(p.batch_shape[1:], p.x.device)
         while size > 1:
             half = size // 2
-            s = self.add(self.index_batch(cur, slice(0, half)), self.index_batch(cur, slice(half, 2 * half)))
+            s = self._add_impl(self.index_batch(cur, slice(0, half)), self.index_batch(cur, slice(half, 2 * half)))
             if size % 2:
                 s = self.cat([s, self.index_batch(cur, slice(2 * half, size))])
             cur = s
@@ -183,6 +183,12 @@ class WCurve:
             zinv = pow(z, -1, m)
             out.append((x * zinv % m, y * zinv % m))
         return out
+
+    def points_equal(self, p: PointP2, q: PointP2) -> torch.Tensor:
+        """Per-element equality of the points (not of their coordinates):
+        X1*Z2 == X2*Z1 and Y1*Z2 == Y2*Z1."""
+        F = self.field
+        return F.eq(F.mul(p.x, q.z), F.mul(q.x, p.z)) & F.eq(F.mul(p.y, q.z), F.mul(q.y, p.z))
 
     def is_on_curve(self, p: PointP2) -> torch.Tensor:
         """y^2 z = x^3 + b z^3 per element (the projective curve equation)."""

@@ -3,46 +3,62 @@
 Generator i is elligator(r1) + elligator(r0), where (r0, r1) are the two
 field elements xorshift128+ draws when seeded with (i + 1, i + 2): the
 derivation of blitzar_tpu/generators.py:178-214 (and of the reference's
-seqcommit base elements). The generator runs on the host in numpy uint64;
-the elligator maps and the add run in the ``elligator_form`` kernel on the
-card (its plain version on the CPU).
+seqcommit base elements). The generator runs where the generators go, in
+plain PyTorch integer ops (as blitzar_tpu/generators.py:217-289 derives
+large batches on its device), so 2^24 generators need no host arrays; the
+elligator maps and the add run in the ``elligator_form`` kernel on the card
+(its plain version on the CPU).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .curves import edwards25519 as ed
 from .ops import cuda_point
-from .utils.limbs import to_tensor
+
+_M32 = 0xFFFFFFFF
 
 
-def _xorshift_limbs(indices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """xorshift128+ per index -> two (16, n) uint32 limb arrays, bit 255
-    masked (blitzar_tpu/generators.py:178-203)."""
-    indices = np.asarray(indices, dtype=np.uint64)
-    a = indices + np.uint64(1)
-    b = indices + np.uint64(2)
+def _xorshift_limbs(indices: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """xorshift128+ per index -> two (16, n) int32 limb tensors on the
+    indices' device, bit 255 masked. ``indices`` is an int64 tensor read as
+    the uint64 bit patterns of the indices; every 64-bit word is carried as
+    a (hi, lo) pair of 32-bit halves in int64, so no op overflows."""
+
+    def add64(a, b):
+        lo = a[1] + b[1]
+        return ((a[0] + b[0] + (lo >> 32)) & _M32, lo & _M32)
+
+    def shl(a, k):
+        return (((a[0] << k) | (a[1] >> (32 - k))) & _M32, (a[1] << k) & _M32)
+
+    def shr(a, k):
+        return (a[0] >> k, ((a[1] >> k) | (a[0] << (32 - k))) & _M32)
+
+    def xor(a, b):
+        return (a[0] ^ b[0], a[1] ^ b[1])
+
+    idx = (indices.to(torch.int64) >> 32) & _M32, indices.to(torch.int64) & _M32
+    zero = torch.zeros_like(idx[1])
+    a = add64(idx, (zero, zero + 1))
+    b = add64(idx, (zero, zero + 2))
     outs = []
     for _ in range(8):
         t, s = a, b
         a = s
-        t = t ^ (t << np.uint64(23))
-        t = t ^ (t >> np.uint64(17))
-        t = t ^ s ^ (s >> np.uint64(26))
+        t = xor(t, shl(t, 23))
+        t = xor(t, shr(t, 17))
+        t = xor(t, xor(s, shr(s, 26)))
         b = t
-        outs.append(t + s)
+        outs.append(add64(t, s))
 
-    def to_limbs(words):  # 4 x (n,) uint64 -> (16, n) uint32
-        rows = [
-            ((w >> np.uint64(16 * j)) & np.uint64(0xFFFF)).astype(np.uint32)
-            for w in words
-            for j in range(4)
-        ]
-        limbs = np.stack(rows)
-        limbs[15] &= np.uint32(0x7FFF)
-        return limbs
+    def to_limbs(words):  # 4 x (hi, lo) -> (16, n) int32 16-bit limbs
+        rows = []
+        for hi, lo in words:
+            rows += [lo & 0xFFFF, lo >> 16, hi & 0xFFFF, hi >> 16]
+        rows[15] = rows[15] & 0x7FFF
+        return torch.stack(rows).to(torch.int32)
 
     return to_limbs(outs[0:4]), to_limbs(outs[4:8])
 
@@ -51,8 +67,8 @@ def ristretto_generators(n: int, offset: int = 0, device="cuda") -> ed.PointP3:
     """The canonical generators [offset, offset + n) as a (16, n) batch."""
     if n == 0:
         return ed.identity((0,), device)
-    r0, r1 = _xorshift_limbs(np.arange(offset, offset + n, dtype=np.uint64))
-    return cuda_point.elligator_form(to_tensor(r0, device), to_tensor(r1, device))
+    r0, r1 = _xorshift_limbs(torch.arange(offset, offset + n, dtype=torch.int64, device=device))
+    return cuda_point.elligator_form(r0, r1)
 
 
 class _GeneratorCache:
@@ -73,8 +89,10 @@ class _GeneratorCache:
         have = self._points.get(key_dev)
         count = 0 if have is None else have.x.shape[1]
         if end > count:
+            # derive only the new generators; the prefix stays as it is
             grow_to = max(end, 2 * count)
-            self._points[key_dev] = ristretto_generators(grow_to, 0, device)
+            more = ristretto_generators(grow_to - count, count, device)
+            self._points[key_dev] = more if have is None else ed.cat([have, more])
             self._slices = {k: v for k, v in self._slices.items() if k[0] != key_dev}
         key = (key_dev, offset, end)
         sl = self._slices.get(key)
@@ -97,8 +115,20 @@ def get_precomputed_generators(n: int, offset: int = 0, device="cuda") -> ed.Poi
     return CACHE.get(n, offset, device)
 
 
+# columns of one_commitment's first lane reduce
+_ONE_COMMIT_LANES = 1024
+
+
 def one_commitment(n: int, device="cuda") -> ed.PointP3:
-    """Sum of the first n generators (a single point, batch shape ())."""
+    """Sum of the first n generators (a single point, batch shape ()): the
+    generators, padded with identities to rows of ``_ONE_COMMIT_LANES``, are
+    summed down each column and then across the columns, two
+    ``tree_reduce_lanes`` launches on the card."""
     if n == 0:
         return ed.identity((), device)
-    return ed.tree_reduce(get_precomputed_generators(n, 0, device), n)
+    points = get_precomputed_generators(n, 0, device)
+    lanes = min(n, _ONE_COMMIT_LANES)
+    if n % lanes:
+        points = ed.cat([points, ed.identity((lanes - n % lanes,), device)])
+    columns = cuda_point.tree_reduce_lanes(ed.reshape_batch(points, (-1, lanes)))
+    return cuda_point.tree_reduce_lanes(columns)

@@ -2,11 +2,19 @@
 curve-generic: ristretto255 (the ``curves.edwards25519`` module) or a
 short-Weierstrass curve (``curves.weierstrass.WCurve``).
 
-Every MSM over at most 2^20 generators takes the handle path of
-``msm/fixed.py``, through a small cache of handles keyed by the curve,
-tensor identity and a content digest. blitzar_tpu sends a fresh small
-generator set through a streamed build+query instead (engine.py:380-412), a
-TPU latency device; the point that comes out is the same.
+The dispatch of blitzar_tpu/msm/engine.py:359-416 on its accelerator:
+
+- over more than ``STREAM_ABOVE`` (2^20) generators, the streamed
+  build+query of ``msm/fixed.py`` (no persistent table);
+- everything else: the handle path of ``msm/fixed.py``, through a small
+  cache of handles keyed by the curve, tensor identity and a content digest.
+
+blitzar_tpu also streams the first MSM over a fresh set of at most 4096
+points (its engine.py:285-303). On an H100 that first commitment took as
+long through a new handle as streamed (the encode dominates both), so the
+port keeps the one path below 2^20 and builds the handle at once.
+
+The point that comes out is the same on every path.
 """
 
 from __future__ import annotations
@@ -50,6 +58,9 @@ def prepare_scalars(data_list, nbytes_list, signed_list, n_max=None):
         scalars[o, :ni, :nbytes] = rows
     return scalars, signs, n
 
+
+# MSMs over more generators than this stream (blitzar_tpu/msm/engine.py:372)
+STREAM_ABOVE = 1 << 20
 
 # handles over recently used generator sets: [curve, coordinate x, n, digest, handle]
 _HANDLE_CACHE: list = []
@@ -109,11 +120,12 @@ def msm(points, data_list, nbytes_list, signed_list, curve=ed):
     num_outputs = scalars.shape[0]
     if n == 0 or num_outputs == 0:
         return curve.identity((num_outputs,), points.x.device)
-    if n > fixed.MAX_HANDLE_POINTS:
-        raise NotImplementedError(fixed.STREAMING_TODO)
     if points.x.shape[1] < n:
         raise ValueError(f"{n} scalars but only {points.x.shape[1]} generators")
+    signs = signs if any(signed_list) else None
+    if n > STREAM_ABOVE:
+        return fixed.streaming_multiexponentiation(points, scalars, curve, signs=signs)
     handle = cached_handle(points, n, curve)
-    if any(signed_list):
+    if signs is not None:
         return fixed.fixed_multiexponentiation_signed(handle, scalars, signs)
     return fixed.fixed_multiexponentiation(handle, scalars)

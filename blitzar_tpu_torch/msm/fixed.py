@@ -1,26 +1,34 @@
 """Fixed-generator MSM with precomputed partition tables, for ristretto255
-and the short-Weierstrass curves (bls12-381 G1, bn254 G1, Grumpkin).
+and the short-Weierstrass curves (bls12-381 G1, bn254 G1, Grumpkin): the
+port of blitzar_tpu/msm/fixed.py's handle path and its streamed path.
 
-The port of blitzar_tpu/msm/fixed.py's handle path: a handle holds, for each
-group of ``window_width`` generators, all 2^w subset sums; a query forms
-each bit-row's table indices from the raw scalar bytes and sums the selected
-entries, then a double-and-add ladder folds the bit-rows of each output.
+A table holds, for each group of ``window_width`` generators, all 2^w
+subset sums; a query forms each bit-row's table indices from the raw scalar
+bytes and sums the selected entries, then a double-and-add ladder folds the
+bit-rows of each output.
 
-- ristretto255 (``curve`` is the ``curves.edwards25519`` module): affine
-  niels entries (kernel ``build_niels_table``), the lookup ``ed_lookup_msm``
-  then ``ed_add`` over its per-chunk partials, the ladder
-  ``doubling_combine``.
-- a Weierstrass curve (a ``curves.weierstrass.WCurve``): projective entries
-  (kernel ``w_build_table``; the identity entry has z = 0, so no affine
-  form), the lookup ``w_lookup_msm`` then ``wadd`` over its partials, and
-  the ladder as blitzar_tpu/msm/fixed.py:611-623 runs it, one ``wdouble``
-  and one ``wadd`` launch per bit over the outputs.
+- A handle (:class:`MultiexpHandle`) keeps its table: ristretto255 affine
+  niels entries (kernel ``build_niels_table``), a Weierstrass curve
+  projective ones (``w_build_table``; the identity entry has z = 0, so no
+  affine form). It holds any n the card's memory does (3.2 GB of niels
+  entries per 2^20 ristretto255 points at w = 8).
+- A streamed query (:func:`streaming_multiexponentiation`) builds, queries
+  and drops one chunk's table at a time, ``STREAM_CHUNK_POINTS`` points a
+  chunk and a short last one: ristretto255 cached entries
+  (``build_cached_table``: no inversion), a Weierstrass curve the
+  projective table of ``w_build_table``.
+
+The lookups (``ed_lookup_msm`` on niels or cached entries, ``w_lookup_msm``)
+give (K, R) partials per table; ``tree_reduce_lanes`` sums them in one
+launch, and sums a streamed query's (chunks, R) products once more. The
+ladder is ``doubling_combine`` for ristretto255 and, as
+blitzar_tpu/msm/fixed.py:611-623 runs it, one ``wdouble`` and one ``wadd``
+launch per bit over the outputs for a Weierstrass curve.
 
 Scalar bits are LSB-first; row r = o * nbits + b; group g covers points
 g*w .. g*w + w - 1. Signed queries run the positive and the negative rows in
-one table pass and return Q_pos - Q_neg. Handles hold at most 2^20 points;
-above that blitzar_tpu streams build and query per chunk, which this port
-does not have yet.
+one table pass and return Q_pos - Q_neg. Identity points and zero scalars
+pad a table to whole groups: they select entry 0.
 """
 
 from __future__ import annotations
@@ -31,17 +39,15 @@ import torch
 from ..curves import edwards25519 as ed
 from ..ops import cuda_point, cuda_wpoint
 
-MAX_HANDLE_POINTS = 1 << 20
-
-STREAMING_TODO = (
-    "MSMs over more than 2^20 generators need the streamed build+query path "
-    "(blitzar_tpu/msm/fixed.py:716-854), which blitzar_tpu_torch does not "
-    "port yet: see ROADMAP.md, section 1, 'streaming above 2^20'"
-)
-
-
 # the default of blitzar_tpu/msm/fixed.py:51-54: 2^8 entries per group of 8
 DEFAULT_WINDOW_WIDTH = 8
+
+# points per streamed chunk: a chunk's table at w = 8 is 2^15 groups x 256
+# entries, 1 GiB of cached ristretto255 entries (128 bytes each), 768 MiB of
+# bn254 G1 / Grumpkin and 1.125 GiB of bls12-381 G1 projective ones; its
+# lookup fills the card (2^15 groups split over 1024 chunks of 32 for a
+# 256-row query)
+STREAM_CHUNK_POINTS = 1 << 18
 
 
 class MultiexpHandle:
@@ -53,8 +59,6 @@ class MultiexpHandle:
     def __init__(self, points, window_width: int | None = None, curve=ed, n: int | None = None):
         self.curve = curve
         self.n = int(n if n is not None else points.x.shape[1])
-        if self.n > MAX_HANDLE_POINTS:
-            raise NotImplementedError(STREAMING_TODO)
         self.window_width = w = int(window_width or DEFAULT_WINDOW_WIDTH)
         if points.x.shape[1] > self.n:
             points = curve.index_batch(points, slice(0, self.n))
@@ -103,15 +107,31 @@ class MultiexpHandle:
         return cuda_wpoint.unpack_points(self.table)
 
 
+def _device_rows(array, n_pad: int, device) -> torch.Tensor:
+    """Host (O, n, ...) bytes -> a device tensor padded with zeros to
+    n_pad elements along axis 1."""
+    array = np.asarray(array, np.uint8)
+    if array.shape[1] > n_pad:
+        raise ValueError(f"{array.shape[1]} scalars exceed the {n_pad} points of the table")
+    if array.shape[1] < n_pad:
+        array = np.pad(array, [(0, 0), (0, n_pad - array.shape[1])] + [(0, 0)] * (array.ndim - 2))
+    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+
 def _scalars_tensor(handle: MultiexpHandle, scalars) -> torch.Tensor:
     """Host (O, n, ...) bytes -> device tensor padded with zeros to the
     handle's G*w points."""
-    scalars = np.asarray(scalars, np.uint8)
-    n_table = handle.num_groups * handle.window_width
-    if scalars.shape[1] > handle.n:
-        raise ValueError(f"scalar length {scalars.shape[1]} exceeds handle size {handle.n}")
-    pad = [(0, 0), (0, n_table - scalars.shape[1])] + [(0, 0)] * (scalars.ndim - 2)
-    return torch.from_numpy(np.ascontiguousarray(np.pad(scalars, pad))).to(handle.device)
+    if np.shape(scalars)[1] > handle.n:
+        raise ValueError(f"scalar length {np.shape(scalars)[1]} exceeds handle size {handle.n}")
+    return _device_rows(scalars, handle.num_groups * handle.window_width, handle.device)
+
+
+def sum_leading(p, curve=ed):
+    """The sum of a (size, *rest) point batch over its leading axis: one
+    ``tree_reduce_lanes`` launch."""
+    if curve is ed:
+        return cuda_point.tree_reduce_lanes(p)
+    return cuda_wpoint.w_tree_reduce_lanes(curve, p)
 
 
 def partition_products(handle: MultiexpHandle, scalars: torch.Tensor, signs=None):
@@ -121,7 +141,46 @@ def partition_products(handle: MultiexpHandle, scalars: torch.Tensor, signs=None
         partials = cuda_point.ed_lookup_msm(handle.table, scalars, signs, handle.window_width)
     else:
         partials = cuda_wpoint.w_lookup_msm(curve, handle.table, scalars, signs, handle.window_width)
-    return curve.tree_reduce(partials, partials.x.shape[1])
+    return sum_leading(partials, curve)
+
+
+def stream_products(points, scalars: torch.Tensor, signs=None, window_width: int = DEFAULT_WINDOW_WIDTH, curve=ed):
+    """(R,) bit-row products of a streamed query: scalars (O, n_pad, nbytes)
+    and signs (O, n_pad) (or None) on the points' device, n_pad a multiple
+    of the window; points (nlimbs, >= 0), identities standing in for any
+    past their end. Chunk by chunk of ``STREAM_CHUNK_POINTS`` (rounded down
+    to whole groups, the last one short): the chunk's table is built,
+    queried with its slice of the scalars (read in place) and dropped, and
+    its partials summed to (R,); the chunks' products are summed at the end.
+    The point is the same however the chunks fall."""
+    w = window_width
+    n_pad = scalars.shape[1]
+    if n_pad % w:
+        raise ValueError(f"scalar length {n_pad} is not a multiple of the window {w}")
+    npts = points.x.shape[1]
+    dev = points.x.device
+    step = max(w, STREAM_CHUNK_POINTS // w * w)
+    per_chunk = []
+    for lo in range(0, n_pad, step):
+        hi = min(lo + step, n_pad)
+        if hi <= npts:
+            pts = curve.index_batch(points, slice(lo, hi))
+        else:
+            pad = curve.identity((hi - max(lo, npts),), dev)
+            pts = curve.cat([curve.index_batch(points, slice(lo, npts)), pad]) if lo < npts else pad
+        sc = scalars[:, lo:hi]
+        sg = None if signs is None else signs[:, lo:hi]
+        if curve is ed:
+            table = cuda_point.build_cached_table(pts, w)
+            partials = cuda_point.ed_lookup_msm(table, sc, sg, w)
+        else:
+            table = cuda_wpoint.w_build_table(curve, pts, w)
+            partials = cuda_wpoint.w_lookup_msm(curve, table, sc, sg, w)
+        del table
+        per_chunk.append(sum_leading(partials, curve))
+    if len(per_chunk) == 1:
+        return per_chunk[0]
+    return sum_leading(curve.cat([curve.reshape_batch(p, (1, -1)) for p in per_chunk]), curve)
 
 
 def doubling_combine(products, num_outputs: int, nbits: int, curve=ed):
@@ -138,6 +197,15 @@ def doubling_combine(products, num_outputs: int, nbits: int, curve=ed):
     return acc
 
 
+def combine_signed(products, num_outputs: int, nbits: int, curve=ed):
+    """(2 * num_outputs * nbits,) products of positive then negative rows
+    -> (num_outputs,) outputs Q_pos - Q_neg (blitzar_tpu/msm/fixed.py:655-707)."""
+    both = doubling_combine(products, 2 * num_outputs, nbits, curve)
+    q_pos = curve.index_batch(both, slice(0, num_outputs))
+    q_neg = curve.index_batch(both, slice(num_outputs, 2 * num_outputs))
+    return curve.add(q_pos, curve.neg(q_neg))
+
+
 def fixed_multiexponentiation(handle: MultiexpHandle, scalars):
     """scalars: (O, n, nbytes) uint8 -> (O,) points (reference
     sxt_fixed_multiexponentiation)."""
@@ -151,15 +219,28 @@ def fixed_multiexponentiation(handle: MultiexpHandle, scalars):
 def fixed_multiexponentiation_signed(handle: MultiexpHandle, scalars, signs):
     """scalars: (O, n, nbytes) uint8 magnitudes; signs: (O, n) uint8, 1 =
     negate that element's contribution. One table pass over positive and
-    negative rows, result Q_pos - Q_neg (blitzar_tpu/msm/fixed.py:655-707)."""
-    curve = handle.curve
+    negative rows, result Q_pos - Q_neg."""
     num_outputs, _, nbytes = np.shape(scalars)
     if num_outputs == 0:
-        return curve.identity((0,), handle.device)
-    dev_scalars = _scalars_tensor(handle, scalars)
-    dev_signs = _scalars_tensor(handle, signs)
-    products = partition_products(handle, dev_scalars, dev_signs)
-    both = doubling_combine(products, 2 * num_outputs, 8 * nbytes, curve)
-    q_pos = curve.index_batch(both, slice(0, num_outputs))
-    q_neg = curve.index_batch(both, slice(num_outputs, 2 * num_outputs))
-    return curve.add(q_pos, curve.neg(q_neg))
+        return handle.curve.identity((0,), handle.device)
+    products = partition_products(handle, _scalars_tensor(handle, scalars), _scalars_tensor(handle, signs))
+    return combine_signed(products, num_outputs, 8 * nbytes, handle.curve)
+
+
+def streaming_multiexponentiation(points, scalars, curve=ed, window_width=DEFAULT_WINDOW_WIDTH, signs=None):
+    """Dynamic MSM with no persistent table (blitzar_tpu/msm/fixed.py:820-854):
+    scalars (O, n, nbytes) uint8 magnitudes, optional signs (O, n) uint8 (1 =
+    negate that element), points (nlimbs, >= n) of ``curve`` (identities
+    stand in for missing ones) -> (O,) points on the points' device. Each
+    chunk's table is built, queried and dropped (:func:`stream_products`)."""
+    num_outputs, n, nbytes = np.shape(scalars)
+    dev = points.x.device
+    if num_outputs == 0:
+        return curve.identity((0,), dev)
+    n_pad = -(-max(n, 1) // window_width) * window_width
+    dev_scalars = _device_rows(scalars, n_pad, dev)
+    dev_signs = None if signs is None else _device_rows(signs, n_pad, dev)
+    products = stream_products(points, dev_scalars, dev_signs, window_width, curve)
+    if signs is None:
+        return doubling_combine(products, num_outputs, 8 * nbytes, curve)
+    return combine_signed(products, num_outputs, 8 * nbytes, curve)

@@ -37,13 +37,16 @@ _I = ctypes.c_int
 # C signatures of the launchers (csrc/*.cu); every one returns cudaGetLastError()
 SIGNATURES = {
     "btt_build_niels_table": [_P, _P, _P, _P, _I64, _I, _I64, _P, _P],
-    "btt_ed_lookup_msm": [_P, _P, _P, _I64, _I64, _I, _I, _I64, _I64, _P, _P, _P, _P, _P],
+    "btt_build_cached_table": [_P, _P, _P, _P, _I64, _I, _I64, _P, _P],
+    "btt_ed_lookup_msm": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_doubling_combine": [_P, _P, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P],
     "btt_ed_add": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_elligator_form": [_P, _I64, _P, _I64, _I64, _P, _P, _P, _P, _P],
     # the Weierstrass kernels take the curve's C ABI id first
     "btt_w_build_table": [_I, _P, _P, _P, _I64, _I, _I64, _P, _P],
-    "btt_w_lookup_msm": [_I, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I64, _P, _P, _P, _P],
+    "btt_w_lookup_msm": [_I, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _I64, _P, _P, _P, _P],
+    # the tree reduce takes the curve's C ABI id first (0 ristretto255)
+    "btt_tree_reduce_lanes": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_wadd": [_I, _P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "btt_wdouble": [_I, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     # the proof kernels take the field's C ABI id first

@@ -15,21 +15,26 @@ Kernel outputs hold canonical 16-bit limbs. Inputs may hold any limbs below
 The kernels and the TPU kernels they replace (all in
 ``blitzar_tpu/ops/pallas_point.py``):
 
-=====================  ======================================  ==========
-wrapper                replaces                                 source
-=====================  ======================================  ==========
-``build_niels_table``  ``_build_split_tiled`` :806 (niels)      build_niels_table.cu
-``ed_lookup_msm``      ``_lookup_tiled`` :533                   ed_lookup_msm.cu
-``doubling_combine``   ``_combine_tiled`` :982                  doubling_combine.cu
-``ed_add``             ``_add_tiled`` :237                      ed_add.cu
-``elligator_form``     ``_elligator_form_tiled`` :212           elligator_form.cu
-=====================  ======================================  ==========
+======================  ======================================  =====================
+wrapper                 replaces                                 source
+======================  ======================================  =====================
+``build_niels_table``   ``_build_split_tiled`` :806 (niels)      build_niels_table.cu
+``build_cached_table``  ``_build_split_tiled`` :806 (cached)     build_cached_table.cu
+``ed_lookup_msm``       ``_lookup_tiled`` :533 (both forms)      ed_lookup_msm.cu
+``doubling_combine``    ``_combine_tiled`` :982                  doubling_combine.cu
+``ed_add``              ``_add_tiled`` :237                      ed_add.cu
+``elligator_form``      ``_elligator_form_tiled`` :212           elligator_form.cu
+``tree_reduce_lanes``   ``_tree_tiled`` :344                     tree_reduce_lanes.cu
+======================  ======================================  =====================
 
-The Weierstrass kernels (``w_build_table``, ``w_lookup_msm``, ``wadd``,
-``wdouble``) have their wrappers in ``ops/cuda_wpoint.py``, the proof
-kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``) in
-``ops/cuda_mont.py``; their launches are counted here too, so ``KERNELS``
-and ``LAUNCHES`` cover every kernel.
+``ed_lookup_msm`` counts its launches on a cached table (a streamed chunk's)
+as ``ed_lookup_msm_cached``. The Weierstrass kernels (``w_build_table``,
+``w_lookup_msm``, ``wadd``, ``wdouble`` and ``tree_reduce_lanes``'s
+Weierstrass instantiations) have their wrappers in ``ops/cuda_wpoint.py``,
+the proof kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``)
+in ``ops/cuda_mont.py``; their launches are counted here too, so ``KERNELS``
+and ``LAUNCHES`` cover every kernel, and ``INSTANCE_LAUNCHES`` counts the
+launches of each curve's instantiation of a templated kernel.
 """
 
 from __future__ import annotations
@@ -44,6 +49,9 @@ from . import build
 KERNELS = (
     "build_niels_table",
     "ed_lookup_msm",
+    "build_cached_table",
+    "ed_lookup_msm_cached",
+    "tree_reduce_lanes",
     "doubling_combine",
     "ed_add",
     "elligator_form",
@@ -56,8 +64,10 @@ KERNELS = (
     "mont_sum_round",
 )
 
-# launches of each kernel since the last reset_launches()
+# launches of each kernel since the last reset_launches(), and of each
+# curve's instantiation of a templated kernel ("name/curve")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+INSTANCE_LAUNCHES: dict[str, int] = {}
 
 # threads the lookup aims for: rows x group chunks (about 2048 per SM)
 LOOKUP_THREADS = 1 << 18
@@ -66,6 +76,7 @@ LOOKUP_THREADS = 1 << 18
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    INSTANCE_LAUNCHES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -127,11 +138,14 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, fn, *args, instance: str | None = None) -> None:
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     LAUNCHES[name] += 1
+    if instance is not None:
+        key = f"{name}/{instance}"
+        INSTANCE_LAUNCHES[key] = INSTANCE_LAUNCHES.get(key, 0) + 1
 
 
 def _ptrs(coords) -> list[int]:
@@ -167,6 +181,16 @@ def pack_niels(n: ed.Niels) -> torch.Tensor:
 def unpack_niels(entries: torch.Tensor) -> ed.Niels:
     """(*batch, 3, 8) table entries -> Niels (16, *batch)."""
     return ed.Niels(*(words_to_limbs(entries[..., k, :]) for k in range(3)))
+
+
+def pack_cached(c: ed.Cached) -> torch.Tensor:
+    """Cached (16, *batch) -> (*batch, 4, 8) int32 table entries."""
+    return torch.stack([limbs_to_words(F.canonicalize(x)) for x in c], dim=-2)
+
+
+def unpack_cached(entries: torch.Tensor) -> ed.Cached:
+    """(*batch, 4, 8) table entries -> Cached (16, *batch)."""
+    return ed.Cached(*(words_to_limbs(entries[..., k, :]) for k in range(4)))
 
 
 # ---------------------------------------------------------------------------
@@ -230,9 +254,10 @@ def elligator_form(r0: torch.Tensor, r1: torch.Tensor) -> ed.PointP3:
 # ---------------------------------------------------------------------------
 
 
-def build_niels_table_plain(points: ed.PointP3, w: int) -> torch.Tensor:
-    """Subset sums by w doubling concatenations (table_{j+1} = [table_j |
-    table_j + G_j]), then affine niels with one inversion per entry."""
+def subset_sums_plain(points: ed.PointP3, w: int) -> ed.PointP3:
+    """(16, G, 2^w) subset sums of each group of w points by w doubling
+    concatenations (table_{j+1} = [table_j | table_j + G_j], blitzar_tpu's
+    order), extended."""
     n_pad = points.x.shape[1]
     groups = n_pad // w
     pts = ed.reshape_batch(points, (groups, w))
@@ -241,7 +266,12 @@ def build_niels_table_plain(points: ed.PointP3, w: int) -> torch.Tensor:
         gj = ed.PointP3(*(c[:, :, j : j + 1].expand_as(tc) for c, tc in zip(pts, table)))
         shifted = ed._add_impl(table, gj)
         table = ed.PointP3(*(torch.cat([tc, sc], dim=2) for tc, sc in zip(table, shifted)))
-    return pack_niels(ed.to_niels(table))
+    return table
+
+
+def build_niels_table_plain(points: ed.PointP3, w: int) -> torch.Tensor:
+    """The subset sums as affine niels, one inversion per entry."""
+    return pack_niels(ed.to_niels(subset_sums_plain(points, w)))
 
 
 def build_niels_table(points: ed.PointP3, w: int) -> torch.Tensor:
@@ -269,6 +299,46 @@ def build_niels_table(points: ed.PointP3, w: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# build_cached_table  (replaces pallas_point.py:_build_split_tiled :806,
+# cached form)
+# ---------------------------------------------------------------------------
+
+MAX_CACHED_WINDOW = 8  # the kernel's block holds 2^w entries, one a thread
+
+
+def build_cached_table_plain(points: ed.PointP3, w: int) -> torch.Tensor:
+    """The subset sums in the cached form: no inversion."""
+    return pack_cached(ed.to_cached(subset_sums_plain(points, w)))
+
+
+def build_cached_table(points: ed.PointP3, w: int) -> torch.Tensor:
+    """Partition table of points (16, G*w): (G, 2^w, 4, 8) int32 words, entry
+    v of group g = sum of points g*w + j over the set bits j of v, cached
+    (y + x, y - x, z, 2d*t) in blitzar_tpu's order of additions (so equal to
+    the plain table limb for limb), entry 0 the identity (1, 1, 1, 0).
+
+    Kernel csrc/build_cached_table.cu, one block per group and one thread
+    per entry, the entries in shared memory. Bound: integer multiplies
+    (2^w - 1 - w adds and 2^w multiplies by 2d per group), then the bytes
+    written (128 per entry)."""
+    n_pad = points.x.shape[1]
+    if n_pad % w:
+        raise ValueError(f"point count {n_pad} is not a multiple of the window {w}")
+    if not 1 <= w <= MAX_CACHED_WINDOW:
+        raise ValueError(f"window {w} outside 1..{MAX_CACHED_WINDOW}")
+    groups = n_pad // w
+    if not _on_card(points.x):
+        return build_cached_table_plain(points, w)
+    coords, stride = _point_arg(points, points.x.device, (n_pad,))
+    table = torch.empty((groups, 1 << w, 4, 8), dtype=torch.int32, device=points.x.device)
+    _launch(
+        "build_cached_table", build.library().btt_build_cached_table,
+        *_ptrs(coords), stride, w, groups, table.data_ptr(), _stream(points.x.device),
+    )
+    return table
+
+
+# ---------------------------------------------------------------------------
 # ed_lookup_msm  (replaces pallas_point.py:_lookup_tiled :533)
 # ---------------------------------------------------------------------------
 
@@ -281,17 +351,44 @@ def lookup_chunks(groups: int, rows: int) -> tuple[int, int]:
     return chunk_groups, -(-groups // chunk_groups)
 
 
-def _check_query(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, words: int = 8) -> int:
-    """Check a query's table ((G, 2^w, 3, words) int32), scalars and signs;
-    returns G."""
+def _check_query(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, entry_shapes) -> int:
+    """Check a query's table ((G, 2^w, coords, words) int32, (coords,
+    words) one of ``entry_shapes``), scalars and signs; returns G."""
     groups, entries = table.shape[0], table.shape[1]
-    if entries != 1 << w or tuple(table.shape[2:]) != (3, words) or table.dtype != torch.int32:
-        raise ValueError(f"table {tuple(table.shape)} {table.dtype} is no (G, 2^{w}, 3, {words}) int32 table")
+    if entries != 1 << w or tuple(table.shape[2:]) not in entry_shapes or table.dtype != torch.int32:
+        raise ValueError(f"table {tuple(table.shape)} {table.dtype} is no (G, 2^{w}, coords, words) int32 table "
+                         f"with (coords, words) in {sorted(entry_shapes)}")
     if scalars.dtype != torch.uint8 or scalars.dim() != 3 or scalars.shape[1] != groups * w:
         raise ValueError(f"scalars {tuple(scalars.shape)} {scalars.dtype}: expected (O, {groups * w}, nbytes) uint8")
     if signs is not None and (signs.dtype != torch.uint8 or tuple(signs.shape) != tuple(scalars.shape[:2])):
         raise ValueError(f"signs {tuple(signs.shape)} {signs.dtype}: expected {tuple(scalars.shape[:2])} uint8")
     return groups
+
+
+def query_args(table: torch.Tensor, scalars: torch.Tensor, signs) -> tuple:
+    """A query's tensors for a lookup launch: (table, scalars, signs, row
+    stride). A view whose rows are slices of longer rows (a streamed chunk of
+    the whole upload) passes as it is, with the elements from one output's
+    row to the next as its row stride; other layouts are made contiguous.
+    The table must be 16-byte aligned: the kernels gather with 16-byte
+    loads."""
+    device = table.device
+    for t in (scalars, signs):
+        if t is not None and t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+    table = table.contiguous()
+    if table.data_ptr() % 16:
+        table = table.clone()
+    num_outputs, n_pad, nbytes = scalars.shape
+    row = scalars.stride(0) // nbytes if num_outputs > 1 else n_pad
+    ok = (scalars.stride(2) == 1 or nbytes == 1) and scalars.stride(1) == nbytes
+    ok = ok and (num_outputs == 1 or scalars.stride(0) == row * nbytes)
+    if signs is not None:
+        ok = ok and (signs.stride(1) == 1 or n_pad == 1) and (num_outputs == 1 or signs.stride(0) == row)
+    if not ok:
+        scalars, row = scalars.contiguous(), n_pad
+        signs = None if signs is None else signs.contiguous()
+    return table, scalars, signs, row
 
 
 def query_index(scalars: torch.Tensor, signs, w: int) -> torch.Tensor:
@@ -313,9 +410,9 @@ def query_index(scalars: torch.Tensor, signs, w: int) -> torch.Tensor:
 def lookup_walk(table, scalars, signs, w: int, chunks=None):
     """The plain lookups' walk over a query, in the kernels' order: the
     number of (chunk, row) partials (K, R), then for each step s of a chunk
-    the (K, R) indices and the (K, R, 3, words) entries they pick (padded
-    groups pick entry 0). ``chunks`` (a 1-D index tensor) walks only those
-    chunks."""
+    the (K, R) indices and the (K, R, coords, words) entries they pick
+    (padded groups pick entry 0). ``chunks`` (a 1-D index tensor) walks only
+    those chunks."""
     groups = table.shape[0]
     idx = query_index(scalars, signs, w)  # (R, G)
     rows = idx.shape[0]
@@ -324,7 +421,7 @@ def lookup_walk(table, scalars, signs, w: int, chunks=None):
     idx = idx.reshape(rows, nchunks, chunk_groups).permute(2, 1, 0)  # (cg, K, R)
     chunk_ids = torch.arange(nchunks, device=table.device) if chunks is None else chunks.to(table.device)
     idx = idx[:, chunk_ids]
-    flat = table.reshape(groups << w, 3, table.shape[-1])
+    flat = table.reshape((groups << w,) + tuple(table.shape[2:]))
     chunk_start = chunk_ids[:, None] * chunk_groups
 
     def steps():
@@ -336,42 +433,102 @@ def lookup_walk(table, scalars, signs, w: int, chunks=None):
     return (len(chunk_ids), rows), steps()
 
 
-def ed_lookup_msm_plain(table, scalars, signs, w: int) -> ed.PointP3:
-    shape, steps = lookup_walk(table, scalars, signs, w)
+# the entry forms of a ristretto255 table: (coords, words) -> the add of an
+# extended accumulator and an entry
+ED_ENTRY_FORMS = {
+    (3, 8): lambda acc, e: ed._madd_impl(acc, unpack_niels(e)),
+    (4, 8): lambda acc, e: ed._cadd_impl(acc, unpack_cached(e)),
+}
+
+
+def ed_lookup_msm_plain(table, scalars, signs, w: int, chunks=None) -> ed.PointP3:
+    """The partials of :func:`ed_lookup_msm`, in the kernel's order of
+    additions. ``chunks`` (a 1-D index tensor) computes only those chunks,
+    (16, len(chunks), R): the comparison of a full-size run on a sample."""
+    add = ED_ENTRY_FORMS[tuple(table.shape[2:])]
+    shape, steps = lookup_walk(table, scalars, signs, w, chunks)
     acc = ed.identity(shape, table.device)
     for ix, entries in steps:
-        acc = ed.select(acc, ed._madd_impl(acc, unpack_niels(entries)), ix != 0)
+        acc = ed.select(acc, add(acc, entries), ix != 0)
     return acc
 
 
 def ed_lookup_msm(table: torch.Tensor, scalars: torch.Tensor, signs, w: int) -> ed.PointP3:
     """Per-chunk partition products of a query: (16, K, R) partials whose
     sum over K is row r's sum over groups g of table[g, idx[r, g]] (see
-    :func:`query_index`; :func:`lookup_chunks` gives K). scalars: (O, G*w,
-    nbytes) uint8 magnitudes; signs: (O, G*w) uint8 (1 = negative) or None.
+    :func:`query_index`; :func:`lookup_chunks` gives K). table: niels (G,
+    2^w, 3, 8) or cached (G, 2^w, 4, 8) entries; scalars: (O, G*w, nbytes)
+    uint8 magnitudes; signs: (O, G*w) uint8 (1 = negative) or None. Scalars
+    and signs may be column slices of longer rows (:func:`query_args`).
 
-    Kernel csrc/ed_lookup_msm.cu, thread (k, r) gathers niels entries and
-    accumulates with 7-multiply mixed adds, skipping entry 0. Bound: integer
-    multiplies, 7 field multiplies per nonzero index."""
-    groups = _check_query(table, scalars, signs, w)
+    Kernel csrc/ed_lookup_msm.cu, thread (k, r) gathers entries and
+    accumulates with 7-multiply mixed adds (niels) or 8-multiply adds
+    (cached), skipping entry 0; a launch on a cached table counts as
+    ``ed_lookup_msm_cached``. Bound: integer multiplies, 7 or 8 field
+    multiplies per nonzero index."""
+    groups = _check_query(table, scalars, signs, w, ED_ENTRY_FORMS)
     if not _on_card(table):
         return ed_lookup_msm_plain(table, scalars, signs, w)
     device = table.device
-    for t in (scalars, signs):
-        if t is not None and t.device != device:
-            raise ValueError(f"tensor on {t.device}, expected {device}")
-    table, scalars = table.contiguous(), scalars.contiguous()
-    signs = None if signs is None else signs.contiguous()
+    table, scalars, signs, row = query_args(table, scalars, signs)
+    cached = table.shape[2] == 4
     num_outputs, n_pad, nbytes = scalars.shape
     rows = (2 if signs is not None else 1) * num_outputs * 8 * nbytes
     chunk_groups, nchunks = lookup_chunks(groups, rows)
     out = _empty_point((nchunks, rows), device)
     _launch(
-        "ed_lookup_msm", build.library().btt_ed_lookup_msm,
+        "ed_lookup_msm_cached" if cached else "ed_lookup_msm", build.library().btt_ed_lookup_msm,
         table.data_ptr(), scalars.data_ptr(), None if signs is None else signs.data_ptr(),
-        num_outputs, n_pad, nbytes, w, chunk_groups, nchunks, *_ptrs(out), _stream(device),
+        num_outputs, n_pad, row, nbytes, w, int(cached), chunk_groups, nchunks, *_ptrs(out), _stream(device),
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# tree_reduce_lanes  (replaces pallas_point.py:_tree_tiled :344 /
+# tree_reduce_lanes :370)
+# ---------------------------------------------------------------------------
+
+
+def tree_launch(curve_id: int, instance: str, p, nlimbs: int, point):
+    """Launch tree_reduce_lanes.cu on a (size, *rest) point batch (any
+    coordinate count): its (*rest) sums over the leading axis."""
+    batch = tuple(p.x.shape[1:])
+    size, rest = batch[0], batch[1:]
+    cols = 1
+    for d in rest:
+        cols *= d
+    device = p.x.device
+    coords, stride = _point_arg(p, device, batch, nlimbs)
+    out = _empty_point((cols,), device, point, nlimbs)
+    ins, outs = _ptrs(coords), _ptrs(out)
+    if len(ins) == 3:  # the launcher's fourth coordinate is ristretto255's t
+        ins, outs = ins + [None], outs + [None]
+    _launch(
+        "tree_reduce_lanes", build.library().btt_tree_reduce_lanes,
+        curve_id, *ins, stride, size, cols, *outs, _stream(device), instance=instance,
+    )
+    return type(out)(*(c.reshape((nlimbs,) + tuple(rest)) for c in out))
+
+
+def tree_reduce_lanes_plain(p: ed.PointP3) -> ed.PointP3:
+    return ed.tree_reduce(p, p.x.shape[1])
+
+
+def tree_reduce_lanes(p: ed.PointP3) -> ed.PointP3:
+    """(16, size, *rest) -> (16, *rest): the sum over the leading batch axis
+    (a query's (K, R) lookup partials, a streamed query's (chunks, R)
+    products), in one launch. The sum is the same point as the plain
+    version's halving tree; its coordinates differ (another order).
+
+    Kernel csrc/tree_reduce_lanes.cu, one block per column: strided serial
+    sums per thread, then halving levels in shared memory. Bound: bytes
+    (each point read once) at large size; the serial depth with few
+    columns."""
+    size = p.x.shape[1]
+    if size == 0 or not _on_card(p.x):
+        return tree_reduce_lanes_plain(p)
+    return tree_launch(0, "ristretto255", p, F.NLIMBS, ed.PointP3)
 
 
 # ---------------------------------------------------------------------------

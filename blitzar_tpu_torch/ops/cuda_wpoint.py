@@ -15,14 +15,20 @@ launcher picks the instantiation by ``curve.kernel_id``.
 The kernels and the TPU kernels they replace (all in
 ``blitzar_tpu/ops/pallas_point.py``):
 
-=================  =================================================  ===============
-wrapper            replaces                                           source
-=================  =================================================  ===============
-``w_build_table``  ``_build_split_tiled`` :806 (Weierstrass, :789)     w_build_table.cu
-``w_lookup_msm``   ``_w_lookup_tiled`` :636                           w_lookup_msm.cu
-``wadd``           ``_wadd_tiled`` :891                               wadd.cu
-``wdouble``        ``_wdouble_tiled`` :907                            wdouble.cu
-=================  =================================================  ===============
+=======================  =================================================  ======================
+wrapper                  replaces                                           source
+=======================  =================================================  ======================
+``w_build_table``        ``_build_split_tiled`` :806 (Weierstrass, :789)     w_build_table.cu
+``w_lookup_msm``         ``_w_lookup_tiled`` :636                           w_lookup_msm.cu
+``wadd``                 ``_wadd_tiled`` :891                               wadd.cu
+``wdouble``              ``_wdouble_tiled`` :907                            wdouble.cu
+``w_tree_reduce_lanes``  ``_tree_tiled`` :344 (Weierstrass)                 tree_reduce_lanes.cu
+=======================  =================================================  ======================
+
+Launches count under the kernel's name in ``cuda_point.LAUNCHES`` and per
+curve in ``cuda_point.INSTANCE_LAUNCHES`` (``w_tree_reduce_lanes`` as
+``tree_reduce_lanes``, whose ristretto255 instantiation is in
+``ops/cuda_point.py``).
 
 A handle's table is (G, 2^w, 3, K) int32 words: entry v of group g holds the
 projective (X, Y, Z) of its subset sum as K = nlimbs / 2 canonical 32-bit
@@ -38,7 +44,7 @@ from ..curves.weierstrass import PointP2, WCurve
 from . import build
 from .cuda_point import (
     _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, limbs_to_words, lookup_chunks,
-    lookup_walk, words_to_limbs,
+    lookup_walk, query_args, tree_launch, words_to_limbs,
 )
 
 # ---------------------------------------------------------------------------
@@ -80,6 +86,7 @@ def wadd(curve: WCurve, p: PointP2, q: PointP2) -> PointP2:
     _launch(
         "wadd", build.library().btt_wadd,
         curve.kernel_id, *_ptrs(pc), ps, *_ptrs(qc), qs, p.x[0].numel(), *_ptrs(out), _stream(p.x.device),
+        instance=curve.name,
     )
     return out
 
@@ -107,6 +114,7 @@ def wdouble(curve: WCurve, p: PointP2) -> PointP2:
     _launch(
         "wdouble", build.library().btt_wdouble,
         curve.kernel_id, *_ptrs(pc), ps, p.x[0].numel(), *_ptrs(out), _stream(p.x.device),
+        instance=curve.name,
     )
     return out
 
@@ -148,6 +156,7 @@ def w_build_table(curve: WCurve, points: PointP2, w: int) -> torch.Tensor:
     _launch(
         "w_build_table", build.library().btt_w_build_table,
         curve.kernel_id, *_ptrs(coords), stride, w, groups, table.data_ptr(), _stream(points.x.device),
+        instance=curve.name,
     )
     return table
 
@@ -175,20 +184,17 @@ def w_lookup_msm(curve: WCurve, table: torch.Tensor, scalars: torch.Tensor, sign
     K). scalars: (O, G*w, nbytes) uint8 magnitudes; signs: (O, G*w) uint8
     (1 = negative) or None.
 
+    Scalars and signs may be column slices of longer rows
+    (``cuda_point.query_args``).
+
     Kernel csrc/w_lookup_msm.cu, thread (k, r) gathers projective entries and
     accumulates with complete adds, skipping entry 0. Bound: integer
     multiplies, 14 field multiplies per nonzero index."""
-    groups = _check_query(table, scalars, signs, w, curve.nlimbs // 2)
+    groups = _check_query(table, scalars, signs, w, {(3, curve.nlimbs // 2)})
     if not _on_card(table):
         return w_lookup_msm_plain(curve, table, scalars, signs, w)
     device = table.device
-    for t in (scalars, signs):
-        if t is not None and t.device != device:
-            raise ValueError(f"tensor on {t.device}, expected {device}")
-    table, scalars = table.contiguous(), scalars.contiguous()
-    if table.data_ptr() % 16:
-        table = table.clone()  # the kernel gathers entries with 16-byte loads
-    signs = None if signs is None else signs.contiguous()
+    table, scalars, signs, row = query_args(table, scalars, signs)
     num_outputs, n_pad, nbytes = scalars.shape
     rows = (2 if signs is not None else 1) * num_outputs * 8 * nbytes
     chunk_groups, nchunks = lookup_chunks(groups, rows)
@@ -196,6 +202,29 @@ def w_lookup_msm(curve: WCurve, table: torch.Tensor, scalars: torch.Tensor, sign
     _launch(
         "w_lookup_msm", build.library().btt_w_lookup_msm,
         curve.kernel_id, table.data_ptr(), scalars.data_ptr(), None if signs is None else signs.data_ptr(),
-        num_outputs, n_pad, nbytes, w, chunk_groups, nchunks, *_ptrs(out), _stream(device),
+        num_outputs, n_pad, row, nbytes, w, chunk_groups, nchunks, *_ptrs(out), _stream(device),
+        instance=curve.name,
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# w_tree_reduce_lanes  (replaces pallas_point.py:_tree_tiled :344, Weierstrass)
+# ---------------------------------------------------------------------------
+
+
+def w_tree_reduce_lanes_plain(curve: WCurve, p: PointP2) -> PointP2:
+    return curve.tree_reduce(p, p.x.shape[1])
+
+
+def w_tree_reduce_lanes(curve: WCurve, p: PointP2) -> PointP2:
+    """(nlimbs, size, *rest) -> (nlimbs, *rest): the sum over the leading
+    batch axis in one launch, the same point as the plain halving tree (its
+    projective coordinates differ: another order of additions).
+
+    Kernel csrc/tree_reduce_lanes.cu (one template with ristretto255's),
+    one block per column. Bound: bytes (each point read once) at large
+    size; the serial depth with few columns."""
+    if p.x.shape[1] == 0 or not _on_card(p.x):
+        return w_tree_reduce_lanes_plain(curve, p)
+    return tree_launch(curve.kernel_id, curve.name, p, curve.nlimbs, PointP2)

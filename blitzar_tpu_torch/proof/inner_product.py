@@ -28,9 +28,12 @@ blitzar_tpu (inside the next round's program); here it follows each
 challenge, and the last round's fold of a, which gives ap, runs on the
 host on the two values left.
 
-Above 2^20 generators blitzar_tpu streams the G query
-(inner_product.py:197, :428-441), which the port does not have yet: the
-prover and the verifier raise ``NotImplementedError`` there.
+Over more than ``engine.STREAM_ABOVE`` generators (2^21 on, since the
+padded count is a power of two) G keeps no handle: each round's two-output
+G query, and the verifier's, is streamed over the original generators chunk
+by chunk (``fixed.stream_products``), as
+blitzar_tpu/proof/inner_product.py:195-218 does from its
+``_STREAM_COMMIT_MIN`` = 2^21 on; Q's handle stays.
 """
 
 from __future__ import annotations
@@ -104,11 +107,11 @@ def _lane_sum_int(a: torch.Tensor) -> int:
     return sum(int(v) << (16 * i) for i, v in enumerate(S.lane_sum(a).tolist()))
 
 
-def _check_size(np_: int) -> None:
-    if np_ > fixed.MAX_HANDLE_POINTS:
-        raise NotImplementedError(
-            f"an inner-product argument over {np_} generators: {fixed.STREAMING_TODO} (item 1)"
-        )
+def _g_source(g_vector: ed.PointP3, np_: int):
+    """What G's queries run on: its cached handle up to
+    ``engine.STREAM_ABOVE`` generators, the points themselves (streamed)
+    above, as every MSM of the engine."""
+    return g_vector if np_ > engine.STREAM_ABOVE else engine.cached_handle(g_vector, np_)
 
 
 # ---------------------------------------------------------------------------
@@ -117,18 +120,21 @@ def _check_size(np_: int) -> None:
 
 
 def _query(queries, num_outputs: int) -> ed.PointP3:
-    """The sum of fixed-table queries: ``queries`` is a list of (handle,
-    (O, n, 32) uint8 device scalars, n <= the handle's points); returns
-    (O,) points. The handles' bit-row products are added before one
-    doubling-and-add ladder (sum_b 2^b (P_b + Q_b) is sum_b 2^b P_b +
-    sum_b 2^b Q_b): one ladder for L and R, and one for the verifier's
-    check, and no host round trip as in ``fixed.fixed_multiexponentiation``."""
+    """The sum of queries: ``queries`` is a list of (source, (O, n, 32)
+    uint8 device scalars), the source a handle (n <= its points) or a point
+    batch of n points, streamed; returns (O,) points. The bit-row products
+    are added before one doubling-and-add ladder (sum_b 2^b (P_b + Q_b) is
+    sum_b 2^b P_b + sum_b 2^b Q_b): one ladder for L and R, and one for the
+    verifier's check, and no host round trip as in
+    ``fixed.fixed_multiexponentiation``."""
+    w = fixed.DEFAULT_WINDOW_WIDTH
     products = None
-    for handle, scalars in queries:
-        n_table = handle.num_groups * handle.window_width
-        if scalars.shape[1] < n_table:
-            scalars = torch.nn.functional.pad(scalars, (0, 0, 0, n_table - scalars.shape[1]))
-        part = fixed.partition_products(handle, scalars)
+    for source, scalars in queries:
+        handle = isinstance(source, fixed.MultiexpHandle)
+        width = source.num_groups * source.window_width if handle else -(-scalars.shape[1] // w) * w
+        if scalars.shape[1] < width:
+            scalars = torch.nn.functional.pad(scalars, (0, 0, 0, width - scalars.shape[1]))
+        part = fixed.partition_products(source, scalars) if handle else fixed.stream_products(source, scalars)
         products = part if products is None else ed.add(products, part)
     return fixed.doubling_combine(products, num_outputs, NBITS)
 
@@ -195,7 +201,6 @@ def prove_inner_product(transcript: Transcript, a_vector, b_vector, g_vector: ed
         raise ValueError(f"a and b need equal positive lengths, got {n} and {b_rows.shape[0]}")
     num_rounds = ceil_log2(n)
     np_ = 1 << num_rounds
-    _check_size(np_)
     if g_vector.x.shape[1] != np_:
         raise ValueError(f"g_vector must have {np_} points, has {g_vector.x.shape[1]}")
     _init_transcript(transcript, n)
@@ -208,14 +213,14 @@ def prove_inner_product(transcript: Transcript, a_vector, b_vector, g_vector: ed
     a = _mont_rows(a_rows, np_, dev)
     b = _mont_rows(b_rows, np_, dev)
     mu = cuda_mont.constant(S, 1, dev).expand(-1, np_).contiguous()
-    g_handle = engine.cached_handle(g_vector, np_)
+    g_source = _g_source(g_vector, np_)
     # Q's handle: window 4 over one point (blitzar_tpu inner_product.py:391)
     q_handle = fixed.MultiexpHandle(q_value, window_width=4, n=1)
     for k in range(num_rounds):
         mid = a.shape[1] // 2
         c_l, c_r = _cross_terms(a, b, mid)
         q_scalars = torch.from_numpy(np.stack([_int_row(c_l), _int_row(c_r)])[:, None]).to(dev)
-        lr = rst.encode(_query([(g_handle, _round_exponents(a, mu, mid)), (q_handle, q_scalars)], 2)).cpu().numpy().T
+        lr = rst.encode(_query([(g_source, _round_exponents(a, mu, mid)), (q_handle, q_scalars)], 2)).cpu().numpy().T
         l_out[k], r_out[k] = lr
         x = _round_challenge(transcript, bytes(lr[0]), bytes(lr[1]))
         xinv = pow(x, -1, ORDER)
@@ -265,7 +270,6 @@ def verify_inner_product(
         raise ValueError("b must not be empty")
     num_rounds = ceil_log2(n)
     np_ = 1 << num_rounds
-    _check_size(np_)
     ap = scalars_to_ints([ap_value])[0]
     product_int = scalars_to_ints([product])[0]
     l_vector = np.asarray(l_vector, np.uint8).reshape(-1, 32)
@@ -294,8 +298,9 @@ def verify_inner_product(
     # expected = <g_exps, G> + <g_exps, b> Q - sum x_i^2 L_i - sum x_i^-2 R_i
     # against commit = product Q + a_commit (reference
     # proof_computation.cc:139-154), checked as expected - product Q ==
-    # a_commit: one combined query over G's handle (cached by the prover)
-    # and a handle of [Q | L | R] with Q's exponent <g_exps, b> - product.
+    # a_commit: one combined query over G's handle (cached by the prover;
+    # G streamed above engine.STREAM_ABOVE generators) and a handle of
+    # [Q | L | R] with Q's exponent <g_exps, b> - product.
     # ristretto255 encodings are canonical, one per group element, so the
     # two encodings are equal exactly when blitzar_tpu's two are. The
     # [Q | L | R] handle serves this one check and stays out of the cache.
@@ -303,6 +308,6 @@ def verify_inner_product(
     exps = [prod_check - product_int] + [-v for v in x_sq] + [-pow(v, -1, ORDER) for v in x_sq]
     qlr_scalars = torch.from_numpy(np.stack([_int_row(v) for v in exps])[None]).to(dev)
     g_scalars = limbs_to_rows(g_exps)[None]
-    check = _query([(engine.cached_handle(g_vector, np_), g_scalars), (fixed.MultiexpHandle(qlr), qlr_scalars)], 1)
+    check = _query([(_g_source(g_vector, np_), g_scalars), (fixed.MultiexpHandle(qlr), qlr_scalars)], 1)
     enc = rst.encode(ed.cat([check, a_commit])).cpu().numpy().T
     return bytes(enc[0]) == bytes(enc[1])

@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""Build blitzar_tpu_torch's kernels and drive its commitment and proof paths
-on one GPU.
+"""Build blitzar_tpu_torch's kernels and drive its commitment, proof and
+large-n (streamed) paths on one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases, each fatal on failure:
 
-1. build the twelve CUDA kernels from ``blitzar_tpu_torch/csrc`` (nvcc,
-   sm_90a; one process per source, all at once), print their registers and
-   spills and the card's name and power limit;
+1. build the kernels of the fourteen CUDA sources in ``blitzar_tpu_torch/csrc``
+   (nvcc, sm_90a; one process per source, all at once), print their
+   registers and spills and the card's name and power limit;
 2. run each kernel at the shapes its path gives it at full width
-   (ristretto255 2^20 commitment for the five Edwards kernels, bn254 G1 for
-   the four Weierstrass ones, a 2^20 IPA round and a 2^20 sumcheck round
+   (ristretto255 2^20 commitment for the five Edwards kernels of the handle
+   path, bn254 G1 for the four Weierstrass ones, a 2^20 IPA round and a 2^20 sumcheck round
    for the three proof kernels, in both proof fields) and hold it against
    its plain PyTorch version on the same inputs (canonical values must be
    equal), timing both (a kernel's time is the median device time of one
@@ -33,8 +33,9 @@ Phases, each fatal on failure:
    pass); the result must equal the oracle's collapsed sum
    sum_j (sum_{i = j mod 521} s_i) G_j. Cold and warm commitments, the handle
    build and the median of five queries are timed;
-7. every commitment kernel must have launched during phases 3-6 (the
-   commitment path, counts from 0);
+7. every commitment kernel of the handle path must have launched during
+   phases 3-6 (the commitment path, counts from 0; the streamed path's
+   kernels are held to phase 12);
 8. the frozen IPA (n = 4, 7) and sumcheck (both fields, n = 8 and 37)
    vectors of ``tests/torch_proof_vectors.py`` through the entry points;
 9. the benchmark's sumcheck at 2^20 in both fields: the verifier accepts
@@ -46,11 +47,29 @@ Phases, each fatal on failure:
    proofs, the per-stage split of one proof and the verifier timed;
 11. the proof kernels and the ristretto255 kernels the proofs use must
    have launched during phases 8-10 (the proof path, counts from 0, run
-   from empty generator and handle caches: the proofs derive G and Q).
+   from empty generator and handle caches: the proofs derive G and Q);
+12. MSMs above 2^20 (the large-n path, counts from 0, from empty handle
+   caches): (a) the streamed query at 2^20 reproduces the pinned digest;
+   (b) ristretto255 at 2^21 through the commitment entry (one 32-byte
+   column from seed 6) equals the handle path's commitments over the two
+   halves added, and a 2^21 handle's query; (c) ristretto255 at 2^24 (the
+   next column of seed 6): w = 8 equals w = 4, cold and warm times and the
+   split between upload, chunk builds, lookups, reduces, combine and
+   encode; (d) three signed outputs at n = 2^20 + 3 (a short last chunk)
+   equal the lifted handle's; (e) bn254 G1 at 2^22, Grumpkin and bls12-381
+   G1 at 2^20 + 3 against the oracle's collapsed sums; (f) a fresh 4096-point
+   set builds its handle on its first commitment and reuses it on the
+   second, with the same result;
+   (g) the IPA at 2^21 (G streamed) verifies, not with a flipped L byte;
+13. the streamed path's kernels against their plain versions at its shapes
+   (``build_cached_table`` and the cached ``ed_lookup_msm`` on a 2^18-point
+   chunk of (c), ``tree_reduce_lanes`` on the partials of that lookup and of
+   each Weierstrass curve's first chunk), and every one of them, and every
+   instantiation of the templated ones, must have launched in phase 12.
 
-The second-to-last line is ``{"kernels": [...]}`` (per kernel: launches on
-its path, time, plain time, bound, error), the line before it the card as
-``nvidia-smi`` names it, the last ``{"ok": true, "device": {...}}``. Details
+The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
+its path, time, plain time, bound, error), the card as ``nvidia-smi`` names
+it, and ``{"ok": true, "device": {...}}``. Details
 also go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -225,9 +244,11 @@ def bound(bytes_moved: float, imads: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_record(results, name, replaces, source, ms, plain_ms, err, bytes_moved, imads, plain_fraction=1.0):
+def kernel_record(results, name, replaces, source, ms, plain_ms, err, bytes_moved, imads, plain_fraction=1.0,
+                  compared="canonical limbs"):
     """One kernel's entry of the {"kernels": [...]} line; the kernel must
-    equal its plain version exactly."""
+    equal its plain version exactly (``err`` is the largest limb difference,
+    or for ``compared="points"`` the number of unequal points)."""
     b_ms, b_by = bound(bytes_moved, imads)
     results[name] = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -235,7 +256,7 @@ def kernel_record(results, name, replaces, source, ms, plain_ms, err, bytes_move
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "plain_fraction": plain_fraction,
     }
-    check(err == 0, f"{name}: kernel equals plain, tolerance 0 on canonical limbs (max abs err {err}; "
+    check(err == 0, f"{name}: kernel equals plain, tolerance 0 on {compared} (max abs err {err}; "
                     f"{ms:.3f} ms vs plain {plain_ms:.1f} ms)")
 
 
@@ -268,7 +289,6 @@ def phase_kernels(torch, dev) -> dict:
     from blitzar_tpu_torch.curves import edwards25519 as ed
     from blitzar_tpu_torch.fields import fp25519 as F
     from blitzar_tpu_torch.ops import cuda_point as cp
-    from blitzar_tpu_torch.utils.limbs import to_tensor
 
     n = 1 << 20
     w = 8
@@ -280,8 +300,7 @@ def phase_kernels(torch, dev) -> dict:
 
     # elligator_form: all n generators; plain on 2^16 of them spread over all n
     # (its temporaries at 2^20 are ~2 GB per multiply)
-    r0, r1 = generators._xorshift_limbs(np.arange(n, dtype=np.uint64))
-    r0, r1 = to_tensor(r0, dev), to_tensor(r1, dev)
+    r0, r1 = generators._xorshift_limbs(torch.arange(n, device=dev))
     ms = device_ms(torch, lambda: cp.elligator_form(r0, r1))
     gens = cp.elligator_form(r0, r1)
     m = min(n, 1 << 16)
@@ -322,11 +341,11 @@ def phase_kernels(torch, dev) -> dict:
     results["ed_lookup_msm"]["nonzero_lookups"] = nonzero
     results["ed_lookup_msm"]["table_entries_touched"] = entries
 
-    # ed_add: the first level of the tree reduce over the lookup's partials
-    k = partials.x.shape[1]
-    lo = ed.index_batch(partials, slice(0, k // 2))
-    hi = ed.index_batch(partials, slice(k // 2, 2 * (k // 2)))
-    ms = device_ms(torch, lambda: cp.ed_add(lo, hi))
+    # ed_add: at the IPA query's shape, G's 512 bit-row products plus Q's
+    # (here two pairs of rows of partials)
+    lo = ed.reshape_batch(ed.index_batch(partials, slice(0, 2)), (512,))
+    hi = ed.reshape_batch(ed.index_batch(partials, slice(2, 4)), (512,))
+    ms = device_ms(torch, lambda: cp.ed_add(lo, hi), reps=100)
     out = cp.ed_add(lo, hi)
     plain_ms = cuda_ms(torch, lambda: cp.ed_add_plain(lo, hi), reps=1)
     err = ed_err(out, cp.ed_add_plain(lo, hi))
@@ -335,7 +354,7 @@ def phase_kernels(torch, dev) -> dict:
            ms, plain_ms, err, count * 3 * 256, count * MULS_ADD * IMAD_PER_FIELD_MUL)
 
     # doubling_combine: the 256 bit-row products of the one output
-    products = ed.reshape_batch(ed.tree_reduce(partials, k), (1, 256))
+    products = ed.reshape_batch(cp.tree_reduce_lanes(partials), (1, 256))
     ms = device_ms(torch, lambda: cp.doubling_combine(products))
     out = cp.doubling_combine(products)
     plain_ms = cuda_ms(torch, lambda: cp.doubling_combine_plain(products), reps=1)
@@ -430,24 +449,25 @@ def phase_wkernels(torch, dev) -> dict:
     results["w_lookup_msm"]["nonzero_lookups"] = nonzero
     results["w_lookup_msm"]["table_entries_touched"] = entries
 
-    # wadd: the first level of the tree reduce over the lookup's partials
-    lo = curve.index_batch(partials, slice(0, k // 2))
-    hi = curve.index_batch(partials, slice(k // 2, 2 * (k // 2)))
-    ms = device_ms(torch, lambda: cw.wadd(curve, lo, hi))
-    out = cw.wadd(curve, lo, hi)
-    plain_ms = cuda_ms(torch, lambda: cw.wadd_plain(curve, lo, hi), reps=1)
-    err = point_err(out, cw.wadd_plain(curve, lo, hi))
-    count = lo.x[0].numel()
+    # wadd: timed at a ladder step's shape (one point: the lowest two
+    # bit-row products), held against plain there and on the first two rows
+    # of partials (512 of them)
+    products = cw.w_tree_reduce_lanes(curve, partials)
+    acc = curve.index_batch(products, slice(0, 1))
+    nxt = curve.index_batch(products, slice(1, 2))
+    lo = curve.index_batch(partials, 0)
+    hi = curve.index_batch(partials, 1)
+    ms = device_ms(torch, lambda: cw.wadd(curve, acc, nxt), reps=100)
+    plain_ms = cuda_ms(torch, lambda: cw.wadd_plain(curve, acc, nxt), reps=1)
+    err = max(point_err(cw.wadd(curve, p, q), cw.wadd_plain(curve, p, q)) for p, q in ((acc, nxt), (lo, hi)))
     record("wadd", "blitzar_tpu/ops/pallas_point.py:891", "blitzar_tpu_torch/csrc/wadd.cu",
-           ms, plain_ms, err, count * 3 * point_bytes, count * MULS_WADD * imad)
+           ms, plain_ms, err, 3 * point_bytes, MULS_WADD * imad)
 
     # wdouble: timed at a ladder step's shape (one point: the lowest bit-row
     # product, not the identity), held against plain there and on all 256
     # bit-row products (the upper 128 are the identity with counter
     # scalars); no point but the identity is its own double, so a kernel
     # that kept its input would fail the second check
-    products = curve.tree_reduce(partials, k)
-    acc = curve.index_batch(products, slice(0, 1))
     ms = device_ms(torch, lambda: cw.wdouble(curve, acc), reps=100)
     plain_ms = cuda_ms(torch, lambda: cw.wdouble_plain(curve, acc), reps=1)
     err = max(point_err(cw.wdouble(curve, p), cw.wdouble_plain(curve, p)) for p in (acc, products))
@@ -992,6 +1012,265 @@ def phase_ipa_full_width(torch, timings: dict) -> None:
     check(not verify(apv=(ap + 1) % tipa.ORDER), "IPA 2^20: ap + 1 is rejected")
 
 
+# ---------------------------------------------------------------------------
+# MSMs above 2^20: the streamed build+query on all four curves, handles and
+# the IPA past 2^20
+# ---------------------------------------------------------------------------
+
+# the kernels of the streamed path, and the instantiations of the templated
+# ones that the large-n phase must launch
+LARGE_KERNELS = ("build_cached_table", "ed_lookup_msm_cached", "tree_reduce_lanes")
+LARGE_INSTANCES = tuple(f"tree_reduce_lanes/{c}" for c in ("ristretto255", "bls12_381_g1", "bn254_g1", "grumpkin")) + tuple(
+    f"{k}/{c}" for k in ("w_build_table", "w_lookup_msm") for c in ("bls12_381_g1", "bn254_g1", "grumpkin"))
+MULS_CADD = 8
+CHUNK = 1 << 18  # msm/fixed.py STREAM_CHUNK_POINTS, the chunk the kernels are held at
+
+
+def clear_handles(torch) -> None:
+    from blitzar_tpu_torch.msm import engine
+
+    engine.clear_handle_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_large_n(torch, timings: dict) -> dict:
+    """(a)-(g) of the large-n phase; returns the inputs (h) holds the kernels
+    at: the 2^24 query's scalars."""
+    from blitzar_tpu_torch import api, generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import ristretto as rst
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import engine, fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.proof import inner_product as tipa
+    from blitzar_tpu_torch.proof.transcript import Transcript
+
+    dev = api.device()
+    check(fixed.STREAM_CHUNK_POINTS == CHUNK, f"the streamed chunk is {CHUNK} points")
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the streamed path at 2^20, called directly, reproduces the pinned
+    # digest the handle path reproduces (phase 5)
+    n = 1 << 20
+    gens = generators.get_precomputed_generators(n, 0, dev)
+    out, ms = timed(torch, lambda: fixed.streaming_multiexponentiation(gens, counter_scalars(n, 32)[None]))
+    check(digest(api.compress_ristretto255(out)) == PINNED_RISTRETTO_MSM[20],
+          f"(a) streamed 2^20 counter-scalar MSM equals the pinned digest ({ms:.1f} ms)")
+    timings["stream_2^20_ms"] = ms
+
+    # (b) 2^21 through the commitment entry (streamed), one 32-byte column
+    # from seed 6 (benchmarks/run_benchmarks.py:453-458): equal to the sum of
+    # the handle path's commitments over [0, 2^20) and [2^20, 2^21), and to a
+    # 2^21 handle's query (niels table, built apart from the cached ones)
+    rng = np.random.default_rng(6)
+    n = 1 << 21
+    rows = rng.integers(0, 256, size=(1, n, 32), dtype=np.uint8)
+    got, timings["commit_2^21_cold_ms"] = timed(
+        torch, lambda: api.compute_curve25519_commitments([api.SequenceDescriptor(32, n, rows[0])]))
+    half = n // 2
+    lo = api.compute_curve25519_commitments([api.SequenceDescriptor(32, half, rows[0, :half])])
+    hi = api.compute_curve25519_commitments([api.SequenceDescriptor(32, half, rows[0, half:])], generators_offset=half)
+    both = ed.add(api.decompress_ristretto255(lo)[0], api.decompress_ristretto255(hi)[0])
+    check(np.array_equal(api.compress_ristretto255(both), got),
+          f"(b) streamed 2^21 commitment equals the sum of the handle path's over the two halves "
+          f"({timings['commit_2^21_cold_ms']:.1f} ms)")
+    clear_handles(torch)
+    gens = generators.get_precomputed_generators(n, 0, dev)
+    handle, timings["handle_build_2^21_ms"] = timed(torch, lambda: api.multiexp_handle_new(api.SXT_CURVE_RISTRETTO255, gens))
+    res, timings["handle_query_2^21_ms"] = timed(torch, lambda: api.fixed_multiexponentiation(handle, rows))
+    check(np.array_equal(api.compress_ristretto255(res), got),
+          f"(b) a 2^21 handle ({handle.table.numel() * 4 / 2**30:.2f} GiB of niels entries) gives the same commitment")
+    del handle, res
+    clear_handles(torch)
+
+    # (c) 2^24, the benchmark's dense streamed row: the next column of seed 6;
+    # cold from an empty generator cache, so it derives all 2^24 generators
+    n = 1 << 24
+    rows24 = rng.integers(0, 256, size=(1, n, 32), dtype=np.uint8)
+    desc = api.SequenceDescriptor(32, n, rows24[0])
+    generators.CACHE.reset()
+    torch.cuda.empty_cache()
+    got, timings["commit_2^24_cold_ms"] = timed(torch, lambda: api.compute_curve25519_commitments([desc]))
+    warm = []
+    for _ in range(3):
+        again, ms = timed(torch, lambda: api.compute_curve25519_commitments([desc]))
+        warm.append(ms)
+        check(np.array_equal(again, got), "(c) a warm 2^24 commitment equals the cold one")
+    timings["commit_2^24_warm_ms_all"] = warm
+    timings["commit_2^24_warm_ms_median"] = float(np.median(warm))
+    gens = generators.get_precomputed_generators(n, 0, dev)
+    w4, timings["stream_2^24_w4_ms"] = timed(torch, lambda: fixed.streaming_multiexponentiation(gens, rows24, window_width=4))
+    check(np.array_equal(api.compress_ristretto255(w4), got),
+          f"(c) 2^24 at w = 8 equals w = 4 (cold {timings['commit_2^24_cold_ms']:.1f} ms, "
+          f"warm {timings['commit_2^24_warm_ms_median']:.1f} ms)")
+    stages = {"upload": [(fixed, "_device_rows")], "chunk_builds": [(cp, "build_cached_table")],
+              "lookups": [(cp, "ed_lookup_msm")], "reduces": [(cp, "tree_reduce_lanes")],
+              "combine": [(cp, "doubling_combine")], "encode": [(rst, "encode")]}
+    with StageTimer(torch, stages) as st:
+        again, total = timed(torch, lambda: api.compute_curve25519_commitments([desc]))
+    check(np.array_equal(again, got), "(c) the split 2^24 commitment equals the cold one")
+    timings["commit_2^24_split_ms"] = {"total": total, "chunks": n // CHUNK, **st.ms,
+                                       "host_and_rest": total - sum(st.ms.values())}
+    _, timings["generators_2^24_ms"] = timed(torch, lambda: generators.ristretto_generators(n, 0, "cuda"))
+    clear_handles(torch)
+
+    # (d) signed, three outputs of signed 8-byte values, n = 2^20 + 3 (a last
+    # chunk of 3 points and 5 identities): streamed equals the lifted handle
+    n = (1 << 20) + 3
+    vals = np.random.default_rng(7).integers(-(1 << 63), (1 << 63) - 1, size=(3, n), dtype=np.int64)
+    descs = [api.SequenceDescriptor(8, n, vals[o].astype("<i8").view(np.uint8).reshape(n, 8), True) for o in range(3)]
+    got, timings["commit_signed_3x(2^20+3)_ms"] = timed(torch, lambda: api.compute_curve25519_commitments(descs))
+    scalars, signs, _ = engine.prepare_scalars([d.rows() for d in descs], [8] * 3, [True] * 3)
+    handle = api.multiexp_handle_new(api.SXT_CURVE_RISTRETTO255, generators.get_precomputed_generators(n, 0, dev))
+    want = api.compress_ristretto255(fixed.fixed_multiexponentiation_signed(handle, scalars, signs))
+    check(np.array_equal(got, want), "(d) signed 3-output streamed commitment at n = 2^20 + 3 equals the lifted handle's")
+    del handle
+    clear_handles(torch)
+
+    # (e) bn254 G1 at 2^22, Grumpkin and bls12-381 G1 at 2^20 + 3: one column
+    # of counter scalars over the oracle's 521 points tiled to n
+    for curve, log_label, n in ((wc.BN254_G1, "2^22", 1 << 22), (wc.GRUMPKIN, "2^20+3", (1 << 20) + 3),
+                                (wc.BLS12381_G1, "2^20+3", (1 << 20) + 3)):
+        key = f"{curve.name}_{log_label}"
+        gens, pts = tiled_generators(curve, n, dev)
+        rows = counter_scalars(n, 32)
+        expected = curve.oracle.msm(collapsed_scalars(rows), pts)
+        got, timings[f"{key}_commit_ms"] = timed(
+            torch, lambda: api.COMMITMENT_ENTRIES[curve]([api.SequenceDescriptor(32, n, rows)], gens))
+        check(w_output_equals(curve, got, 0, expected),
+              f"(e) {key} streamed commitment equals the oracle's collapsed sum ({timings[f'{key}_commit_ms']:.1f} ms)")
+        check(not engine._HANDLE_CACHE, f"(e) {key} built no handle")
+        del gens
+    clear_handles(torch)
+
+    # (f) small n: a fresh 4096-point set builds its handle on its first
+    # commitment (blitzar_tpu streams that one) and reuses it on the second
+    n = 4096
+    gens = generators.ristretto_generators(n, 12345, dev)
+    desc = api.SequenceDescriptor(32, n, counter_scalars(n, 32))
+    before = dict(cp.LAUNCHES)
+    first, timings["small_4096_first_ms"] = timed(torch, lambda: api.compute_curve25519_commitments([desc], gens))
+    mid = dict(cp.LAUNCHES)
+    second, timings["small_4096_second_ms"] = timed(torch, lambda: api.compute_curve25519_commitments([desc], gens))
+    after = dict(cp.LAUNCHES)
+    built = mid["build_niels_table"] > before["build_niels_table"] and mid["build_cached_table"] == before["build_cached_table"]
+    reused = after["build_niels_table"] == mid["build_niels_table"] and after["build_cached_table"] == mid["build_cached_table"]
+    check(built and reused and np.array_equal(first, second),
+          f"(f) a fresh 4096-point set: handle built on the first commitment "
+          f"({timings['small_4096_first_ms']:.1f} ms), reused on the second "
+          f"({timings['small_4096_second_ms']:.1f} ms), equal")
+    del gens
+    clear_handles(torch)
+
+    # (g) the IPA at 2^21, the smallest n blitzar_tpu streams its G query at:
+    # 62-bit a and b from seed 3 (run_benchmarks.py:232-291)
+    n = 1 << 21
+    rng3 = np.random.default_rng(3)
+    a, b = bench_rows(rng3, (n,)), bench_rows(rng3, (n,))
+    (l, r, ap), timings["ipa_2^21_prove_cold_ms"] = timed(
+        torch, lambda: api.prove_inner_product(Transcript(b"bench"), n, 0, a, b))
+    check(not any(e[2] == n for e in engine._HANDLE_CACHE), "(g) the 2^21 IPA built no handle of G")
+    av = np.frombuffer(a[:, :8].tobytes(), "<u8").tolist()
+    bv = np.frombuffer(b[:, :8].tobytes(), "<u8").tolist()
+    product = sum(x * y for x, y in zip(av, bv)) % tipa.ORDER
+    a_commit, _ = api.decompress_ristretto255(api.compute_curve25519_commitments([api.SequenceDescriptor(32, n, a)]))
+
+    def verify(lv=l):
+        return api.verify_inner_product(Transcript(b"bench"), n, 0, b, product, a_commit, lv, r, ap)
+
+    ok, timings["ipa_2^21_verify_ms"] = timed(torch, verify)
+    check(ok, f"(g) IPA 2^21: the proof verifies (prove {timings['ipa_2^21_prove_cold_ms']:.1f} ms cold, "
+              f"verify {timings['ipa_2^21_verify_ms']:.1f} ms)")
+    flipped = l.copy()
+    flipped[5, 9] ^= 0x01
+    check(not verify(lv=flipped), "(g) IPA 2^21: one flipped L byte is rejected")
+    timings["large_n_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    clear_handles(torch)
+    return {"rows24": rows24}
+
+
+def phase_large_kernels(torch, dev, rows24) -> dict:
+    """(h) the streamed path's kernels against their plain versions at its
+    shapes: build_cached_table and the cached ed_lookup_msm on the first
+    2^18-point chunk of the 2^24 query (w = 8, its 32-byte scalars; plain on
+    512 groups and 16 lookup chunks spread over the chunk), tree_reduce_lanes
+    on that lookup's (1024, 256) partials, and on the partials of each
+    Weierstrass curve's first chunk of (e) (compared as points: the kernel
+    adds in another order)."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    w = 8
+    groups = CHUNK // w
+    results: dict = {}
+    record = functools.partial(kernel_record, results)
+    spread = functools.partial(spread_indices, torch, dev)
+    gens = generators.get_precomputed_generators(CHUNK, 0, dev)
+
+    ms = device_ms(torch, lambda: cp.build_cached_table(gens, w), reps=3)
+    table = cp.build_cached_table(gens, w)
+    sel = spread(512, groups)
+    members = ed.index_batch(gens, (sel[:, None] * w + torch.arange(w, device=dev)).reshape(-1))
+    plain_ms = cuda_ms(torch, lambda: cp.build_cached_table_plain(members, w), reps=1)
+    err = int((table[sel].long() - cp.build_cached_table_plain(members, w).long()).abs().max())
+    # least work a group: the w points to cached form (w multiplies by 2d),
+    # each of the other 2^w - 1 - w nonzero entries one add of an entry and
+    # a cached point and its own multiply by 2d
+    entries = 1 << w
+    record("build_cached_table", "blitzar_tpu/ops/pallas_point.py:806", "blitzar_tpu_torch/csrc/build_cached_table.cu",
+           ms, plain_ms, err, CHUNK * 256 + table.numel() * 4,
+           groups * ((entries - 1 - w) * (MULS_CADD + 1) + w) * IMAD_PER_FIELD_MUL, len(sel) / groups)
+
+    scalars = torch.from_numpy(rows24[:, :CHUNK]).to(dev)
+    ms = device_ms(torch, lambda: cp.ed_lookup_msm(table, scalars, None, w))
+    partials = cp.ed_lookup_msm(table, scalars, None, w)
+    k = partials.x.shape[1]
+    chunks = spread(16, k)
+    plain_ms = cuda_ms(torch, lambda: cp.ed_lookup_msm_plain(table, scalars, None, w, chunks), reps=1)
+    err = point_err(ed.index_batch(partials, chunks), cp.ed_lookup_msm_plain(table, scalars, None, w, chunks),
+                    F.canonicalize)
+    nonzero, touched = lookup_work(torch, scalars, w, groups)
+    record("ed_lookup_msm_cached", "blitzar_tpu/ops/pallas_point.py:533", "blitzar_tpu_torch/csrc/ed_lookup_msm.cu",
+           ms, plain_ms, err, scalars.numel() + touched * 128 + partials.x.numel() * 16,
+           nonzero * MULS_CADD * IMAD_PER_FIELD_MUL, len(chunks) / k)
+    results["ed_lookup_msm_cached"]["nonzero_lookups"] = nonzero
+    results["ed_lookup_msm_cached"]["table_entries_touched"] = touched
+    del table
+
+    # tree_reduce_lanes: a point is 256 bytes (ristretto255) or 3 nlimbs
+    # int32 limbs; (size - 1) adds per column; compared as points
+    def tree_record(name, kernel, plain, equal, p, point_bytes, imads_per_add):
+        size, cols = p.x.shape[1], p.x.shape[2]
+        sub: dict = {}
+        t_ms = device_ms(torch, kernel, reps=10)
+        t_plain_ms = cuda_ms(torch, plain, reps=1)
+        mismatches = int((~equal(kernel(), plain())).sum())
+        kernel_record(sub, "tree_reduce_lanes", "blitzar_tpu/ops/pallas_point.py:344",
+                      "blitzar_tpu_torch/csrc/tree_reduce_lanes.cu", t_ms, t_plain_ms, mismatches,
+                      (size + 1) * cols * point_bytes, (size - 1) * cols * imads_per_add, compared=f"{name} points")
+        sub["tree_reduce_lanes"]["shape"] = [size, cols]
+        return sub["tree_reduce_lanes"]
+
+    results["tree_reduce_lanes"] = tree_record(
+        "ristretto255", lambda: cp.tree_reduce_lanes(partials), lambda: cp.tree_reduce_lanes_plain(partials),
+        ed.points_equal, partials, 256, MULS_ADD * IMAD_PER_FIELD_MUL)
+    wscalars = torch.from_numpy(counter_scalars(CHUNK, 32)[None]).to(dev)
+    for curve in (wc.BLS12381_G1, wc.BN254_G1, wc.GRUMPKIN):
+        wgens, _ = tiled_generators(curve, CHUNK, dev)
+        wpartials = cw.w_lookup_msm(curve, cw.w_build_table(curve, wgens, w), wscalars, None, w)
+        results["tree_reduce_lanes"][curve.name] = tree_record(
+            curve.name, functools.partial(cw.w_tree_reduce_lanes, curve, wpartials),
+            functools.partial(cw.w_tree_reduce_lanes_plain, curve, wpartials), curve.points_equal, wpartials,
+            3 * curve.nlimbs * 4, MULS_WADD * IMAD_PER_MONT_MUL[curve.nlimbs // 2])
+        del wgens, wpartials
+    return results
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "blitzar_tpu_torch", "csrc")):
         print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -1044,18 +1323,34 @@ def main() -> int:
         phase_sumcheck_full_width(torch, report["timings"])
         phase_ipa_full_width(torch, report["timings"])
         proof_launches = dict(cp.LAUNCHES)
+        # the large-n path: launches counted from 0 over (a)-(g), from empty
+        # handle caches; then (h), the kernels against their plain versions
+        clear_handles(torch)
+        cp.reset_launches()
+        large = phase_large_n(torch, report["timings"])
+        large_launches = dict(cp.LAUNCHES)
+        large_instances = dict(cp.INSTANCE_LAUNCHES)
+        results.update(phase_large_kernels(torch, torch.device("cuda"), large["rows24"]))
         for name in cp.KERNELS:
-            results[name]["launches"] = (proof_launches if name in PROOF_KERNELS else commit_launches)[name]
+            path = (large_launches if name in LARGE_KERNELS else
+                    proof_launches if name in PROOF_KERNELS else commit_launches)
+            results[name]["launches"] = path[name]
             results[name]["launches_commitment_path"] = commit_launches[name]
             results[name]["launches_proof_path"] = proof_launches[name]
+            results[name]["launches_large_n_path"] = large_launches[name]
             # launches in the cold 2^20 commitment: ristretto255 for the
             # Edwards kernels, bn254 G1 for the Weierstrass ones
             results[name]["launches_per_2^20_commitment"] = per_commitment.get(name)
-        commit_kernels = [k for k in cp.KERNELS if k not in PROOF_KERNELS]
+        results["tree_reduce_lanes"]["launches_large_n_path_by_curve"] = {
+            k.split("/")[1]: v for k, v in large_instances.items() if k.startswith("tree_reduce_lanes/")}
+        commit_kernels = [k for k in cp.KERNELS if k not in PROOF_KERNELS and k not in LARGE_KERNELS]
         check(all(commit_launches[k] > 0 for k in commit_kernels),
               f"every commitment kernel launched on the commitment path: {commit_launches}")
         check(all(proof_launches[k] > 0 for k in PROOF_PATH_KERNELS),
               f"every proof kernel launched on the proof path: {proof_launches}")
+        check(all(large_launches[k] > 0 for k in LARGE_KERNELS) and all(large_instances.get(k, 0) > 0
+                                                                         for k in LARGE_INSTANCES),
+              f"every streamed-path kernel and instantiation launched on the large-n path: {large_instances}")
         report["kernels"] = [results[k] for k in cp.KERNELS]
         report["card"] = card
         report["device"] = torch.cuda.get_device_name(0)

@@ -150,6 +150,8 @@ def _port_files():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the card-only tests run where jax is not installed
+    yield os.path.join(REPO, "tests", "test_torch_cuda.py")
 
 
 def test_port_sources_import_no_jax():
@@ -184,6 +186,21 @@ def test_import_loads_neither_jax_nor_blitzar_tpu():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd="/", timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("[]"), out.stdout
+
+
+def test_every_launcher_has_its_signature():
+    """Each C launcher of csrc/*.cu (the streamed path's build_cached_table
+    and tree_reduce_lanes included) has its ctypes signature in ops/build.py,
+    and each signature its launcher, with as many arguments."""
+    import re
+
+    from blitzar_tpu_torch.ops import build
+
+    found = {}
+    for src in build.sources():
+        for name, params in re.findall(r'extern "C" int (btt_\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    assert {k: len(v) for k, v in build.SIGNATURES.items()} == found
 
 
 # ---------------------------------------------------------------------------

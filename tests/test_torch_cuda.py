@@ -17,7 +17,6 @@ from blitzar_tpu_torch.curves import ristretto as rst
 from blitzar_tpu_torch.fields import fp25519 as F
 from blitzar_tpu_torch.msm import engine
 from blitzar_tpu_torch.ops import cuda_point as cp
-from blitzar_tpu_torch.utils.limbs import to_tensor
 
 pytestmark = pytest.mark.cuda
 
@@ -36,8 +35,7 @@ def _same(a: ed.PointP3, b: ed.PointP3) -> bool:
 
 
 def _r(count: int, seed: int):
-    r0, r1 = generators._xorshift_limbs(np.arange(seed, seed + count, dtype=np.uint64))
-    return to_tensor(r0), to_tensor(r1)
+    return generators._xorshift_limbs(torch.arange(seed, seed + count))
 
 
 def test_elligator_form_kernel(dev):
@@ -252,3 +250,81 @@ def test_inner_product_on_cuda_matches_cpu(dev):
     assert api.verify_inner_product(Transcript(b"ipa-vec"), n, 0, b, product, a_commit, *got)
     assert not api.verify_inner_product(Transcript(b"ipa-vec"), n, 0, b, product, a_commit, got[0], got[1], got[2] + 1)
     api.reset_backend_for_testing()
+
+
+# ---------------------------------------------------------------------------
+# the streamed path's kernels: the cached table build, the cached lookup and
+# the lane tree reduce (all four curves)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("w", [4, 8])
+@pytest.mark.parametrize("signed", [False, True])
+def test_cached_table_and_lookup_kernels(dev, w, signed):
+    """The cached table limb for limb; the cached lookup on a chunk's slice
+    of a longer three-output upload (the row stride of a streamed query)."""
+    n = 6 * w
+    pts = cp.elligator_form_plain(*_r(n, 3))
+    table = cp.build_cached_table_plain(pts, w)
+    got_table = cp.build_cached_table(_on(pts, dev), w)
+    assert torch.equal(got_table.cpu(), table)
+    rng = np.random.default_rng(w)
+    upload = torch.from_numpy(rng.integers(0, 256, size=(3, 3 * n, 2), dtype=np.uint8))
+    signs = torch.from_numpy(rng.integers(0, 2, size=(3, 3 * n), dtype=np.uint8)) if signed else None
+    chunk = slice(n, 2 * n)
+    want = cp.ed_lookup_msm_plain(table, upload[:, chunk], None if signs is None else signs[:, chunk], w)
+    before = cp.LAUNCHES["ed_lookup_msm_cached"]
+    got = cp.ed_lookup_msm(got_table, upload.to(dev)[:, chunk], None if signs is None else signs.to(dev)[:, chunk], w)
+    assert _same(got, want) and cp.LAUNCHES["ed_lookup_msm_cached"] == before + 1
+
+
+@pytest.mark.parametrize("size", [1, 3, 300])
+def test_tree_reduce_lanes_kernel(dev, size):
+    pts = ed.reshape_batch(cp.elligator_form_plain(*_r(size * 5, 11)), (size, 5))
+    got = cp.tree_reduce_lanes(_on(pts, dev))
+    assert bool(ed.points_equal(_on(got, "cpu"), cp.tree_reduce_lanes_plain(pts)).all())
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+@pytest.mark.parametrize("size", [1, 300])
+def test_w_tree_reduce_lanes_kernel(dev, curve, size):
+    pts = curve.from_affine_ints(curve.oracle.random_points(size * 4 - 1, seed=size) + [None], "cpu")
+    batch = curve.reshape_batch(pts, (size, 4))
+    got = cw.w_tree_reduce_lanes(curve, _on(batch, dev))
+    assert curve.to_affine_ints(_on(got, "cpu")) == curve.to_affine_ints(cw.w_tree_reduce_lanes_plain(curve, batch))
+
+
+@pytest.mark.parametrize("curve", [ed] + list(wc.CURVES), ids=lambda c: getattr(c, "name", "ristretto255"))
+def test_streaming_on_cuda_matches_cpu(dev, monkeypatch, curve):
+    """A streamed MSM in 64-point chunks (the last one short), signed, on
+    the card and on the CPU."""
+    from blitzar_tpu_torch.msm import fixed
+
+    monkeypatch.setattr(fixed, "STREAM_CHUNK_POINTS", 64)
+    n = 150
+    if curve is ed:
+        pts = cp.elligator_form_plain(*_r(n, 5))
+    else:
+        pts = curve.from_affine_ints(curve.oracle.random_points(n, seed=9), "cpu")
+    rng = np.random.default_rng(10)
+    scalars = rng.integers(0, 256, size=(2, n, 4), dtype=np.uint8)
+    signs = rng.integers(0, 2, size=(2, n), dtype=np.uint8)
+    got = fixed.streaming_multiexponentiation(_on(pts, dev), scalars, curve, signs=signs)
+    want = fixed.streaming_multiexponentiation(pts, scalars, curve, signs=signs)
+    if curve is ed:
+        assert np.array_equal(rst.encode(_on(got, "cpu")).numpy(), rst.encode(want).numpy())
+    else:
+        assert curve.to_affine_ints(_on(got, "cpu")) == curve.to_affine_ints(want)
+
+
+def test_one_commitment_on_cuda_matches_cpu(dev):
+    """2500 generators: two lane reduces on the card over rows of 1024
+    padded with identities, against the plain halving tree on the CPU."""
+    generators.CACHE.reset()
+    before = cp.LAUNCHES["tree_reduce_lanes"]
+    got = generators.one_commitment(2500, dev)
+    assert cp.LAUNCHES["tree_reduce_lanes"] == before + 2
+    want = generators.one_commitment(2500, "cpu")
+    generators.CACHE.reset()
+    assert bytes(rst.encode(_on(ed.PointP3(*(c[:, None] for c in got)), "cpu")).numpy()) == bytes(
+        rst.encode(ed.PointP3(*(c[:, None] for c in want))).numpy())

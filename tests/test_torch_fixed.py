@@ -121,10 +121,12 @@ def test_lookup_chunks_cover_every_group():
 
 
 def test_beyond_handle_range_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfixed.MultiexpHandle(TGENS, n=tfixed.MAX_HANDLE_POINTS + 1)
-    data = [np.zeros((tfixed.MAX_HANDLE_POINTS + 1, 1), np.uint8)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """No size cap is left: above 2^20 the engine streams and a handle takes
+    any n the card holds. What still raises is an MSM over more scalars than
+    generators, the streamed size included."""
+    assert not hasattr(tfixed, "MAX_HANDLE_POINTS") and not hasattr(tfixed, "STREAMING_TODO")
+    data = [np.zeros((tengine.STREAM_ABOVE + 1, 1), np.uint8)]
+    with pytest.raises(ValueError, match="generators"):
         tengine.msm(TGENS, data, [1], [False])
 
 

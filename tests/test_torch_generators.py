@@ -4,6 +4,7 @@ and the one commitment."""
 
 import numpy as np
 import pytest
+import torch
 
 from blitzar_tpu import generators as jgen
 from blitzar_tpu.refimpl import core as R
@@ -20,11 +21,14 @@ def _canon_jax(p) -> np.ndarray:
 
 
 def test_xorshift_limbs_match_jax():
-    idx = np.concatenate([np.arange(50), np.array([2**32 - 1, 2**32, 2**40 + 3, 2**63])]).astype(np.uint64)
-    got = tgen._xorshift_limbs(idx)
+    """The port derives in torch int64 (32-bit halves), blitzar_tpu in numpy
+    uint64: the same limbs, the indices' top bit and wrap included."""
+    tops = np.array([2**32 - 1, 2**32, 2**40 + 3, 2**63, 2**64 - 2, 2**64 - 1], dtype=np.uint64)
+    idx = np.concatenate([np.arange(50, dtype=np.uint64), tops])
+    got = tgen._xorshift_limbs(torch.from_numpy(idx.view(np.int64)))
     want = jgen._xorshift_limbs(idx)
     for g, w in zip(got, want):
-        assert g.dtype == np.uint32 and np.array_equal(g, w)
+        assert g.dtype == torch.int32 and np.array_equal(g.numpy().astype(np.uint32), w)
 
 
 @pytest.mark.parametrize("offset", [0, 5])
@@ -48,4 +52,17 @@ def test_prefix_cache_and_one_commitment():
     enc = trst.encode(ted.PointP3(*(c[:, None] for c in one)))
     assert bytes(enc[:, 0].numpy()) == R.ristretto_encode(acc)
     assert bytes(trst.encode(tgen.one_commitment(0, device="cpu")).numpy()) == bytes(32)
+    tgen.CACHE.reset()
+
+
+def test_one_commitment_pads_its_lanes(monkeypatch):
+    """n not a multiple of the lane count: identities fill the last row."""
+    monkeypatch.setattr(tgen, "_ONE_COMMIT_LANES", 3)
+    tgen.CACHE.reset()
+    acc = R.IDENTITY
+    for i in range(7):
+        acc = R.pt_add(acc, R.compute_base_element(i))
+    one = tgen.one_commitment(7, device="cpu")
+    enc = trst.encode(ted.PointP3(*(c[:, None] for c in one)))
+    assert bytes(enc[:, 0].numpy()) == R.ristretto_encode(acc)
     tgen.CACHE.reset()

@@ -1,5 +1,5 @@
 """The kernels' own arithmetic (csrc/fp25519.cuh, csrc/edwards25519.cuh,
-csrc/mont.cuh, csrc/weierstrass.cuh), compiled for the host with g++ through
+csrc/mont.cuh, csrc/weierstrass.cuh, csrc/tree_reduce.cuh), compiled for the host with g++ through
 csrc/host_harness.cpp, against blitzar_tpu (curve25519) and the plain
 PyTorch versions (the Montgomery fields and the Weierstrass curves, which
 tests/test_torch_mont.py and tests/test_torch_weierstrass.py hold against
@@ -22,7 +22,7 @@ from blitzar_tpu.curves import edwards25519 as jed
 from blitzar_tpu.fields import fp25519 as JF
 from blitzar_tpu_torch.curves import edwards25519 as ted
 from blitzar_tpu_torch.curves import weierstrass as wc
-from blitzar_tpu_torch.ops import build, cuda_point
+from blitzar_tpu_torch.ops import build, cuda_point, cuda_wpoint
 from blitzar_tpu_torch.utils.limbs import ints_to_limbs, to_jax_points, to_tensor
 
 P = 2**255 - 19
@@ -127,6 +127,56 @@ def test_madd_and_to_niels_match(harness):
     got = _run(harness.btt_host_ed_madd, p, niels, out_shape=p.shape)
     jn = jed.Niels(*(jnp.asarray(c.astype(np.uint32)) for c in niels))
     assert np.array_equal(got.astype(np.uint32), _canon_point(jed._madd_impl(_jax_point(p), jn)))
+
+
+def test_cadd_and_to_cached_match(harness):
+    """ge_to_cached and the 8-multiply ge_cadd (doublings among the pairs)
+    against blitzar_tpu's to_cached and _cadd_impl; canonical limbs."""
+    p, _ = _points(8)
+    q, _ = _points(9)
+    q[:, :, :4] = p[:, :, :4]
+    cached = _run(harness.btt_host_to_cached, q, out_shape=(4,) + q.shape[1:])
+    tq = ted.PointP3(*(to_tensor(c) for c in q))
+    want_cached = np.stack([c.numpy() for c in cuda_point.unpack_cached(cuda_point.pack_cached(ted.to_cached(tq)))])
+    assert np.array_equal(cached, want_cached)
+    assert np.array_equal(cached.astype(np.uint32), _canon_point(jed.to_cached(_jax_point(q))))
+    got = _run(harness.btt_host_ed_cadd, p, cached, out_shape=p.shape)
+    jc = jed.Cached(*(jnp.asarray(c.astype(np.uint32)) for c in cached))
+    assert np.array_equal(got.astype(np.uint32), _canon_point(jed._cadd_impl(_jax_point(p), jc)))
+
+
+def _tree_input(curve, size: int, cols: int):
+    """A (size, cols) batch of curve points (an identity among them) as the
+    harness's (coords, nlimbs, size * cols) array, and the port's batch."""
+    if curve is None:
+        pts, _ = _points(10 + size, count=size * cols)
+        pts[:, :, 1] = to_jax_points(ted.identity((1,)))[:, :, 0]
+        batch = ted.reshape_batch(ted.PointP3(*(to_tensor(c) for c in pts)), (size, cols))
+        return pts, batch
+    batch = curve.from_affine_ints(curve.oracle.random_points(size * cols - 1, seed=size) + [None], "cpu")
+    return _stack(batch), curve.reshape_batch(batch, (size, cols))
+
+
+@pytest.mark.parametrize("curve", [None] + list(wc.CURVES), ids=lambda c: "ristretto255" if c is None else c.name)
+@pytest.mark.parametrize("size", [1, 3, 300])
+def test_tree_reduce_lanes_body_matches_plain(harness, curve, size):
+    """tree_reduce_lanes.cu's block, run by the harness column by column
+    (the threads' strided serial sums, then the halving levels; 300 rows
+    take 128 threads of 2-3 elements): the plain version's point."""
+    cols = 2
+    arr, batch = _tree_input(curve, size, cols)
+    curve_id = 0 if curve is None else curve.kernel_id
+    out = np.zeros(arr.shape[:2] + (cols,), np.int32)
+    rc = harness.btt_host_tree_reduce(ctypes.c_int(curve_id), ctypes.c_void_p(np.ascontiguousarray(arr).ctypes.data),
+                                      ctypes.c_int64(size), ctypes.c_int64(cols), ctypes.c_void_p(out.ctypes.data))
+    assert rc == 0
+    got = type(batch)(*(torch.from_numpy(c) for c in out))
+    if curve is None:
+        want = cuda_point.tree_reduce_lanes_plain(batch)
+        assert bool(ted.points_equal(got, want).all())
+    else:
+        want = cuda_wpoint.w_tree_reduce_lanes_plain(curve, batch)
+        assert curve.to_affine_ints(got) == curve.to_affine_ints(want)
 
 
 def test_elligator_form_matches_plain(harness):
