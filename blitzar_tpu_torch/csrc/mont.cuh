@@ -92,6 +92,11 @@ struct Scalar25519 {
 // field Bn254Fr.
 constexpr int kFieldScalar255 = 0;
 constexpr int kFieldGrumpkin = 1;
+// mont_mul_ew also serves the base fields of bn254 G1 and bls12-381 G1 (the
+// batch inversion that puts a Weierstrass table in affine form), by ids of
+// the port's own after the C ABI's; Grumpkin's base field is Bn254Fr.
+constexpr int kFieldBn254Fp = 2;
+constexpr int kFieldBls12381Fp = 3;
 
 struct Bls12381Fp {
   static constexpr int K = 12;

@@ -4,7 +4,9 @@
 // Replaces blitzar_tpu/ops/pallas_point.py:mont_mul_ew (:1139, body
 // _mont_mul_body_factory :1128) for the curve25519 scalar field (every
 // full-width scalar multiply of the IPA) and the Grumpkin base field, picked
-// by the field's C ABI id. The TPU version pads to 1024-lane blocks
+// by the field's C ABI id, and for the base fields of bn254 G1 and bls12-381
+// G1 (ids 2 and 3: the scans of a Weierstrass table's batch inversion, which
+// blitzar_tpu/msm/interop.py:_w_affine_xy runs in plain jnp). The TPU version pads to 1024-lane blocks
 // (MONT_SUM_BLK); this one computes the function on any count.
 //
 // b must be canonical (below m); a may be any K-word value below R
@@ -42,7 +44,8 @@ void launch(const int32_t* a, int64_t a_stride, const int32_t* b, int64_t b_stri
 
 }  // namespace
 
-// field: 0 SXT_FIELD_SCALAR255, 1 SXT_FIELD_GRUMPKIN. a: (2K, count) int32
+// field: 0 SXT_FIELD_SCALAR255, 1 SXT_FIELD_GRUMPKIN (the Grumpkin base
+// field), 2 the bn254 base field, 3 the bls12-381 base field. a: (2K, count) int32
 // limbs at a_stride; b: 2K limbs at b_stride, element i at b + i * b_step
 // (b_step 0: broadcast); out: (2K, count) contiguous.
 extern "C" int btt_mont_mul_ew(int field, const void* a, int64_t a_stride, const void* b, int64_t b_stride,
@@ -54,6 +57,8 @@ extern "C" int btt_mont_mul_ew(int field, const void* a, int64_t a_stride, const
     switch (field) {
       case kFieldScalar255: launch<Scalar25519>(pa, a_stride, pb, b_stride, b_step, count, (int32_t*)out, s); break;
       case kFieldGrumpkin: launch<Bn254Fr>(pa, a_stride, pb, b_stride, b_step, count, (int32_t*)out, s); break;
+      case kFieldBn254Fp: launch<Bn254Fp>(pa, a_stride, pb, b_stride, b_step, count, (int32_t*)out, s); break;
+      case kFieldBls12381Fp: launch<Bls12381Fp>(pa, a_stride, pb, b_stride, b_step, count, (int32_t*)out, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }

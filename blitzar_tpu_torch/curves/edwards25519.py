@@ -17,6 +17,8 @@ import torch
 
 from ..fields import fp25519 as F
 
+# the curve's name in handle files (blitzar_tpu/curves/edwards25519.py:63)
+name = "curve25519"
 P = F.P
 D_INT = (-121665 * pow(121666, P - 2, P)) % P
 D2_INT = (2 * D_INT) % P
@@ -129,25 +131,41 @@ def _double_impl(p: PointP3) -> PointP3:
     return PointP3(F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
 
 
-def affine_to_niels(x, y) -> Niels:
-    return Niels(F.add(y, x), F.sub(y, x), F.mul_const(F.mul(x, y), D2_INT))
+def _const(value: int, like: torch.Tensor) -> torch.Tensor:
+    """A field constant as (16, 1, ..), broadcast over ``like``'s batch."""
+    return F.from_int(value, (1,) * (like.dim() - 1), like.device)
 
 
-def to_niels(p: PointP3) -> Niels:
-    """Extended -> affine niels (one inversion per element, skipped when
-    every z is already 1)."""
-    if bool(F.eq(p.z, F.from_int(1, (1,) * (p.z.dim() - 1), p.z.device)).all()):
-        return affine_to_niels(p.x, p.y)
-    zinv = F.invert(p.z)
-    return affine_to_niels(F.mul(p.x, zinv), F.mul(p.y, zinv))
+# The table conversions below take the field's elementwise multiply (and
+# inversion) as arguments, the plain ones by default: over a table on the
+# card ``msm/fixed.py`` passes the ``fmul`` kernel and the batch inversion on
+# the ``fmul`` / ``finvert`` kernels (``ops/cuda_field.py``).
 
 
-def niels_to_p3(n: Niels) -> PointP3:
-    """(a, b, 2d*t) -> (x, y, 1, t) with x = (a-b)/2, y = (a+b)/2."""
-    x = F.mul_const(F.sub(n.a, n.b), INV2_INT)
-    y = F.mul_const(F.add(n.a, n.b), INV2_INT)
+def affine_to_niels(x, y, mul=F.mul) -> Niels:
+    """Affine (x, y) -> niels (y + x, y - x, 2d*x*y)."""
+    return Niels(F.add(y, x), F.sub(y, x), mul(mul(x, y), _const(D2_INT, x)))
+
+
+def to_niels(p: PointP3, mul=F.mul, invert=F.invert) -> Niels:
+    """Extended -> affine niels: z^-1 by ``invert`` (plain: one inversion per
+    element; a batch inversion along the last axis gives the same values),
+    then x/z, y/z and :func:`affine_to_niels`."""
+    zinv = invert(p.z)
+    return affine_to_niels(mul(p.x, zinv), mul(p.y, zinv), mul)
+
+
+def niels_to_affine(n: Niels, mul=F.mul):
+    """(a, b, 2d*t) -> affine (x, y) with x = (a-b)/2, y = (a+b)/2."""
+    inv2 = _const(INV2_INT, n.a)
+    return mul(F.sub(n.a, n.b), inv2), mul(F.add(n.a, n.b), inv2)
+
+
+def niels_to_p3(n: Niels, mul=F.mul) -> PointP3:
+    """(a, b, 2d*t) -> extended (x, y, 1, t)."""
+    x, y = niels_to_affine(n, mul)
     one = F.from_int(1, x.shape[1:], x.device)
-    return PointP3(x, y, one, F.mul_const(n.t, INV_D2_INT))
+    return PointP3(x, y, one, mul(n.t, _const(INV_D2_INT, n.t)))
 
 
 def to_cached(p: PointP3) -> Cached:

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from . import batch_invert
+
 NLIMBS = 16
 LIMB_BITS = 16
 MASK = 0xFFFF
@@ -153,6 +155,13 @@ def pow22523(a):
     """a^((p-5)/8) = a^(2^252 - 3)."""
     z2_250_0, _ = _pow_chain_250(a)
     return mul(pow2k(z2_250_0, 2), a)
+
+
+def batch_invert_lanes(z, mul=mul, invert=invert):
+    """1/z for a (16, *rows, V) batch of nonzero elements by Montgomery's
+    trick along the last axis (``fields/batch_invert.py``), on this field's
+    plain ops by default; ``ops/cuda_field.py`` passes its kernels."""
+    return batch_invert.batch_invert_lanes(z, mul, invert)
 
 
 def _carry_exact(rows: list) -> tuple[list, torch.Tensor]:

@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from . import batch_invert
+
 MASK = 0xFFFF
 
 
@@ -214,6 +216,20 @@ class MontField:
     def inv(self, a: torch.Tensor) -> torch.Tensor:
         """a^(m-2); 0 maps to 0."""
         return self.pow_const(a, self.modulus - 2)
+
+    def batch_invert_lanes(self, z: torch.Tensor, mul=None) -> torch.Tensor:
+        """1/z for an (nlimbs, *rows, V) batch, 0 -> 0, by Montgomery's trick
+        along the last axis (``fields/batch_invert.py``): the form of
+        blitzar_tpu/msm/interop.py:59-78, whose zeros are a Weierstrass
+        table's identity entries. Zeros stand as one in the scans and are
+        masked after. ``mul`` (default :meth:`mul`) runs the 3 (V - 1) scan
+        multiplies, each over (nlimbs, rows) (on the card the ``mont_mul_ew``
+        kernel); each row's total is inverted by :meth:`inv`, in plain
+        PyTorch."""
+        nonzero = ~self.is_zero(z)
+        z_safe = torch.where(nonzero.unsqueeze(0), z, self.one((1,) * (z.dim() - 1), z.device))
+        inv = batch_invert.batch_invert_lanes(z_safe, mul or self.mul, self.inv)
+        return torch.where(nonzero.unsqueeze(0), inv, 0)
 
     # -- predicates and selection --------------------------------------------
 

@@ -8,16 +8,38 @@ plain PyTorch integer ops (as blitzar_tpu/generators.py:217-289 derives
 large batches on its device), so 2^24 generators need no host arrays; the
 elligator maps and the add run in the ``elligator_form`` kernel on the card
 (its plain version on the CPU).
+
+Derived generators are constants, so a prefix of them can be kept on disk
+(blitzar_tpu/generators.py:30-178, in the same files): under ``DISK_DIR``
+(``BLITZAR_TPU_TORCH_GENERATOR_CACHE_DIR``; unset or "" leaves the cache
+off, since on the H100 a derivation is faster than a load, PERF.md),
+``ristretto_gen_a_<n>.npy`` holds the affine x and y of the first n
+generators as (2, 16, n) uint16 canonical limbs. A derivation from offset 0
+of a multiple of ``DISK_CHUNK`` generators saves one (``finvert`` of z, two
+``fmul``); one from offset 0 loads the smallest saved prefix that covers it
+(t = ``fmul`` of x and y, z = 1), or derives if none does. blitzar_tpu's
+legacy extended files (``ristretto_gen_<n>.npy``, (4, 16, n) uint32) are
+read too, their z normalised to 1 (``finvert``).
 """
 
 from __future__ import annotations
 
+import os
+import re
+import tempfile
+
+import numpy as np
 import torch
 
 from .curves import edwards25519 as ed
-from .ops import cuda_point
+from .fields import fp25519 as F
+from .ops import cuda_field, cuda_point
 
 _M32 = 0xFFFFFFFF
+
+DISK_DIR = os.environ.get("BLITZAR_TPU_TORCH_GENERATOR_CACHE_DIR", "")
+# saves happen for multiples of this count (blitzar_tpu/generators.py:301)
+DISK_CHUNK = 1 << 16
 
 
 def _xorshift_limbs(indices: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -63,12 +85,85 @@ def _xorshift_limbs(indices: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return to_limbs(outs[0:4]), to_limbs(outs[4:8])
 
 
+_CACHE_FILE = re.compile(r"ristretto_gen_(a_)?(\d+)\.npy")
+
+
+def _disk_files(n: int):
+    """(count, affine, path) of the smallest cached prefix with count >= n
+    (an affine file before a legacy one of the same count), or None."""
+    if not DISK_DIR or not os.path.isdir(DISK_DIR):
+        return None
+    found = []
+    for name in os.listdir(DISK_DIR):
+        m = _CACHE_FILE.fullmatch(name)
+        if m and int(m[2]) >= n:
+            found.append((int(m[2]), m[1] is None, name))
+    if not found:
+        return None
+    count, legacy, name = min(found)
+    return count, not legacy, os.path.join(DISK_DIR, name)
+
+
+def _disk_load(n: int, device) -> ed.PointP3 | None:
+    """The first n generators from the smallest cached prefix that covers
+    them, as (x, y, 1, x y) on ``device``; None if there is none or it does
+    not read."""
+    found = _disk_files(n)
+    if found is None:
+        return None
+    count, affine, path = found
+    try:
+        arr = np.load(path, mmap_mode="r")
+    except (OSError, ValueError):
+        return None
+    shape, dtype = ((2, 16, count), np.uint16) if affine else ((4, 16, count), np.uint32)
+    if arr.shape != shape or arr.dtype != dtype:
+        return None
+    coords = [torch.from_numpy(arr[k, :, :n].astype(np.int32)).to(device) for k in range(shape[0])]
+    x, y = coords[:2]
+    if not affine:  # a legacy extended file: normalise z to 1
+        zinv = cuda_field.finvert(coords[2])
+        x, y = cuda_field.fmul(x, zinv), cuda_field.fmul(y, zinv)
+    return ed.PointP3(x, y, F.from_int(1, (n,), device), cuda_field.fmul(x, y))
+
+
+def _disk_save(points: ed.PointP3, n: int) -> None:
+    """Save the affine x, y of the first n generators (blitzar_tpu's
+    _disk_save, generators.py:162-174): ``finvert`` of z, two ``fmul``, a
+    temporary file and ``os.replace``; an OSError skips the save."""
+    if not DISK_DIR:
+        return
+    path = os.path.join(DISK_DIR, f"ristretto_gen_a_{n}.npy")
+    if os.path.exists(path):
+        return
+    zinv = cuda_field.finvert(points.z)
+    xy = [F.canonicalize(cuda_field.fmul(c, zinv)).cpu().numpy().astype(np.uint16) for c in (points.x, points.y)]
+    tmp = None
+    try:
+        os.makedirs(DISK_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=DISK_DIR, suffix=".npy")
+        with os.fdopen(fd, "wb") as f:
+            np.save(f, np.stack(xy))
+        os.replace(tmp, path)
+    except OSError:
+        if tmp is not None and os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def ristretto_generators(n: int, offset: int = 0, device="cuda") -> ed.PointP3:
-    """The canonical generators [offset, offset + n) as a (16, n) batch."""
+    """The canonical generators [offset, offset + n) as a (16, n) batch; from
+    offset 0 through the disk cache (module docstring)."""
     if n == 0:
         return ed.identity((0,), device)
+    if offset == 0:
+        cached = _disk_load(n, device)
+        if cached is not None:
+            return cached
     r0, r1 = _xorshift_limbs(torch.arange(offset, offset + n, dtype=torch.int64, device=device))
-    return cuda_point.elligator_form(r0, r1)
+    points = cuda_point.elligator_form(r0, r1)
+    if offset == 0 and n % DISK_CHUNK == 0:
+        _disk_save(points, n)
+    return points
 
 
 class _GeneratorCache:

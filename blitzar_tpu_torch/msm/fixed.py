@@ -29,15 +29,28 @@ Scalar bits are LSB-first; row r = o * nbits + b; group g covers points
 g*w .. g*w + w - 1. Signed queries run the positive and the negative rows in
 one table pass and return Q_pos - Q_neg. Identity points and zero scalars
 pad a table to whole groups: they select entry 0.
+
+A handle goes to and comes from files (:meth:`MultiexpHandle.write_to_file`,
+:meth:`MultiexpHandle.new_from_file`): blitzar_tpu's npz of the point table,
+or the reference's raw format (``msm/interop.py``). A ristretto255 point
+table becomes niels entries by a batch inversion of z along each group's
+entries, on the ``fmul`` and ``finvert`` kernels (``ops/cuda_field.py``),
+``TABLE_CHUNK_ENTRIES`` entries at a time. Packed and vlen queries
+(:func:`fixed_packed_multiexponentiation`,
+:func:`fixed_vlen_multiexponentiation`) run as one query of the packed
+bytes, whose bit-row products are then picked per output.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..curves import edwards25519 as ed
-from ..ops import cuda_point, cuda_wpoint
+from ..fields import fp25519 as F
+from ..ops import cuda_field, cuda_point, cuda_wpoint
 
 # the default of blitzar_tpu/msm/fixed.py:51-54: 2^8 entries per group of 8
 DEFAULT_WINDOW_WIDTH = 8
@@ -48,6 +61,60 @@ DEFAULT_WINDOW_WIDTH = 8
 # lookup fills the card (2^15 groups split over 1024 chunks of 32 for a
 # 256-row query)
 STREAM_CHUNK_POINTS = 1 << 18
+
+# table entries a conversion (points to niels entries and back, files) holds
+# at once: whole groups, 2^14 of them at w = 8; each (16, entries) int32
+# coordinate is 256 MiB, the plain adds' int64 temporaries twice that
+TABLE_CHUNK_ENTRIES = 1 << 22
+# entries a row of a table's batch inversion holds at most
+INVERT_LANES = 256
+
+
+def table_chunks(groups: int, entries: int):
+    """Slices of whole groups of ``entries`` entries each, at most
+    ``TABLE_CHUNK_ENTRIES`` entries a slice (at least one group)."""
+    step = max(1, TABLE_CHUNK_ENTRIES // max(entries, 1))
+    return [slice(lo, min(lo + step, groups)) for lo in range(0, groups, step)]
+
+
+def lane_rows(t: torch.Tensor) -> torch.Tensor:
+    """A (nlimbs, g, V) table coordinate as (nlimbs, rows, L) rows of L =
+    min(V, ``INVERT_LANES``) entries, the rows of a batch inversion: any
+    split of the entries gives the same inverses, and rows of 256 keep its
+    scans at 3 x 255 launches however large V (2^16 in the reference's
+    default files) and its row totals few."""
+    return t.reshape(t.shape[0], -1, min(t.shape[-1], INVERT_LANES))
+
+
+def _invert_z(z: torch.Tensor) -> torch.Tensor:
+    return cuda_field.batch_invert_lanes(lane_rows(z)).reshape(z.shape)
+
+
+def niels_table(table: ed.PointP3) -> torch.Tensor:
+    """(16, G, V) extended points -> (G, V, 3, 8) niels words
+    (blitzar_tpu/msm/fixed.py:197-220), chunk by chunk: z inverted by a batch
+    inversion over :func:`lane_rows` (``cuda_field``: the ``fmul`` and
+    ``finvert`` kernels on the card, plain on the CPU), then x/z, y/z and
+    (y + x, y - x, 2d*x*y)."""
+    groups, entries = table.x.shape[1], table.x.shape[2]
+    out = torch.empty((groups, entries, 3, 8), dtype=torch.int32, device=table.x.device)
+    for sl in table_chunks(groups, entries):
+        part = ed.index_batch(table, sl)
+        out[sl] = cuda_point.pack_niels(ed.to_niels(part, cuda_field.fmul, _invert_z))
+    return out
+
+
+def niels_point_table(words: torch.Tensor) -> ed.PointP3:
+    """(G, V, 3, 8) niels words -> (16, G, V) canonical extended points
+    (x, y, 1, t), chunk by chunk, the multiplies on ``fmul``."""
+    groups, entries = words.shape[0], words.shape[1]
+    out = ed.PointP3(*(torch.empty((F.NLIMBS, groups, entries), dtype=torch.int32, device=words.device)
+                       for _ in range(4)))
+    for sl in table_chunks(groups, entries):
+        part = ed.niels_to_p3(cuda_point.unpack_niels(words[sl]), cuda_field.fmul)
+        for dst, src in zip(out, part):
+            dst[:, sl] = F.canonicalize(src)
+    return out
 
 
 class MultiexpHandle:
@@ -79,12 +146,11 @@ class MultiexpHandle:
         return self.table.device
 
     @classmethod
-    def from_point_table(cls, table, n: int | None = None, curve=ed) -> "MultiexpHandle":
-        """Handle from a (nlimbs, G, V) point table of subset sums (the form
-        blitzar_tpu saves): extended points, re-encoded as niels entries, for
-        ristretto255; projective points, packed as they are, for a
-        Weierstrass curve."""
-        groups, entries = table.x.shape[1], table.x.shape[2]
+    def from_table(cls, table: torch.Tensor, curve=ed, n: int | None = None) -> "MultiexpHandle":
+        """Handle around a (G, 2^w, coords, words) table in the port's entry
+        layout (niels words for ristretto255, projective words for a
+        Weierstrass curve); n defaults to G * w."""
+        groups, entries = table.shape[0], table.shape[1]
         w = entries.bit_length() - 1
         if entries != 1 << w:
             raise ValueError(f"table has {entries} entries per group, not a power of two")
@@ -93,18 +159,64 @@ class MultiexpHandle:
         obj.window_width = w
         obj.num_groups = groups
         obj.n = int(n if n is not None else groups * w)
-        if curve is ed:
-            obj.table = cuda_point.pack_niels(ed.to_niels(table))
-        else:
-            obj.table = cuda_wpoint.pack_points(table)
+        obj.table = table
         return obj
 
+    @classmethod
+    def from_point_table(cls, table, n: int | None = None, curve=ed) -> "MultiexpHandle":
+        """Handle from a (nlimbs, G, V) point table of subset sums (the form
+        blitzar_tpu saves): extended points, re-encoded as niels entries
+        (:func:`niels_table`), for ristretto255; projective points, packed as
+        they are, for a Weierstrass curve."""
+        words = niels_table(table) if curve is ed else cuda_wpoint.pack_points(table)
+        return cls.from_table(words, curve, n)
+
     def point_table(self):
-        """The table as (nlimbs, G, V) points: extended (z = 1) for
+        """The table as (nlimbs, G, V) points: canonical extended (z = 1) for
         ristretto255, projective as stored for a Weierstrass curve."""
         if self.curve is ed:
-            return ed.niels_to_p3(cuda_point.unpack_niels(self.table))
+            return niels_point_table(self.table)
         return cuda_wpoint.unpack_points(self.table)
+
+    # -- files (blitzar_tpu/msm/fixed.py:397-456) ---------------------------
+
+    def write_to_file(self, path: str) -> None:
+        """blitzar_tpu's npz: ``curve`` (the curve's name), ``window_width``,
+        ``n`` and ``coord{i}``, the point table's (nlimbs, G, V) uint32
+        limbs (canonical), so blitzar_tpu reads it too. ".npz" is appended
+        to a path without it, as np.savez does."""
+        table = self.point_table()
+        np.savez(
+            path if path.endswith(".npz") else path + ".npz",
+            curve=self.curve.name,
+            window_width=self.window_width,
+            n=self.n,
+            **{f"coord{i}": c.cpu().numpy().astype(np.uint32) for i, c in enumerate(table)},
+        )
+
+    @classmethod
+    def new_from_file(cls, path: str, curve=ed, device="cuda") -> "MultiexpHandle":
+        """A handle from a file: blitzar_tpu's npz (a path ending in ".npz",
+        or one whose file starts with the zip magic "PK", or that exists only
+        with ".npz" appended), or else the reference's raw format
+        (``msm/interop.py``). The table goes to ``device`` (the card unless
+        the caller asks for the CPU)."""
+        if os.path.exists(path) and not path.endswith(".npz"):
+            with open(path, "rb") as f:
+                if f.read(2) != b"PK":
+                    from . import interop
+
+                    return interop.read_reference_file(path, curve, device)
+        with np.load(path if path.endswith(".npz") or os.path.exists(path) else path + ".npz") as data:
+            if str(data["curve"]) != curve.name:
+                raise ValueError(f"file holds a {data['curve']} table, not {curve.name}")
+            point = type(curve.identity((0,)))
+            coords = [torch.from_numpy(data[f"coord{i}"].astype(np.int32)).to(device)
+                      for i in range(len(point._fields))]
+            window_width, n = int(data["window_width"]), int(data["n"])
+        if coords[0].shape[2] != 1 << window_width:
+            raise ValueError(f"table of {coords[0].shape[2]} entries a group for window width {window_width}")
+        return cls.from_point_table(point(*coords), n=n, curve=curve)
 
 
 def _device_rows(array, n_pad: int, device) -> torch.Tensor:
@@ -244,3 +356,82 @@ def streaming_multiexponentiation(points, scalars, curve=ed, window_width=DEFAUL
     if signs is None:
         return doubling_combine(products, num_outputs, 8 * nbytes, curve)
     return combine_signed(products, num_outputs, 8 * nbytes, curve)
+
+
+# ---------------------------------------------------------------------------
+# packed and vlen queries (blitzar_tpu/msm/fixed.py:898-1018)
+# ---------------------------------------------------------------------------
+
+
+def _mask_lengths(packed: torch.Tensor, bit_table: list[int], lengths: list[int]) -> None:
+    """Zero, in place, bit b of generator g's packed row wherever g is at or
+    past the length of the output that owns bit b (bits past the table's
+    sum own length 0). Per bit, not per byte: a byte may hold bits of two
+    outputs of different lengths. The kept bits of a byte column change only
+    at the lengths, so each span between two consecutive lengths takes one
+    byte mask."""
+    n_pad, num_bytes = packed.shape
+    per_bit = np.zeros(8 * num_bytes, np.int64)
+    start = 0
+    for nb, length in zip(bit_table, lengths):
+        per_bit[start : start + nb] = length
+        start += nb
+    bounds = sorted({0, n_pad, *(min(length, n_pad) for length in lengths)})
+    for lo, hi in zip(bounds, bounds[1:]):
+        # every g in [lo, hi) is below a bit's length iff the length is >= hi
+        mask = np.packbits(per_bit >= hi, bitorder="little")
+        if (mask != 0xFF).any():
+            packed[lo:hi] &= torch.from_numpy(mask).to(packed.device)
+
+
+def _packed_query(handle: MultiexpHandle, output_bit_table, n: int, scalars, output_lengths=None):
+    """(O,) outputs of a packed query: scalars (n, num_bytes) uint8, bits
+    LSB-first across a generator's row, output o taking the bit_table[o]
+    bits after those of outputs 0..o-1. The packed rows go through one
+    query as one output of num_bytes bytes (8 num_bytes bit-row products);
+    each output's rows are picked from those and padded with identities to
+    max(bit_table) bits (zero rows at high bits add nothing), so one ladder
+    combines every output. With ``output_lengths``, the bits of output o at
+    generators >= lengths[o] are zeroed first."""
+    curve = handle.curve
+    bit_table = [int(b) for b in output_bit_table]
+    if not bit_table:
+        return curve.identity((0,), handle.device)
+    if min(bit_table) < 1:
+        raise ValueError(f"output bit widths must be at least 1, got {bit_table}")
+    num_bytes = -(-sum(bit_table) // 8)
+    maxb = max(bit_table)
+    packed = np.asarray(scalars, np.uint8).reshape(n, num_bytes)
+    dev_scalars = _scalars_tensor(handle, packed[None])  # (1, n_pad, num_bytes)
+    if output_lengths is not None:
+        # a copy: on the CPU the tensor may share the caller's array
+        dev_scalars = dev_scalars.clone()
+        _mask_lengths(dev_scalars[0], bit_table, output_lengths)
+    products = partition_products(handle, dev_scalars)  # (8 num_bytes,)
+    pad = 8 * num_bytes  # the identity appended below
+    picks, start = [], 0
+    for nb in bit_table:
+        picks += list(range(start, start + nb)) + [pad] * (maxb - nb)
+        start += nb
+    rows = curve.cat([products, curve.identity((1,), handle.device)])
+    rows = curve.index_batch(rows, torch.tensor(picks, device=handle.device))
+    return doubling_combine(rows, len(bit_table), maxb, curve)
+
+
+def fixed_packed_multiexponentiation(handle: MultiexpHandle, output_bit_table, n: int, scalars):
+    """Reference sxt_fixed_packed_multiexponentiation (blitzar_api.h:712):
+    scalars (n * num_bytes,) or (n, num_bytes) uint8, num_bytes =
+    ceil(sum(output_bit_table) / 8) -> (len(output_bit_table),) points."""
+    return _packed_query(handle, output_bit_table, int(n), scalars)
+
+
+def fixed_vlen_multiexponentiation(handle: MultiexpHandle, output_bit_table, output_lengths, scalars):
+    """Reference sxt_fixed_vlen_multiexponentiation (blitzar_api.h:741): as
+    the packed query over n = max(output_lengths) generators, output o using
+    only its first output_lengths[o]; the lengths must be ascending."""
+    lengths = [int(v) for v in output_lengths]
+    if len(lengths) != len(output_bit_table):
+        raise ValueError(f"{len(lengths)} lengths for {len(output_bit_table)} outputs")
+    if any(a > b for a, b in zip(lengths, lengths[1:])) or (lengths and lengths[0] < 0):
+        raise ValueError(f"output_lengths must be non-negative and ascending, got {lengths}")
+    return _packed_query(handle, output_bit_table, max(lengths, default=0), scalars, lengths)

@@ -42,6 +42,9 @@ SIGNATURES = {
     "btt_doubling_combine": [_P, _P, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P],
     "btt_ed_add": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_elligator_form": [_P, _I64, _P, _I64, _I64, _P, _P, _P, _P, _P],
+    "btt_fmul": [_P, _I64, _P, _I64, _I64, _I64, _P, _P],
+    "btt_fsq": [_P, _I64, _I64, _P, _P],
+    "btt_finvert": [_P, _I64, _I64, _P, _P],
     # the Weierstrass kernels take the curve's C ABI id first
     "btt_w_build_table": [_I, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "btt_w_lookup_msm": [_I, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _I64, _P, _P, _P, _P],

@@ -50,11 +50,18 @@ SUM_THREADS = 256
 SUM_MAX_BLOCKS = 1024
 
 
-def _field_id(field: MontField) -> int:
-    for field_id, f in FIELDS.items():
+# mont_mul_ew's fields by the id its launcher takes: the proof fields, and
+# the base fields of bn254 G1 and bls12-381 G1 (ids of the port's own, for
+# the batch inversion of a Weierstrass table, ``msm/interop.py``); Grumpkin's
+# base field is BN254_FR
+MUL_FIELDS = {**FIELDS, 2: params.BN254_FP, 3: params.BLS12381_FP}
+
+
+def _field_id(field: MontField, fields=FIELDS) -> int:
+    for field_id, f in fields.items():
         if f is field:
             return field_id
-    raise ValueError(f"{field} has no proof kernels: expected one of {list(FIELDS.values())}")
+    raise ValueError(f"{field} has no such kernel: expected one of {list(fields.values())}")
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +75,9 @@ def mont_mul_ew_plain(field: MontField, a: torch.Tensor, b: torch.Tensor) -> tor
 
 def mont_mul_ew(field: MontField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise a * b * R^-1 of (nlimbs, W) ``a`` and (nlimbs, W) or
-    (nlimbs, 1) ``b`` (broadcast) -> (nlimbs, W).
+    (nlimbs, 1) ``b`` (broadcast) -> (nlimbs, W), in any field of
+    :data:`MUL_FIELDS`; launches count per field in
+    ``cuda_point.INSTANCE_LAUNCHES``.
 
     Kernel csrc/mont_mul_ew.cu, one thread per element. Bound: bytes."""
     width = a.shape[-1]
@@ -76,14 +85,14 @@ def mont_mul_ew(field: MontField, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
         raise ValueError(f"mont_mul_ew: shapes {tuple(a.shape)} x {tuple(b.shape)}: expected (nl, W) x (nl, W | 1)")
     if not _on_card(a):
         return mont_mul_ew_plain(field, a, b)
-    fid = _field_id(field)
+    fid = _field_id(field, MUL_FIELDS)
     a, a_stride = _field_arg(a, a.device, (width,), field.nlimbs)
     b, b_stride = _field_arg(b, a.device, (b.shape[1],), field.nlimbs)
     out = torch.empty((field.nlimbs, width), dtype=torch.int32, device=a.device)
     _launch(
         "mont_mul_ew", build.library().btt_mont_mul_ew,
         fid, a.data_ptr(), a_stride, b.data_ptr(), b_stride, int(b.shape[1] != 1), width, out.data_ptr(),
-        _stream(a.device),
+        _stream(a.device), instance=field.name,
     )
     return out
 

@@ -32,7 +32,8 @@ as ``ed_lookup_msm_cached``. The Weierstrass kernels (``w_build_table``,
 ``w_lookup_msm``, ``wadd``, ``wdouble`` and ``tree_reduce_lanes``'s
 Weierstrass instantiations) have their wrappers in ``ops/cuda_wpoint.py``,
 the proof kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``)
-in ``ops/cuda_mont.py``; their launches are counted here too, so ``KERNELS``
+in ``ops/cuda_mont.py``, the field kernels (``fmul``, ``fsq``, ``finvert``)
+in ``ops/cuda_field.py``; their launches are counted here too, so ``KERNELS``
 and ``LAUNCHES`` cover every kernel, and ``INSTANCE_LAUNCHES`` counts the
 launches of each curve's instantiation of a templated kernel.
 """
@@ -55,6 +56,9 @@ KERNELS = (
     "doubling_combine",
     "ed_add",
     "elligator_form",
+    "fmul",
+    "fsq",
+    "finvert",
     "w_build_table",
     "w_lookup_msm",
     "wadd",

@@ -12,6 +12,14 @@ tables and scalar vectors), :func:`from_jax_points` and
 Weierstrass curve), and :func:`handle_from_jax_table` turns the arrays that
 ``blitzar_tpu.msm.fixed.MultiexpHandle.write_to_file`` saves into the port's
 handle. Nothing here imports ``blitzar_tpu``: the arrays are plain numpy.
+
+The reference's files hold little-endian u64 words: fp25519 values as
+radix-2^51 field51 limbs, Montgomery values as their 64-bit words.
+:func:`f51_u64_to_limbs16`, :func:`limbs16_to_f51_u64`,
+:func:`u64_to_limbs16` and :func:`limbs16_to_u64` convert (after
+blitzar_tpu/utils/limbs.py:47-141) in torch int64 on the tensors' own device,
+so a 2^25-entry table converts on the card and crosses to the host once, as
+int64 tensors holding the u64 words' bit patterns.
 """
 
 from __future__ import annotations
@@ -118,3 +126,74 @@ def handle_from_jax_table(*coords, n: int | None = None, curve=None, device="cud
             raise ValueError(f"a {curve.name} table has 3 coordinates of {curve.nlimbs} limbs")
         table = PointP2(*(to_tensor(c, device) for c in coords))
     return MultiexpHandle.from_point_table(table, n=n, curve=curve)
+
+
+# ---------------------------------------------------------------------------
+# the reference's u64 word layouts, in torch int64 (bit patterns of u64)
+# ---------------------------------------------------------------------------
+
+_MASK16 = 0xFFFF
+
+
+def f51_u64_to_limbs16(raw: torch.Tensor) -> torch.Tensor:
+    """(n, 5) int64 radix-2^51 field51 limbs (u64 bit patterns, any
+    magnitude) -> (16, n) int32 canonical radix-2^16 limbs mod 2^255 - 19.
+    Each u64 limb is cut into 16-bit pieces placed at bit 51 i + 16 k, the
+    pieces carried into 17 exact limbs (the value is below 2^268), the top
+    limb folded by 2^256 = 38 (mod p), and the rest reduced by
+    ``fp25519.canonicalize``."""
+    from ..fields import fp25519 as F
+
+    raw = raw.to(torch.int64)
+    acc = torch.zeros((17, raw.shape[0]), dtype=torch.int64, device=raw.device)
+    for i in range(5):
+        q, r = divmod(51 * i, 16)
+        for k in range(4):
+            piece = ((raw[:, i] >> (16 * k)) & _MASK16) << r  # < 2^31
+            acc[q + k] += piece & _MASK16
+            acc[q + k + 1] += piece >> 16
+    carry = torch.zeros_like(acc[0])
+    for j in range(17):
+        t = acc[j] + carry
+        acc[j] = t & _MASK16
+        carry = t >> 16
+    acc[0] += 38 * acc[16]
+    return F.canonicalize(acc[:16].to(torch.int32))
+
+
+def limbs16_to_f51_u64(limbs: torch.Tensor) -> torch.Tensor:
+    """(16, n) fp25519 limbs (any below 2^17, the plain invariant) -> (n, 5)
+    int64 canonical radix-2^51 field51 limbs: bits [51 j, 51 j + 51) of the
+    canonical value, gathered from the 16-bit limbs that cover them."""
+    from ..fields import fp25519 as F
+
+    c = F.canonicalize(limbs).to(torch.int64)
+    cols = []
+    for j in range(5):
+        lo = 51 * j
+        acc = torch.zeros_like(c[0])
+        for limb in range(lo // 16, min(16, -(-(lo + 51) // 16))):
+            base = 16 * limb
+            if base >= lo:
+                acc |= (c[limb] & ((1 << min(16, lo + 51 - base)) - 1)) << (base - lo)
+            else:
+                acc |= c[limb] >> (lo - base)
+        cols.append(acc)
+    return torch.stack(cols, dim=1)
+
+
+def u64_to_limbs16(raw: torch.Tensor) -> torch.Tensor:
+    """(n, k) int64 u64 words (little-endian word order) -> (4k, n) int32
+    radix-2^16 limbs: a reinterpretation of the bits, no reduction
+    (Montgomery residues stay Montgomery)."""
+    n = raw.shape[0]
+    halves = raw.to(torch.int64).contiguous().reshape(-1).view(torch.int16).to(torch.int32) & _MASK16
+    return halves.reshape(n, -1).T.contiguous()
+
+
+def limbs16_to_u64(limbs: torch.Tensor) -> torch.Tensor:
+    """(4k, n) radix-2^16 limbs (each below 2^16) -> (n, k) int64 u64 words,
+    a reinterpretation of the bits."""
+    t = limbs.to(torch.int32)
+    halves = torch.where(t >= 1 << 15, t - (1 << 16), t).to(torch.int16)
+    return halves.T.contiguous().reshape(-1).view(torch.int64).reshape(t.shape[1], -1)

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Build blitzar_tpu_torch's kernels and drive its commitment, proof and
-large-n (streamed) paths on one GPU.
+"""Build blitzar_tpu_torch's kernels and drive its commitment, proof,
+large-n (streamed) and handle-file paths on one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases, each fatal on failure:
 
-1. build the kernels of the fourteen CUDA sources in ``blitzar_tpu_torch/csrc``
+1. build the kernels of the sixteen CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
    registers and spills and the card's name and power limit;
 2. run each kernel at the shapes its path gives it at full width
@@ -65,7 +65,26 @@ Phases, each fatal on failure:
    (``build_cached_table`` and the cached ``ed_lookup_msm`` on a 2^18-point
    chunk of (c), ``tree_reduce_lanes`` on the partials of that lookup and of
    each Weierstrass curve's first chunk), and every one of them, and every
-   instantiation of the templated ones, must have launched in phase 12.
+   instantiation of the templated ones, must have launched in phase 12;
+14. handle files, packed and vlen queries and the generator disk cache
+   (counts from 0, also by element count; the cache, off by default, in a
+   fresh directory under ``build/`` for (iv) alone): (i) the ristretto255 2^20 handle written in the
+   reference's raw format (4.0 GB) and read back reproduces the pinned
+   digest, the bn254 G1 2^20 one (2.1 GB) the oracle's collapsed sum; (ii)
+   npz round trips at 2^16 and w = 16 raw files of 64 generators
+   re-windowed to 8, on all four curves; (iii) packed and vlen queries at
+   2^20 with Proof-of-SQL's widths [1, 8, 16, 32, 64, 128, 256] on the
+   handles read back in (i): each output equals the fixed MSM of its own
+   scalars (bn254 G1: and the oracle); (iv) 2^20 generators derived and
+   saved, then loaded with the in-memory cache cleared (the same points),
+   and a cold 2^20 commitment over them (the pinned digest). Every file is
+   deleted once read, the directory at exit;
+15. ``fmul``, ``finvert`` and ``mont_mul_ew`` in the two Weierstrass base
+   fields against their plain versions at every element count phase 14
+   launched them at, ``fmul`` and ``fsq`` (on no path) also at a table
+   conversion's chunk of 2^22 entries, ``finvert`` at 2^20; ``fmul``,
+   ``finvert`` and both base-field instantiations must have launched in
+   phase 14.
 
 The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
 its path, time, plain time, bound, error), the card as ``nvidia-smi`` names
@@ -75,13 +94,16 @@ also go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import heapq
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -262,7 +284,7 @@ def kernel_record(results, name, replaces, source, ms, plain_ms, err, bytes_move
 
 def spread_indices(torch, dev, count: int, total: int):
     """count indices evenly over range(total), the first and last included"""
-    return torch.linspace(0, total - 1, count, device=dev).round().long()
+    return torch.linspace(0, total - 1, count, dtype=torch.float64, device=dev).round().long()
 
 
 def point_err(a, b, canonical=lambda t: t) -> int:
@@ -1271,6 +1293,330 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# handle files, packed and vlen queries, the generator disk cache
+# ---------------------------------------------------------------------------
+
+# the field kernels of these paths, which must launch there, and
+# mont_mul_ew's instantiations in the Weierstrass base fields (the batch
+# inversion of a raw file's affine form); fsq is held against plain beside
+# fmul but runs on no path
+FILE_KERNELS = ("fmul", "fsq", "finvert")
+FILE_PATH_KERNELS = ("fmul", "finvert")
+FILE_INSTANCES = ("mont_mul_ew/bn254_fp", "mont_mul_ew/bls12381_fp")
+# Proof-of-SQL's column widths (505 bits, 64 bytes a generator) and lengths
+POSQL_BITS = [1, 8, 16, 32, 64, 128, 256]
+POSQL_LENGTHS = [1 << 10, 1 << 16, 1 << 18, (1 << 19) + 7, (1 << 20) - 3, 1 << 20, 1 << 20]
+CACHE_VAR = "BLITZAR_TPU_TORCH_GENERATOR_CACHE_DIR"
+# the handles of the raw files and of packed/vlen, and of the npz files
+FILES_N = 1 << 20
+FILES_NPZ_N = 1 << 16
+# the plain versions of the field kernels run on at most this many elements
+# of a shape, spread over all of them (2^20 at a kernel's headline shape)
+FIELD_SAMPLE = 1 << 16
+
+
+def comparable(curve, points):
+    """Result points as comparable values: compressed encodings for
+    ristretto255, affine ints for a Weierstrass curve."""
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import ristretto as rst
+
+    if curve is ed:
+        return [bytes(r) for r in rst.encode(points).cpu().numpy().T]
+    return curve.to_affine_ints(points)
+
+
+def own_scalars(bits: np.ndarray, bit_table, lengths=None) -> list:
+    """Each output's own (n, ceil(bits / 8)) scalars cut from the unpacked
+    (n, 8 num_bytes) bit matrix of a packed query, zeroed from its length
+    on."""
+    out, start = [], 0
+    for o, nb in enumerate(bit_table):
+        rows = np.packbits(bits[:, start : start + nb], axis=1, bitorder="little")
+        if lengths is not None:
+            rows[lengths[o]:] = 0
+        out.append(rows)
+        start += nb
+    return out
+
+
+def phase_files(torch, timings: dict, work: str) -> None:
+    """(i) raw files at 2^20: ristretto255 (canonical generators, the
+    pinned digest) and bn254 G1 (the 521 tiled points, the oracle); (ii) npz
+    round trips at 2^16 and w = 16 raw files of 64 generators re-windowed
+    to 8, all four curves; (iii) packed and vlen queries at 2^20 with
+    Proof-of-SQL's column widths on the handles read back in (i), each
+    output against the fixed MSM of its own scalars (bn254 G1 also against
+    the oracle); (iv) the generator disk cache at 2^20: derive and save,
+    then load with the in-memory cache cleared, and a commitment over the
+    loaded generators; the cache is on for (iv) alone, in a fresh directory
+    under ``work``. Every file is deleted once it is read."""
+    from blitzar_tpu_torch import api, generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import engine, fixed, interop
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    dev = api.device()
+    torch.cuda.reset_peak_memory_stats()
+    n, m = FILES_N, FILES_NPZ_N
+    rows20 = counter_scalars(n, 32)
+
+    def raw_round_trip(curve, handle, key):
+        path = os.path.join(work, f"{key}.raw")
+        _, timings[f"raw_{key}_write_ms"] = timed(torch, lambda: interop.write_reference_file(handle, path))
+        timings[f"raw_{key}_bytes"] = size = os.path.getsize(path)
+        back, timings[f"raw_{key}_read_ms"] = timed(
+            torch, lambda: api.multiexp_handle_new_from_file(api.CURVE_IDS[curve], path))
+        os.remove(path)
+        entries = handle.num_groups << handle.window_width
+        check(size == 4 + entries * interop.entry_words(curve) * 8 and back.device.type == dev.type,
+              f"(i)/(ii) {key}: {size} bytes written (write {timings[f'raw_{key}_write_ms']:.0f} ms), "
+              f"read back onto {back.device} (read {timings[f'raw_{key}_read_ms']:.0f} ms)")
+        return back
+
+    # (i) raw files at 2^20
+    gens = generators.get_precomputed_generators(n, 0, dev)
+    built = api.multiexp_handle_new(api.SXT_CURVE_RISTRETTO255, gens)
+    ed_handle = raw_round_trip(ed, built, "ristretto255_2^20")
+    check(torch.equal(ed_handle.table, built.table), "(i) ristretto255 2^20: the table read back equals the one written")
+    del built
+    got, ms = timed(torch, lambda: api.fixed_multiexponentiation(ed_handle, rows20[None]))
+    check(digest(api.compress_ristretto255(got)) == PINNED_RISTRETTO_MSM[20],
+          f"(i) the 2^20 handle read from a raw file reproduces the pinned digest ({ms:.1f} ms)")
+    bn = wc.BN254_G1
+    wgens, bn_pts = tiled_generators(bn, n, dev)
+    built = api.multiexp_handle_new(api.SXT_CURVE_BN_254, wgens)
+    bn_handle = raw_round_trip(bn, built, "bn254_g1_2^20")
+    del built, wgens
+    expected = bn.oracle.msm(collapsed_scalars(rows20), bn_pts)
+    got, ms = timed(torch, lambda: api.fixed_multiexponentiation(bn_handle, rows20[None]))
+    check(bn.to_affine_ints(got) == [expected],
+          f"(i) the bn254 G1 2^20 handle read from a raw file equals the oracle's collapsed sum ({ms:.1f} ms)")
+
+    # (ii) npz round trips at 2^16 (the pinned digest; a Weierstrass curve
+    # its built handle's commitment), w = 16 files of 64 generators
+    rows16 = counter_scalars(m, 32)
+    rng = np.random.default_rng(42)
+    for curve in (ed,) + wc.CURVES:
+        name = "ristretto255" if curve is ed else curve.name
+        cid = api.CURVE_IDS[curve]
+        if curve is ed:
+            g = generators.get_precomputed_generators(m, 0, dev)
+            want = PINNED_RISTRETTO_MSM[16]
+            answer = lambda res: digest(api.compress_ristretto255(res))  # noqa: E731
+        else:
+            g, pts = tiled_generators(curve, m, dev)
+            answer = curve.to_affine_ints
+        handle = api.multiexp_handle_new(cid, g)
+        if curve is not ed:  # the built handle's own commitment (phase 6 holds it to the oracle)
+            want = answer(api.fixed_multiexponentiation(handle, rows16[None]))
+        path = os.path.join(work, f"{name}.npz")
+        _, w_ms = timed(torch, lambda: api.multiexp_handle_write_to_file(handle, path))
+        size = os.path.getsize(path)
+        back, r_ms = timed(torch, lambda: api.multiexp_handle_new_from_file(cid, path))
+        os.remove(path)
+        timings[f"npz_{name}_2^16"] = {"write_ms": w_ms, "read_ms": r_ms, "bytes": size}
+        check(torch.equal(back.table, handle.table) and answer(api.fixed_multiexponentiation(back, rows16[None])) == want,
+              f"(ii) {name} 2^16 npz round trip: same table, same commitment ({size} bytes, write {w_ms:.0f} ms, "
+              f"read {r_ms:.0f} ms)")
+        g64 = curve.index_batch(g, slice(0, 64))
+        wide = fixed.MultiexpHandle(g64, window_width=16, curve=curve)
+        narrow = fixed.MultiexpHandle(g64, curve=curve)
+        back = raw_round_trip(curve, wide, f"{name}_w16_64")
+        sc = rng.integers(0, 256, size=(2, 64, 32), dtype=np.uint8)
+        same = comparable(curve, api.fixed_multiexponentiation(back, sc)) == comparable(
+            curve, api.fixed_multiexponentiation(narrow, sc))
+        if curve is ed:
+            same = same and torch.equal(back.table, narrow.table)
+        else:
+            vals = [[int.from_bytes(bytes(r), "little") for r in rows] for rows in sc]
+            same = same and comparable(curve, api.fixed_multiexponentiation(back, sc)) == [
+                curve.oracle.msm(v, pts[:64]) for v in vals]
+        check((back.window_width, back.num_groups) == (8, 8) and same,
+              f"(ii) {name}: a w = 16 file of 64 generators reads back as the w = 8 handle")
+        del handle, back, wide, narrow, g
+
+    # (iii) packed and vlen at 2^20 on the handles read back in (i)
+    packed = np.random.default_rng(43).integers(0, 256, size=(n, 64), dtype=np.uint8)
+    bits = np.unpackbits(packed, axis=1, bitorder="little")
+    for curve, handle in ((ed, ed_handle), (bn, bn_handle)):
+        name = "ristretto255" if curve is ed else curve.name
+        for kind, lengths in (("packed", None), ("vlen", POSQL_LENGTHS)):
+            if lengths is None:
+                got, ms = timed(torch, lambda: api.fixed_packed_multiexponentiation(handle, POSQL_BITS, n, packed))
+            else:
+                got, ms = timed(torch, lambda: api.fixed_vlen_multiexponentiation(handle, POSQL_BITS, lengths, packed))
+            scalars = own_scalars(bits, POSQL_BITS, lengths)
+            each, each_ms = timed(torch, lambda: [api.fixed_multiexponentiation(handle, s[None]) for s in scalars])
+            each = [comparable(curve, p)[0] for p in each]
+            timings[f"{kind}_{name}_2^20_ms"] = ms
+            timings[f"{kind}_{name}_2^20_per_output_msms_ms"] = each_ms
+            ok = comparable(curve, got) == each
+            if curve is bn:
+                ok = ok and each == [bn.oracle.msm(collapsed_scalars(s), bn_pts) for s in scalars]
+            check(ok, f"(iii) {kind} {name} 2^20, widths {POSQL_BITS}: each output equals the MSM of its own "
+                      f"scalars{' and the oracle' if curve is bn else ''} ({ms:.1f} ms; seven MSMs {each_ms:.1f} ms)")
+    del ed_handle, bn_handle, bits
+    timings["files_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # (iv) the generator disk cache at 2^20, off by default, here in a fresh
+    # directory
+    generators.CACHE.reset()
+    engine.clear_handle_cache()
+    ref, timings["generators_2^20_derive_ms"] = timed(torch, lambda: generators.ristretto_generators(n, 0, dev))
+    cache_dir = os.path.join(work, "gencache")
+    generators.DISK_DIR = cache_dir
+    _, timings["generators_2^20_derive_and_save_ms"] = timed(
+        torch, lambda: generators.ristretto_generators(n, 0, dev))
+    saved = os.path.join(cache_dir, f"ristretto_gen_a_{n}.npy")
+    check(os.path.exists(saved), f"(iv) 2^20 generators saved to the disk cache "
+                                 f"({timings['generators_2^20_derive_and_save_ms']:.1f} ms with the derivation, "
+                                 f"{timings['generators_2^20_derive_ms']:.1f} ms without the save)")
+    generators.CACHE.reset()
+    derived = cp.LAUNCHES["elligator_form"]
+    loaded, timings["generators_2^20_load_ms"] = timed(torch, lambda: generators.get_precomputed_generators(n, 0, dev))
+    check(cp.LAUNCHES["elligator_form"] == derived and bool(ed.points_equal(loaded, ref).all()),
+          f"(iv) loaded, not derived, with the in-memory cache cleared: the same 2^20 points "
+          f"({timings['generators_2^20_load_ms']:.1f} ms)")
+    generators.CACHE.reset()
+    desc = api.SequenceDescriptor(32, n, rows20)
+    got, ms = timed(torch, lambda: api.compute_curve25519_commitments([desc]))
+    check(cp.LAUNCHES["elligator_form"] == derived and digest(got) == PINNED_RISTRETTO_MSM[20],
+          f"(iv) a cold 2^20 commitment over cache-loaded generators equals the pinned digest ({ms:.1f} ms)")
+    timings["commit_2^20_cold_from_disk_cache_ms"] = ms
+    generators.DISK_DIR = ""
+    generators.CACHE.reset()
+    clear_handles(torch)
+
+
+@contextlib.contextmanager
+def launch_shapes(counts: dict):
+    """Counts, beside the wrappers' own counts, the launches of the field
+    kernels and of mont_mul_ew by kernel (and instantiation) and element
+    count into ``counts``: {"fmul": {elements: launches}, ...}. The element
+    count is the launcher's third argument from the end."""
+    from blitzar_tpu_torch.ops import cuda_field as cf
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    def launch(name, fn, *args, instance=None):
+        cp._launch(name, fn, *args, instance=instance)
+        if name in FILE_KERNELS or name == "mont_mul_ew":
+            by = counts.setdefault(f"{name}/{instance}" if instance else name, {})
+            by[int(args[-3])] = by.get(int(args[-3]), 0) + 1
+
+    cf._launch = cm._launch = launch
+    try:
+        yield counts
+    finally:
+        cf._launch = cm._launch = cp._launch
+
+
+def field_shape(torch, dev, kernel, plain, operands, count: int, bytes_moved: float, imads: float,
+                canonical=lambda t: t, sample_count: int = FIELD_SAMPLE) -> dict:
+    """One elementwise kernel at ``count`` elements: its device time, its
+    bound, and its largest limb difference from its plain version on
+    min(count, sample_count) elements spread over all of them (the plain
+    version's time on those). ``operands(count)`` makes the inputs on the
+    card; an operand of one element is broadcast and not sampled."""
+    ops = operands(count)
+    sample = spread_indices(torch, dev, min(count, sample_count), count)
+    picked = [o[:, sample] if o.shape[1] == count else o for o in ops]
+    ms = device_ms(torch, lambda: kernel(*ops))
+    plain_ms = cuda_ms(torch, lambda: plain(*picked), reps=1)
+    err = int((canonical(kernel(*ops)[:, sample]).long() - canonical(plain(*picked)).long()).abs().max())
+    b_ms, b_by = bound(bytes_moved, imads)
+    return {"elements": count, "ms": ms, "plain_ms": plain_ms, "plain_fraction": len(sample) / count,
+            "max_abs_err": float(err), "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_field_kernels(torch, dev, path_shapes: dict) -> dict:
+    """The field kernels and the base-field mont_mul_ew against their plain
+    versions, timed at every element count the files path launched them at
+    (``path_shapes``, from :func:`launch_shapes`) and at a headline shape:
+    ``fmul`` at a table conversion's chunk (``fixed.TABLE_CHUNK_ENTRIES``
+    entries; also with a broadcast constant), ``fsq`` (on no path) at the
+    same chunk, ``finvert`` at the 2^20 generators of a cache save,
+    ``mont_mul_ew`` at the largest count its field launched. Per count:
+    launches, device time and bound, and the path's device time, the sum of
+    launches x time. The scans of a batch inversion launch on strided lane
+    slices; they are timed here on contiguous operands of the same count."""
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.fields import params
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_field as cf
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+
+    results: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(44)
+
+    def limbs(count):
+        return torch.randint(0, 1 << 16, (16, count), generator=gen, device=dev, dtype=torch.int32)
+
+    def zero_first(count):  # 0 inverts to 0
+        a = limbs(count)
+        a[:, 0] = 0
+        return a
+
+    chunk = fixed.TABLE_CHUNK_ENTRIES
+    kinds = {  # kernel, plain, operands, bytes and int32 multiplies an element, headline count
+        "fmul": (cf.fmul, cf.fmul_plain, lambda c: (limbs(c), limbs(c)), 96, IMAD_PER_FIELD_MUL, chunk),
+        "fsq": (cf.fsq, cf.fsq_plain, lambda c: (limbs(c),), 64, IMAD_PER_FIELD_MUL, chunk),
+        # the least work that inverts a batch is a batch inversion: three
+        # multiplies an element and one inversion
+        "finvert": (cf.finvert, cf.finvert_plain, lambda c: (zero_first(c),), 64,
+                    MULS_BATCH_INVERT_PER_ELEMENT * IMAD_PER_FIELD_MUL, FILES_N),
+    }
+    replaces = {"fmul": 130, "fsq": 144, "finvert": 172}
+    sources = {"fmul": "fmul.cu", "fsq": "fmul.cu", "finvert": "finvert.cu"}
+    for name, (kernel, plain, operands, per_bytes, per_imads, head) in kinds.items():
+        launched = path_shapes.get(name, {})
+        extra = MULS_INVERT * IMAD_PER_FIELD_MUL if name == "finvert" else 0
+        by = {}
+        for count in sorted(set(launched) | {head}):
+            by[count] = field_shape(torch, dev, kernel, plain, operands, count, count * per_bytes,
+                                    count * per_imads + extra, F.canonicalize,
+                                    1 << 20 if count == head else FIELD_SAMPLE)
+            by[count]["launches"] = launched.get(count, 0)
+            check(by[count]["max_abs_err"] == 0, f"{name} at {count} elements: kernel equals plain, tolerance 0 "
+                                                 f"on canonical limbs ({by[count]['ms']:.4f} ms)")
+        top = by[head]
+        kernel_record(results, name, f"blitzar_tpu/ops/pallas_point.py:{replaces[name]}",
+                      f"blitzar_tpu_torch/csrc/{sources[name]}", top["ms"], top["plain_ms"], top["max_abs_err"],
+                      head * per_bytes, head * per_imads + extra, top["plain_fraction"])
+        results[name]["elements"] = head
+        results[name]["by_elements"] = {str(c): r for c, r in by.items()}
+        results[name]["files_path_device_ms"] = sum(r["launches"] * r["ms"] for r in by.values())
+    c = limbs(1)
+    results["fmul"]["broadcast"] = field_shape(torch, dev, cf.fmul, cf.fmul_plain, lambda k: (limbs(k), c), chunk,
+                                               chunk * 64, chunk * IMAD_PER_FIELD_MUL, F.canonicalize)
+    check(results["fmul"]["broadcast"]["max_abs_err"] == 0, "fmul with a broadcast constant equals plain")
+    results["finvert"]["kernel_multiplies_per_element"] = MULS_INVERT
+
+    base = {}
+    for field in (params.BN254_FP, params.BLS12381_FP):
+        launched = path_shapes.get(f"mont_mul_ew/{field.name}", {})
+        words = field.nlimbs // 2
+
+        def operands(count, field=field):
+            return tuple(random_canonical(torch, field, (count,), dev, seed) for seed in (45, 46))
+
+        by = {}
+        for count in sorted(launched):
+            by[count] = field_shape(torch, dev, functools.partial(cm.mont_mul_ew, field),
+                                    functools.partial(cm.mont_mul_ew_plain, field), operands, count,
+                                    count * 3 * words * 4, count * IMAD_PER_MONT_MUL[words])
+            by[count]["launches"] = launched[count]
+            check(by[count]["max_abs_err"] == 0, f"mont_mul_ew in {field.name} at {count} elements: kernel equals "
+                                                 f"plain, tolerance 0 on canonical limbs ({by[count]['ms']:.4f} ms)")
+        base[field.name] = {"by_elements": {str(c): r for c, r in by.items()},
+                            "files_path_device_ms": sum(r["launches"] * r["ms"] for r in by.values())}
+    results["mont_mul_ew_base_fields"] = base
+    return results
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "blitzar_tpu_torch", "csrc")):
         print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -1281,6 +1627,12 @@ def main() -> int:
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    # files and the generator disk cache go to a fresh directory of the
+    # checkout's build/, removed at exit, so a second run starts cold too;
+    # the cache is off (its default) but in phase 14 (iv)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    os.environ.pop(CACHE_VAR, None)
     from blitzar_tpu_torch import api, generators
     from blitzar_tpu_torch.msm import engine
     from blitzar_tpu_torch.ops import build
@@ -1288,6 +1640,7 @@ def main() -> int:
 
     report: dict = {"timings": {}}
     try:
+        check(generators.DISK_DIR == "", "the generator disk cache is off by default")
         card = card_line()
         print(f"card: {card}", flush=True)
         t0 = time.perf_counter()
@@ -1331,19 +1684,33 @@ def main() -> int:
         large_launches = dict(cp.LAUNCHES)
         large_instances = dict(cp.INSTANCE_LAUNCHES)
         results.update(phase_large_kernels(torch, torch.device("cuda"), large["rows24"]))
+        # handle files, packed and vlen queries, the disk cache: counts from
+        # 0 over (i)-(iv), also by element count; then the field kernels
+        # against their plain versions at those counts
+        clear_handles(torch)
+        cp.reset_launches()
+        with launch_shapes({}) as file_shapes:
+            phase_files(torch, report["timings"], work)
+        file_launches = dict(cp.LAUNCHES)
+        file_instances = dict(cp.INSTANCE_LAUNCHES)
+        results.update(phase_field_kernels(torch, torch.device("cuda"), file_shapes))
+        results["mont_mul_ew"]["base_fields"] = results.pop("mont_mul_ew_base_fields")
+        results["mont_mul_ew"]["launches_files_path_by_field"] = {
+            k.split("/")[1]: v for k, v in file_instances.items() if k.startswith("mont_mul_ew/")}
         for name in cp.KERNELS:
-            path = (large_launches if name in LARGE_KERNELS else
-                    proof_launches if name in PROOF_KERNELS else commit_launches)
+            path = (large_launches if name in LARGE_KERNELS else proof_launches if name in PROOF_KERNELS else
+                    file_launches if name in FILE_KERNELS else commit_launches)
             results[name]["launches"] = path[name]
             results[name]["launches_commitment_path"] = commit_launches[name]
             results[name]["launches_proof_path"] = proof_launches[name]
             results[name]["launches_large_n_path"] = large_launches[name]
+            results[name]["launches_files_path"] = file_launches[name]
             # launches in the cold 2^20 commitment: ristretto255 for the
             # Edwards kernels, bn254 G1 for the Weierstrass ones
             results[name]["launches_per_2^20_commitment"] = per_commitment.get(name)
         results["tree_reduce_lanes"]["launches_large_n_path_by_curve"] = {
             k.split("/")[1]: v for k, v in large_instances.items() if k.startswith("tree_reduce_lanes/")}
-        commit_kernels = [k for k in cp.KERNELS if k not in PROOF_KERNELS and k not in LARGE_KERNELS]
+        commit_kernels = [k for k in cp.KERNELS if k not in PROOF_KERNELS + LARGE_KERNELS + FILE_KERNELS]
         check(all(commit_launches[k] > 0 for k in commit_kernels),
               f"every commitment kernel launched on the commitment path: {commit_launches}")
         check(all(proof_launches[k] > 0 for k in PROOF_PATH_KERNELS),
@@ -1351,6 +1718,10 @@ def main() -> int:
         check(all(large_launches[k] > 0 for k in LARGE_KERNELS) and all(large_instances.get(k, 0) > 0
                                                                          for k in LARGE_INSTANCES),
               f"every streamed-path kernel and instantiation launched on the large-n path: {large_instances}")
+        check(all(file_launches[k] > 0 for k in FILE_PATH_KERNELS) and all(file_instances.get(k, 0) > 0
+                                                                            for k in FILE_INSTANCES),
+              f"fmul, finvert, and mont_mul_ew in both base fields, launched on the files and cache path: "
+              f"{ {k: file_launches[k] for k in FILE_KERNELS} } {file_instances}")
         report["kernels"] = [results[k] for k in cp.KERNELS]
         report["card"] = card
         report["device"] = torch.cuda.get_device_name(0)
@@ -1361,6 +1732,8 @@ def main() -> int:
     except Failure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": report["kernels"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -328,3 +328,118 @@ def test_one_commitment_on_cuda_matches_cpu(dev):
     generators.CACHE.reset()
     assert bytes(rst.encode(_on(ed.PointP3(*(c[:, None] for c in got)), "cpu")).numpy()) == bytes(
         rst.encode(ed.PointP3(*(c[:, None] for c in want))).numpy())
+
+
+# ---------------------------------------------------------------------------
+# the field kernels (fmul, fsq, finvert) and the paths they carry: handle
+# files, the generator disk cache; packed and vlen queries
+# ---------------------------------------------------------------------------
+
+from blitzar_tpu_torch.fields import params as tparams  # noqa: E402
+from blitzar_tpu_torch.msm import fixed as tfixed  # noqa: E402
+from blitzar_tpu_torch.msm import interop as tinterop  # noqa: E402
+from blitzar_tpu_torch.ops import cuda_field as cf  # noqa: E402
+
+
+def _fe(shape, seed: int) -> torch.Tensor:
+    """Limbs below 2^17 (the plain invariant), values past 2^256 included."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 1 << 17, size=(16,) + tuple(shape)).astype(np.int32))
+
+
+def _canon_equal(got, want) -> bool:
+    return torch.equal(got.cpu(), F.canonicalize(want))
+
+
+def test_field_kernels(dev):
+    a, b = _fe((3, 700), 21), _fe((3, 700), 22)
+    a[:, 0, :3] = 0  # 0 inverts to 0
+    before = {k: cp.LAUNCHES[k] for k in ("fmul", "fsq", "finvert")}
+    assert _canon_equal(cf.fmul(a.to(dev), b.to(dev)), cf.fmul_plain(a, b))
+    assert _canon_equal(cf.fmul(a.to(dev), b[:, :1, :1].to(dev)), cf.fmul_plain(a, b[:, :1, :1]))  # broadcast
+    assert _canon_equal(cf.fmul(a.to(dev)[:, 1], b.to(dev)[:, 2]), cf.fmul_plain(a[:, 1], b[:, 2]))  # views
+    assert _canon_equal(cf.fsq(a.to(dev)), cf.fsq_plain(a))
+    assert _canon_equal(cf.finvert(a.to(dev)), cf.finvert_plain(a))
+    assert {k: cp.LAUNCHES[k] - before[k] for k in before} == {"fmul": 3, "fsq": 1, "finvert": 1}
+    z = _fe((5, 256), 23)
+    assert _canon_equal(cf.batch_invert_lanes(z.to(dev)), F.batch_invert_lanes(z))
+    with pytest.raises(ValueError):
+        cf.fmul(a.to(dev), b[:, :2].to(dev))
+
+
+@pytest.mark.parametrize("field", [tparams.BN254_FP, tparams.BLS12381_FP], ids=lambda f: f.name)
+def test_mont_mul_ew_base_fields(dev, field):
+    a, b = _field_batch(field, (1000,), 24), _field_batch(field, (1000,), 25)
+    assert torch.equal(cm.mont_mul_ew(field, a.to(dev), b.to(dev)).cpu(), cm.mont_mul_ew_plain(field, a, b))
+    z = _field_batch(field, (4, 256), 26)
+    z[:, 1, 7] = 0
+    mul = lambda x, y: cm.mont_mul_ew(field, x, y)  # noqa: E731
+    assert torch.equal(field.batch_invert_lanes(z.to(dev), mul).cpu(), field.batch_invert_lanes(z))
+
+
+@pytest.mark.parametrize("curve", [ed] + list(wc.CURVES), ids=lambda c: getattr(c, "name", "ristretto255"))
+def test_handle_files_on_cuda_match_cpu(dev, tmp_path, curve):
+    """The raw file of a 40-point handle written on the card equals the one
+    written on the CPU, byte for byte; read back on the card (raw and npz,
+    and a w = 16 file re-windowed) the queries equal the CPU's."""
+    n = 40
+    pts = cp.elligator_form_plain(*_r(n, 12)) if curve is ed else curve.from_affine_ints(
+        curve.oracle.random_points(n - 1, seed=12) + [None], "cpu")
+    cpu = tfixed.MultiexpHandle(pts, curve=curve)
+    card = tfixed.MultiexpHandle(_on(pts, dev), curve=curve)
+    tinterop.write_reference_file(cpu, tmp_path / "cpu.raw")
+    tinterop.write_reference_file(card, tmp_path / "card.raw")
+    assert (tmp_path / "cpu.raw").read_bytes() == (tmp_path / "card.raw").read_bytes()
+    card.write_to_file(str(tmp_path / "card.npz"))
+    wide = tfixed.MultiexpHandle(_on(curve.index_batch(pts, slice(0, 32)), dev), window_width=16, curve=curve)
+    tinterop.write_reference_file(wide, tmp_path / "w16.raw")
+    scalars = np.random.default_rng(13).integers(0, 256, size=(2, n, 3), dtype=np.uint8)
+    want = tfixed.fixed_multiexponentiation(cpu, scalars)
+    for name in ("card.raw", "card.npz", "w16.raw"):
+        got = tfixed.MultiexpHandle.new_from_file(str(tmp_path / name), curve, dev)
+        assert got.device.type == "cuda" and got.window_width == 8
+        sc = scalars[:, : got.n]
+        ref = want if got.n == n else tfixed.fixed_multiexponentiation(cpu, sc)
+        res = _on(tfixed.fixed_multiexponentiation(got, sc), "cpu")
+        if curve is ed:
+            assert np.array_equal(rst.encode(res).numpy(), rst.encode(ref).numpy()), name
+        else:
+            assert curve.to_affine_ints(res) == curve.to_affine_ints(ref), name
+
+
+@pytest.mark.parametrize("curve", [ed, wc.BN254_G1], ids=lambda c: getattr(c, "name", "ristretto255"))
+def test_packed_and_vlen_on_cuda_match_cpu(dev, curve):
+    n = 40
+    pts = cp.elligator_form_plain(*_r(n, 14)) if curve is ed else curve.from_affine_ints(
+        curve.oracle.random_points(n, seed=14), "cpu")
+    cpu = tfixed.MultiexpHandle(pts, curve=curve)
+    card = tfixed.MultiexpHandle(_on(pts, dev), curve=curve)
+    bits, lengths = [1, 8, 13, 64], [0, 17, 17, n]
+    packed = np.random.default_rng(15).integers(0, 256, size=(n, 11), dtype=np.uint8)
+    for run in (lambda h: tfixed.fixed_packed_multiexponentiation(h, bits, n, packed),
+                lambda h: tfixed.fixed_vlen_multiexponentiation(h, bits, lengths, packed)):
+        got, want = _on(run(card), "cpu"), run(cpu)
+        if curve is ed:
+            assert np.array_equal(rst.encode(got).numpy(), rst.encode(want).numpy())
+        else:
+            assert curve.to_affine_ints(got) == curve.to_affine_ints(want)
+
+
+def test_generator_cache_on_cuda(dev, tmp_path, monkeypatch):
+    """Saved from the card (finvert, fmul), loaded on the card (fmul): the
+    same points as the CPU derivation."""
+    monkeypatch.setattr(generators, "DISK_CHUNK", 64)
+    monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path))
+    want = generators.ristretto_generators(128, 0, "cpu")
+    before = {k: cp.LAUNCHES[k] for k in ("fmul", "fsq", "finvert", "elligator_form")}
+    made = generators.ristretto_generators(128, 0, dev)  # loads the CPU's save
+    loaded = generators.ristretto_generators(100, 0, dev)
+    assert cp.LAUNCHES["elligator_form"] == before["elligator_form"]
+    assert cp.LAUNCHES["fmul"] > before["fmul"]
+    assert bool(ed.points_equal(_on(made, "cpu"), want).all())
+    assert bool(ed.points_equal(_on(loaded, "cpu"), ed.index_batch(want, slice(0, 100))).all())
+    monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path / "card"))
+    generators.ristretto_generators(64, 0, dev)  # derived and saved on the card
+    assert cp.LAUNCHES["finvert"] > before["finvert"]
+    monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path / "card"))
+    assert bool(ed.points_equal(generators.ristretto_generators(64, 0, "cpu"), ed.index_batch(want, slice(0, 64))).all())
