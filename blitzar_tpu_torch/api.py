@@ -119,8 +119,10 @@ def device() -> torch.device:
 
 
 def get_ristretto255_generators(n: int, offset: int = 0) -> ed.PointP3:
-    """Reference sxt_ristretto255_get_generators (blitzar_api.h:440)."""
-    return _gen.get_precomputed_generators(n, offset, device())
+    """Reference sxt_ristretto255_get_generators (blitzar_api.h:440), which
+    copies into the caller's buffer: a copy, so that a write to it leaves
+    the shared prefix (and every later default commitment) as it was."""
+    return ed.PointP3(*(c.clone() for c in _gen.get_precomputed_generators(n, offset, device())))
 
 
 def get_curve25519_one_commit(n: int) -> ed.PointP3:

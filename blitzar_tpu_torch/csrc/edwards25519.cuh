@@ -103,6 +103,32 @@ BTT_HD ge_p3 ge_madd(const ge_p3& p, const ge_niels& n) {
   return r;
 }
 
+// 1/(2d): a niels + niels add divides the product of the two stored 2d*t.
+BTT_HD fe fe_inv_d2() {
+  return fe_const(0x66e4fc18u, 0x12f0793bu, 0x213caa17u, 0x05aeeb4cu,
+                  0x66dce7b3u, 0x958b108au, 0x0a6ae721u, 0x60483f69u);
+}
+
+// Addition of two niels entries (z1 = z2 = 1), extended result: the unified
+// law with C = t1*t2/(2d) (both stored t carry 2d) and D = 2, 7 multiplies
+// and one by 1/(2d) (blitzar_tpu/curves/edwards25519.py:_niels_add_impl).
+BTT_HD ge_p3 ge_niels_add(const ge_niels& p, const ge_niels& q) {
+  fe a = fe_mul(p.b, q.b);
+  fe b = fe_mul(p.a, q.a);
+  fe c = fe_mul(fe_mul(p.t, q.t), fe_inv_d2());
+  fe two = fe_small(2);
+  fe e = fe_sub(b, a);
+  fe f = fe_sub(two, c);
+  fe g = fe_add(c, two);
+  fe h = fe_add(b, a);
+  ge_p3 r;
+  r.X = fe_mul(e, f);
+  r.Y = fe_mul(g, h);
+  r.Z = fe_mul(f, g);
+  r.T = fe_mul(e, h);
+  return r;
+}
+
 // Addition of an extended point and a cached entry: 8 multiplies.
 BTT_HD ge_p3 ge_cadd(const ge_p3& p, const ge_cached& q) {
   fe a = fe_mul(fe_sub(p.Y, p.X), q.b);
@@ -216,6 +242,21 @@ struct point_out_ptrs {
   int32_t* c[4];
   int64_t limb_stride;
 };
+
+// A niels batch in the public layout: three (16, *batch) int32 coordinate
+// tensors (y + x, y - x, 2d*x*y) with one limb stride.
+struct niels_ptrs {
+  const int32_t* c[3];
+  int64_t limb_stride;
+};
+
+BTT_HD ge_niels niels_limbs_load(const niels_ptrs& p, int64_t i) {
+  ge_niels r;
+  r.a = fe_load(p.c[0] + i, p.limb_stride);
+  r.b = fe_load(p.c[1] + i, p.limb_stride);
+  r.t = fe_load(p.c[2] + i, p.limb_stride);
+  return r;
+}
 
 BTT_HD ge_p3 ge_load(const point_ptrs& p, int64_t i) {
   ge_p3 r;

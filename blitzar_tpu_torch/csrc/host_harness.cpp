@@ -1,7 +1,7 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
-// fp25519.cuh, edwards25519.cuh, mont.cuh, weierstrass.cuh, sumcheck.cuh and
-// tree_reduce.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
+// fp25519.cuh, edwards25519.cuh, niels_tree.cuh, mont.cuh, weierstrass.cuh,
+// sumcheck.cuh and tree_reduce.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
@@ -9,6 +9,7 @@
 // (3, 16, n), a cached batch (4, 16, n), a Weierstrass point batch (3,
 // nlimbs, n), a sumcheck MLE table (16, m, 2 mid).
 #include "edwards25519.cuh"
+#include "niels_tree.cuh"
 #include "sumcheck.cuh"
 #include "tree_reduce.cuh"
 #include "weierstrass.cuh"
@@ -227,6 +228,38 @@ void btt_host_ed_madd(const int32_t* p, const int32_t* niels, int32_t* out, int6
   point_ptrs pp = in_points(p, n);
   point_out_ptrs oo = out_points(out, n);
   for (int64_t i = 0; i < n; ++i) ge_store(oo, i, ge_madd(ge_load(pp, i), load_niels(niels, n, i)));
+}
+
+// p, q: (3, 16, n) niels batches; out: (4, 16, n) extended points
+void btt_host_niels_add(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
+  point_out_ptrs oo = out_points(out, n);
+  for (int64_t i = 0; i < n; ++i) ge_store(oo, i, ge_niels_add(load_niels(p, n, i), load_niels(q, n, i)));
+}
+
+// The blocks of niels_tree_reduce_lanes.cu, one column after another:
+// entries (size, cols, 24) words, out (4, 16, cols). Returns -1 for a size
+// no block takes.
+int btt_host_niels_tree(const int32_t* entries, int64_t size, int64_t cols, int32_t* out) {
+  const uint32_t* e = (const uint32_t*)entries;
+  point_out_ptrs oo = out_points(out, cols);
+  const int leaves = niels_tree_leaves(size);
+  if (leaves == 0) return -1;
+  ge_p3 sums[kNielsTreeLanes];
+  for (int64_t c = 0; c < cols; ++c) {
+    for (int t = 0; t < kNielsTreeLanes; ++t) {
+      switch (leaves) {
+        case 1: sums[t] = niels_lane_sum<1>(e, cols, c, t); break;
+        case 2: sums[t] = niels_lane_sum<2>(e, cols, c, t); break;
+        case 4: sums[t] = niels_lane_sum<4>(e, cols, c, t); break;
+        default: sums[t] = niels_lane_sum<8>(e, cols, c, t); break;
+      }
+    }
+    for (int h = kNielsTreeLanes >> 1; h > 0; h >>= 1) {
+      for (int t = 0; t < h; ++t) sums[t] = ge_add(sums[t], sums[t + h]);
+    }
+    ge_store(oo, c, sums[0]);
+  }
+  return 0;
 }
 
 void btt_host_to_niels(const int32_t* p, int32_t* niels, int64_t n) {

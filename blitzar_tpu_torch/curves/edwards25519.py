@@ -4,9 +4,9 @@ plain PyTorch.
 Point batches are NamedTuples of (16, *batch) int32 field tensors
 (``fields/fp25519.py``). The unified addition is complete (it handles the
 identity and doubling), so sums pad with the identity instead of masking.
-The ``_*_impl`` functions are the plain group law; :func:`add` dispatches a
-batch to the ``ed_add`` CUDA kernel when it lies on the card
-(``ops/cuda_point.py``).
+The ``_*_impl`` functions are the plain group law; :func:`add` and
+:func:`double` dispatch a batch to the ``ed_add`` and ``ed_double`` CUDA
+kernels when it lies on the card (``ops/cuda_point.py``).
 """
 
 from __future__ import annotations
@@ -187,8 +187,21 @@ def add(p: PointP3, q: PointP3) -> PointP3:
     return cuda_point.ed_add(p, q)
 
 
+def double(p: PointP3) -> PointP3:
+    """2p: the ``ed_double`` kernel on the card (any batch, one point
+    included), the plain law on the CPU."""
+    from ..ops import cuda_point
+
+    return cuda_point.ed_double(p)
+
+
 def neg(p: PointP3) -> PointP3:
     return PointP3(F.neg(p.x), p.y, p.z, F.neg(p.t))
+
+
+def cneg(p: PointP3, cond) -> PointP3:
+    """Negate where cond (broadcast over the batch shape)."""
+    return PointP3(F.cneg(p.x, cond), p.y, p.z, F.cneg(p.t, cond))
 
 
 def select(p: PointP3, q: PointP3, cond) -> PointP3:

@@ -20,7 +20,12 @@ bit-rows of each output.
 
 The lookups (``ed_lookup_msm`` on niels or cached entries, ``w_lookup_msm``)
 give (K, R) partials per table; ``tree_reduce_lanes`` sums them in one
-launch, and sums a streamed query's (chunks, R) products once more. The
+launch, and sums a streamed query's (chunks, R) products once more. A query
+the lookups do not take as blitzar_tpu routes it (fewer than 128 bit rows,
+as one column of 1 to 15 bytes has; another window than 8; a group count
+off the lookup's tile) goes to the few-row query (:func:`fewrow_products`):
+the selected entries are gathered per table chunk and summed by
+``niels_tree_reduce_lanes`` (or ``niels_add`` and ``tree_reduce_lanes``). The
 ladder is ``doubling_combine`` for ristretto255 and, as
 blitzar_tpu/msm/fixed.py:611-623 runs it, one ``wdouble`` and one ``wadd``
 launch per bit over the outputs for a Weierstrass curve.
@@ -246,14 +251,126 @@ def sum_leading(p, curve=ed):
     return cuda_wpoint.w_tree_reduce_lanes(curve, p)
 
 
+# ---------------------------------------------------------------------------
+# the few-row partition query (blitzar_tpu/msm/fixed.py:522-592)
+# ---------------------------------------------------------------------------
+
+# groups a lookup launch takes a step, blitzar_tpu's LOOKUP_GT and
+# W_LOOKUP_GT (ops/pallas_point.py:482, :600): the routing below keeps them
+LOOKUP_GT = 16
+W_LOOKUP_GT = 8
+# groups of a table chunk of the few-row query (blitzar_tpu/msm/fixed.py:93-97)
+TABLE_CHUNK_GROUPS = 1 << 10
+# bytes of selected entries a row block of the few-row query gathers at most
+FEWROW_BUDGET_BYTES = 256 << 20
+
+
+def lookup_msm_fits(groups: int, v_dim: int, r_rows: int) -> bool:
+    """Whether a ristretto255 query goes to ``ed_lookup_msm``
+    (blitzar_tpu/ops/pallas_point.py:559-567): 2^8 entries a group, whole
+    group tiles, at least 128 bit rows. Else the few-row query."""
+    return v_dim == 256 and groups >= LOOKUP_GT and groups % LOOKUP_GT == 0 and r_rows >= 128
+
+
+def w_lookup_msm_fits(groups: int, v_dim: int, r_rows: int) -> bool:
+    """Whether a Weierstrass query goes to ``w_lookup_msm``
+    (blitzar_tpu/ops/pallas_point.py:660-666)."""
+    return v_dim == 256 and groups >= W_LOOKUP_GT and groups % W_LOOKUP_GT == 0 and r_rows >= 128
+
+
+def table_chunk_groups(groups: int) -> int:
+    """Groups per table chunk (blitzar_tpu's _table_chunk_groups): the
+    largest power of two up to ``TABLE_CHUNK_GROUPS`` that divides the
+    group count, else its largest divisor up to that."""
+    gc = min(TABLE_CHUNK_GROUPS, groups)
+    p2 = 1 << (gc.bit_length() - 1)
+    while p2 > 1 and groups % p2:
+        p2 //= 2
+    if p2 > 1:
+        return p2
+    while groups % gc:
+        gc -= 1
+    return gc
+
+
+def _chunk_sums(sel: torch.Tensor, curve):
+    """(size, cols, coords, words) selected table entries -> (cols,) sums
+    over the leading axis, by the table's entry form: niels entries by
+    ``niels_tree_reduce_lanes`` where the size fits it, else ``niels_add``
+    on the two halves (even size) or the extended form (odd), then
+    ``tree_reduce_lanes``; cached entries and Weierstrass points in their
+    coordinates, then ``tree_reduce_lanes``."""
+    size = sel.shape[0]
+    if curve is not ed:
+        return sum_leading(cuda_wpoint.unpack_points(sel), curve)
+    if sel.shape[2] == 4:
+        return sum_leading(ed.cached_to_p3(cuda_point.unpack_cached(sel)))
+    if cuda_point.niels_tree_fits(size):
+        return cuda_point.niels_tree_reduce_lanes(sel)
+    niels = cuda_point.unpack_niels(sel)
+    if size % 2:
+        return sum_leading(ed.niels_to_p3(niels))
+    half = size // 2
+    lo = ed.Niels(*(c[:, :half] for c in niels))
+    hi = ed.Niels(*(c[:, half:] for c in niels))
+    return sum_leading(cuda_point.niels_add(lo, hi))
+
+
+def fewrow_products(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, curve=ed):
+    """(R,) bit-row products of a query that no lookup kernel takes
+    (:func:`lookup_msm_fits`): blitzar_tpu's one-hot einsum branch. For each
+    block of rows (its selected entries under ``FEWROW_BUDGET_BYTES``) the
+    entry each (row, group) selects is gathered from the table as (gc,
+    chunks x rows) entries, chunks of gc = :func:`table_chunk_groups`
+    groups; each chunk's column is summed (:func:`_chunk_sums`), then the
+    chunks of each row (``tree_reduce_lanes``). The gathers are plain torch,
+    as the einsum is XLA in blitzar_tpu."""
+    idx = cuda_point.query_index(scalars, signs, w)  # (R, G)
+    nc = table.shape[0] // table_chunk_groups(table.shape[0])
+    out = []
+    for rows in fewrow_blocks(table, idx.shape[0]):
+        sums = curve.reshape_batch(_chunk_sums(chunk_entries(table, idx[rows], w), curve), (nc, -1))
+        out.append(sum_leading(sums, curve))
+    return out[0] if len(out) == 1 else curve.cat(out)
+
+
+def fewrow_blocks(table: torch.Tensor, r_rows: int) -> list:
+    """The row blocks of a few-row query: slices whose selected entries
+    stay under ``FEWROW_BUDGET_BYTES``."""
+    groups, entry_bytes = table.shape[0], table.shape[2] * table.shape[3] * 4
+    rb = max(1, min(r_rows, FEWROW_BUDGET_BYTES // (groups * entry_bytes)))
+    return [slice(lo, min(lo + rb, r_rows)) for lo in range(0, r_rows, rb)]
+
+
+def chunk_entries(table: torch.Tensor, idx: torch.Tensor, w: int) -> torch.Tensor:
+    """The entries that (rows, G) table indices select, as (gc, chunks x
+    rows, coords, words): column (k, r) holds row r's entries of chunk k's
+    gc = :func:`table_chunk_groups` groups."""
+    groups = table.shape[0]
+    gc = table_chunk_groups(groups)
+    nc = groups // gc
+    flat = table.reshape((groups << w,) + tuple(table.shape[2:]))
+    base = (torch.arange(groups, device=table.device) << w).reshape(nc, gc).T  # (gc, nc): group j of chunk k
+    ix = idx.T.reshape(nc, gc, -1).permute(1, 0, 2)  # (gc, nc, rows)
+    return flat[(base[:, :, None] + ix).reshape(gc, -1)]
+
+
+def table_products(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, curve=ed):
+    """(R,) bit-row products of one table (rows as in cuda_point.query_index):
+    the lookup kernel where blitzar_tpu takes its lookup kernel, else the
+    few-row query. Both give the same points."""
+    groups, v_dim = table.shape[0], table.shape[1]
+    rows = (1 if signs is None else 2) * scalars.shape[0] * 8 * scalars.shape[2]
+    if curve is ed and lookup_msm_fits(groups, v_dim, rows):
+        return sum_leading(cuda_point.ed_lookup_msm(table, scalars, signs, w))
+    if curve is not ed and w_lookup_msm_fits(groups, v_dim, rows):
+        return sum_leading(cuda_wpoint.w_lookup_msm(curve, table, scalars, signs, w), curve)
+    return fewrow_products(table, scalars, signs, w, curve)
+
+
 def partition_products(handle: MultiexpHandle, scalars: torch.Tensor, signs=None):
-    """(R,) bit-row products (rows as in cuda_point.query_index)."""
-    curve = handle.curve
-    if curve is ed:
-        partials = cuda_point.ed_lookup_msm(handle.table, scalars, signs, handle.window_width)
-    else:
-        partials = cuda_wpoint.w_lookup_msm(curve, handle.table, scalars, signs, handle.window_width)
-    return sum_leading(partials, curve)
+    """(R,) bit-row products of a handle's query (:func:`table_products`)."""
+    return table_products(handle.table, scalars, signs, handle.window_width, handle.curve)
 
 
 def stream_products(points, scalars: torch.Tensor, signs=None, window_width: int = DEFAULT_WINDOW_WIDTH, curve=ed):
@@ -262,8 +379,9 @@ def stream_products(points, scalars: torch.Tensor, signs=None, window_width: int
     of the window; points (nlimbs, >= 0), identities standing in for any
     past their end. Chunk by chunk of ``STREAM_CHUNK_POINTS`` (rounded down
     to whole groups, the last one short): the chunk's table is built,
-    queried with its slice of the scalars (read in place) and dropped, and
-    its partials summed to (R,); the chunks' products are summed at the end.
+    queried with its slice of the scalars (read in place;
+    :func:`table_products`) and dropped; the chunks' (R,) products are
+    summed at the end.
     The point is the same however the chunks fall."""
     w = window_width
     n_pad = scalars.shape[1]
@@ -284,12 +402,10 @@ def stream_products(points, scalars: torch.Tensor, signs=None, window_width: int
         sg = None if signs is None else signs[:, lo:hi]
         if curve is ed:
             table = cuda_point.build_cached_table(pts, w)
-            partials = cuda_point.ed_lookup_msm(table, sc, sg, w)
         else:
             table = cuda_wpoint.w_build_table(curve, pts, w)
-            partials = cuda_wpoint.w_lookup_msm(curve, table, sc, sg, w)
+        per_chunk.append(table_products(table, sc, sg, w, curve))
         del table
-        per_chunk.append(sum_leading(partials, curve))
     if len(per_chunk) == 1:
         return per_chunk[0]
     return sum_leading(curve.cat([curve.reshape_batch(p, (1, -1)) for p in per_chunk]), curve)

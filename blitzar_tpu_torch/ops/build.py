@@ -41,6 +41,9 @@ SIGNATURES = {
     "btt_ed_lookup_msm": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_doubling_combine": [_P, _P, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P],
     "btt_ed_add": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+    "btt_ed_double": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+    "btt_niels_add": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+    "btt_niels_tree_reduce_lanes": [_P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_elligator_form": [_P, _I64, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_fmul": [_P, _I64, _P, _I64, _I64, _I64, _P, _P],
     "btt_fsq": [_P, _I64, _I64, _P, _P],

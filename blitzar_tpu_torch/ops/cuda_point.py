@@ -23,6 +23,9 @@ wrapper                 replaces                                 source
 ``ed_lookup_msm``       ``_lookup_tiled`` :533 (both forms)      ed_lookup_msm.cu
 ``doubling_combine``    ``_combine_tiled`` :982                  doubling_combine.cu
 ``ed_add``              ``_add_tiled`` :237                      ed_add.cu
+``ed_double``           ``_double_tiled`` :254                   ed_double.cu
+``niels_add``           ``_niels_add_tiled`` :79                 niels_add.cu
+``niels_tree_reduce_lanes``  ``_niels_tree_tiled`` :426          niels_tree_reduce_lanes.cu
 ``elligator_form``      ``_elligator_form_tiled`` :212           elligator_form.cu
 ``tree_reduce_lanes``   ``_tree_tiled`` :344                     tree_reduce_lanes.cu
 ======================  ======================================  =====================
@@ -55,6 +58,9 @@ KERNELS = (
     "tree_reduce_lanes",
     "doubling_combine",
     "ed_add",
+    "ed_double",
+    "niels_add",
+    "niels_tree_reduce_lanes",
     "elligator_form",
     "fmul",
     "fsq",
@@ -226,6 +232,118 @@ def ed_add(p: ed.PointP3, q: ed.PointP3) -> ed.PointP3:
 
 
 # ---------------------------------------------------------------------------
+# ed_double  (replaces pallas_point.py:_double_tiled :254 / double :298)
+# ---------------------------------------------------------------------------
+
+
+def ed_double_plain(p: ed.PointP3) -> ed.PointP3:
+    return ed._double_impl(p)
+
+
+def ed_double(p: ed.PointP3) -> ed.PointP3:
+    """Elementwise 2p (dbl-2008-hwcd), any batch shape, one element included.
+
+    Kernel csrc/ed_double.cu, one thread per element. Bound: integer
+    multiplies (8 field multiplies per element) at large batches; launch
+    latency for the few outputs of a Horner step."""
+    if not _on_card(p.x):
+        return ed_double_plain(p)
+    batch = tuple(p.x.shape[1:])
+    pc, ps = _point_arg(p, p.x.device, batch)
+    out = _empty_point(batch, p.x.device)
+    _launch(
+        "ed_double", build.library().btt_ed_double,
+        *_ptrs(pc), ps, p.x[0].numel(), *_ptrs(out), _stream(p.x.device),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# niels_add  (replaces pallas_point.py:_niels_add_tiled :79 / niels_add :95)
+# ---------------------------------------------------------------------------
+
+
+def niels_add_plain(n1: ed.Niels, n2: ed.Niels) -> ed.PointP3:
+    return ed._niels_add_impl(n1, n2)
+
+
+def niels_add(n1: ed.Niels, n2: ed.Niels) -> ed.PointP3:
+    """Elementwise n1 + n2 of two affine niels batches of one shape, as
+    extended points (7 multiplies and one by 1/(2d)).
+
+    Kernel csrc/niels_add.cu, one thread per element. Bound: integer
+    multiplies (8 field multiplies per element)."""
+    if not _on_card(n1.a):
+        return niels_add_plain(n1, n2)
+    batch = tuple(n1.a.shape[1:])
+    pc, ps = _point_arg(n1, n1.a.device, batch)
+    qc, qs = _point_arg(n2, n1.a.device, batch)
+    out = _empty_point(batch, n1.a.device)
+    _launch(
+        "niels_add", build.library().btt_niels_add,
+        *_ptrs(pc), ps, *_ptrs(qc), qs, n1.a[0].numel(), *_ptrs(out), _stream(n1.a.device),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# niels_tree_reduce_lanes  (replaces pallas_point.py:_niels_tree_tiled :426 /
+# niels_tree_reduce_lanes :447)
+# ---------------------------------------------------------------------------
+
+# the sizes a block of the kernel takes: powers of two above its 128 lanes,
+# up to 8 first-level sums a lane
+NIELS_TREE_LANES = 128
+NIELS_TREE_MAX = 2048
+
+
+def niels_tree_fits(size: int) -> bool:
+    """Whether :func:`niels_tree_reduce_lanes` takes columns of ``size``
+    entries (blitzar_tpu's tree_fits, pallas_point.py:391-393: a power of
+    two above 128)."""
+    return size & (size - 1) == 0 and NIELS_TREE_LANES < size <= NIELS_TREE_MAX
+
+
+def niels_tree_reduce_lanes_plain(entries: torch.Tensor) -> ed.PointP3:
+    """The kernel's sums in its order of additions: entries s and s +
+    size/2 by the niels add, then halving extended adds."""
+    size = entries.shape[0]
+    n = unpack_niels(entries)
+    half = size // 2
+    lo = ed.Niels(*(c[:, :half] for c in n))
+    hi = ed.Niels(*(c[:, half:] for c in n))
+    return ed.tree_reduce(ed._niels_add_impl(lo, hi), half)
+
+
+def niels_tree_reduce_lanes(entries: torch.Tensor) -> ed.PointP3:
+    """(size, cols, 3, 8) niels table entries (as a table stores them) ->
+    (16, cols) extended points: each column's sum. size is a power of two
+    above 128 (:func:`niels_tree_fits`).
+
+    Kernel csrc/niels_tree_reduce_lanes.cu, one block of 128 threads per
+    column: lane t adds the entries t + 128 j (first level niels + niels,
+    then extended adds) in registers, then the block halves its 128 lanes
+    in shared memory. The same order as the plain version, so the same
+    coordinates. Bound: integer multiplies (size/2 niels adds and size/2 - 1
+    extended adds per column)."""
+    size = entries.shape[0]
+    if not niels_tree_fits(size):
+        raise ValueError(f"column size {size} is no power of two in ({NIELS_TREE_LANES}, {NIELS_TREE_MAX}]")
+    if entries.dim() != 4 or tuple(entries.shape[2:]) != (3, 8) or entries.dtype != torch.int32:
+        raise ValueError(f"entries {tuple(entries.shape)} {entries.dtype}: expected (size, cols, 3, 8) int32")
+    if not _on_card(entries):
+        return niels_tree_reduce_lanes_plain(entries)
+    cols = entries.shape[1]
+    entries = entries.contiguous()
+    out = _empty_point((cols,), entries.device)
+    _launch(
+        "niels_tree_reduce_lanes", build.library().btt_niels_tree_reduce_lanes,
+        entries.data_ptr(), size, cols, *_ptrs(out), _stream(entries.device),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
 # elligator_form  (replaces pallas_point.py:_elligator_form_tiled :212)
 # ---------------------------------------------------------------------------
 
@@ -274,8 +392,10 @@ def subset_sums_plain(points: ed.PointP3, w: int) -> ed.PointP3:
 
 
 def build_niels_table_plain(points: ed.PointP3, w: int) -> torch.Tensor:
-    """The subset sums as affine niels, one inversion per entry."""
-    return pack_niels(ed.to_niels(subset_sums_plain(points, w)))
+    """The subset sums as affine niels: z inverted by a batch inversion
+    along each group's entries (the same inverses as the kernel's one
+    inversion per entry, at a fraction of the plain multiplies)."""
+    return pack_niels(ed.to_niels(subset_sums_plain(points, w), invert=F.batch_invert_lanes))
 
 
 def build_niels_table(points: ed.PointP3, w: int) -> torch.Tensor:

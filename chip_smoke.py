@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Build blitzar_tpu_torch's kernels and drive its commitment, proof,
-large-n (streamed) and handle-file paths on one GPU.
+large-n (streamed), handle-file, bucket-engine and few-row query paths on
+one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases, each fatal on failure:
 
-1. build the kernels of the sixteen CUDA sources in ``blitzar_tpu_torch/csrc``
+1. build the kernels of the nineteen CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
    registers and spills and the card's name and power limit;
 2. run each kernel at the shapes its path gives it at full width
@@ -84,7 +85,24 @@ Phases, each fatal on failure:
    launched them at, ``fmul`` and ``fsq`` (on no path) also at a table
    conversion's chunk of 2^22 entries, ``finvert`` at 2^20; ``fmul``,
    ``finvert`` and both base-field instantiations must have launched in
-   phase 14.
+   phase 14;
+16. the bucket engine (``BLITZAR_TPU_TORCH_MSM_ENGINE=bucket`` set for this
+   phase alone; counts from 0, empty handle caches): the pinned ristretto255
+   digests at 2^16, 2^20 (cold, warm, split into sort, gather, slab reduce,
+   scan and Horner) and 100000 x 10; a signed 8-byte 2^20 column and a
+   skewed 2^16 column (one scalar everywhere: many rounds) against the
+   default engine; bn254 G1 at 2^16 against the oracle's collapsed sum;
+   ``ed_double``, ``tree_reduce_lanes`` and ``ed_add`` must launch there;
+17. the few-row partition query (counts from 0, empty handle caches): 1-byte
+   and 8-byte counter columns over 2^20 canonical generators through the
+   default commitment entry equal the same commitment through
+   ``ed_lookup_msm`` on the same handle; a w = 4 2^20 handle's 32-byte
+   query gives the pinned digest both ways; n = 2^10 with a 1-byte column;
+   each few-row query and its ``ed_lookup_msm`` counterpart timed (median
+   of 5); ``niels_tree_reduce_lanes`` and ``niels_add`` must launch there;
+18. ``ed_double`` (one output and ten), ``niels_add`` and
+   ``niels_tree_reduce_lanes`` against their plain versions at the shapes
+   of phases 16 and 17.
 
 The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
 its path, time, plain time, bound, error), the card as ``nvidia-smi`` names
@@ -1617,6 +1635,299 @@ def phase_field_kernels(torch, dev, path_shapes: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# the bucket engine and the few-row partition query
+# ---------------------------------------------------------------------------
+
+# the kernels that only these paths launch, each required on its own path
+BUCKET_KERNELS = ("ed_double",)
+FEWROW_KERNELS = ("niels_add", "niels_tree_reduce_lanes")
+MULS_NIELS_ADD = 8
+QUERY_REPS = 5
+
+
+@contextlib.contextmanager
+def bucket_engine():
+    """BLITZAR_TPU_TORCH_MSM_ENGINE=bucket inside the block alone."""
+    from blitzar_tpu_torch.msm import engine
+
+    os.environ[engine.ENGINE_VAR] = "bucket"
+    try:
+        yield
+    finally:
+        os.environ.pop(engine.ENGINE_VAR, None)
+
+
+@contextlib.contextmanager
+def counted(*totals):
+    """One main-path call: the counts start from 0 just before it and are
+    added to each dict of totals just after, so the reference and timing
+    calls around it stay out of the path's launches."""
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    cp.reset_launches()
+    yield
+    for total in totals:
+        for k, v in cp.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def lookup_routing():
+    """Every query to its lookup kernel, as the port routed them before the
+    few-row query: the routing's end-to-end cost is timed against this."""
+    from blitzar_tpu_torch.msm import fixed
+
+    saved = fixed.lookup_msm_fits, fixed.w_lookup_msm_fits
+    fixed.lookup_msm_fits = fixed.w_lookup_msm_fits = lambda *a: True
+    try:
+        yield
+    finally:
+        fixed.lookup_msm_fits, fixed.w_lookup_msm_fits = saved
+
+
+def median_ms(torch, fn, reps: int = QUERY_REPS) -> tuple:
+    """(the last result, the median host-clock time of reps calls of fn)."""
+    times = []
+    for _ in range(reps):
+        out, ms = timed(torch, fn)
+        times.append(ms)
+    return out, float(np.median(times))
+
+
+def phase_bucket(torch, timings: dict) -> dict:
+    """(a) the bucket engine through the commitment entries: the pinned
+    ristretto255 digests at 2^16, 2^20 (cold, warm, split) and 100000 x 10;
+    a signed 2^20 column against the default engine; a skewed 2^16 column
+    (one scalar everywhere: each window's one bucket holds every point, so
+    the accumulation takes many rounds) against the default engine; bn254 G1
+    at 2^16 against the oracle's collapsed sum. Returns the launches of
+    the bucket-engine commitments of one call each (not the timing reps)."""
+    from blitzar_tpu_torch import api
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import engine
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    launches = dict.fromkeys(cp.KERNELS, 0)
+
+    def commit(descs, count=True):
+        with bucket_engine(), counted(launches) if count else contextlib.nullcontext():
+            return api.compute_curve25519_commitments(descs)
+
+    for log_n in (16, 20):
+        n = 1 << log_n
+        desc = api.SequenceDescriptor(32, n, counter_scalars(n, 32))
+        got, ms = timed(torch, lambda: commit([desc]))
+        check(digest(got) == PINNED_RISTRETTO_MSM[log_n],
+              f"(a) bucket engine: the 2^{log_n} commitment equals the pinned digest ({ms:.1f} ms)")
+        timings[f"bucket_commit_2^{log_n}_ms"] = ms
+    got, timings["bucket_commit_2^20_warm_ms_median"] = median_ms(torch, lambda: commit([desc], False), 3)
+    stages = {"sort": [(engine, "sort_digits")], "gather": [(engine, "gather_slab")],
+              "accumulate": [(engine, "bucket_accumulate")], "scan_and_window_sums": [(engine, "window_sums")],
+              "horner": [(engine, "horner")]}
+    with StageTimer(torch, stages) as st:
+        again, total = timed(torch, lambda: commit([desc], False))
+    check(digest(again) == PINNED_RISTRETTO_MSM[20], "(a) bucket engine: the split 2^20 commitment equals the pinned digest")
+    split = dict(st.ms)
+    split["slab_reduce_and_round_adds"] = split.pop("accumulate") - split["sort"] - split["gather"]
+    timings["bucket_commit_2^20_split_ms"] = {"total": total, **split,
+                                              "host_and_rest": total - sum(split.values())}
+
+    n, outputs = 100000, 10
+    descs = [api.SequenceDescriptor(32, n, counter_scalars(n, 32, output=o)) for o in range(outputs)]
+    got, timings["bucket_commit_100000x10_ms"] = timed(torch, lambda: commit(descs))
+    check(digest(got) == PINNED_PEDERSEN_100000_10_32,
+          f"(a) bucket engine: n = 100000 x 10 equals the pinned digest ({timings['bucket_commit_100000x10_ms']:.1f} ms)")
+
+    n = 1 << 20
+    vals = np.random.default_rng(23).integers(-(1 << 63), (1 << 63) - 1, size=n, dtype=np.int64)
+    desc = api.SequenceDescriptor(8, n, vals.astype("<i8").view(np.uint8).reshape(n, 8), True)
+    got, timings["bucket_commit_signed_2^20_ms"] = timed(torch, lambda: commit([desc]))
+    check(np.array_equal(got, api.compute_curve25519_commitments([desc])),
+          f"(a) bucket engine: a signed 8-byte 2^20 column equals the default engine's "
+          f"({timings['bucket_commit_signed_2^20_ms']:.1f} ms)")
+
+    n = 1 << 16
+    rows = np.repeat(counter_scalars(1, 32, output=12345), n, axis=0)
+    desc = api.SequenceDescriptor(32, n, rows)
+    rounds = []
+    inner = engine.gather_slab
+    engine.gather_slab = lambda *a, **k: rounds.append(a[5]) or inner(*a, **k)
+    try:
+        got, timings["bucket_commit_skewed_2^16_ms"] = timed(torch, lambda: commit([desc]))
+    finally:
+        engine.gather_slab = inner
+    check(max(rounds) + 1 > 1 and np.array_equal(got, api.compute_curve25519_commitments([desc])),
+          f"(a) bucket engine: a skewed 2^16 column ({max(rounds) + 1} rounds of C = {engine.choose_capacity(n)}) "
+          f"equals the default engine's ({timings['bucket_commit_skewed_2^16_ms']:.1f} ms)")
+    timings["bucket_skewed_2^16_rounds"] = max(rounds) + 1
+
+    curve = wc.BN254_G1
+    gens, pts = tiled_generators(curve, n, api.device())
+    rows = counter_scalars(n, 32)
+    expected = curve.oracle.msm(collapsed_scalars(rows), pts)
+    with bucket_engine(), counted(launches):
+        got, timings["bucket_bn254_g1_2^16_ms"] = timed(
+            torch, lambda: api.COMMITMENT_ENTRIES[curve]([api.SequenceDescriptor(32, n, rows)], gens))
+    check(w_output_equals(curve, got, 0, expected),
+          f"(a) bucket engine: bn254 G1 at 2^16 equals the oracle's collapsed sum ({timings['bucket_bn254_g1_2^16_ms']:.1f} ms)")
+    check(not os.environ.get(engine.ENGINE_VAR), "(a) the bucket engine's variable is unset again")
+    return launches
+
+
+def phase_fewrow(torch, timings: dict) -> tuple:
+    """(b) the few-row partition query at full width, 2^20 canonical
+    generators through the default commitment entry: a 1-byte and an 8-byte
+    counter column equal the same commitment through ed_lookup_msm on the
+    same handle; a w = 4 handle's 32-byte counter column (256 rows, 16
+    entries a group: the few-row query too) gives the pinned digest; n = 2^10
+    with one 1-byte column (128-group chunks: niels_add). The few-row and
+    the lookup query are timed on the same handle and rows (median of 5),
+    and the warm 2^20 commitments end to end, routed as blitzar_tpu routes
+    them and with every query sent to its lookup kernel (ristretto255 and
+    bn254 G1). Returns the inputs phase (c) holds the kernels at and the
+    launches of the default-entry commitments and the w = 4 query, one
+    call each (not the handle build, the references or the timing reps)."""
+    from blitzar_tpu_torch import api, generators
+    from blitzar_tpu_torch.curves import ristretto as rst
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import engine, fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    dev = api.device()
+    out = {}
+    launches = dict.fromkeys(cp.KERNELS, 0)
+    for n, nbytes in ((1 << 20, 1), (1 << 20, 8), (1 << 10, 1)):
+        gens = generators.get_precomputed_generators(n, 0, dev)
+        rows = counter_scalars(n, nbytes)
+        desc = api.SequenceDescriptor(nbytes, n, rows)
+        key = f"2^{n.bit_length() - 1}_{nbytes}B"
+        launched: dict = {}
+        with counted(launches, launched):
+            got, timings[f"fewrow_commit_{key}_ms"] = timed(torch, lambda: api.compute_curve25519_commitments([desc]))
+        launched = {k: launched[k] for k in FEWROW_KERNELS + ("ed_lookup_msm",)}
+        handle = engine.cached_handle(gens, n)
+        scalars = fixed._scalars_tensor(handle, rows[None])
+        nbits = 8 * nbytes
+
+        def via_lookup():
+            return fixed.doubling_combine(fixed.sum_leading(cp.ed_lookup_msm(handle.table, scalars, None, 8)), 1, nbits)
+
+        def via_fewrow():
+            return fixed.doubling_combine(fixed.fewrow_products(handle.table, scalars, None, 8), 1, nbits)
+
+        want = api.compress_ristretto255(via_lookup())
+        reduce = "niels_tree_reduce_lanes" if n == 1 << 20 else "niels_add"
+        check(not fixed.lookup_msm_fits(handle.num_groups, 256, nbits) and launched[reduce] > 0
+              and launched["ed_lookup_msm"] == 0 and np.array_equal(got, want),
+              f"(b) {key} column: the default commitment takes the few-row query ({launched}) and equals "
+              f"ed_lookup_msm's ({timings[f'fewrow_commit_{key}_ms']:.1f} ms)")
+        _, timings[f"fewrow_query_{key}_ms_median"] = median_ms(torch, via_fewrow)
+        _, timings[f"lookup_query_{key}_ms_median"] = median_ms(torch, via_lookup)
+        if n == 1 << 20:
+            _, timings[f"fewrow_commit_{key}_warm_ms_median"] = median_ms(
+                torch, lambda: api.compute_curve25519_commitments([desc]))
+            with lookup_routing():
+                routed, timings[f"lookup_routed_commit_{key}_warm_ms_median"] = median_ms(
+                    torch, lambda: api.compute_curve25519_commitments([desc]))
+            check(np.array_equal(routed, got), f"(b) {key} column: routed to ed_lookup_msm, the same commitment")
+        if n == 1 << 20 and nbytes == 1:
+            idx = cp.query_index(scalars, None, 8)
+            out["tree_entries"] = fixed.chunk_entries(handle.table, idx[fixed.fewrow_blocks(handle.table, 8)[0]], 8)
+        if n == 1 << 10:
+            idx = cp.query_index(scalars, None, 8)
+            sel = fixed.chunk_entries(handle.table, idx, 8)
+            half = sel.shape[0] // 2
+            # limb-major, as the wrapper makes them before its launch
+            out["niels_halves"] = tuple(type(h)(*(c.contiguous() for c in h))
+                                        for h in (cp.unpack_niels(sel[:half]), cp.unpack_niels(sel[half:])))
+
+    n = 1 << 20
+    gens = generators.get_precomputed_generators(n, 0, dev)
+    handle = fixed.MultiexpHandle(gens, window_width=4)
+    rows = counter_scalars(n, 32)[None]
+    launched = {}
+    with counted(launches, launched):
+        res, timings["fewrow_w4_query_2^20_ms"] = timed(torch, lambda: api.fixed_multiexponentiation(handle, rows))
+    check(digest(api.compress_ristretto255(res)) == PINNED_RISTRETTO_MSM[20]
+          and launched["niels_tree_reduce_lanes"] > 0,
+          f"(b) a w = 4 handle: the 2^20 query takes the few-row query and equals the pinned digest "
+          f"({timings['fewrow_w4_query_2^20_ms']:.1f} ms)")
+    scalars = fixed._scalars_tensor(handle, rows)
+    _, timings["fewrow_query_w4_2^20_32B_ms_median"] = median_ms(
+        torch, lambda: fixed.fewrow_products(handle.table, scalars, None, 4))
+    lookup, timings["lookup_query_w4_2^20_32B_ms_median"] = median_ms(
+        torch, lambda: fixed.sum_leading(cp.ed_lookup_msm(handle.table, scalars, None, 4)))
+    check(digest(rst.encode(fixed.doubling_combine(lookup, 1, 256)).cpu().numpy().T) == PINNED_RISTRETTO_MSM[20],
+          "(b) the w = 4 handle through ed_lookup_msm equals the pinned digest too")
+    del handle
+
+    # bn254 G1: an 8-byte 2^20 column, warm, routed both ways end to end
+    curve = wc.BN254_G1
+    gens, _ = tiled_generators(curve, n, dev)
+    desc = api.SequenceDescriptor(8, n, counter_scalars(n, 8))
+    entry = api.COMMITMENT_ENTRIES[curve]
+    with counted(launches):
+        got, timings["fewrow_commit_bn254_g1_2^20_8B_ms"] = timed(torch, lambda: entry([desc], gens))
+    _, timings["fewrow_commit_bn254_g1_2^20_8B_warm_ms_median"] = median_ms(torch, lambda: entry([desc], gens))
+    with lookup_routing():
+        routed, timings["lookup_routed_commit_bn254_g1_2^20_8B_warm_ms_median"] = median_ms(
+            torch, lambda: entry([desc], gens))
+    check(routed.tobytes() == got.tobytes(), "(b) bn254 G1 8-byte 2^20 column: routed to w_lookup_msm, the same commitment")
+    return out, launches
+
+
+def phase_fewrow_kernels(torch, dev, inputs: dict) -> dict:
+    """(c) ed_double, niels_add and niels_tree_reduce_lanes against their
+    plain versions at their paths' shapes: ed_double at a Horner step of one
+    output and of the ten of 100000 x 10; niels_add at the halves of n =
+    2^10's one-byte query (64 x 8); niels_tree_reduce_lanes at the first
+    row block of the 2^20 one-byte query (1024 entries x 1024 columns)."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    results: dict = {}
+    ed_err = functools.partial(point_err, canonical=F.canonicalize)
+    by_outputs = {}
+    for outputs in (1, 10):
+        pts = generators.get_precomputed_generators(outputs, 77, dev)
+        ms = device_ms(torch, lambda: cp.ed_double(pts), reps=100)
+        plain_ms = cuda_ms(torch, lambda: cp.ed_double_plain(pts), reps=1)
+        err = ed_err(cp.ed_double(pts), cp.ed_double_plain(pts))
+        b_ms, b_by = bound(outputs * 512, outputs * MULS_DOUBLE * IMAD_PER_FIELD_MUL)
+        by_outputs[str(outputs)] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": float(err), "bound_ms": b_ms,
+                                    "bound_by": b_by}
+        if outputs == 1:
+            kernel_record(results, "ed_double", "blitzar_tpu/ops/pallas_point.py:254",
+                          "blitzar_tpu_torch/csrc/ed_double.cu", ms, plain_ms, err, outputs * 512,
+                          outputs * MULS_DOUBLE * IMAD_PER_FIELD_MUL)
+        check(err == 0, f"ed_double at {outputs} outputs equals plain ({ms:.4f} ms)")
+    results["ed_double"]["by_outputs"] = by_outputs
+
+    n1, n2 = inputs["niels_halves"]
+    count = n1.a[0].numel()
+    ms = device_ms(torch, lambda: cp.niels_add(n1, n2), reps=100)
+    plain_ms = cuda_ms(torch, lambda: cp.niels_add_plain(n1, n2), reps=1)
+    err = ed_err(cp.niels_add(n1, n2), cp.niels_add_plain(n1, n2))
+    kernel_record(results, "niels_add", "blitzar_tpu/ops/pallas_point.py:79", "blitzar_tpu_torch/csrc/niels_add.cu",
+                  ms, plain_ms, err, count * (2 * 192 + 256), count * MULS_NIELS_ADD * IMAD_PER_FIELD_MUL)
+    results["niels_add"]["shape"] = list(n1.a.shape[1:])
+
+    entries = inputs["tree_entries"]
+    size, cols = entries.shape[0], entries.shape[1]
+    ms = device_ms(torch, lambda: cp.niels_tree_reduce_lanes(entries), reps=10)
+    plain_ms = cuda_ms(torch, lambda: cp.niels_tree_reduce_lanes_plain(entries), reps=1)
+    err = ed_err(cp.niels_tree_reduce_lanes(entries), cp.niels_tree_reduce_lanes_plain(entries))
+    muls = size // 2 * MULS_NIELS_ADD + (size // 2 - 1) * MULS_ADD
+    kernel_record(results, "niels_tree_reduce_lanes", "blitzar_tpu/ops/pallas_point.py:426",
+                  "blitzar_tpu_torch/csrc/niels_tree_reduce_lanes.cu", ms, plain_ms, err,
+                  cols * (size * 96 + 256), cols * muls * IMAD_PER_FIELD_MUL)
+    results["niels_tree_reduce_lanes"]["shape"] = [size, cols]
+    return results
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "blitzar_tpu_torch", "csrc")):
         print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -1695,22 +2006,36 @@ def main() -> int:
         file_instances = dict(cp.INSTANCE_LAUNCHES)
         results.update(phase_field_kernels(torch, torch.device("cuda"), file_shapes))
         results["mont_mul_ew"]["base_fields"] = results.pop("mont_mul_ew_base_fields")
+        # the bucket engine, then the few-row query, from empty handle
+        # caches: each path's launches are those of its main-path calls
+        # alone, counted from 0 around each; then their kernels against plain
+        clear_handles(torch)
+        bucket_launches = phase_bucket(torch, report["timings"])
+        clear_handles(torch)
+        fewrow_inputs, fewrow_launches = phase_fewrow(torch, report["timings"])
+        results.update(phase_fewrow_kernels(torch, torch.device("cuda"), fewrow_inputs))
+        del fewrow_inputs
+        clear_handles(torch)
         results["mont_mul_ew"]["launches_files_path_by_field"] = {
             k.split("/")[1]: v for k, v in file_instances.items() if k.startswith("mont_mul_ew/")}
         for name in cp.KERNELS:
             path = (large_launches if name in LARGE_KERNELS else proof_launches if name in PROOF_KERNELS else
-                    file_launches if name in FILE_KERNELS else commit_launches)
+                    file_launches if name in FILE_KERNELS else bucket_launches if name in BUCKET_KERNELS else
+                    fewrow_launches if name in FEWROW_KERNELS else commit_launches)
             results[name]["launches"] = path[name]
             results[name]["launches_commitment_path"] = commit_launches[name]
             results[name]["launches_proof_path"] = proof_launches[name]
             results[name]["launches_large_n_path"] = large_launches[name]
             results[name]["launches_files_path"] = file_launches[name]
+            results[name]["launches_bucket_path"] = bucket_launches[name]
+            results[name]["launches_fewrow_path"] = fewrow_launches[name]
             # launches in the cold 2^20 commitment: ristretto255 for the
             # Edwards kernels, bn254 G1 for the Weierstrass ones
             results[name]["launches_per_2^20_commitment"] = per_commitment.get(name)
         results["tree_reduce_lanes"]["launches_large_n_path_by_curve"] = {
             k.split("/")[1]: v for k, v in large_instances.items() if k.startswith("tree_reduce_lanes/")}
-        commit_kernels = [k for k in cp.KERNELS if k not in PROOF_KERNELS + LARGE_KERNELS + FILE_KERNELS]
+        commit_kernels = [k for k in cp.KERNELS
+                          if k not in PROOF_KERNELS + LARGE_KERNELS + FILE_KERNELS + BUCKET_KERNELS + FEWROW_KERNELS]
         check(all(commit_launches[k] > 0 for k in commit_kernels),
               f"every commitment kernel launched on the commitment path: {commit_launches}")
         check(all(proof_launches[k] > 0 for k in PROOF_PATH_KERNELS),
@@ -1722,6 +2047,11 @@ def main() -> int:
                                                                             for k in FILE_INSTANCES),
               f"fmul, finvert, and mont_mul_ew in both base fields, launched on the files and cache path: "
               f"{ {k: file_launches[k] for k in FILE_KERNELS} } {file_instances}")
+        check(all(bucket_launches[k] > 0 for k in BUCKET_KERNELS + ("tree_reduce_lanes", "ed_add")),
+              f"ed_double, tree_reduce_lanes and ed_add launched on the bucket engine's path: {bucket_launches}")
+        check(all(fewrow_launches[k] > 0 for k in FEWROW_KERNELS),
+              f"niels_add and niels_tree_reduce_lanes launched on the few-row query's path: "
+              f"{ {k: fewrow_launches[k] for k in FEWROW_KERNELS} }")
         report["kernels"] = [results[k] for k in cp.KERNELS]
         report["card"] = card
         report["device"] = torch.cuda.get_device_name(0)

@@ -316,3 +316,83 @@ def test_weierstrass_entries_validate_and_keep_the_device():
             [api.SequenceDescriptor(1, 2, np.ones(2, np.uint8))], elsewhere)
     with pytest.raises(ValueError, match="backend"):
         api.multiexp_handle_new(api.SXT_CURVE_GRUMPKIN, elsewhere)
+
+
+# ---------------------------------------------------------------------------
+# the handle cache and the shared generators give the commitment of the
+# generators as they are at the call
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_thread():
+    """The plain handle builds run many small ops: one thread a worker
+    keeps the parallel test run from oversubscribing the host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _unit_column(n: int, i: int):
+    """One 1-byte column of n scalars: 1 at i, else 0 (its commitment is
+    generator i)."""
+    data = np.zeros((n, 1), np.uint8)
+    data[i] = 1
+    return [api.SequenceDescriptor(1, n, data)]
+
+
+def test_written_generators_give_the_new_commitment(one_thread):
+    """An in-place write to the generators after a commitment: the next
+    commitment is over the new content, not the cached handle's."""
+    from blitzar_tpu_torch.curves import edwards25519 as ted
+
+    api.init("cpu")
+    n = 16
+    a = ted.PointP3(*(c.clone() for c in api.get_ristretto255_generators(n)))
+    b = api.get_ristretto255_generators(n, offset=100)
+    data = np.random.default_rng(31).integers(0, 256, size=(n, 4), dtype=np.uint8)
+    desc = [api.SequenceDescriptor(4, n, data)]
+    first = api.compute_curve25519_commitments(desc, generators=a)
+    for dst, src in zip(a, b):
+        dst.copy_(src)
+    vals = [int.from_bytes(bytes(r), "little") for r in data]
+    want = R.ristretto_encode(R.naive_msm(vals, [R.compute_base_element(100 + i) for i in range(n)]))
+    got = api.compute_curve25519_commitments(desc, generators=a)
+    assert bytes(got[0]) == want and bytes(first[0]) != want
+
+
+def test_generators_differing_at_an_unsampled_point_get_their_own_handle(one_thread):
+    """Two generator sets equal but at point 4, which the handle cache's
+    digest does not sample at n = 200: each commits to its own point 4."""
+    from blitzar_tpu_torch.msm import engine
+
+    api.init("cpu")
+    n = 200
+    sampled = set(np.linspace(0, n - 1, num=64, dtype=np.int64)) | set(range(4)) | set(range(n - 4, n))
+    assert 4 not in sampled
+    gens = api.get_ristretto255_generators(n)
+    other = api.get_ristretto255_generators(1, offset=300)
+    assert engine._content_digest(gens, n) == engine._content_digest(gens, n)
+    first = api.compute_curve25519_commitments(_unit_column(n, 4), generators=gens)
+    fresh = type(gens)(*(c.clone() for c in gens))
+    for dst, src in zip(fresh, other):
+        dst[:, 4] = src[:, 0]
+    assert engine._content_digest(fresh, n) == engine._content_digest(gens, n)
+    got = api.compute_curve25519_commitments(_unit_column(n, 4), generators=fresh)
+    assert bytes(first[0]) == R.ristretto_encode(R.compute_base_element(4))
+    assert bytes(got[0]) == R.ristretto_encode(R.compute_base_element(300))
+
+
+def test_written_copy_of_the_generators_leaves_the_defaults(one_thread):
+    """get_ristretto255_generators hands out a copy: zeroing it changes no
+    later commitment over the default generators."""
+    from blitzar_tpu_torch.msm import engine
+
+    api.init("cpu")
+    n = 8
+    before = api.compute_curve25519_commitments(_unit_column(n, 2))
+    api.get_ristretto255_generators(n).x.zero_()
+    engine.clear_handle_cache()
+    after = api.compute_curve25519_commitments(_unit_column(n, 2))
+    assert bytes(after[0]) == bytes(before[0]) == R.ristretto_encode(R.compute_base_element(2))

@@ -443,3 +443,81 @@ def test_generator_cache_on_cuda(dev, tmp_path, monkeypatch):
     assert cp.LAUNCHES["finvert"] > before["finvert"]
     monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path / "card"))
     assert bool(ed.points_equal(generators.ristretto_generators(64, 0, "cpu"), ed.index_batch(want, slice(0, 64))).all())
+
+
+# ---------------------------------------------------------------------------
+# ed_double, niels_add, niels_tree_reduce_lanes; the bucket engine and the
+# few-row partition query on the card
+# ---------------------------------------------------------------------------
+
+
+def test_ed_double_kernel(dev):
+    """Any batch: one point (a Horner step of one output), and 300 with the
+    identity among them, on a strided view."""
+    r0, r1 = _r(300, 11)
+    pts = cp.elligator_form_plain(r0, r1)
+    pts = ed.cat([ed.identity((1,)), ed.index_batch(pts, slice(1, None))])
+    for batch in (ed.index_batch(pts, slice(0, 1)), ed.reshape_batch(pts, (20, 15))):
+        card = ed.PointP3(*(c.to(dev) for c in batch))
+        assert _same(cp.ed_double(card), cp.ed_double_plain(batch))
+    view = ed.index_batch(ed.reshape_batch(ed.PointP3(*(c.to(dev) for c in pts)), (20, 15)), (slice(None), 3))
+    assert _same(cp.ed_double(view), cp.ed_double_plain(ed.index_batch(ed.reshape_batch(pts, (20, 15)), (slice(None), 3))))
+    assert cp.LAUNCHES["ed_double"] > 0
+
+
+def _niels_entries(count: int, seed: int) -> torch.Tensor:
+    r0, r1 = _r(count, seed)
+    pts = cp.elligator_form_plain(r0, r1)
+    pts = ed.cat([ed.identity((1,)), ed.index_batch(pts, slice(1, None))])
+    return cp.pack_niels(ed.to_niels(pts))  # (count, 3, 8)
+
+
+def test_niels_add_kernel(dev):
+    a, b = _niels_entries(257, 2), _niels_entries(257, 3)
+    b[:5] = a[:5]  # doublings
+    n1, n2 = cp.unpack_niels(a), cp.unpack_niels(b)
+    got = cp.niels_add(ed.Niels(*(c.to(dev) for c in n1)), ed.Niels(*(c.to(dev) for c in n2)))
+    assert _same(got, cp.niels_add_plain(n1, n2))
+
+
+@pytest.mark.parametrize("size", [256, 1024, 2048])
+def test_niels_tree_reduce_lanes_kernel(dev, size):
+    """Limb for limb: the kernel adds in the plain version's order."""
+    cols = 3
+    entries = _niels_entries(size * cols, 5).reshape(size, cols, 3, 8)
+    got = cp.niels_tree_reduce_lanes(entries.to(dev))
+    assert _same(got, cp.niels_tree_reduce_lanes_plain(entries))
+    with pytest.raises(ValueError):
+        cp.niels_tree_reduce_lanes(entries[:200].to(dev))
+
+
+def test_bucket_engine_on_cuda_matches_cpu(dev, monkeypatch):
+    """The bucket engine through the API on the card (signed and unsigned,
+    mixed widths, one skewed column) equals the default engine on the CPU."""
+    n = 300
+    rng = np.random.default_rng(12)
+    data = [rng.integers(0, 256, size=(n, 8), dtype=np.uint8), rng.integers(0, 256, size=(200, 2), dtype=np.uint8),
+            np.full((n, 1), 9, np.uint8)]
+    args = (data, [8, 2, 1], [True, False, False])
+    want = rst.encode(engine.msm(generators.ristretto_generators(n, 0, "cpu"), *args)).numpy()
+    monkeypatch.setenv(engine.ENGINE_VAR, "bucket")
+    before = cp.LAUNCHES["ed_double"]
+    got = engine.msm(generators.ristretto_generators(n, 0, dev), *args)
+    assert np.array_equal(rst.encode(got).cpu().numpy(), want)
+    assert cp.LAUNCHES["ed_double"] - before == 7 * 8
+
+
+@pytest.mark.parametrize("n, w", [(1000, 8), (1024, 8), (2048, 8), (1024, 4)])
+def test_fewrow_query_on_cuda_matches_lookup(dev, n, w):
+    """The few-row query on the card equals ed_lookup_msm's products on
+    the same handle: an odd chunk of 125 groups (n = 1000), niels_add on
+    the halves of a 128-group chunk (1024), niels_tree_reduce_lanes on
+    256-group chunks (2048, and w = 4 at 1024)."""
+    from blitzar_tpu_torch.msm import fixed
+
+    handle = fixed.MultiexpHandle(generators.ristretto_generators(n, 0, dev), window_width=w)
+    scalars = torch.from_numpy(np.random.default_rng(n).integers(0, 256, size=(1, n, 2), dtype=np.uint8)).to(dev)
+    scalars = torch.nn.functional.pad(scalars, (0, 0, 0, handle.num_groups * w - n))
+    got = fixed.fewrow_products(handle.table, scalars, None, w)
+    want = fixed.sum_leading(cp.ed_lookup_msm(handle.table, scalars, None, w))
+    assert bool(ed.points_equal(got, want).all())

@@ -56,13 +56,19 @@ def test_table_matches_jax_point_table(handles):
     assert np.array_equal(to_jax_points(th.point_table()), _canon_jax(jh._point_table()))
 
 
-def test_products_and_combine_match_jax(handles):
+def test_products_and_combine_match_jax(handles, monkeypatch):
+    """At w = 4 (16 entries a group) both packages take their few-row query
+    (blitzar_tpu its one-hot einsum on the CPU): equal products."""
     jh, th = handles
     num_outputs, n, nbytes = SCALARS.shape
     nbits = 8 * nbytes
     rows = jfixed._bits_from_bytes(SCALARS).reshape(num_outputs * nbits, n)
     jprod = jfixed._partition_products(jh.t_split, jnp.asarray(rows), W)
+    calls = []
+    inner = tfixed.fewrow_products
+    monkeypatch.setattr(tfixed, "fewrow_products", lambda *a, **k: calls.append(1) or inner(*a, **k))
     tprod = tfixed.partition_products(th, torch.from_numpy(SCALARS))
+    assert calls == [1] and not tfixed.lookup_msm_fits(th.num_groups, 1 << W, num_outputs * nbits)
     assert np.array_equal(_enc(tprod), _enc_jax(jprod))
     # the combine on the very same products: same ladder, same coordinates
     jp = jed.reshape_batch(jprod, (num_outputs, nbits))

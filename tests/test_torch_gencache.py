@@ -3,8 +3,10 @@ blitzar_tpu's: a cache written by either package is loaded by the port (and
 the port's by blitzar_tpu), with the same points; the smallest covering
 prefix is sliced; legacy extended files are honoured; the cache is off
 unless its variable names a directory, and "" disables it; an unwritable
-directory skips the save. Both cache directories point into tmp_path. The 2^16
-generators are derived once, in the module fixture."""
+directory skips the save. Both cache directories point into tmp_path. The N
+generators are derived once, in the module fixture, with saves at multiples
+of N (the module's DISK_CHUNK, 2^16, patched): the rules are the same at any
+multiple, and a 2^16 derivation in plain PyTorch takes minutes here."""
 
 import os
 import subprocess
@@ -22,16 +24,17 @@ from blitzar_tpu_torch.curves import edwards25519 as ted
 from blitzar_tpu_torch.fields import fp25519 as TF
 from blitzar_tpu_torch.utils.limbs import from_jax_points, to_jax_points
 
-N = 1 << 16
+N = 256
 
 
 @pytest.fixture(scope="module")
 def derived(tmp_path_factory):
-    """The first 2^16 generators, derived by the port with its cache in a
+    """The first N generators, derived by the port with its cache in a
     fresh directory: the derivation saves the cache file."""
     root = tmp_path_factory.mktemp("gencache")
     mp = pytest.MonkeyPatch()
     mp.setattr(tgen, "DISK_DIR", str(root / "port"))
+    mp.setattr(tgen, "DISK_CHUNK", N)
     points = tgen.ristretto_generators(N, 0, "cpu")
     mp.undo()
     return root, points
@@ -65,8 +68,8 @@ def test_port_loads_its_own_cache(derived, monkeypatch):
     got = tgen.ristretto_generators(N, 0, "cpu")
     assert torch.equal(got.z, TF.from_int(1, (N,)))
     assert _same_points(got, points)
-    prefix = tgen.ristretto_generators(1000, 0, "cpu")  # the smallest covering prefix, sliced
-    assert _same_points(prefix, ted.index_batch(points, slice(0, 1000)))
+    prefix = tgen.ristretto_generators(N // 2 + 3, 0, "cpu")  # the smallest covering prefix, sliced
+    assert _same_points(prefix, ted.index_batch(points, slice(0, N // 2 + 3)))
 
 
 def test_port_loads_jax_cache_and_jax_loads_ports(derived, monkeypatch):

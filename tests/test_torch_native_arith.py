@@ -22,6 +22,7 @@ from blitzar_tpu.curves import edwards25519 as jed
 from blitzar_tpu.fields import fp25519 as JF
 from blitzar_tpu_torch.curves import edwards25519 as ted
 from blitzar_tpu_torch.curves import weierstrass as wc
+from blitzar_tpu_torch.fields import fp25519 as TF
 from blitzar_tpu_torch.ops import build, cuda_point, cuda_wpoint
 from blitzar_tpu_torch.utils.limbs import ints_to_limbs, to_jax_points, to_tensor
 
@@ -143,6 +144,44 @@ def test_cadd_and_to_cached_match(harness):
     got = _run(harness.btt_host_ed_cadd, p, cached, out_shape=p.shape)
     jc = jed.Cached(*(jnp.asarray(c.astype(np.uint32)) for c in cached))
     assert np.array_equal(got.astype(np.uint32), _canon_point(jed._cadd_impl(_jax_point(p), jc)))
+
+
+def _niels_of(points) -> np.ndarray:
+    """(4, 16, n) canonical points -> (3, 16, n) niels limbs (the port's
+    conversion, held against blitzar_tpu's in test_madd_and_to_niels_match)."""
+    tp = ted.PointP3(*(to_tensor(c) for c in points))
+    return np.stack([c.numpy() for c in cuda_point.unpack_niels(cuda_point.pack_niels(ted.to_niels(tp)))])
+
+
+def test_niels_add_matches_jax(harness):
+    """ge_niels_add (niels_add.cu), a doubling among the pairs, against
+    blitzar_tpu's _niels_add_impl: canonical limbs."""
+    p, _ = _points(11)
+    q, _ = _points(12)
+    q[:, :, :4] = p[:, :, :4]
+    n1, n2 = _niels_of(p), _niels_of(q)
+    got = _run(harness.btt_host_niels_add, n1, n2, out_shape=p.shape)
+    jn = [jed.Niels(*(jnp.asarray(c.astype(np.uint32)) for c in n)) for n in (n1, n2)]
+    assert np.array_equal(got.astype(np.uint32), _canon_point(jed._niels_add_impl(*jn)))
+
+
+@pytest.mark.parametrize("size", [256, 512])
+def test_niels_tree_body_matches_plain(harness, size):
+    """niels_tree_reduce_lanes.cu's block, run by the harness column by
+    column (each lane's leaves and halving levels, then the 128 lanes in
+    shared memory): the plain version's coordinates, limb for limb, with the
+    identity among the entries; a size no block takes returns -1."""
+    cols = 2
+    pts, _ = _points(13, count=size * cols)
+    pts[:, :, 5] = to_jax_points(ted.identity((1,)))[:, :, 0]
+    entries = cuda_point.pack_niels(ted.to_niels(ted.PointP3(*(to_tensor(c) for c in pts))))
+    entries = entries.reshape(size, cols, 3, 8).contiguous()
+    out = np.zeros((4, 16, cols), np.int32)
+    call = functools.partial(harness.btt_host_niels_tree, ctypes.c_void_p(entries.numpy().ctypes.data))
+    assert call(ctypes.c_int64(size), ctypes.c_int64(cols), ctypes.c_void_p(out.ctypes.data)) == 0
+    want = cuda_point.niels_tree_reduce_lanes_plain(entries)
+    assert np.array_equal(out, np.stack([TF.canonicalize(c).numpy() for c in want]))
+    assert call(ctypes.c_int64(384), ctypes.c_int64(cols), ctypes.c_void_p(out.ctypes.data)) == -1
 
 
 def _tree_input(curve, size: int, cols: int):
