@@ -8,54 +8,55 @@
 // drops it, where the niels form's inversions would cost more than the
 // query (blitzar_tpu/msm/fixed.py:729-735).
 //
-// Design: one block per group, one thread per entry (2^w threads, w <= 8).
-// The group's w points, in cached form, and its 2^w extended entries live
-// in shared memory (1 KB + 32 KB at w = 8). Step j of the doubling
-// concatenation (the order of blitzar_tpu's table, table_{j+1} = [table_j |
-// table_j + P_j]) has threads [2^j, 2^{j+1}) add cached P_j to entry v - 2^j
-// (8 multiplies), one __syncthreads() a step. The cached add computes the
-// unified add's field values, so the table equals the plain version's limb
-// for limb. Then each thread converts its entry to the cached form, the
-// block stages the canonical words in shared memory and stores the 8 KB or
-// 32 KB group with consecutive threads on consecutive words.
-//
 // Bound: integer multiplies at w = 8 (a group's least work: w multiplies by
 // 2d to put its points in cached form, then (2^w - 1 - w) adds of 8
-// multiplies and as many multiplies by 2d; the kernel also forms the w
-// one-point entries by an add to the identity and converts entry 0); the
-// bytes written (128 a entry, 1 GiB for a 2^18-point chunk) are the second
-// bound.
+// multiplies and as many multiplies by 2d); the bytes written (128 a
+// entry, 1 GiB for a 2^18-point chunk) are half of it.
+//
+// Design (table_build.cuh): a group's 2^w entries over 2^L lanes (L =
+// min(w, 2); 32 >> L groups a warp), no block barrier. The warp's groups'
+// points sit in shared memory in sum form (128 bytes each, 8 KB a warp at
+// w = 8). Lane t forms entry t from the identity (at most L adds, the lanes
+// in step, in blitzar_tpu's order), then each of its rows k, entries
+// t + 2^L k, from its parent row read back from the table, where the lane
+// has just stored it (an L2 hit), plus one point: at w = 8, 65 adds a lane
+// for 8 groups a warp, every lane at work in all but the first 2. One add
+// in one loop, and one multiply body for all the multiplies, keep the
+// kernel small for the instruction cache and the registers few. Each entry goes to its 128 bytes as eight 16-byte stores,
+// so the 4 lanes of a group's row cover 512 bytes of the table without a
+// gap.
 #include <cuda_runtime.h>
 
-#include "edwards25519.cuh"
+#include "table_build.cuh"
 
 using namespace btt;
 
-constexpr int kMaxWindow = 8;
+namespace {
 
-__global__ void __launch_bounds__(1 << kMaxWindow)
-build_cached_table_kernel(point_ptrs pts, int w, uint32_t* table) {
-  __shared__ ge_p3 entries[1 << kMaxWindow];
-  __shared__ ge_cached gens[kMaxWindow];
-  int64_t g = blockIdx.x;
-  int v = threadIdx.x;
-  int count = 1 << w;
-  if (v < w) gens[v] = ge_to_cached(ge_load(pts, g * w + v));
-  if (v == 0) entries[0] = ge_identity();
-  for (int j = 0; j < w; ++j) {
-    __syncthreads();
-    int lo = 1 << j;
-    if (v >= lo && v < 2 * lo) entries[v] = ge_cadd(entries[v - lo], gens[j]);
+constexpr int kMaxWindow = 8;
+constexpr int kWarps = 4;        // warps a block
+
+__global__ void __launch_bounds__(32 * kWarps)
+build_cached_table_kernel(point_ptrs pts, int w, int64_t groups, uint32_t* table) {
+  __shared__ ge_cached gens[kWarps][kWarpPoints];
+  const run_shape shape = run_shape_of(w);
+  const int L = shape.L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per_warp = 32 >> L;
+  const int64_t first = ((int64_t)blockIdx.x * kWarps + warp) * per_warp;
+  for (int i = lane; i < per_warp * w; i += 32) {
+    int64_t g = first + i / w;
+    if (g < groups) gens[warp][i] = ge_to_sum_form(ge_load(pts, g * w + i % w));
   }
-  __syncthreads();
-  ge_cached c = ge_to_cached(entries[v]);
-  __syncthreads();
-  uint32_t* words = reinterpret_cast<uint32_t*>(entries);  // 32 words an entry
-  cached_store(words + v * 32, c);
-  __syncthreads();
-  uint32_t* dst = table + ((g << w) * 32);
-  for (int k = v; k < count * 32; k += count) dst[k] = words[k];
+  __syncwarp();
+  const int seg = lane >> L;
+  const int64_t g = first + seg;
+  if (g >= groups) return;
+  const cached_rows rows{reinterpret_cast<word4*>(table) + (g << w) * 8, L, lane & ((1 << L) - 1)};
+  cached_lane_entries(gens[warp] + seg * w, L, shape.H, rows);
 }
+
+}  // namespace
 
 // points: four (16, groups * w) int32 coordinate arrays with the given limb
 // stride; table: (groups, 2^w, 4, 8) 32-bit words; 1 <= w <= 8.
@@ -70,8 +71,11 @@ extern "C" int btt_build_cached_table(const void* x, const void* y, const void* 
   pts.c[3] = (const int32_t*)t;
   pts.limb_stride = limb_stride;
   if (groups > 0) {
-    build_cached_table_kernel<<<(unsigned)groups, 1 << w, 0, (cudaStream_t)stream>>>(pts, w,
-                                                                                    (uint32_t*)table);
+    run_shape s = run_shape_of(w);
+    int64_t per_block = (int64_t)kWarps * (32 >> s.L);
+    unsigned blocks = (unsigned)((groups + per_block - 1) / per_block);
+    build_cached_table_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(pts, w, groups,
+                                                                              (uint32_t*)table);
   }
   return (int)cudaGetLastError();
 }

@@ -130,20 +130,21 @@ BTT_HD ge_p3 ge_niels_add(const ge_niels& p, const ge_niels& q) {
 }
 
 // Addition of an extended point and a cached entry: 8 multiplies.
-BTT_HD ge_p3 ge_cadd(const ge_p3& p, const ge_cached& q) {
-  fe a = fe_mul(fe_sub(p.Y, p.X), q.b);
-  fe b = fe_mul(fe_add(p.Y, p.X), q.a);
-  fe c = fe_mul(p.T, q.t);
-  fe d = fe_mul_small(fe_mul(p.Z, q.z), 2);
+template <class Mul = fe_mul_op>
+BTT_HD ge_p3 ge_cadd(const ge_p3& p, const ge_cached& q, Mul mul = Mul()) {
+  fe a = mul(fe_sub(p.Y, p.X), q.b);
+  fe b = mul(fe_add(p.Y, p.X), q.a);
+  fe c = mul(p.T, q.t);
+  fe d = fe_mul_small(mul(p.Z, q.z), 2);
   fe e = fe_sub(b, a);
   fe f = fe_sub(d, c);
   fe g = fe_add(d, c);
   fe h = fe_add(b, a);
   ge_p3 r;
-  r.X = fe_mul(e, f);
-  r.Y = fe_mul(g, h);
-  r.Z = fe_mul(f, g);
-  r.T = fe_mul(e, h);
+  r.X = mul(e, f);
+  r.Y = mul(g, h);
+  r.Z = mul(f, g);
+  r.T = mul(e, h);
   return r;
 }
 
@@ -176,12 +177,13 @@ BTT_HD ge_niels ge_to_niels(const ge_p3& p) {
 }
 
 // Extended -> cached: two additions and one multiply by 2d.
-BTT_HD ge_cached ge_to_cached(const ge_p3& p) {
+template <class Mul = fe_mul_op>
+BTT_HD ge_cached ge_to_cached(const ge_p3& p, Mul mul = Mul()) {
   ge_cached c;
   c.a = fe_add(p.Y, p.X);
   c.b = fe_sub(p.Y, p.X);
   c.z = p.Z;
-  c.t = fe_mul(p.T, fe_d2());
+  c.t = mul(p.T, fe_d2());
   return c;
 }
 

@@ -139,6 +139,13 @@ BTT_HD fe fe_mul(const fe& a, const fe& b) {
 
 BTT_HD fe fe_sq(const fe& a) { return fe_mul(a, a); }
 
+// The multiply that the chains below and edwards25519.cuh's ge_cadd and
+// ge_to_cached take as a template argument: fe_mul inlined, unless a caller
+// passes its own (table_build.cuh: one non-inlined body).
+struct fe_mul_op {
+  BTT_HD fe operator()(const fe& a, const fe& b) const { return fe_mul(a, b); }
+};
+
 // a * k for a small constant k < 2^16.
 BTT_HD fe fe_mul_small(const fe& a, uint32_t k) {
   fe r;
@@ -153,33 +160,36 @@ BTT_HD fe fe_mul_small(const fe& a, uint32_t k) {
   return r;
 }
 
-BTT_HD fe fe_pow2k(fe a, int k) {
+template <class Mul = fe_mul_op>
+BTT_HD fe fe_pow2k(fe a, int k, Mul mul = Mul()) {
 #pragma unroll 1
-  for (int i = 0; i < k; ++i) a = fe_sq(a);
+  for (int i = 0; i < k; ++i) a = mul(a, a);
   return a;
 }
 
 // z^(2^250 - 1) and z^11: the shared prefix of fe_invert and fe_pow22523
 // (the chain of blitzar_tpu/fields/fp25519.py:_pow_chain_250).
-BTT_HD void fe_pow_chain_250(const fe& z, fe& z2_250_0, fe& z11) {
-  fe z2 = fe_sq(z);
-  fe z9 = fe_mul(fe_pow2k(z2, 2), z);
-  z11 = fe_mul(z9, z2);
-  fe z2_5_0 = fe_mul(fe_sq(z11), z9);
-  fe z2_10_0 = fe_mul(fe_pow2k(z2_5_0, 5), z2_5_0);
-  fe z2_20_0 = fe_mul(fe_pow2k(z2_10_0, 10), z2_10_0);
-  fe z2_40_0 = fe_mul(fe_pow2k(z2_20_0, 20), z2_20_0);
-  fe z2_50_0 = fe_mul(fe_pow2k(z2_40_0, 10), z2_10_0);
-  fe z2_100_0 = fe_mul(fe_pow2k(z2_50_0, 50), z2_50_0);
-  fe z2_200_0 = fe_mul(fe_pow2k(z2_100_0, 100), z2_100_0);
-  z2_250_0 = fe_mul(fe_pow2k(z2_200_0, 50), z2_50_0);
+template <class Mul = fe_mul_op>
+BTT_HD void fe_pow_chain_250(const fe& z, fe& z2_250_0, fe& z11, Mul mul = Mul()) {
+  fe z2 = mul(z, z);
+  fe z9 = mul(fe_pow2k(z2, 2, mul), z);
+  z11 = mul(z9, z2);
+  fe z2_5_0 = mul(mul(z11, z11), z9);
+  fe z2_10_0 = mul(fe_pow2k(z2_5_0, 5, mul), z2_5_0);
+  fe z2_20_0 = mul(fe_pow2k(z2_10_0, 10, mul), z2_10_0);
+  fe z2_40_0 = mul(fe_pow2k(z2_20_0, 20, mul), z2_20_0);
+  fe z2_50_0 = mul(fe_pow2k(z2_40_0, 10, mul), z2_10_0);
+  fe z2_100_0 = mul(fe_pow2k(z2_50_0, 50, mul), z2_50_0);
+  fe z2_200_0 = mul(fe_pow2k(z2_100_0, 100, mul), z2_100_0);
+  z2_250_0 = mul(fe_pow2k(z2_200_0, 50, mul), z2_50_0);
 }
 
 // a^(p - 2); 0 maps to 0.
-BTT_HD fe fe_invert(const fe& a) {
+template <class Mul = fe_mul_op>
+BTT_HD fe fe_invert(const fe& a, Mul mul = Mul()) {
   fe z2_250_0, z11;
-  fe_pow_chain_250(a, z2_250_0, z11);
-  return fe_mul(fe_pow2k(z2_250_0, 5), z11);
+  fe_pow_chain_250(a, z2_250_0, z11, mul);
+  return mul(fe_pow2k(z2_250_0, 5, mul), z11);
 }
 
 // a^((p - 5) / 8) = a^(2^252 - 3).

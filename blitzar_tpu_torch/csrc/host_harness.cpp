@@ -1,7 +1,8 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
-// fp25519.cuh, edwards25519.cuh, niels_tree.cuh, mont.cuh, weierstrass.cuh,
-// sumcheck.cuh and tree_reduce.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
+// fp25519.cuh, edwards25519.cuh, niels_tree.cuh, table_build.cuh, mont.cuh,
+// weierstrass.cuh, sumcheck.cuh and tree_reduce.cuh are compiled here by a
+// host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
@@ -11,8 +12,11 @@
 #include "edwards25519.cuh"
 #include "niels_tree.cuh"
 #include "sumcheck.cuh"
+#include "table_build.cuh"
 #include "tree_reduce.cuh"
 #include "weierstrass.cuh"
+
+#include <vector>
 
 using namespace btt;
 
@@ -138,6 +142,45 @@ void host_tree(const typename G::In& in, int64_t size, int64_t cols, const typen
       for (int t = 0; t < h; ++t) sums[t] = G::add(sums[t], sums[t + h]);
     }
     G::store(out, c, sums[0]);
+  }
+}
+
+// The warps of build_cached_table.cu, one group and one lane after another.
+void host_cached_groups(const point_ptrs& pts, int w, int64_t groups, word4* table) {
+  const run_shape s = run_shape_of(w);
+  std::vector<ge_cached> gens(w);
+  for (int64_t g = 0; g < groups; ++g) {
+    for (int j = 0; j < w; ++j) gens[j] = ge_to_sum_form(ge_load(pts, g * w + j));
+    for (int t = 0; t < (1 << s.L); ++t) {
+      cached_lane_entries(gens.data(), s.L, s.H, cached_rows{table + (g << w) * 8, s.L, t});
+    }
+  }
+}
+
+// The runs of build_niels_table.cu, one lane after another: the lanes park
+// their rows, a loop scans the lanes' Z products where the kernel shuffles,
+// one inversion a run, then each lane walks its rows back.
+void host_niels_runs(const point_ptrs& pts, int w, int64_t runs, word4* table) {
+  const run_shape s = run_shape_of(w);
+  const int width = 1 << s.L, wide = w - s.bits;
+  std::vector<ge_cached> gens(s.bits);
+  std::vector<fe> c(width), E(width), S(width);
+  for (int64_t r = 0; r < runs; ++r) {
+    const int64_t g = r >> wide;
+    for (int j = 0; j < s.bits; ++j) gens[j] = ge_to_cached(ge_load(pts, g * w + j));
+    group_point point{pts, g * w};
+    const ge_p3 start = run_start(point, w, r & ((1 << wide) - 1));
+    for (int t = 0; t < width; ++t) {
+      c[t] = niels_lane_park(gens.data(), s.L, s.H, start, niels_rows{table + (r << s.bits) * 6, s.L, t});
+    }
+    E[0] = fe_one();
+    for (int t = 1; t < width; ++t) E[t] = fe_mul(E[t - 1], c[t - 1]);
+    S[width - 1] = fe_one();
+    for (int t = width - 2; t >= 0; --t) S[t] = fe_mul(S[t + 1], c[t + 1]);
+    const fe inv_total = fe_invert(fe_mul(E[width - 1], c[width - 1]));
+    for (int t = 0; t < width; ++t) {
+      niels_lane_store(s.H, fe_mul(fe_mul(inv_total, S[t]), E[t]), niels_rows{table + (r << s.bits) * 6, s.L, t});
+    }
   }
 }
 
@@ -310,6 +353,24 @@ int btt_host_tree_reduce(int curve, const int32_t* in, int64_t size, int64_t col
     case Grumpkin::id: run(WGroup<Grumpkin>(), 16); return 0;
     default: return -1;
   }
+}
+
+// points (4, 16, n) -> table (n / w, 2^w, 4, 8) words of
+// build_cached_table.cu; returns -1 for a window it does not take.
+int btt_host_build_cached_table(const int32_t* points, int64_t n, int w, int32_t* table) {
+  if (w < 1 || w > 8 || n % w) return -1;
+  const point_ptrs pts = in_points(points, n);
+  host_cached_groups(pts, w, n / w, reinterpret_cast<word4*>(table));
+  return 0;
+}
+
+// points (4, 16, n) -> table (n / w, 2^w, 3, 8) words of
+// build_niels_table.cu; returns -1 for a window it does not take.
+int btt_host_build_niels_table(const int32_t* points, int64_t n, int w, int32_t* table) {
+  if (w < 1 || w > 16 || n % w) return -1;
+  const point_ptrs pts = in_points(points, n);
+  host_niels_runs(pts, w, (n / w) << (w - run_shape_of(w).bits), reinterpret_cast<word4*>(table));
+  return 0;
 }
 
 void btt_host_elligator_form(const int32_t* r0, const int32_t* r1, int32_t* out, int64_t n) {

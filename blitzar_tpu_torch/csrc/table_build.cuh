@@ -1,0 +1,313 @@
+// The partition-table builds of build_niels_table.cu and build_cached_table.cu:
+// the order in which a lane forms its entries and, for the niels form, one
+// batch inversion per run of entries. Both replace
+// blitzar_tpu/ops/pallas_point.py:_build_split_tiled (:806); the subset sums
+// are its _subset_double_concat (:745-759), the niels inversion its
+// _lane_batch_invert (:709-735).
+//
+// Entry v of a group is the sum of the group's points j over the set bits j
+// of v. blitzar_tpu adds them in increasing j from the identity: entry v =
+// entry(v - 2^top) + P_top. The cached form is projective, so that order is
+// part of its contract; the niels form is affine and canonical, so no
+// order of additions can change it.
+//
+// A run is up to 2^8 consecutive entries of one group (a whole group for
+// w <= 8), spread over 2^L lanes (L = min(w, 2), 32 >> L runs a warp):
+// lane t owns the run's entries t + 2^L k, rows k < 2^H (L + H = the run's
+// bits). A lane forms its row 0, entry t, by adding the points j < L over
+// the set bits of t (L steps, the lanes in step, some idle), then its other
+// rows one add each, every lane at work: at w = 8, 65 steps a lane for 8
+// runs a warp, 8.1 a run against 8 for 255 adds over 32 lanes. Each lane
+// runs one loop with one add in its body, and every multiply calls one
+// body (tb_mul), so the kernels stay small enough for the instruction
+// cache and few registers are live.
+//
+// Everything here is BTT_HD: the kernels run it a lane at a time, and
+// host_harness.cpp runs the same code over every lane in turn for the CPU
+// tests (tests/test_torch_table_build.py).
+#pragma once
+
+#include "edwards25519.cuh"
+
+namespace btt {
+
+constexpr int kRunBits = 8;   // at most 2^8 entries a run
+constexpr int kLaneBits = 2;  // at most 4 lanes a run
+// the most points a warp's runs hold, (32 >> L) * bits: 64 from w = 8 on,
+// at most 16 below w = kLaneBits
+constexpr int kWarpPoints = (32 >> kLaneBits) * kRunBits > 16 ? (32 >> kLaneBits) * kRunBits : 16;
+
+// The split of a run's bits into lane bits L and row bits H, and the run's
+// bits (w, or 8 for a wider window).
+struct run_shape {
+  int bits, L, H;
+};
+
+BTT_HD run_shape run_shape_of(int w) {
+  run_shape s;
+  s.bits = w < kRunBits ? w : kRunBits;
+  s.L = s.bits < kLaneBits ? s.bits : kLaneBits;
+  s.H = s.bits - s.L;
+  return s;
+}
+
+BTT_HD int top_bit(int k) {
+  int j = 0;
+  while (k >> (j + 1)) ++j;
+  return j;
+}
+
+BTT_HD int low_bit(int k) {
+  int j = 0;
+  while (!((k >> j) & 1)) ++j;
+  return j;
+}
+
+// ---------------------------------------------------------------------------
+// one multiply body
+// ---------------------------------------------------------------------------
+
+#if defined(__CUDACC__)
+#define BTT_CALL static __host__ __device__ __noinline__
+#else
+#define BTT_CALL static inline
+#endif
+
+// Every multiply of the table builds calls this one body, its operands and
+// result in registers: inlined at each call site, the ~230-instruction
+// multiply made the kernels overflow the instruction cache.
+BTT_CALL fe tb_mul(fe a, fe b) { return fe_mul(a, b); }
+
+// tb_mul as the multiply of fe_invert, ge_cadd and ge_to_cached
+struct tb_mul_op {
+  BTT_HD fe operator()(const fe& a, const fe& b) const { return tb_mul(a, b); }
+};
+
+// ---------------------------------------------------------------------------
+// table entries: 16-byte words (one vector access each on the card)
+// ---------------------------------------------------------------------------
+
+#if defined(__CUDACC__)
+typedef uint4 word4;
+BTT_HD word4 make_word4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return make_uint4(a, b, c, d); }
+#else
+struct word4 {
+  uint32_t x, y, z, w;
+};
+inline word4 make_word4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  word4 r = {a, b, c, d};
+  return r;
+}
+#endif
+
+BTT_HD void store_raw(word4* dst, const fe& a) {
+  dst[0] = make_word4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  dst[1] = make_word4(a.v[4], a.v[5], a.v[6], a.v[7]);
+}
+
+BTT_HD void store_canonical(word4* dst, const fe& a) { store_raw(dst, fe_canonical(a)); }
+
+BTT_HD fe load_raw(const word4* src) {
+  word4 lo = src[0], hi = src[1];
+  return fe_const(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w);
+}
+
+// ---------------------------------------------------------------------------
+// the cached form: blitzar_tpu's order, each row from its parent in the table
+// ---------------------------------------------------------------------------
+
+// A point as (Y + X, Y - X, Z, T): the second operand of cached_sum.
+BTT_HD ge_cached ge_to_sum_form(const ge_p3& p) {
+  ge_cached c;
+  c.a = fe_add(p.Y, p.X);
+  c.b = fe_sub(p.Y, p.X);
+  c.z = p.Z;
+  c.t = p.T;
+  return c;
+}
+
+// (Y + X, Y - X, Z, 2d*T) of the identity
+BTT_HD ge_cached cached_identity() {
+  ge_cached c;
+  c.a = fe_one();
+  c.b = fe_one();
+  c.z = fe_one();
+  c.t = fe_zero();
+  return c;
+}
+
+// A cached entry p plus a point q in sum form, in cached form: the field
+// values of the unified add (C = 2d*T_p*T_q with the 2d on p's side) and
+// one multiply for the sum's 2d*T; 9 multiplies.
+BTT_HD ge_cached cached_sum(const ge_cached& p, const ge_cached& q) {
+  fe a = tb_mul(p.b, q.b);
+  fe b = tb_mul(p.a, q.a);
+  fe c = tb_mul(p.t, q.t);
+  fe d = fe_mul_small(tb_mul(p.z, q.z), 2);
+  fe e = fe_sub(b, a);
+  fe f = fe_sub(d, c);
+  fe g = fe_add(d, c);
+  fe h = fe_add(b, a);
+  fe X = tb_mul(e, f);
+  fe Y = tb_mul(g, h);
+  ge_cached r;
+  r.a = fe_add(Y, X);
+  r.b = fe_sub(Y, X);
+  r.z = tb_mul(f, g);
+  r.t = tb_mul(tb_mul(e, h), fe_d2());
+  return r;
+}
+
+// Lane t's rows of a group in a cached table (8 words4 an entry, canonical).
+struct cached_rows {
+  word4* group;  // the group's first entry
+  int L, t;
+  BTT_HD word4* at(int k) const { return group + (int64_t)(t + (k << L)) * 8; }
+  BTT_HD void store(int k, const ge_cached& c) const {
+    word4* dst = at(k);
+    store_canonical(dst, c.a);
+    store_canonical(dst + 2, c.b);
+    store_canonical(dst + 4, c.z);
+    store_canonical(dst + 6, c.t);
+  }
+  BTT_HD ge_cached load(int k) const {
+    const word4* src = at(k);
+    ge_cached c;
+    c.a = load_raw(src);
+    c.b = load_raw(src + 2);
+    c.z = load_raw(src + 4);
+    c.t = load_raw(src + 6);
+    return c;
+  }
+};
+
+// Lane t's entries of a group in blitzar_tpu's order: step s < L adds
+// point s if bit s of t is set (row 0 is the last of them); step L - 1 + k
+// forms row k from its parent row k - 2^j (j = k's top bit), read back from
+// the table where this lane stored it, plus point L + j. pts: the group's
+// points in sum form.
+BTT_HD void cached_lane_entries(const ge_cached* pts, int L, int H, const cached_rows& rows) {
+  ge_cached acc = cached_identity();
+  const int steps = L + (1 << H) - 1;
+#if defined(__CUDA_ARCH__)
+#pragma unroll 1
+#endif
+  for (int s = 0; s < steps; ++s) {
+    int j = s, row = 0;
+    bool add = (rows.t >> s) & 1;
+    if (s >= L) {
+      row = s - L + 1;
+      const int top = top_bit(row);
+      j = L + top;
+      acc = rows.load(row ^ (1 << top));
+      add = true;
+    }
+    if (add) acc = cached_sum(acc, pts[j]);
+    if (s >= L - 1) rows.store(row, acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the niels form: a Gray-code walk and one batch inversion a run
+// ---------------------------------------------------------------------------
+//
+// A lane walks its rows in Gray-code order (row_i = i ^ (i >> 1)), each the
+// last plus or minus one point, so only the running sum is live. Its slots
+// park the walk for Montgomery's batch inversion: row_i's slot gets
+// (X c, Y c, Z), c the product of the Z of the rows walked before it. The
+// run's lanes then scan their products c_all across the run (E_t: the
+// product of the lanes before t, S_t: of those after; the kernel scans with
+// shuffles, the host in a loop), the run's product T is inverted once, and
+// lane t's walk starts back at inv = 1/c_all = E_t S_t / T: row_i's
+// x = (X c) inv, y = (Y c) inv, then inv *= Z. Two multiplies an entry to
+// 1/Z and one inversion a run, where one inversion an entry takes 265.
+
+BTT_HD int gray_row(int i) { return i ^ (i >> 1); }
+
+// -q for q in cached form (Y + X, Y - X, Z, 2d*T)
+BTT_HD ge_cached cached_neg(const ge_cached& q) {
+  ge_cached r;
+  r.a = q.b;
+  r.b = q.a;
+  r.z = q.z;
+  r.t = fe_neg(q.t);
+  return r;
+}
+
+// Lane t's rows of a run in a niels table: 6 words4 an entry, (X c, Y c, Z)
+// while parked, then the canonical niels entry.
+struct niels_rows {
+  word4* run;  // the run's first entry
+  int L, t;
+  BTT_HD word4* at(int k) const { return run + (int64_t)(t + (k << L)) * 6; }
+};
+
+// Walks lane t's rows from `acc` (the run's start) and parks them; returns
+// the product of their Z. pts: the run's points in cached form. Step s < L
+// adds point s if bit s of t is set (row 0 is the last of them); step
+// L - 1 + i goes from row_{i-1} to row_i, adding or taking away point
+// L + j for the bit j they differ in.
+BTT_HD fe niels_lane_park(const ge_cached* pts, int L, int H, ge_p3 acc, const niels_rows& rows) {
+  fe c = fe_one();
+  const int steps = L + (1 << H) - 1;
+#if defined(__CUDA_ARCH__)
+#pragma unroll 1
+#endif
+  for (int s = 0; s < steps; ++s) {
+    int j = s, row = 0;
+    bool add = (rows.t >> s) & 1, neg = false;
+    if (s >= L) {
+      const int i = s - L + 1, b = low_bit(i);
+      row = gray_row(i);
+      j = L + b;
+      neg = !((row >> b) & 1);
+      add = true;
+    }
+    if (add) acc = ge_cadd(acc, neg ? cached_neg(pts[j]) : pts[j], tb_mul_op());
+    if (s >= L - 1) {
+      word4* slot = rows.at(row);
+      store_raw(slot, tb_mul(acc.X, c));
+      store_raw(slot + 2, tb_mul(acc.Y, c));
+      store_raw(slot + 4, acc.Z);
+      c = tb_mul(c, acc.Z);
+    }
+  }
+  return c;
+}
+
+// Walks lane t's rows back from inv = 1/(the product niels_lane_park
+// returned) and overwrites each parked slot with its niels entry.
+BTT_HD void niels_lane_store(int H, fe inv, const niels_rows& rows) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll 1
+#endif
+  for (int i = (1 << H) - 1; i >= 0; --i) {
+    word4* slot = rows.at(gray_row(i));
+    const fe x = tb_mul(load_raw(slot), inv);
+    const fe y = tb_mul(load_raw(slot + 2), inv);
+    inv = tb_mul(inv, load_raw(slot + 4));
+    store_canonical(slot, fe_add(y, x));
+    store_canonical(slot + 2, fe_sub(y, x));
+    store_canonical(slot + 4, tb_mul(tb_mul(x, y), fe_d2()));
+  }
+}
+
+// point j of a group (first point base)
+struct group_point {
+  point_ptrs p;
+  int64_t base;
+  BTT_HD ge_p3 operator()(int j) const { return ge_load(p, base + j); }
+};
+
+// The start of run r of a group wider than 8: the sum of its points 8 + j
+// over the set bits j of r (the identity for r = 0).
+template <class LoadPoint>
+BTT_HD ge_p3 run_start(LoadPoint& point, int w, int64_t r) {
+  ge_p3 acc = ge_identity();
+  for (int j = kRunBits; j < w; ++j) {
+    if ((r >> (j - kRunBits)) & 1) acc = ge_cadd(acc, ge_to_cached(point(j), tb_mul_op()), tb_mul_op());
+  }
+  return acc;
+}
+
+}  // namespace btt

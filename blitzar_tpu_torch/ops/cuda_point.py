@@ -391,11 +391,21 @@ def subset_sums_plain(points: ed.PointP3, w: int) -> ed.PointP3:
     return table
 
 
+NIELS_RUN_ENTRIES = 256  # entries a batch inversion covers, the kernel's run
+
+
+def _invert_runs(z: torch.Tensor) -> torch.Tensor:
+    """1/z for (16, G, V) by a batch inversion along each run of up to 256
+    consecutive entries, as the kernel inverts."""
+    run = min(z.shape[-1], NIELS_RUN_ENTRIES)
+    return F.batch_invert_lanes(z.reshape(z.shape[:-1] + (-1, run))).reshape(z.shape)
+
+
 def build_niels_table_plain(points: ed.PointP3, w: int) -> torch.Tensor:
     """The subset sums as affine niels: z inverted by a batch inversion
-    along each group's entries (the same inverses as the kernel's one
-    inversion per entry, at a fraction of the plain multiplies)."""
-    return pack_niels(ed.to_niels(subset_sums_plain(points, w), invert=F.batch_invert_lanes))
+    along each run of a group's entries (exact inverses: the table does not
+    depend on how they are batched)."""
+    return pack_niels(ed.to_niels(subset_sums_plain(points, w), invert=_invert_runs))
 
 
 def build_niels_table(points: ed.PointP3, w: int) -> torch.Tensor:
@@ -403,10 +413,12 @@ def build_niels_table(points: ed.PointP3, w: int) -> torch.Tensor:
     v of group g = sum of points g*w + j over the set bits j of v, affine
     niels (y + x, y - x, 2d*x*y), entry 0 the identity.
 
-    Kernel csrc/build_niels_table.cu, one thread per entry with its own
-    inversion. Bound: integer multiplies. The function needs ~17 field
-    multiplies per entry (V - 1 - w adds, one batched inversion and 4
-    multiplies per entry, per group); the kernel does ~300 (its inversions)."""
+    Kernel csrc/build_niels_table.cu: runs of up to 256 entries over 4 lanes
+    each (csrc/table_build.cuh), the extended entries parked in the table's
+    own slots, one batch inversion a run and one inversion chain for the
+    runs of a block. Any w from 1 to 16. Bound: integer multiplies, ~17 field
+    multiplies an entry (V - 1 - w adds, a batched inversion and 4 to the
+    affine form, per group)."""
     n_pad = points.x.shape[1]
     if n_pad % w:
         raise ValueError(f"point count {n_pad} is not a multiple of the window {w}")
@@ -427,7 +439,7 @@ def build_niels_table(points: ed.PointP3, w: int) -> torch.Tensor:
 # cached form)
 # ---------------------------------------------------------------------------
 
-MAX_CACHED_WINDOW = 8  # the kernel's block holds 2^w entries, one a thread
+MAX_CACHED_WINDOW = 8  # a group is one run of the kernel (csrc/table_build.cuh)
 
 
 def build_cached_table_plain(points: ed.PointP3, w: int) -> torch.Tensor:
@@ -441,10 +453,10 @@ def build_cached_table(points: ed.PointP3, w: int) -> torch.Tensor:
     (y + x, y - x, z, 2d*t) in blitzar_tpu's order of additions (so equal to
     the plain table limb for limb), entry 0 the identity (1, 1, 1, 0).
 
-    Kernel csrc/build_cached_table.cu, one block per group and one thread
-    per entry, the entries in shared memory. Bound: integer multiplies
-    (2^w - 1 - w adds and 2^w multiplies by 2d per group), then the bytes
-    written (128 per entry)."""
+    Kernel csrc/build_cached_table.cu: a group's entries over 4 lanes, each
+    lane adding its own in blitzar_tpu's order (csrc/table_build.cuh).
+    Bound: integer multiplies (2^w - 1 - w adds and 2^w multiplies by 2d
+    per group), then the bytes written (128 per entry)."""
     n_pad = points.x.shape[1]
     if n_pad % w:
         raise ValueError(f"point count {n_pad} is not a multiple of the window {w}")

@@ -18,7 +18,8 @@ Phases, each fatal on failure:
    equal), timing both (a kernel's time is the median device time of one
    launch, see ``device_ms``); where the plain version is too large to run
    whole, on a sample spread over the whole output, its last element
-   included;
+   included; the two table builds' ptxas registers and spills (none
+   allowed) go to their own record of ``chiprun_out/chip_smoke.json``;
 3. the upstream end-to-end vectors through ``api.compute_curve25519_commitments``
    on the card, and a signed multi-output case against the plain CPU run;
 4. the bn254 G1, Grumpkin and bls12-381 G1 commitment entries at n = 100
@@ -170,6 +171,43 @@ def muls_niels_table_group(w: int) -> int:
     return ((entries - w) * MULS_ADD + entries * MULS_BATCH_INVERT_PER_ELEMENT + MULS_INVERT
             + entries * MULS_NIELS_FROM_ZINV)
 
+# An earlier reading, not measured by this run: the table builds' device
+# times before their redesign around csrc/table_build.cuh, this script's
+# readings of the earlier kernels (build_niels_table at 2^20,
+# build_cached_table on a 2^18-point chunk, w = 8) on an NVIDIA H100 80GB
+# HBM3 at 700.00 W. Written beside this run's times under its own key of
+# chiprun_out/chip_smoke.json, never into the kernels line.
+EARLIER_TABLE_BUILD_MS = {"build_niels_table": 322.45062255859375, "build_cached_table": 4.6976637840271}
+TABLE_BUILD_SOURCES = {"build_niels_table": "build_niels_table.cu", "build_cached_table": "build_cached_table.cu"}
+
+
+def ptxas_report(log_text: str, source: str) -> list:
+    """Registers, stack frame and spills of each function compiled from
+    ``source`` (kernel instantiations and the device functions they call),
+    read from the build's ``ptxas -v`` log."""
+    funcs: dict = {}
+    mine, entry, props = False, None, None
+    for line in log_text.splitlines():
+        if line.startswith("== "):
+            mine = line[3:].strip() == source
+        elif not mine:
+            continue
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            funcs.setdefault(entry, {"function": entry, "entry": True})
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+            funcs.setdefault(props, {"function": props, "entry": False})
+        elif "spill stores" in line and props is not None:
+            parts = line.replace(",", "").split()
+            funcs[props].update(stack_frame=int(parts[0]), spill_stores=int(parts[parts.index("spill") - 2]),
+                                spill_loads=int(parts[parts.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and entry is not None:
+            parts = line.replace(",", "").split()
+            funcs[entry]["registers"] = int(parts[parts.index("registers") - 1])
+    return list(funcs.values())
+
+
 # Upstream end-to-end commitment vectors (copied from tests/vectors.py:
 # reference rust/tests/src/main.rs:26-48).
 RUST_DATA = [
@@ -298,6 +336,32 @@ def kernel_record(results, name, replaces, source, ms, plain_ms, err, bytes_move
     }
     check(err == 0, f"{name}: kernel equals plain, tolerance 0 on {compared} (max abs err {err}; "
                     f"{ms:.3f} ms vs plain {plain_ms:.1f} ms)")
+
+
+def table_build_ptxas(log_text: str, built_here: bool) -> dict:
+    """The table builds' registers and spills, which must be none, from
+    the ptxas log of the library this process loaded (``built_here``: the
+    log was written by this run's build, not found beside a library built
+    earlier from the same sources and flags)."""
+    out = {"built_in_this_run": built_here}
+    for name, source in TABLE_BUILD_SOURCES.items():
+        funcs = out[name] = ptxas_report(log_text, source)
+        for f in funcs:
+            print(f"    {source} {f['function']}: {f.get('registers', '-')} registers, {f.get('stack_frame')} bytes "
+                  f"stack frame, {f.get('spill_stores')} bytes spill stores, {f.get('spill_loads')} bytes spill loads")
+        check(any(f["entry"] for f in funcs) and all(
+                  f.get("spill_stores") == 0 and f.get("spill_loads") == 0 for f in funcs),
+              f"{name}: no spills in the kernel or its device functions")
+    return out
+
+
+def earlier_table_build_times(results: dict) -> dict:
+    """This run's table-build times beside the earlier readings."""
+    out = {"note": "earlier_ms: readings before the redesign around csrc/table_build.cuh, not measured by this run"}
+    for name, was in EARLIER_TABLE_BUILD_MS.items():
+        out[name] = {"ms": results[name]["ms"], "earlier_ms": was}
+        print(f"    {name}: {results[name]['ms']:.3f} ms in this run (earlier reading, not this run: {was:.3f} ms)")
+    return out
 
 
 def spread_indices(torch, dev, count: int, total: int):
@@ -1954,15 +2018,16 @@ def main() -> int:
         check(generators.DISK_DIR == "", "the generator disk cache is off by default")
         card = card_line()
         print(f"card: {card}", flush=True)
+        built_here = not (build.BUILD_ROOT / build.digest() / build.LIB_NAME).exists()
         t0 = time.perf_counter()
         build.library()
         report["timings"]["build_s"] = time.perf_counter() - t0
         print(f"ok  kernels built in {report['timings']['build_s']:.1f} s from {build.CSRC}", flush=True)
-        log = (build.BUILD_ROOT / build.digest() / "ptxas.log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if line.startswith("==") or "Compiling entry" in line or "registers" in line or "spill" in line:
-                    print(f"    {line.strip()}")
+        log = (build.BUILD_ROOT / build.digest() / "ptxas.log").read_text()
+        for line in log.splitlines():
+            if line.startswith("==") or "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
+        report["ptxas_table_builds"] = table_build_ptxas(log, built_here)
 
         results = phase_kernels(torch, torch.device("cuda"))
         results.update(phase_wkernels(torch, torch.device("cuda")))
@@ -1995,6 +2060,7 @@ def main() -> int:
         large_launches = dict(cp.LAUNCHES)
         large_instances = dict(cp.INSTANCE_LAUNCHES)
         results.update(phase_large_kernels(torch, torch.device("cuda"), large["rows24"]))
+        report["earlier_table_build_ms"] = earlier_table_build_times(results)
         # handle files, packed and vlen queries, the disk cache: counts from
         # 0 over (i)-(iv), also by element count; then the field kernels
         # against their plain versions at those counts

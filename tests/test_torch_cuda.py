@@ -521,3 +521,37 @@ def test_fewrow_query_on_cuda_matches_lookup(dev, n, w):
     got = fixed.fewrow_products(handle.table, scalars, None, w)
     want = fixed.sum_leading(cp.ed_lookup_msm(handle.table, scalars, None, w))
     assert bool(ed.points_equal(got, want).all())
+
+
+# ---------------------------------------------------------------------------
+# the two table builds over every window they take and group counts 1, 7, 33
+# ---------------------------------------------------------------------------
+
+NIELS_TABLE_CASES = [(w, 7 if w <= 8 else 2) for w in range(1, 17)] + [(w, g) for w in (1, 3, 8) for g in (1, 33)]
+CACHED_TABLE_CASES = [(w, 7) for w in range(1, 9)] + [(w, g) for w in (1, 2, 3, 8) for g in (1, 33)]
+
+
+def _table_points(count: int, seed: int) -> ed.PointP3:
+    """count points, every fifth one and the last the identity (a handle
+    pads with identities)."""
+    pts = cp.elligator_form_plain(*_r(count, seed))
+    keep = torch.tensor([i % 5 != 3 and i != count - 1 for i in range(count)])
+    return ed.PointP3(*(torch.where(keep, c, ic) for c, ic in zip(pts, ed.identity((count,)))))
+
+
+@pytest.mark.parametrize("w, groups", NIELS_TABLE_CASES)
+def test_niels_table_kernel(dev, w, groups):
+    pts = _table_points(groups * w, 100 * w + groups)
+    before = cp.LAUNCHES["build_niels_table"]
+    got = cp.build_niels_table(_on(pts, dev), w)
+    assert torch.equal(got.cpu(), cp.build_niels_table_plain(pts, w))
+    assert cp.LAUNCHES["build_niels_table"] == before + 1
+
+
+@pytest.mark.parametrize("w, groups", CACHED_TABLE_CASES)
+def test_cached_table_kernel(dev, w, groups):
+    pts = _table_points(groups * w, 200 * w + groups)
+    before = cp.LAUNCHES["build_cached_table"]
+    got = cp.build_cached_table(_on(pts, dev), w)
+    assert torch.equal(got.cpu(), cp.build_cached_table_plain(pts, w))
+    assert cp.LAUNCHES["build_cached_table"] == before + 1

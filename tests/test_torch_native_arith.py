@@ -8,10 +8,6 @@ code's carries that needs no card."""
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,8 +19,10 @@ from blitzar_tpu.fields import fp25519 as JF
 from blitzar_tpu_torch.curves import edwards25519 as ted
 from blitzar_tpu_torch.curves import weierstrass as wc
 from blitzar_tpu_torch.fields import fp25519 as TF
-from blitzar_tpu_torch.ops import build, cuda_point, cuda_wpoint
+from blitzar_tpu_torch.ops import cuda_point, cuda_wpoint
 from blitzar_tpu_torch.utils.limbs import ints_to_limbs, to_jax_points, to_tensor
+
+import torch_host_harness
 
 P = 2**255 - 19
 EDGES = [0, 1, 2, 19, 38, P - 1, P, P + 1, 2 * P - 1, 2 * P, 2**255 - 1, 2**255, 2**256 - 1]
@@ -32,24 +30,7 @@ EDGES = [0, 1, 2, 19, 38, P - 1, P, P + 1, 2 * P - 1, 2 * P, 2**255 - 1, 2**255,
 
 @pytest.fixture(scope="module")
 def harness():
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no g++ on this host")
-    src = build.CSRC / "host_harness.cpp"
-    h = hashlib.sha256()
-    for path in [src] + sorted(build.CSRC.glob("*.cuh")):
-        h.update(path.read_bytes())
-    out_dir = build.BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
-    lib = out_dir / "libhost_harness.so"
-    if not lib.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"tmp-{os.getpid()}.so"
-        subprocess.run(
-            [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(build.CSRC), str(src), "-o", str(tmp)],
-            check=True,
-        )
-        os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+    return torch_host_harness.load()
 
 
 def _run(fn, *arrays, out_shape):
