@@ -67,7 +67,7 @@ build_niels_table_kernel(point_ptrs pts, int w, int64_t runs, uint32_t* table) {
   const int64_t first = ((int64_t)blockIdx.x * kWarps + warp) * per_warp;
   for (int i = lane; i < per_warp * bits; i += 32) {
     int64_t r = first + i / bits;
-    if (r < runs) gens[warp][i] = ge_to_cached(ge_load(pts, (r >> wide) * w + i % bits), tb_mul_op());
+    if (r < runs) gens[warp][i] = ge_to_cached(ge_load(pts, (r >> wide) * w + i % bits), fe_mul_call_op());
   }
   __syncwarp();
   const int seg = lane >> L, t = lane & (width - 1);
@@ -85,8 +85,8 @@ build_niels_table_kernel(point_ptrs pts, int w, int64_t runs, uint32_t* table) {
   for (int d = 1; d < width; d <<= 1) {
     fe up = shfl_up_fe(incl, d, width);
     fe down = shfl_down_fe(sufx, d, width);
-    if (t >= d) incl = tb_mul(incl, up);
-    if (t + d < width) sufx = tb_mul(sufx, down);
+    if (t >= d) incl = fe_mul_call(incl, up);
+    if (t + d < width) sufx = fe_mul_call(sufx, down);
   }
   fe E = shfl_up_fe(incl, 1, width);
   fe S = shfl_down_fe(sufx, 1, width);
@@ -96,9 +96,9 @@ build_niels_table_kernel(point_ptrs pts, int w, int64_t runs, uint32_t* table) {
     totals[warp * per_warp + seg] = incl;
   }
   __syncthreads();
-  if (threadIdx.x < kWarps * per_warp) totals[threadIdx.x] = fe_invert(totals[threadIdx.x], tb_mul_op());
+  if (threadIdx.x < kWarps * per_warp) totals[threadIdx.x] = fe_invert(totals[threadIdx.x], fe_mul_call_op());
   __syncthreads();
-  if (live) niels_lane_store(shape.H, tb_mul(tb_mul(totals[warp * per_warp + seg], S), E), rows);
+  if (live) niels_lane_store(shape.H, fe_mul_call(fe_mul_call(totals[warp * per_warp + seg], S), E), rows);
 }
 
 }  // namespace

@@ -3,131 +3,100 @@
 // Replaces blitzar_tpu/ops/pallas_point.py:_lookup_tiled (:533) /
 // ed_lookup_msm (:570), both of its entry forms: niels (a handle's table)
 // and cached (the `ncoord == 4` branch, :519-526: a streamed chunk's table).
-// For bit-row r (output o, scalar bit b) and group g, idx[r, g] = sum_j
-// bit_b(scalar[o, g*w + j]) << j picks table entry (g, idx); row r's product
-// is the sum over g of those entries.
 //
 // The TPU kernel walks groups on a sequential grid and carries the sums in
-// scratch across grid steps; Hopper has no sequential grid. Here thread
-// (k, r) owns row r and the k-th chunk of chunk_groups groups: it forms each
-// idx itself from the raw scalar bytes (no bit matrix in memory), gathers
-// the entry straight from global memory with 16-byte loads (96 bytes niels,
-// 128 bytes cached) and accumulates in registers, skipping entry 0 (the
-// identity): a 7-multiply mixed add for a niels entry, an 8-multiply add
-// for a cached one. A template parameter picks the form. It writes one
-// partial per (k, r); the caller sums the partials of a row with
-// tree_reduce_lanes (the tree reduce that follows the TPU kernel too).
+// scratch across grid steps; Hopper has no sequential grid. Here block (x,
+// k) owns a run of bit rows and chunk k of the groups, and each of its
+// threads runs lookup.cuh's schedule for one row: it forms each index
+// itself from the raw scalar bytes (no bit matrix in memory), and gathers
+// only the entries its indices pick. It writes one partial per (k, r); the
+// caller sums the partials of a row with tree_reduce_lanes (the tree
+// reduce that follows the TPU kernel too).
 //
-// The scalars of output o start at scalars + o * row_stride * nbytes, so a
-// streamed chunk reads its slice of the whole upload in place (row_stride
-// is the upload's length, not the chunk's).
+// Gathers against staging whole slabs: a group's entries are 24 KB
+// (niels) or 32 KB (cached), and a query's rows touch about 63% of them
+// (256 rows of random bytes), so a slab copy would read every table byte
+// where the gathers read the touched ones; the gathers need no
+// __syncthreads, so a row whose indices are zero (the high bytes of small
+// scalars) does not hold up the others.
 //
-// Signed queries run two halves of rows against the same table: a bit counts
-// in the first half where the element's sign is 0 and in the second where
-// it is 1 (blitzar_tpu/msm/fixed.py:667-676).
+// The chunk count K is the wrapper's (ops/cuda_point.py lookup_chunks):
+// two waves of blocks, each walking a long chunk (K = 528 for 256 rows),
+// where a chunk of 32 to 128 groups gave K = 1024; one wave ran slower.
 //
-// Bound: integer multiplies (7 or 8 field multiplies per nonzero idx). The
-// table gather reads at most the whole table once per query.
+// Bound: integer multiplies (7 or 8 field multiplies per nonzero index);
+// the gathers read at most the whole table once per query.
 #include <cuda_runtime.h>
 
-#include "edwards25519.cuh"
+#include "lookup.cuh"
 
 using namespace btt;
 
-template <int kWords>
-__device__ __forceinline__ void entry_gather(const uint32_t* entry, uint32_t* buf) {
-  const uint4* q = reinterpret_cast<const uint4*>(entry);
-#pragma unroll
-  for (int i = 0; i < kWords / 4; ++i) {
-    uint4 u = __ldg(q + i);
-    buf[4 * i] = u.x;
-    buf[4 * i + 1] = u.y;
-    buf[4 * i + 2] = u.z;
-    buf[4 * i + 3] = u.w;
-  }
-}
-
-struct NielsForm {
-  static constexpr int kWords = 24;
-  __device__ static ge_p3 add(const ge_p3& acc, const uint32_t* buf) { return ge_madd(acc, niels_load(buf)); }
+// Threads a block and blocks an SM, at 128 registers a thread (about 16
+// warps an SM either way), as measured on the H100: the niels query of small
+// scalars has whole warps of zero rows (their high bytes), and with 256-row
+// blocks every block holds its share of them, where with 128-row blocks
+// some blocks idle while others work; the cached query of a streamed chunk
+// ran fastest in blocks of 128.
+template <class Form>
+struct block_shape;
+template <>
+struct block_shape<NielsForm> {
+  static constexpr int kThreads = 256, kMinBlocks = 2;
 };
-
-struct CachedForm {
-  static constexpr int kWords = 32;
-  __device__ static ge_p3 add(const ge_p3& acc, const uint32_t* buf) { return ge_cadd(acc, cached_load(buf)); }
+template <>
+struct block_shape<CachedForm> {
+  static constexpr int kThreads = 128, kMinBlocks = 4;
 };
 
 template <class Form>
-__global__ void __launch_bounds__(128)
-ed_lookup_kernel(const uint32_t* table, const uint8_t* scalars, const uint8_t* signs,
-                 int64_t row_stride, int nbytes, int w, int64_t groups,
-                 int64_t rows_per_half, int halves, int64_t chunk_groups,
-                 int64_t nchunks, point_out_ptrs out) {
-  int64_t rows = rows_per_half * halves;
-  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= rows * nchunks) return;
-  int64_t r = tid % rows;
-  int64_t k = tid / rows;
-  int half = (int)(r / rows_per_half);
-  int64_t rem = r % rows_per_half;
-  int nbits = 8 * nbytes;
-  int64_t o = rem / nbits;
-  int b = (int)(rem % nbits);
-  const uint8_t* srow = scalars + o * row_stride * nbytes + (b >> 3);
-  const uint8_t* sg = signs ? signs + o * row_stride : nullptr;
-  uint32_t shift = (uint32_t)(b & 7);
-  int64_t g0 = k * chunk_groups;
-  int64_t g1 = g0 + chunk_groups < groups ? g0 + chunk_groups : groups;
-  ge_p3 acc = ge_identity();
-  uint32_t buf[Form::kWords];
-  for (int64_t g = g0; g < g1; ++g) {
-    uint32_t idx = 0;
-    for (int j = 0; j < w; ++j) {
-      int64_t i = g * w + j;
-      uint32_t bit = ((uint32_t)__ldg(srow + i * nbytes) >> shift) & 1u;
-      if (sg) bit &= (uint32_t)((__ldg(sg + i) == 1) == (half == 1));
-      idx |= bit << j;
-    }
-    if (idx) {
-      entry_gather<Form::kWords>(table + ((g << w) + idx) * Form::kWords, buf);
-      acc = Form::add(acc, buf);
-    }
-  }
-  ge_store(out, k * rows + r, acc);
+__global__ void __launch_bounds__(block_shape<Form>::kThreads, block_shape<Form>::kMinBlocks)
+ed_lookup_kernel(lookup_query q, int64_t rows, point_out_ptrs out) {
+  const int64_t r = (int64_t)blockIdx.x * block_shape<Form>::kThreads + threadIdx.x;
+  const int64_t k = blockIdx.y;
+  if (r < rows) ge_store(out, k * rows + r, lookup_thread<Form>(q, k, r));
+}
+
+template <class Form>
+static int launch_lookup(const lookup_query& q, int64_t rows, int64_t nchunks, const point_out_ptrs& out,
+                         cudaStream_t stream) {
+  constexpr int threads = block_shape<Form>::kThreads;
+  dim3 grid((unsigned)((rows + threads - 1) / threads), (unsigned)nchunks);
+  ed_lookup_kernel<Form><<<grid, threads, 0, stream>>>(q, rows, out);
+  return (int)cudaGetLastError();
 }
 
 // table: (groups, 2^w, 3, 8) niels words or, with cached != 0, (groups, 2^w,
 // 4, 8) cached words, 16-byte aligned; scalars: O rows of n_pad elements of
 // nbytes bytes, row o at o * row_stride elements; signs: O rows of n_pad
 // bytes at the same row stride, or null (unsigned); out: four (16, nchunks,
-// rows) int32 coordinate arrays, rows = halves * O * 8 * nbytes.
+// rows) int32 coordinate arrays, rows = halves * O * 8 * nbytes; nchunks at
+// most 65535.
 extern "C" int btt_ed_lookup_msm(const void* table, const void* scalars, const void* signs,
                                  int64_t num_outputs, int64_t n_pad, int64_t row_stride, int nbytes,
                                  int w, int cached, int64_t chunk_groups, int64_t nchunks, void* ox,
                                  void* oy, void* oz, void* ot, void* stream) {
-  int halves = signs ? 2 : 1;
-  int64_t rows_per_half = num_outputs * 8 * nbytes;
-  int64_t threads_total = rows_per_half * halves * nchunks;
+  lookup_query q;
+  q.table = (const word4*)table;
+  q.scalars = (const uint8_t*)scalars;
+  q.signs = (const uint8_t*)signs;
+  q.row_stride = row_stride;
+  q.nbytes = nbytes;
+  q.w = w;
+  q.groups = n_pad / w;
+  q.halves = signs ? 2 : 1;
+  q.rows_per_half = num_outputs * 8 * nbytes;
+  q.chunk_groups = chunk_groups;
+  const int64_t rows = q.rows_per_half * q.halves;
+  if (nchunks > 65535) return (int)cudaErrorInvalidValue;
   point_out_ptrs out;
   out.c[0] = (int32_t*)ox;
   out.c[1] = (int32_t*)oy;
   out.c[2] = (int32_t*)oz;
   out.c[3] = (int32_t*)ot;
-  out.limb_stride = threads_total;
-  if (threads_total > 0) {
-    const int threads = 128;
-    int64_t blocks = (threads_total + threads - 1) / threads;
-    const uint32_t* t = (const uint32_t*)table;
-    const uint8_t* sc = (const uint8_t*)scalars;
-    const uint8_t* sg = (const uint8_t*)signs;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (cached) {
-      ed_lookup_kernel<CachedForm><<<(unsigned)blocks, threads, 0, s>>>(
-          t, sc, sg, row_stride, nbytes, w, n_pad / w, rows_per_half, halves, chunk_groups, nchunks, out);
-    } else {
-      ed_lookup_kernel<NielsForm><<<(unsigned)blocks, threads, 0, s>>>(
-          t, sc, sg, row_stride, nbytes, w, n_pad / w, rows_per_half, halves, chunk_groups, nchunks, out);
-    }
-  }
-  return (int)cudaGetLastError();
+  out.limb_stride = rows * nchunks;
+  if (rows * nchunks == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return cached ? launch_lookup<CachedForm>(q, rows, nchunks, out, s)
+                : launch_lookup<NielsForm>(q, rows, nchunks, out, s);
 }

@@ -67,40 +67,39 @@ BTT_HD ge_p3 ge_identity() {
   return r;
 }
 
-// Unified addition add-2008-hwcd-3 (complete: identity and doubling too).
-BTT_HD ge_p3 ge_add(const ge_p3& p, const ge_p3& q) {
-  fe a = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
-  fe b = fe_mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
-  fe c = fe_mul(fe_mul(p.T, q.T), fe_d2());
-  fe d = fe_mul_small(fe_mul(p.Z, q.Z), 2);
-  fe e = fe_sub(b, a);
-  fe f = fe_sub(d, c);
-  fe g = fe_add(d, c);
-  fe h = fe_add(b, a);
+// The adds below are written as stages of independent multiplies, each
+// stage one call of Mul's n<N> (fp25519.cuh: inlined, one call a product,
+// or by default one call a stage); every policy gives the same values.
+// ge_from_efgh is their last stage: X = E F, Y = G H, Z = F G, T = E H.
+template <class Mul>
+BTT_HD ge_p3 ge_from_efgh(const fe& e, const fe& f, const fe& g, const fe& h, Mul mul) {
+  const fes<4> s = mul.template n<4>({{e, g, f, e}}, {{f, h, g, h}});
   ge_p3 r;
-  r.X = fe_mul(e, f);
-  r.Y = fe_mul(g, h);
-  r.Z = fe_mul(f, g);
-  r.T = fe_mul(e, h);
+  r.X = s.v[0];
+  r.Y = s.v[1];
+  r.Z = s.v[2];
+  r.T = s.v[3];
   return r;
 }
 
+// Unified addition add-2008-hwcd-3 (complete: identity and doubling too).
+template <class Mul = fe_mul_stage_op>
+BTT_HD ge_p3 ge_add(const ge_p3& p, const ge_p3& q, Mul mul = Mul()) {
+  const fes<4> s = mul.template n<4>({{fe_sub(p.Y, p.X), fe_add(p.Y, p.X), p.T, p.Z}},
+                                     {{fe_sub(q.Y, q.X), fe_add(q.Y, q.X), q.T, q.Z}});
+  const fe a = s.v[0], b = s.v[1];
+  const fe c = mul(s.v[2], fe_d2());
+  const fe d = fe_mul_small(s.v[3], 2);
+  return ge_from_efgh(fe_sub(b, a), fe_sub(d, c), fe_add(d, c), fe_add(b, a), mul);
+}
+
 // Mixed addition of an extended point and a niels entry: 7 multiplies.
-BTT_HD ge_p3 ge_madd(const ge_p3& p, const ge_niels& n) {
-  fe a = fe_mul(fe_sub(p.Y, p.X), n.b);
-  fe b = fe_mul(fe_add(p.Y, p.X), n.a);
-  fe c = fe_mul(p.T, n.t);
-  fe d = fe_mul_small(p.Z, 2);
-  fe e = fe_sub(b, a);
-  fe f = fe_sub(d, c);
-  fe g = fe_add(d, c);
-  fe h = fe_add(b, a);
-  ge_p3 r;
-  r.X = fe_mul(e, f);
-  r.Y = fe_mul(g, h);
-  r.Z = fe_mul(f, g);
-  r.T = fe_mul(e, h);
-  return r;
+template <class Mul = fe_mul_stage_op>
+BTT_HD ge_p3 ge_madd(const ge_p3& p, const ge_niels& n, Mul mul = Mul()) {
+  const fes<3> s = mul.template n<3>({{fe_sub(p.Y, p.X), fe_add(p.Y, p.X), p.T}}, {{n.b, n.a, n.t}});
+  const fe a = s.v[0], b = s.v[1], c = s.v[2];
+  const fe d = fe_mul_small(p.Z, 2);
+  return ge_from_efgh(fe_sub(b, a), fe_sub(d, c), fe_add(d, c), fe_add(b, a), mul);
 }
 
 // 1/(2d): a niels + niels add divides the product of the two stored 2d*t.
@@ -130,22 +129,12 @@ BTT_HD ge_p3 ge_niels_add(const ge_niels& p, const ge_niels& q) {
 }
 
 // Addition of an extended point and a cached entry: 8 multiplies.
-template <class Mul = fe_mul_op>
+template <class Mul = fe_mul_stage_op>
 BTT_HD ge_p3 ge_cadd(const ge_p3& p, const ge_cached& q, Mul mul = Mul()) {
-  fe a = mul(fe_sub(p.Y, p.X), q.b);
-  fe b = mul(fe_add(p.Y, p.X), q.a);
-  fe c = mul(p.T, q.t);
-  fe d = fe_mul_small(mul(p.Z, q.z), 2);
-  fe e = fe_sub(b, a);
-  fe f = fe_sub(d, c);
-  fe g = fe_add(d, c);
-  fe h = fe_add(b, a);
-  ge_p3 r;
-  r.X = mul(e, f);
-  r.Y = mul(g, h);
-  r.Z = mul(f, g);
-  r.T = mul(e, h);
-  return r;
+  const fes<4> s = mul.template n<4>({{fe_sub(p.Y, p.X), fe_add(p.Y, p.X), p.T, p.Z}}, {{q.b, q.a, q.t, q.z}});
+  const fe a = s.v[0], b = s.v[1], c = s.v[2];
+  const fe d = fe_mul_small(s.v[3], 2);
+  return ge_from_efgh(fe_sub(b, a), fe_sub(d, c), fe_add(d, c), fe_add(b, a), mul);
 }
 
 BTT_HD ge_p3 ge_double(const ge_p3& p) {

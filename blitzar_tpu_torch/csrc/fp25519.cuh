@@ -39,6 +39,21 @@ BTT_HD fe fe_const(uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
   return r;
 }
 
+// 16 bytes, one vector access on the card: the unit in which table entries
+// are written and gathered.
+#if defined(__CUDACC__)
+typedef uint4 word4;
+BTT_HD word4 make_word4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return make_uint4(a, b, c, d); }
+#else
+struct word4 {
+  uint32_t x, y, z, w;
+};
+inline word4 make_word4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  word4 r = {a, b, c, d};
+  return r;
+}
+#endif
+
 BTT_HD fe fe_small(uint32_t x) { return fe_const(x, 0, 0, 0, 0, 0, 0, 0); }
 
 BTT_HD fe fe_zero() { return fe_small(0); }
@@ -139,11 +154,71 @@ BTT_HD fe fe_mul(const fe& a, const fe& b) {
 
 BTT_HD fe fe_sq(const fe& a) { return fe_mul(a, a); }
 
-// The multiply that the chains below and edwards25519.cuh's ge_cadd and
-// ge_to_cached take as a template argument: fe_mul inlined, unless a caller
-// passes its own (table_build.cuh: one non-inlined body).
+#if defined(__CUDACC__)
+#define BTT_CALL static __host__ __device__ __noinline__
+#else
+#define BTT_CALL static inline
+#endif
+
+// N field elements: the operands or products of one stage of independent
+// multiplies.
+template <int N>
+struct fes {
+  fe v[N];
+};
+
+BTT_CALL fe fe_mul_call(fe a, fe b) { return fe_mul(a, b); }
+
+// N independent products in one non-inlined body, interleaved.
+template <int N>
+BTT_CALL fes<N> fe_mul_n_call(fes<N> a, fes<N> b) {
+  fes<N> r;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.v[i] = fe_mul(a.v[i], b.v[i]);
+  return r;
+}
+
+// The multiply that the chains below and edwards25519.cuh's adds and
+// ge_to_cached take as a template argument: one product (operator()) or
+// one stage of N independent products (n<N>). The same values three ways:
+// - fe_mul_op: fe_mul inlined at each call site (a kernel with registers
+//   to spare on a chain of dependent adds: a small batch's tree reduce);
+// - fe_mul_call_op: one non-inlined body called a product, its operands
+//   and result in registers (the table builds: inlined, the
+//   ~230-instruction multiply overflowed the instruction cache, and a
+//   stage's operands live at once cost them registers);
+// - fe_mul_stage_op: one non-inlined body called a stage (fe_mul_n_call,
+//   its products interleaved), so an add waits on two or three multiply
+//   latencies and stays small (the adds' default: the lookup, the tree
+//   reduces, ed_add, elligator_form).
 struct fe_mul_op {
   BTT_HD fe operator()(const fe& a, const fe& b) const { return fe_mul(a, b); }
+  template <int N>
+  BTT_HD fes<N> n(const fes<N>& a, const fes<N>& b) const {
+    fes<N> r;
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.v[i] = fe_mul(a.v[i], b.v[i]);
+    return r;
+  }
+};
+
+struct fe_mul_call_op {
+  BTT_HD fe operator()(const fe& a, const fe& b) const { return fe_mul_call(a, b); }
+  template <int N>
+  BTT_HD fes<N> n(const fes<N>& a, const fes<N>& b) const {
+    fes<N> r;
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.v[i] = fe_mul_call(a.v[i], b.v[i]);
+    return r;
+  }
+};
+
+struct fe_mul_stage_op {
+  BTT_HD fe operator()(const fe& a, const fe& b) const { return fe_mul_call(a, b); }
+  template <int N>
+  BTT_HD fes<N> n(const fes<N>& a, const fes<N>& b) const {
+    return fe_mul_n_call<N>(a, b);
+  }
 };
 
 // a * k for a small constant k < 2^16.

@@ -1,7 +1,7 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
-// fp25519.cuh, edwards25519.cuh, niels_tree.cuh, table_build.cuh, mont.cuh,
-// weierstrass.cuh, sumcheck.cuh and tree_reduce.cuh are compiled here by a
+// fp25519.cuh, edwards25519.cuh, niels_tree.cuh, table_build.cuh, lookup.cuh,
+// mont.cuh, weierstrass.cuh, sumcheck.cuh and tree_reduce.cuh are compiled here by a
 // host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
@@ -10,6 +10,7 @@
 // (3, 16, n), a cached batch (4, 16, n), a Weierstrass point batch (3,
 // nlimbs, n), a sumcheck MLE table (16, m, 2 mid).
 #include "edwards25519.cuh"
+#include "lookup.cuh"
 #include "niels_tree.cuh"
 #include "sumcheck.cuh"
 #include "table_build.cuh"
@@ -130,18 +131,35 @@ ge_cached load_cached(const int32_t* base, int64_t n, int64_t i) {
   return r;
 }
 
-// The block of tree_reduce_lanes.cu for each column in turn: the threads'
-// serial sums, then the same halving levels in shared memory.
+// tree_reduce_lanes.cu's order for each column in turn: the T threads'
+// strided serial sums, each block's halving levels, then the halving of the
+// blocks' sums; a sum at or past the column's end (the identity) is never
+// added.
 template <class G>
 void host_tree(const typename G::In& in, int64_t size, int64_t cols, const typename G::Out& out) {
-  const int T = tree_threads(size);
-  typename G::P sums[128];
+  const tree_shape sh = tree_shape_of(size, cols);
+  std::vector<typename G::P> sums(sh.T);
   for (int64_t c = 0; c < cols; ++c) {
-    for (int t = 0; t < T; ++t) sums[t] = tree_thread_sum<G>(in, size, cols, c, t, T);
-    for (int h = T >> 1; h > 0; h >>= 1) {
-      for (int t = 0; t < h; ++t) sums[t] = G::add(sums[t], sums[t + h]);
+    for (int64_t t = 0; t < sh.T; ++t) sums[t] = tree_thread_sum<G>(in, size, cols, c, t, sh.T);
+    for (int64_t b = 0; b < sh.T; b += sh.slots) {
+      for (int64_t h = sh.slots >> 1; h > 0; h >>= 1) {
+        for (int64_t t = b; t < b + h && t + h < size; ++t) sums[t] = G::add(sums[t], sums[t + h]);
+      }
+    }
+    for (int64_t h = sh.splits >> 1; h > 0; h >>= 1) {
+      for (int64_t m = 0; m < h && sh.slots * (m + h) < size; ++m) {
+        sums[sh.slots * m] = G::add(sums[sh.slots * m], sums[sh.slots * (m + h)]);
+      }
     }
     G::store(out, c, sums[0]);
+  }
+}
+
+// ed_lookup_msm.cu's threads, one after another
+template <class Form>
+void host_lookup(const lookup_query& q, int64_t rows, int64_t nchunks, const point_out_ptrs& out) {
+  for (int64_t k = 0; k < nchunks; ++k) {
+    for (int64_t r = 0; r < rows; ++r) ge_store(out, k * rows + r, lookup_thread<Form>(q, k, r));
   }
 }
 
@@ -352,6 +370,32 @@ int btt_host_tree_reduce(int curve, const int32_t* in, int64_t size, int64_t col
     case Bn254G1::id: run(WGroup<Bn254G1>(), 16); return 0;
     case Grumpkin::id: run(WGroup<Grumpkin>(), 16); return 0;
     default: return -1;
+  }
+}
+
+// ed_lookup_msm.cu's launcher on the host: the same arguments (the table
+// (groups, 2^w, 3 or 4, 8) words; signs null for an unsigned query); out
+// (4, 16, nchunks * rows) with rows = halves * num_outputs * 8 * nbytes.
+void btt_host_lookup(const int32_t* table, const uint8_t* scalars, const uint8_t* signs, int64_t num_outputs,
+                     int64_t n_pad, int64_t row_stride, int nbytes, int w, int cached, int64_t chunk_groups,
+                     int64_t nchunks, int32_t* out) {
+  lookup_query q;
+  q.table = reinterpret_cast<const word4*>(table);
+  q.scalars = scalars;
+  q.signs = signs;
+  q.row_stride = row_stride;
+  q.nbytes = nbytes;
+  q.w = w;
+  q.groups = n_pad / w;
+  q.halves = signs ? 2 : 1;
+  q.rows_per_half = num_outputs * 8 * nbytes;
+  q.chunk_groups = chunk_groups;
+  const int64_t rows = q.rows_per_half * q.halves;
+  const point_out_ptrs oo = out_points(out, nchunks * rows);
+  if (cached) {
+    host_lookup<CachedForm>(q, rows, nchunks, oo);
+  } else {
+    host_lookup<NielsForm>(q, rows, nchunks, oo);
   }
 }
 

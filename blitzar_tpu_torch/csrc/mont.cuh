@@ -248,6 +248,31 @@ BTT_HD mfe<F> mf_sq(const mfe<F>& a) {
   return mf_mul<F>(a, a);
 }
 
+// The multiply weierstrass.cuh's w_add takes as a template argument:
+// mf_mul inlined (mf_mul_op), or one non-inlined body called a product
+// (mf_mul_call_op: the tree reduce), as fp25519.cuh's fe_mul_op and
+// fe_mul_call_op.
+template <class F>
+struct mf_mul_op {
+  BTT_HD mfe<F> operator()(const mfe<F>& a, const mfe<F>& b) const { return mf_mul<F>(a, b); }
+};
+
+#if defined(__CUDACC__)
+#define BTT_CALL static __host__ __device__ __noinline__
+#else
+#define BTT_CALL static inline
+#endif
+
+template <class F>
+BTT_CALL mfe<F> mf_mul_call(mfe<F> a, mfe<F> b) {
+  return mf_mul<F>(a, b);
+}
+
+template <class F>
+struct mf_mul_call_op {
+  BTT_HD mfe<F> operator()(const mfe<F>& a, const mfe<F>& b) const { return mf_mul_call<F>(a, b); }
+};
+
 // a^(m - 2) by square-and-multiply over the bits of m - 2; 0 maps to 0.
 // Only the host harness calls it (the kernels need no inversion).
 template <class F>

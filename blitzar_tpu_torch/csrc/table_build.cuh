@@ -19,8 +19,8 @@
 // rows one add each, every lane at work: at w = 8, 65 steps a lane for 8
 // runs a warp, 8.1 a run against 8 for 255 adds over 32 lanes. Each lane
 // runs one loop with one add in its body, and every multiply calls one
-// body (tb_mul), so the kernels stay small enough for the instruction
-// cache and few registers are live.
+// body (fe_mul_call, fp25519.cuh's fe_mul_call_op), so the kernels stay
+// small enough for the instruction cache and few registers are live.
 //
 // Everything here is BTT_HD: the kernels run it a lane at a time, and
 // host_harness.cpp runs the same code over every lane in turn for the CPU
@@ -64,41 +64,8 @@ BTT_HD int low_bit(int k) {
 }
 
 // ---------------------------------------------------------------------------
-// one multiply body
-// ---------------------------------------------------------------------------
-
-#if defined(__CUDACC__)
-#define BTT_CALL static __host__ __device__ __noinline__
-#else
-#define BTT_CALL static inline
-#endif
-
-// Every multiply of the table builds calls this one body, its operands and
-// result in registers: inlined at each call site, the ~230-instruction
-// multiply made the kernels overflow the instruction cache.
-BTT_CALL fe tb_mul(fe a, fe b) { return fe_mul(a, b); }
-
-// tb_mul as the multiply of fe_invert, ge_cadd and ge_to_cached
-struct tb_mul_op {
-  BTT_HD fe operator()(const fe& a, const fe& b) const { return tb_mul(a, b); }
-};
-
-// ---------------------------------------------------------------------------
 // table entries: 16-byte words (one vector access each on the card)
 // ---------------------------------------------------------------------------
-
-#if defined(__CUDACC__)
-typedef uint4 word4;
-BTT_HD word4 make_word4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return make_uint4(a, b, c, d); }
-#else
-struct word4 {
-  uint32_t x, y, z, w;
-};
-inline word4 make_word4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  word4 r = {a, b, c, d};
-  return r;
-}
-#endif
 
 BTT_HD void store_raw(word4* dst, const fe& a) {
   dst[0] = make_word4(a.v[0], a.v[1], a.v[2], a.v[3]);
@@ -140,21 +107,21 @@ BTT_HD ge_cached cached_identity() {
 // values of the unified add (C = 2d*T_p*T_q with the 2d on p's side) and
 // one multiply for the sum's 2d*T; 9 multiplies.
 BTT_HD ge_cached cached_sum(const ge_cached& p, const ge_cached& q) {
-  fe a = tb_mul(p.b, q.b);
-  fe b = tb_mul(p.a, q.a);
-  fe c = tb_mul(p.t, q.t);
-  fe d = fe_mul_small(tb_mul(p.z, q.z), 2);
+  fe a = fe_mul_call(p.b, q.b);
+  fe b = fe_mul_call(p.a, q.a);
+  fe c = fe_mul_call(p.t, q.t);
+  fe d = fe_mul_small(fe_mul_call(p.z, q.z), 2);
   fe e = fe_sub(b, a);
   fe f = fe_sub(d, c);
   fe g = fe_add(d, c);
   fe h = fe_add(b, a);
-  fe X = tb_mul(e, f);
-  fe Y = tb_mul(g, h);
+  fe X = fe_mul_call(e, f);
+  fe Y = fe_mul_call(g, h);
   ge_cached r;
   r.a = fe_add(Y, X);
   r.b = fe_sub(Y, X);
-  r.z = tb_mul(f, g);
-  r.t = tb_mul(tb_mul(e, h), fe_d2());
+  r.z = fe_mul_call(f, g);
+  r.t = fe_mul_call(fe_mul_call(e, h), fe_d2());
   return r;
 }
 
@@ -263,13 +230,13 @@ BTT_HD fe niels_lane_park(const ge_cached* pts, int L, int H, ge_p3 acc, const n
       neg = !((row >> b) & 1);
       add = true;
     }
-    if (add) acc = ge_cadd(acc, neg ? cached_neg(pts[j]) : pts[j], tb_mul_op());
+    if (add) acc = ge_cadd(acc, neg ? cached_neg(pts[j]) : pts[j], fe_mul_call_op());
     if (s >= L - 1) {
       word4* slot = rows.at(row);
-      store_raw(slot, tb_mul(acc.X, c));
-      store_raw(slot + 2, tb_mul(acc.Y, c));
+      store_raw(slot, fe_mul_call(acc.X, c));
+      store_raw(slot + 2, fe_mul_call(acc.Y, c));
       store_raw(slot + 4, acc.Z);
-      c = tb_mul(c, acc.Z);
+      c = fe_mul_call(c, acc.Z);
     }
   }
   return c;
@@ -283,12 +250,12 @@ BTT_HD void niels_lane_store(int H, fe inv, const niels_rows& rows) {
 #endif
   for (int i = (1 << H) - 1; i >= 0; --i) {
     word4* slot = rows.at(gray_row(i));
-    const fe x = tb_mul(load_raw(slot), inv);
-    const fe y = tb_mul(load_raw(slot + 2), inv);
-    inv = tb_mul(inv, load_raw(slot + 4));
+    const fe x = fe_mul_call(load_raw(slot), inv);
+    const fe y = fe_mul_call(load_raw(slot + 2), inv);
+    inv = fe_mul_call(inv, load_raw(slot + 4));
     store_canonical(slot, fe_add(y, x));
     store_canonical(slot + 2, fe_sub(y, x));
-    store_canonical(slot + 4, tb_mul(tb_mul(x, y), fe_d2()));
+    store_canonical(slot + 4, fe_mul_call(fe_mul_call(x, y), fe_d2()));
   }
 }
 
@@ -305,7 +272,7 @@ template <class LoadPoint>
 BTT_HD ge_p3 run_start(LoadPoint& point, int w, int64_t r) {
   ge_p3 acc = ge_identity();
   for (int j = kRunBits; j < w; ++j) {
-    if ((r >> (j - kRunBits)) & 1) acc = ge_cadd(acc, ge_to_cached(point(j), tb_mul_op()), tb_mul_op());
+    if ((r >> (j - kRunBits)) & 1) acc = ge_cadd(acc, ge_to_cached(point(j), fe_mul_call_op()), fe_mul_call_op());
   }
   return acc;
 }

@@ -73,28 +73,28 @@ BTT_HD wpoint<C> w_identity() {
 }
 
 // Complete addition, a = 0 (Renes-Costello-Batina Algorithm 7).
-template <class C>
-BTT_HD wpoint<C> w_add(const wpoint<C>& p, const wpoint<C>& q) {
+template <class C, class Mul = mf_mul_op<typename C::F>>
+BTT_HD wpoint<C> w_add(const wpoint<C>& p, const wpoint<C>& q, Mul mul = Mul()) {
   using F = typename C::F;
   mfe<F> b3 = C::b3();
-  mfe<F> t0 = mf_mul<F>(p.X, q.X);
-  mfe<F> t1 = mf_mul<F>(p.Y, q.Y);
-  mfe<F> t2 = mf_mul<F>(p.Z, q.Z);
-  mfe<F> t3 = mf_mul<F>(mf_add<F>(p.X, p.Y), mf_add<F>(q.X, q.Y));
+  mfe<F> t0 = mul(p.X, q.X);
+  mfe<F> t1 = mul(p.Y, q.Y);
+  mfe<F> t2 = mul(p.Z, q.Z);
+  mfe<F> t3 = mul(mf_add<F>(p.X, p.Y), mf_add<F>(q.X, q.Y));
   t3 = mf_sub<F>(t3, mf_add<F>(t0, t1));  // x1y2 + x2y1
-  mfe<F> t4 = mf_mul<F>(mf_add<F>(p.Y, p.Z), mf_add<F>(q.Y, q.Z));
+  mfe<F> t4 = mul(mf_add<F>(p.Y, p.Z), mf_add<F>(q.Y, q.Z));
   t4 = mf_sub<F>(t4, mf_add<F>(t1, t2));  // y1z2 + y2z1
-  mfe<F> x3 = mf_mul<F>(mf_add<F>(p.X, p.Z), mf_add<F>(q.X, q.Z));
+  mfe<F> x3 = mul(mf_add<F>(p.X, p.Z), mf_add<F>(q.X, q.Z));
   mfe<F> y3 = mf_sub<F>(x3, mf_add<F>(t0, t2));  // x1z2 + x2z1
   t0 = mf_add<F>(mf_add<F>(t0, t0), t0);  // 3 x1x2
-  t2 = mf_mul<F>(t2, b3);
+  t2 = mul(t2, b3);
   mfe<F> z3 = mf_add<F>(t1, t2);
   t1 = mf_sub<F>(t1, t2);
-  y3 = mf_mul<F>(y3, b3);
+  y3 = mul(y3, b3);
   wpoint<C> r;
-  r.X = mf_sub<F>(mf_mul<F>(t3, t1), mf_mul<F>(t4, y3));
-  r.Y = mf_add<F>(mf_mul<F>(t1, z3), mf_mul<F>(y3, t0));
-  r.Z = mf_add<F>(mf_mul<F>(z3, t4), mf_mul<F>(t0, t3));
+  r.X = mf_sub<F>(mul(t3, t1), mul(t4, y3));
+  r.Y = mf_add<F>(mul(t1, z3), mul(y3, t0));
+  r.Z = mf_add<F>(mul(z3, t4), mul(t0, t3));
   return r;
 }
 

@@ -52,7 +52,8 @@ SIGNATURES = {
     "btt_w_build_table": [_I, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "btt_w_lookup_msm": [_I, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _I64, _P, _P, _P, _P],
     # the tree reduce takes the curve's C ABI id first (0 ristretto255)
-    "btt_tree_reduce_lanes": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P],
+    "btt_tree_reduce_lanes": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P],
+    "btt_tree_reduce_scratch": [_I, _I64, _I64, ctypes.POINTER(_I64)],
     "btt_wadd": [_I, _P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "btt_wdouble": [_I, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     # the proof kernels take the field's C ABI id first

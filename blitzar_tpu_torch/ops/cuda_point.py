@@ -43,6 +43,8 @@ launches of each curve's instantiation of a templated kernel.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..curves import edwards25519 as ed
@@ -79,8 +81,10 @@ KERNELS = (
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 INSTANCE_LAUNCHES: dict[str, int] = {}
 
-# threads the lookup aims for: rows x group chunks (about 2048 per SM)
-LOOKUP_THREADS = 1 << 18
+# (chunk, row) threads the lookup aims for: two waves of 512 threads (its
+# blocks at 128 registers) on each of the H100's 132 SMs; K = 528 for a
+# 32-byte query's 256 rows
+LOOKUP_THREADS = 2 * 132 * 512
 
 
 def reset_launches() -> None:
@@ -479,12 +483,19 @@ def build_cached_table(points: ed.PointP3, w: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def lookup_chunks(groups: int, rows: int) -> tuple[int, int]:
-    """(groups per chunk, chunk count): enough (chunk, row) threads to fill
-    the card, never an empty chunk."""
-    nchunks = max(1, min(groups, -(-LOOKUP_THREADS // max(rows, 1))))
+def whole_chunks(groups: int, nchunks: int) -> tuple[int, int]:
+    """(groups per chunk, chunk count) for at most ``nchunks`` chunks of
+    equal length but the last: never an empty chunk."""
+    nchunks = max(1, min(groups, nchunks))
     chunk_groups = -(-groups // nchunks)
     return chunk_groups, -(-groups // chunk_groups)
+
+
+def lookup_chunks(groups: int, rows: int) -> tuple[int, int]:
+    """(groups per chunk, chunk count K) of ``ed_lookup_msm``: about
+    ``LOOKUP_THREADS`` (chunk, row) threads, each walking one long chunk, so
+    the reduce after it reads few (K, R) partials."""
+    return whole_chunks(groups, -(-LOOKUP_THREADS // max(rows, 1)))
 
 
 def _check_query(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, entry_shapes) -> int:
@@ -543,16 +554,16 @@ def query_index(scalars: torch.Tensor, signs, w: int) -> torch.Tensor:
     return (rows << weights).sum(dim=-1)
 
 
-def lookup_walk(table, scalars, signs, w: int, chunks=None):
+def lookup_walk(table, scalars, signs, w: int, chunks=None, chunking=lookup_chunks):
     """The plain lookups' walk over a query, in the kernels' order: the
     number of (chunk, row) partials (K, R), then for each step s of a chunk
     the (K, R) indices and the (K, R, coords, words) entries they pick
     (padded groups pick entry 0). ``chunks`` (a 1-D index tensor) walks only
-    those chunks."""
+    those chunks; ``chunking(groups, rows)`` is the kernel's chunk rule."""
     groups = table.shape[0]
     idx = query_index(scalars, signs, w)  # (R, G)
     rows = idx.shape[0]
-    chunk_groups, nchunks = lookup_chunks(groups, rows)
+    chunk_groups, nchunks = chunking(groups, rows)
     idx = torch.nn.functional.pad(idx, (0, nchunks * chunk_groups - groups))
     idx = idx.reshape(rows, nchunks, chunk_groups).permute(2, 1, 0)  # (cg, K, R)
     chunk_ids = torch.arange(nchunks, device=table.device) if chunks is None else chunks.to(table.device)
@@ -597,9 +608,10 @@ def ed_lookup_msm(table: torch.Tensor, scalars: torch.Tensor, signs, w: int) -> 
     uint8 magnitudes; signs: (O, G*w) uint8 (1 = negative) or None. Scalars
     and signs may be column slices of longer rows (:func:`query_args`).
 
-    Kernel csrc/ed_lookup_msm.cu, thread (k, r) gathers entries and
-    accumulates with 7-multiply mixed adds (niels) or 8-multiply adds
-    (cached), skipping entry 0; a launch on a cached table counts as
+    Kernel csrc/ed_lookup_msm.cu, thread (k, r) runs csrc/lookup.cuh's
+    schedule: it gathers the entries its indices pick and accumulates
+    with 7-multiply mixed adds (niels) or 8-multiply adds (cached),
+    skipping entry 0; a launch on a cached table counts as
     ``ed_lookup_msm_cached``. Bound: integer multiplies, 7 or 8 field
     multiplies per nonzero index."""
     groups = _check_query(table, scalars, signs, w, ED_ENTRY_FORMS)
@@ -640,9 +652,16 @@ def tree_launch(curve_id: int, instance: str, p, nlimbs: int, point):
     ins, outs = _ptrs(coords), _ptrs(out)
     if len(ins) == 3:  # the launcher's fourth coordinate is ristretto255's t
         ins, outs = ins + [None], outs + [None]
+    lib = build.library()
+    # the blocks of a column tile park their sums here (none with one block a tile)
+    nbytes = ctypes.c_int64(0)
+    if lib.btt_tree_reduce_scratch(curve_id, size, cols, ctypes.byref(nbytes)):
+        raise ValueError(f"tree_reduce_lanes: no instantiation for curve id {curve_id}")
+    scratch = torch.empty((nbytes.value,), dtype=torch.uint8, device=device) if nbytes.value else None
     _launch(
-        "tree_reduce_lanes", build.library().btt_tree_reduce_lanes,
-        curve_id, *ins, stride, size, cols, *outs, _stream(device), instance=instance,
+        "tree_reduce_lanes", lib.btt_tree_reduce_lanes,
+        curve_id, *ins, stride, size, cols, *outs, None if scratch is None else scratch.data_ptr(), nbytes.value,
+        _stream(device), instance=instance,
     )
     return type(out)(*(c.reshape((nlimbs,) + tuple(rest)) for c in out))
 
@@ -657,10 +676,12 @@ def tree_reduce_lanes(p: ed.PointP3) -> ed.PointP3:
     products), in one launch. The sum is the same point as the plain
     version's halving tree; its coordinates differ (another order).
 
-    Kernel csrc/tree_reduce_lanes.cu, one block per column: strided serial
-    sums per thread, then halving levels in shared memory. Bound: bytes
-    (each point read once) at large size; the serial depth with few
-    columns."""
+    Kernel csrc/tree_reduce_lanes.cu: lanes of a warp on neighbouring
+    columns, warps (and with few columns, blocks) on shares of the leading
+    axis; strided serial sums per thread, then halving levels in shared
+    memory and across a column tile's blocks (csrc/tree_reduce.cuh).
+    Bound: operations and bytes (each point read once) at large size; the
+    depth of the tree with few points."""
     size = p.x.shape[1]
     if size == 0 or not _on_card(p.x):
         return tree_reduce_lanes_plain(p)

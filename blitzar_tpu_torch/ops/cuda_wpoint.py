@@ -43,9 +43,12 @@ import torch
 from ..curves.weierstrass import PointP2, WCurve
 from . import build
 from .cuda_point import (
-    _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, limbs_to_words, lookup_chunks,
-    lookup_walk, query_args, tree_launch, words_to_limbs,
+    _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, limbs_to_words, lookup_walk,
+    query_args, tree_launch, whole_chunks, words_to_limbs,
 )
+
+# threads w_lookup_msm aims for: rows x group chunks (about 2048 per SM)
+W_LOOKUP_THREADS = 1 << 18
 
 # ---------------------------------------------------------------------------
 # table entries
@@ -166,11 +169,17 @@ def w_build_table(curve: WCurve, points: PointP2, w: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def w_lookup_chunks(groups: int, rows: int) -> tuple[int, int]:
+    """(groups per chunk, chunk count K) of ``w_lookup_msm``: enough (chunk,
+    row) threads to fill the card."""
+    return whole_chunks(groups, -(-W_LOOKUP_THREADS // max(rows, 1)))
+
+
 def w_lookup_msm_plain(curve: WCurve, table, scalars, signs, w: int, chunks=None) -> PointP2:
     """The partials of :func:`w_lookup_msm`, in the kernel's order of
     additions. ``chunks`` (a 1-D index tensor) computes only those chunks,
     (nlimbs, len(chunks), R): the comparison of a full-size run on a sample."""
-    shape, steps = lookup_walk(table, scalars, signs, w, chunks)
+    shape, steps = lookup_walk(table, scalars, signs, w, chunks, w_lookup_chunks)
     acc = curve.identity(shape, table.device)
     for ix, entries in steps:
         acc = curve.select(acc, curve._add_impl(acc, unpack_points(entries)), ix != 0)
@@ -180,7 +189,7 @@ def w_lookup_msm_plain(curve: WCurve, table, scalars, signs, w: int, chunks=None
 def w_lookup_msm(curve: WCurve, table: torch.Tensor, scalars: torch.Tensor, signs, w: int) -> PointP2:
     """Per-chunk partition products of a query: (nlimbs, K, R) partials
     whose sum over K is row r's sum over groups g of table[g, idx[r, g]]
-    (rows and indices as ``cuda_point.query_index``; ``lookup_chunks`` gives
+    (rows and indices as ``cuda_point.query_index``; ``w_lookup_chunks`` gives
     K). scalars: (O, G*w, nbytes) uint8 magnitudes; signs: (O, G*w) uint8
     (1 = negative) or None.
 
@@ -197,7 +206,7 @@ def w_lookup_msm(curve: WCurve, table: torch.Tensor, scalars: torch.Tensor, sign
     table, scalars, signs, row = query_args(table, scalars, signs)
     num_outputs, n_pad, nbytes = scalars.shape
     rows = (2 if signs is not None else 1) * num_outputs * 8 * nbytes
-    chunk_groups, nchunks = lookup_chunks(groups, rows)
+    chunk_groups, nchunks = w_lookup_chunks(groups, rows)
     out = _empty_point((nchunks, rows), device, PointP2, curve.nlimbs)
     _launch(
         "w_lookup_msm", build.library().btt_w_lookup_msm,
@@ -222,9 +231,10 @@ def w_tree_reduce_lanes(curve: WCurve, p: PointP2) -> PointP2:
     batch axis in one launch, the same point as the plain halving tree (its
     projective coordinates differ: another order of additions).
 
-    Kernel csrc/tree_reduce_lanes.cu (one template with ristretto255's),
-    one block per column. Bound: bytes (each point read once) at large
-    size; the serial depth with few columns."""
+    Kernel csrc/tree_reduce_lanes.cu (one template with ristretto255's):
+    lanes on neighbouring columns, warps and blocks on shares of the leading
+    axis. Bound: operations and bytes (each point read once) at large size;
+    the depth of the tree with few points."""
     if p.x.shape[1] == 0 or not _on_card(p.x):
         return w_tree_reduce_lanes_plain(curve, p)
     return tree_launch(curve.kernel_id, curve.name, p, curve.nlimbs, PointP2)

@@ -103,7 +103,18 @@ Phases, each fatal on failure:
    of 5); ``niels_tree_reduce_lanes`` and ``niels_add`` must launch there;
 18. ``ed_double`` (one output and ten), ``niels_add`` and
    ``niels_tree_reduce_lanes`` against their plain versions at the shapes
-   of phases 16 and 17.
+   of phases 16 and 17;
+19. ``tree_reduce_lanes`` at every (curve, size, cols) the paths of phases
+   3-17 launched it at (counted by path as those phases ran, the bucket and
+   few-row paths inside their main-path calls alone): timed, bounded and
+   held against its plain version as points on up to 64 columns of each,
+   and launches x (time - bound) summed over the shapes, each beside the
+   kernel's time there before its redesign (a constant, not this run's)
+   (``tree_reduce_lanes_by_shape`` in ``chiprun_out/chip_smoke.json``).
+   ``ed_lookup_msm``'s and ``tree_reduce_lanes``'s ptxas registers, stack
+   frames and spills go to ``ptxas_lookup_and_reduce``, their readings
+   before their redesign (constants) beside this run's to
+   ``earlier_lookup_reduce_ms``; neither is in the kernels line.
 
 The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
 its path, time, plain time, bound, error), the card as ``nvidia-smi`` names
@@ -179,6 +190,64 @@ def muls_niels_table_group(w: int) -> int:
 # chiprun_out/chip_smoke.json, never into the kernels line.
 EARLIER_TABLE_BUILD_MS = {"build_niels_table": 322.45062255859375, "build_cached_table": 4.6976637840271}
 TABLE_BUILD_SOURCES = {"build_niels_table": "build_niels_table.cu", "build_cached_table": "build_cached_table.cu"}
+# The same for the lookup and its reduce before their redesign around
+# csrc/lookup.cuh and the coalesced tree_reduce.cuh: the parent tree's own
+# chip_smoke.py in the chip call that compared the trees (its first run), on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (ed_lookup_msm at 2^20, the cached
+# one on a 2^18-point chunk, tree_reduce_lanes at a lookup's (1024, 256)
+# partials then).
+EARLIER_LOOKUP_REDUCE_MS = {
+    "ed_lookup_msm": 2.992095947265625, "ed_lookup_msm_cached": 1.3291200399398804,
+    "tree_reduce_lanes/ristretto255": 0.17265599966049194, "tree_reduce_lanes/bls12_381_g1": 0.9529920220375061,
+    "tree_reduce_lanes/bn254_g1": 0.45737600326538086, "tree_reduce_lanes/grumpkin": 0.4527360051870346,
+}
+# tree_reduce_lanes before its redesign at every (curve, size, cols) the
+# paths launch it at: kernel_ab.py's first run of the parent tree, in the
+# chip call that compared the trees kernel by kernel (NVIDIA H100 80GB HBM3,
+# 700.00 W). Phase 19 writes each beside this run's time.
+EARLIER_TREE_MS = {
+    "ristretto255/1x8": 0.0060800001956522465, "ristretto255/1x96": 0.0060800001956522465,
+    "ristretto255/1x256": 0.006111999973654747, "ristretto255/1x384": 0.006335999816656113,
+    "ristretto255/1x512": 0.006624000146985054, "ristretto255/1x768": 0.0071680000983178616,
+    "ristretto255/2x334375": 2.7349441051483154, "ristretto255/2x696875": 5.750944137573242,
+    "ristretto255/3x256": 0.015584000386297703, "ristretto255/3x262146": 2.9700798988342285,
+    "ristretto255/3x917511": 10.401503562927246, "ristretto255/4x256": 0.01568000018596649,
+    "ristretto255/4x512": 0.01635199971497059, "ristretto255/4x768": 0.019872000440955162,
+    "ristretto255/5x384": 0.02054399996995926, "ristretto255/8x256": 0.02054399996995926,
+    "ristretto255/8x512": 0.021503999829292297, "ristretto255/64x8": 0.02956799976527691,
+    "ristretto255/64x32": 0.03542400151491165, "ristretto255/64x256": 0.04182400181889534,
+    "ristretto255/128x1": 0.0326399989426136, "ristretto255/128x8": 0.034304000437259674,
+    "ristretto255/128x11": 0.03561599925160408, "ristretto255/128x16": 0.03667199984192848,
+    "ristretto255/128x21": 0.03731200098991394, "ristretto255/255x8": 0.03920000046491623,
+    "ristretto255/255x32": 0.049536000937223434, "ristretto255/255x320": 0.0944959968328476,
+    "ristretto255/256x6": 0.038656000047922134, "ristretto255/256x10": 0.040832001715898514,
+    "ristretto255/263x512": 0.15936000645160675, "ristretto255/264x512": 0.15782399475574493,
+    "ristretto255/349x384": 0.12787200510501862, "ristretto255/368x2550": 0.6296640038490295,
+    "ristretto255/368x5610": 1.2837120294570923, "ristretto255/512x256": 0.10412800312042236,
+    "ristretto255/520x1275": 0.46540799736976624, "ristretto255/520x3825": 1.2268480062484741,
+    "ristretto255/521x256": 0.12345600128173828, "ristretto255/527x256": 0.11961600184440613,
+    "ristretto255/528x256": 0.1223360002040863, "ristretto255/1024x2048": 1.2483839988708496,
+    "ristretto255/1049x128": 0.10860799998044968, "ristretto255/3125x107": 0.23545600473880768,
+    "ristretto255/3125x223": 0.44863998889923096, "ristretto255/4504x255": 0.8634560108184814,
+    "ristretto255/43691x6": 1.8952000141143799, "ristretto255/43691x21": 2.102976083755493,
+    "bls12_381_g1/1x256": 0.006047999951988459, "bls12_381_g1/1x1536": 0.009279999881982803,
+    "bls12_381_g1/5x256": 0.17526400089263916, "bls12_381_g1/8x512": 0.17900800704956055,
+    "bls12_381_g1/13x1536": 0.47523200511932373, "bls12_381_g1/1024x256": 0.9653440117835999,
+    "bn254_g1/1x1536": 0.007391999941319227, "bn254_g1/8x512": 0.08710400015115738,
+    "bn254_g1/13x1536": 0.122079998254776, "bn254_g1/16x256": 0.11270400136709213,
+    "bn254_g1/128x1": 0.1794240027666092, "bn254_g1/128x8": 0.1764480024576187,
+    "bn254_g1/128x11": 0.18380799889564514, "bn254_g1/128x16": 0.18902400135993958,
+    "bn254_g1/128x21": 0.1908160001039505, "bn254_g1/255x32": 0.21404799818992615,
+    "bn254_g1/368x765": 0.5917119979858398, "bn254_g1/368x7395": 5.646143913269043,
+    "bn254_g1/512x512": 0.6346880197525024, "bn254_g1/1024x128": 0.3968319892883301,
+    "bn254_g1/1024x256": 0.4491199851036072, "bn254_g1/1024x1024": 1.449023962020874,
+    "bn254_g1/1024x1408": 1.9364160299301147, "bn254_g1/1024x2048": 2.890144109725952,
+    "bn254_g1/1024x2688": 3.439903974533081, "bn254_g1/2048x128": 0.6742720007896423,
+    "grumpkin/1x256": 0.005919999908655882, "grumpkin/1x1536": 0.007424000184983015,
+    "grumpkin/5x256": 0.08454400300979614, "grumpkin/8x512": 0.08560000360012054,
+    "grumpkin/13x1536": 0.1191679984331131, "grumpkin/1024x256": 0.4463360011577606,
+}
+LOOKUP_REDUCE_SOURCES = {"ed_lookup_msm": "ed_lookup_msm.cu", "tree_reduce_lanes": "tree_reduce_lanes.cu"}
 
 
 def ptxas_report(log_text: str, source: str) -> list:
@@ -352,6 +421,31 @@ def table_build_ptxas(log_text: str, built_here: bool) -> dict:
         check(any(f["entry"] for f in funcs) and all(
                   f.get("spill_stores") == 0 and f.get("spill_loads") == 0 for f in funcs),
               f"{name}: no spills in the kernel or its device functions")
+    return out
+
+
+def lookup_reduce_ptxas(log_text: str, built_here: bool) -> dict:
+    """The lookup's and the tree reduce's registers, stack frames and
+    spills (recorded, not required to be none: PERF.md states the ones that
+    stay), from the ptxas log as :func:`table_build_ptxas` reads it."""
+    out = {"built_in_this_run": built_here}
+    for name, source in LOOKUP_REDUCE_SOURCES.items():
+        out[name] = ptxas_report(log_text, source)
+        check(any(f["entry"] for f in out[name]), f"{name}: ptxas reported its kernels")
+    return out
+
+
+def earlier_lookup_reduce_times(results: dict) -> dict:
+    """This run's lookup and tree-reduce times beside the earlier readings."""
+    out = {"note": "earlier_ms: readings before the redesign around csrc/lookup.cuh and the coalesced "
+                   "tree_reduce.cuh, not measured by this run; the tree reduce then ran at (1024, 256)"}
+    for key, was in EARLIER_LOOKUP_REDUCE_MS.items():
+        name, _, curve = key.partition("/")
+        rec = results[name] if not curve else results[name][curve if curve != "ristretto255" else "ristretto255_1024x256"]
+        out[key] = {"ms": rec["ms"], "shape": rec.get("shape"), "earlier_ms": was}
+        print(f"    {key}: {rec['ms']:.4f} ms in this run (earlier reading, not this run: {was:.4f} ms)")
+    path = results["tree_reduce_lanes"]
+    out["tree_reduce_lanes/ristretto255_path_shape"] = {"ms": path["ms"], "shape": path["shape"]}
     return out
 
 
@@ -1299,9 +1393,10 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
     shapes: build_cached_table and the cached ed_lookup_msm on the first
     2^18-point chunk of the 2^24 query (w = 8, its 32-byte scalars; plain on
     512 groups and 16 lookup chunks spread over the chunk), tree_reduce_lanes
-    on that lookup's (1024, 256) partials, and on the partials of each
-    Weierstrass curve's first chunk of (e) (compared as points: the kernel
-    adds in another order)."""
+    on that lookup's (K, 256) partials (K = 521) and on a (1024, 256) tiling
+    of them, and on the (1024, 256) partials of each Weierstrass curve's
+    first chunk of (e) (compared as points: the kernel adds in another
+    order)."""
     from blitzar_tpu_torch import generators
     from blitzar_tpu_torch.curves import edwards25519 as ed
     from blitzar_tpu_torch.curves import weierstrass as wc
@@ -1363,6 +1458,13 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
     results["tree_reduce_lanes"] = tree_record(
         "ristretto255", lambda: cp.tree_reduce_lanes(partials), lambda: cp.tree_reduce_lanes_plain(partials),
         ed.points_equal, partials, 256, MULS_ADD * IMAD_PER_FIELD_MUL)
+    # and at (1024, 256), the partials' shape before the lookup's chunk rule
+    # changed (its rows tiled from these partials), beside the earlier reading
+    wide = ed.index_batch(partials, torch.arange(1024, device=dev) % k)
+    results["tree_reduce_lanes"]["ristretto255_1024x256"] = tree_record(
+        "ristretto255 (1024, 256)", lambda: cp.tree_reduce_lanes(wide), lambda: cp.tree_reduce_lanes_plain(wide),
+        ed.points_equal, wide, 256, MULS_ADD * IMAD_PER_FIELD_MUL)
+    del wide
     wscalars = torch.from_numpy(counter_scalars(CHUNK, 32)[None]).to(dev)
     for curve in (wc.BLS12381_G1, wc.BN254_G1, wc.GRUMPKIN):
         wgens, _ = tiled_generators(curve, CHUNK, dev)
@@ -1730,7 +1832,11 @@ def counted(*totals):
     from blitzar_tpu_torch.ops import cuda_point as cp
 
     cp.reset_launches()
-    yield
+    was, TREE_SHAPES.on = TREE_SHAPES.on, True
+    try:
+        yield
+    finally:
+        TREE_SHAPES.on = was
     for total in totals:
         for k, v in cp.LAUNCHES.items():
             total[k] = total.get(k, 0) + v
@@ -1992,6 +2098,115 @@ def phase_fewrow_kernels(torch, dev, inputs: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# tree_reduce_lanes at every shape the paths launch it at
+# ---------------------------------------------------------------------------
+
+
+class TreeShapes:
+    """tree_reduce_lanes launches by path and by (instance, size, cols):
+    counted while a path's calls run (a whole phase, or only inside
+    :func:`counted` where a phase counts its main-path calls alone)."""
+
+    def __init__(self):
+        self.path, self.on, self.counts = None, False, {}
+
+    def install(self) -> None:
+        from blitzar_tpu_torch.ops import cuda_point as cp
+
+        launch = cp._launch
+
+        def counting(name, fn, *args, instance=None):
+            launch(name, fn, *args, instance=instance)
+            if name == "tree_reduce_lanes" and self.on and self.path:
+                # the launcher's arguments: curve, 4 coordinates, stride, size, cols, ...
+                by = self.counts.setdefault(self.path, {})
+                key = (instance, int(args[6]), int(args[7]))
+                by[key] = by.get(key, 0) + 1
+
+        cp._launch = counting
+
+    @contextlib.contextmanager
+    def phase(self, path: str, on: bool = True):
+        self.path, self.on = path, on
+        try:
+            yield
+        finally:
+            self.path, self.on = None, False
+
+
+TREE_SHAPES = TreeShapes()
+TREE_SAMPLE_COLS = 64
+
+
+def phase_tree_shapes(torch, dev, counts: dict) -> dict:
+    """tree_reduce_lanes at every (curve, size, cols) a path launched it
+    at: its device time and bound on a batch of that shape (the first 2^16
+    generators, or the oracle's 521 points, tiled over it), equal as
+    points to the plain version on up to 64 columns spread over the batch,
+    and launches x (ms - bound) summed over the shapes; beside each, the
+    kernel's time before its redesign (``EARLIER_TREE_MS``, not this run's)
+    and the shapes this run read slower than that."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    curves = {c.name: c for c in wc.CURVES}
+    shapes: dict = {}
+    for path, by in counts.items():
+        for key, n in by.items():
+            shapes.setdefault(key, {})[path] = n
+    ed_base = generators.get_precomputed_generators(1 << 16, 0, dev)
+    records = []
+    for (instance, size, cols), paths in sorted(shapes.items()):
+        curve = curves.get(instance)
+        idx = torch.arange(size * cols, device=dev)
+        if curve is None:
+            batch = ed.reshape_batch(ed.index_batch(ed_base, idx % (1 << 16)), (size, cols))
+            kernel, plain, equal = cp.tree_reduce_lanes, cp.tree_reduce_lanes_plain, ed.points_equal
+            point_bytes, imads_per_add, pick = 256, MULS_ADD * IMAD_PER_FIELD_MUL, ed.index_batch
+        else:
+            batch, _ = tiled_generators(curve, size * cols, dev)
+            batch = curve.reshape_batch(batch, (size, cols))
+            kernel = functools.partial(cw.w_tree_reduce_lanes, curve)
+            plain = functools.partial(cw.w_tree_reduce_lanes_plain, curve)
+            equal, pick = curve.points_equal, curve.index_batch
+            point_bytes = 3 * curve.nlimbs * 4
+            imads_per_add = MULS_WADD * IMAD_PER_MONT_MUL[curve.nlimbs // 2]
+        del idx
+        ms = device_ms(torch, lambda: kernel(batch), reps=5)
+        sample = spread_indices(torch, dev, min(cols, TREE_SAMPLE_COLS), cols)
+        sub = pick(batch, (slice(None), sample))
+        plain_ms = cuda_ms(torch, lambda: plain(sub), reps=1)
+        mismatches = int((~equal(pick(kernel(batch), sample), plain(sub))).sum())
+        b_ms, b_by = bound((size + 1) * cols * point_bytes, (size - 1) * cols * imads_per_add)
+        launches = sum(paths.values())
+        records.append({"instance": instance, "size": size, "cols": cols, "launches": launches,
+                        "launches_by_path": paths, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "launches_x_gap_ms": launches * (ms - b_ms), "plain_ms": plain_ms,
+                        "plain_cols": len(sample), "mismatches": mismatches,
+                        "earlier_ms": EARLIER_TREE_MS.get(f"{instance}/{size}x{cols}")})
+        check(mismatches == 0, f"tree_reduce_lanes/{instance} at ({size}, {cols}), {launches} launches "
+                               f"{paths}: equal to plain as points on {len(sample)} columns ({ms:.4f} ms, "
+                               f"bound {b_ms:.4f} ms)")
+        del batch, sub
+    torch.cuda.empty_cache()
+    total = sum(r["launches_x_gap_ms"] for r in records)
+    by_instance: dict = {}
+    for r in records:
+        by_instance[r["instance"]] = by_instance.get(r["instance"], 0.0) + r["launches_x_gap_ms"]
+    slower = [f"{r['instance']}/{r['size']}x{r['cols']}" for r in records
+              if r["earlier_ms"] is not None and r["ms"] > r["earlier_ms"]]
+    print(f"    tree_reduce_lanes: {len(records)} shapes, {len(slower)} read slower than before the redesign "
+          f"(earlier readings, not this run's): {slower}")
+    return {"shapes": records, "launches_x_gap_ms": total, "launches_x_gap_ms_by_instance": by_instance,
+            "earlier_note": "earlier_ms: the kernel before its redesign, kernel_ab.py's parent run on the "
+                            "same shapes (EARLIER_TREE_MS), not measured by this run",
+            "slower_than_earlier": slower}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "blitzar_tpu_torch", "csrc")):
         print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -2028,6 +2243,8 @@ def main() -> int:
             if line.startswith("==") or "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
         report["ptxas_table_builds"] = table_build_ptxas(log, built_here)
+        report["ptxas_lookup_and_reduce"] = lookup_reduce_ptxas(log, built_here)
+        TREE_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
         results.update(phase_wkernels(torch, torch.device("cuda")))
@@ -2036,11 +2253,12 @@ def main() -> int:
         # the commitment path: launches counted from 0 over phases 3-6
         api.init("gpu")
         cp.reset_launches()
-        phase_api_small(torch)
-        phase_w_api_small(torch)
-        per_commitment = phase_full_width(torch, report["timings"])
-        per_commitment.update({k: v for k, v in phase_w_full_width(torch, report["timings"]).items()
-                               if k in W_KERNELS})
+        with TREE_SHAPES.phase("commitment"):
+            phase_api_small(torch)
+            phase_w_api_small(torch)
+            per_commitment = phase_full_width(torch, report["timings"])
+            per_commitment.update({k: v for k, v in phase_w_full_width(torch, report["timings"]).items()
+                                   if k in W_KERNELS})
         commit_launches = dict(cp.LAUNCHES)
         # the proof path: launches counted from 0 over phases 8-10, from empty
         # generator and handle caches, so that the proofs derive their own G
@@ -2048,25 +2266,28 @@ def main() -> int:
         generators.CACHE.reset()
         engine.clear_handle_cache()
         cp.reset_launches()
-        phase_proof_vectors(torch)
-        phase_sumcheck_full_width(torch, report["timings"])
-        phase_ipa_full_width(torch, report["timings"])
+        with TREE_SHAPES.phase("proof"):
+            phase_proof_vectors(torch)
+            phase_sumcheck_full_width(torch, report["timings"])
+            phase_ipa_full_width(torch, report["timings"])
         proof_launches = dict(cp.LAUNCHES)
         # the large-n path: launches counted from 0 over (a)-(g), from empty
         # handle caches; then (h), the kernels against their plain versions
         clear_handles(torch)
         cp.reset_launches()
-        large = phase_large_n(torch, report["timings"])
+        with TREE_SHAPES.phase("large_n"):
+            large = phase_large_n(torch, report["timings"])
         large_launches = dict(cp.LAUNCHES)
         large_instances = dict(cp.INSTANCE_LAUNCHES)
         results.update(phase_large_kernels(torch, torch.device("cuda"), large["rows24"]))
         report["earlier_table_build_ms"] = earlier_table_build_times(results)
+        report["earlier_lookup_reduce_ms"] = earlier_lookup_reduce_times(results)
         # handle files, packed and vlen queries, the disk cache: counts from
         # 0 over (i)-(iv), also by element count; then the field kernels
         # against their plain versions at those counts
         clear_handles(torch)
         cp.reset_launches()
-        with launch_shapes({}) as file_shapes:
+        with launch_shapes({}) as file_shapes, TREE_SHAPES.phase("files"):
             phase_files(torch, report["timings"], work)
         file_launches = dict(cp.LAUNCHES)
         file_instances = dict(cp.INSTANCE_LAUNCHES)
@@ -2076,12 +2297,18 @@ def main() -> int:
         # caches: each path's launches are those of its main-path calls
         # alone, counted from 0 around each; then their kernels against plain
         clear_handles(torch)
-        bucket_launches = phase_bucket(torch, report["timings"])
+        with TREE_SHAPES.phase("bucket", on=False):
+            bucket_launches = phase_bucket(torch, report["timings"])
         clear_handles(torch)
-        fewrow_inputs, fewrow_launches = phase_fewrow(torch, report["timings"])
+        with TREE_SHAPES.phase("fewrow", on=False):
+            fewrow_inputs, fewrow_launches = phase_fewrow(torch, report["timings"])
         results.update(phase_fewrow_kernels(torch, torch.device("cuda"), fewrow_inputs))
         del fewrow_inputs
         clear_handles(torch)
+        # tree_reduce_lanes at every shape the paths above launched it at
+        tree_shapes = phase_tree_shapes(torch, torch.device("cuda"), TREE_SHAPES.counts)
+        report["tree_reduce_lanes_by_shape"] = tree_shapes
+        results["tree_reduce_lanes"]["launches_x_gap_ms_all_shapes"] = tree_shapes["launches_x_gap_ms"]
         results["mont_mul_ew"]["launches_files_path_by_field"] = {
             k.split("/")[1]: v for k, v in file_instances.items() if k.startswith("mont_mul_ew/")}
         for name in cp.KERNELS:

@@ -555,3 +555,72 @@ def test_cached_table_kernel(dev, w, groups):
     got = cp.build_cached_table(_on(pts, dev), w)
     assert torch.equal(got.cpu(), cp.build_cached_table_plain(pts, w))
     assert cp.LAUNCHES["build_cached_table"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the redesigned lookup (csrc/lookup.cuh) and tree reduce: the edges of their
+# schedules
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("short", [False, True], ids=["card_rule", "short_last_chunk"])
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+@pytest.mark.parametrize("w", [4, 8])
+@pytest.mark.parametrize("form", ["niels", "cached"])
+def test_lookup_kernel_edges(dev, monkeypatch, form, w, signed, short):
+    """Both forms on the middle third of a three-output 2-byte upload over
+    11 groups (48 or 96 rows: partial warps and blocks), with the card's
+    chunk rule and with one that leaves the last chunk short (3, 3, 3 and 2
+    groups): limb for limb the plain partials."""
+    rows = (2 if signed else 1) * 3 * 16
+    if short:
+        monkeypatch.setattr(cp, "LOOKUP_THREADS", 4 * rows)
+    n = 11 * w
+    pts = _table_points(n, 300 * w + signed)
+    build = cp.build_cached_table_plain if form == "cached" else cp.build_niels_table_plain
+    table = build(pts, w)
+    rng = np.random.default_rng(w + 2 * signed)
+    upload = torch.from_numpy(rng.integers(0, 256, size=(3, 3 * n, 2), dtype=np.uint8))
+    signs = torch.from_numpy(rng.integers(0, 2, size=(3, 3 * n), dtype=np.uint8)) if signed else None
+    chunk = slice(n, 2 * n)
+    want = cp.ed_lookup_msm_plain(table, upload[:, chunk], None if signs is None else signs[:, chunk], w)
+    got = cp.ed_lookup_msm(table.to(dev), upload.to(dev)[:, chunk],
+                           None if signs is None else signs.to(dev)[:, chunk], w)
+    assert want.x.shape[1:] == (4 if short else 11, rows)
+    assert _same(got, want)
+
+
+def test_lookup_kernel_many_row_blocks(dev):
+    """Three 32-byte outputs (768 rows: three blocks of 256 niels rows)
+    over 301 niels groups at w = 8: chunks of 2 groups, the last of 1."""
+    w, groups = 8, 301
+    pts = _table_points(groups * w, 17)
+    table = cp.build_niels_table(_on(pts, dev), w)
+    scalars = torch.from_numpy(np.random.default_rng(5).integers(0, 256, size=(3, groups * w, 32), dtype=np.uint8))
+    got = cp.ed_lookup_msm(table, scalars.to(dev), None, w)
+    assert got.x.shape[1:] == (cp.lookup_chunks(groups, 768)[1], 768)
+    assert _same(got, cp.ed_lookup_msm_plain(table.cpu(), scalars, None, w))
+
+
+# (size, cols): one column, 37 columns (a last tile half idle), the narrow
+# (1024, 8) (a small batch: one block a column), a lookup's (K, R) partials
+# (several blocks a column tile, summed by the last to finish)
+TREE_KERNEL_SHAPES = [(1000, 1), (70, 37), (1024, 8), (263, 256)]
+
+
+@pytest.mark.parametrize("size, cols", TREE_KERNEL_SHAPES)
+def test_tree_reduce_lanes_kernel_shapes(dev, size, cols):
+    pts = ed.reshape_batch(cp.elligator_form_plain(*_r(size * cols, 13)), (size, cols))
+    got = cp.tree_reduce_lanes(_on(pts, dev))
+    assert bool(ed.points_equal(_on(got, "cpu"), cp.tree_reduce_lanes_plain(pts)).all())
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+@pytest.mark.parametrize("size, cols", TREE_KERNEL_SHAPES)
+def test_w_tree_reduce_lanes_kernel_shapes(dev, curve, size, cols):
+    """The oracle's 599 points tiled to the batch (a prime period)."""
+    pts = curve.oracle.random_points(599, seed=size)
+    batch = curve.reshape_batch(curve.from_affine_ints([pts[i % 599] for i in range(size * cols)], "cpu"),
+                                (size, cols))
+    got = cw.w_tree_reduce_lanes(curve, _on(batch, dev))
+    assert curve.to_affine_ints(_on(got, "cpu")) == curve.to_affine_ints(cw.w_tree_reduce_lanes_plain(curve, batch))

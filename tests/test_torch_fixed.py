@@ -20,7 +20,7 @@ from blitzar_tpu_torch.curves import edwards25519 as ted
 from blitzar_tpu_torch.curves import ristretto as trst
 from blitzar_tpu_torch.msm import engine as tengine
 from blitzar_tpu_torch.msm import fixed as tfixed
-from blitzar_tpu_torch.ops import cuda_point
+from blitzar_tpu_torch.ops import cuda_point, cuda_wpoint
 from blitzar_tpu_torch.utils.limbs import from_jax_points, handle_from_jax_table, to_jax_points
 
 N, W = 12, 4
@@ -121,9 +121,14 @@ def test_window_padding_matches_oracle(n):
 
 
 def test_lookup_chunks_cover_every_group():
-    for groups, rows in [(1, 1), (5, 3072), (12500, 2560), (131072, 256), (7, 1)]:
-        cg, k = cuda_point.lookup_chunks(groups, rows)
-        assert (k - 1) * cg < groups <= k * cg and k * rows < cuda_point.LOOKUP_THREADS + rows
+    """Both lookups' chunk rules cover every group, no chunk empty, with
+    about LOOKUP_THREADS (ed_lookup_msm) or W_LOOKUP_THREADS (w_lookup_msm)
+    (chunk, row) threads."""
+    for groups, rows in [(1, 1), (5, 3072), (12500, 2560), (131072, 256), (32768, 256), (7, 1)]:
+        for (cg, k), target in [(cuda_point.lookup_chunks(groups, rows), cuda_point.LOOKUP_THREADS),
+                                (cuda_wpoint.w_lookup_chunks(groups, rows), cuda_wpoint.W_LOOKUP_THREADS)]:
+            assert (k - 1) * cg < groups <= k * cg and k * rows < target + rows
+            assert k == groups or k * rows > target // 2
 
 
 def test_beyond_handle_range_raises():

@@ -28,6 +28,17 @@ P = 2**255 - 19
 EDGES = [0, 1, 2, 19, 38, P - 1, P, P + 1, 2 * P - 1, 2 * P, 2**255 - 1, 2**255, 2**256 - 1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The plain versions run many small ops: one thread a worker keeps the
+    parallel test run from oversubscribing the host (the tree cases' plain
+    sums over thousands of points took minutes under six workers)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def harness():
     return torch_host_harness.load()
@@ -167,23 +178,36 @@ def test_niels_tree_body_matches_plain(harness, size):
 
 def _tree_input(curve, size: int, cols: int):
     """A (size, cols) batch of curve points (an identity among them) as the
-    harness's (coords, nlimbs, size * cols) array, and the port's batch."""
+    harness's (coords, nlimbs, size * cols) array, and the port's batch; a
+    Weierstrass batch tiles at most 599 oracle points (a prime period)."""
     if curve is None:
         pts, _ = _points(10 + size, count=size * cols)
         pts[:, :, 1] = to_jax_points(ted.identity((1,)))[:, :, 0]
         batch = ted.reshape_batch(ted.PointP3(*(to_tensor(c) for c in pts)), (size, cols))
         return pts, batch
-    batch = curve.from_affine_ints(curve.oracle.random_points(size * cols - 1, seed=size) + [None], "cpu")
+    count = size * cols - 1
+    pts = curve.oracle.random_points(min(count, 599), seed=size)
+    batch = curve.from_affine_ints([pts[i % len(pts)] for i in range(count)] + [None], "cpu")
     return _stack(batch), curve.reshape_batch(batch, (size, cols))
 
 
+# (size, cols): two columns (a warp spans one column's 32 rows), one column
+# of 1000 (256 threads of 3-4 points), 37 columns (warps of 2 columns and
+# 16 rows, 19 tiles, the last half idle), and a query's (K, R) partials'
+# narrow cousin (1024, 8). All are small batches (tree_reduce.cuh): one
+# block holds a column; the order of a larger batch, whose column tiles
+# take several blocks, differs only in T, and the card tests cover it
+TREE_SHAPES = [(1, 2), (3, 2), (300, 2), (1000, 1), (70, 37), (1024, 8)]
+
+
 @pytest.mark.parametrize("curve", [None] + list(wc.CURVES), ids=lambda c: "ristretto255" if c is None else c.name)
-@pytest.mark.parametrize("size", [1, 3, 300])
-def test_tree_reduce_lanes_body_matches_plain(harness, curve, size):
-    """tree_reduce_lanes.cu's block, run by the harness column by column
-    (the threads' strided serial sums, then the halving levels; 300 rows
-    take 128 threads of 2-3 elements): the plain version's point."""
-    cols = 2
+@pytest.mark.parametrize("size, cols", TREE_SHAPES,
+                         ids=[str(s) if c == 2 else f"{s}x{c}" for s, c in TREE_SHAPES])
+def test_tree_reduce_lanes_body_matches_plain(harness, curve, size, cols):
+    """tree_reduce_lanes.cu's order (tree_reduce.cuh), run by the harness
+    column by column: the threads' strided serial sums, then the halving
+    levels inside a block and across a column tile's blocks. The sum is the
+    plain version's point."""
     arr, batch = _tree_input(curve, size, cols)
     curve_id = 0 if curve is None else curve.kernel_id
     out = np.zeros(arr.shape[:2] + (cols,), np.int32)
