@@ -1,7 +1,8 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
 // fp25519.cuh, edwards25519.cuh, niels_tree.cuh, table_build.cuh, lookup.cuh,
-// mont.cuh, weierstrass.cuh, sumcheck.cuh and tree_reduce.cuh are compiled here by a
+// mont.cuh, weierstrass.cuh, w_ladder.cuh, sumcheck.cuh and tree_reduce.cuh are
+// compiled here by a
 // host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
@@ -15,6 +16,7 @@
 #include "sumcheck.cuh"
 #include "table_build.cuh"
 #include "tree_reduce.cuh"
+#include "w_ladder.cuh"
 #include "weierstrass.cuh"
 
 #include <vector>
@@ -119,6 +121,38 @@ void host_w(int op, const int32_t* p, const int32_t* q, int32_t* out, int64_t n)
   for (int64_t i = 0; i < n; ++i) {
     wpoint<C> a = w_load<C>(pp, i);
     w_store<C>(oo, i, op == 0 ? w_add<C>(a, w_load<C>(qq, i)) : w_double<C>(a));
+  }
+}
+
+// which: 0 mul_b3 (additions), 1 mf_mul by 3b in Montgomery form, over the
+// base field of C: a (nlimbs, n) -> out (nlimbs, n)
+template <class C>
+void host_mul_b3(int which, const int32_t* a, int32_t* out, int64_t n) {
+  using F = typename C::F;
+  for (int64_t i = 0; i < n; ++i) {
+    const mfe<F> x = mf_load<F>(a + i, n);
+    mf_store<F>(out + i, n, which == 0 ? C::mul_b3(x) : mf_mul<F>(x, C::b3()));
+  }
+}
+
+// w_lookup_msm.cu's threads, one after another
+template <class C>
+void host_w_lookup(const lookup_query& q, int64_t rows, int64_t nchunks, const wpoint_out_ptrs& out) {
+  for (int64_t k = 0; k < nchunks; ++k) {
+    for (int64_t r = 0; r < rows; ++r) w_store<C>(out, k * rows + r, lookup_thread<WForm<C>>(q, k, r));
+  }
+}
+
+// w_doubling_combine.cu's warps: each output's lanes one after another,
+// then lane 0's fold
+template <class C>
+void host_w_ladder(const wpoint_ptrs& products, int64_t num_outputs, int nbits, int seg_bits,
+                   const wpoint_out_ptrs& out) {
+  const int nseg = w_ladder_segments(nbits, seg_bits);
+  std::vector<wpoint<C>> seg(nseg);
+  for (int64_t o = 0; o < num_outputs; ++o) {
+    for (int j = 0; j < nseg; ++j) seg[j] = w_ladder_segment<C>(products, o * nbits, nbits, seg_bits, j);
+    w_store<C>(out, o, w_ladder_fold<C>(seg.data(), nseg, seg_bits));
   }
 }
 
@@ -251,6 +285,68 @@ int btt_host_w(int curve, int op, const int32_t* p, const int32_t* q, int32_t* o
     case Bls12381G1::id: host_w<Bls12381G1>(op, p, q, out, n); return 0;
     case Bn254G1::id: host_w<Bn254G1>(op, p, q, out, n); return 0;
     case Grumpkin::id: host_w<Grumpkin>(op, p, q, out, n); return 0;
+    default: return -1;
+  }
+}
+
+int btt_host_mul_b3(int curve, int which, const int32_t* a, int32_t* out, int64_t n) {
+  switch (curve) {
+    case Bls12381G1::id: host_mul_b3<Bls12381G1>(which, a, out, n); return 0;
+    case Bn254G1::id: host_mul_b3<Bn254G1>(which, a, out, n); return 0;
+    case Grumpkin::id: host_mul_b3<Grumpkin>(which, a, out, n); return 0;
+    default: return -1;
+  }
+}
+
+// w_lookup_msm.cu's launcher on the host: the same arguments (the table
+// (groups, 2^w, 3, K) words; signs null for an unsigned query); out (3,
+// nlimbs, nchunks * rows) with rows = halves * num_outputs * 8 * nbytes.
+// Returns -1 for another curve id.
+int btt_host_w_lookup(int curve, const int32_t* table, const uint8_t* scalars, const uint8_t* signs,
+                      int64_t num_outputs, int64_t n_pad, int64_t row_stride, int nbytes, int w,
+                      int64_t chunk_groups, int64_t nchunks, int32_t* out) {
+  lookup_query q;
+  q.table = reinterpret_cast<const word4*>(table);
+  q.scalars = scalars;
+  q.signs = signs;
+  q.row_stride = row_stride;
+  q.nbytes = nbytes;
+  q.w = w;
+  q.groups = n_pad / w;
+  q.halves = signs ? 2 : 1;
+  q.rows_per_half = num_outputs * 8 * nbytes;
+  q.chunk_groups = chunk_groups;
+  const int64_t rows = q.rows_per_half * q.halves;
+  const int64_t m = nchunks * rows;
+  auto run = [&](auto curve_tag, int64_t nl) {
+    using C = decltype(curve_tag);
+    const wpoint_out_ptrs oo = {{out, out + nl * m, out + 2 * nl * m}, m};
+    host_w_lookup<C>(q, rows, nchunks, oo);
+  };
+  switch (curve) {
+    case Bls12381G1::id: run(Bls12381G1(), 24); return 0;
+    case Bn254G1::id: run(Bn254G1(), 16); return 0;
+    case Grumpkin::id: run(Grumpkin(), 16); return 0;
+    default: return -1;
+  }
+}
+
+// w_doubling_combine.cu on the host: products (3, nlimbs, O * nbits), out
+// (3, nlimbs, O). Returns -1 for another curve id or more than 32 segments.
+int btt_host_w_ladder(int curve, const int32_t* products, int64_t num_outputs, int nbits, int seg_bits,
+                      int32_t* out) {
+  if (nbits < 1 || seg_bits < 1 || w_ladder_segments(nbits, seg_bits) > 32) return -1;
+  const int64_t m = num_outputs * nbits;
+  auto run = [&](auto curve_tag, int64_t nl) {
+    using C = decltype(curve_tag);
+    const wpoint_ptrs pp = {{products, products + nl * m, products + 2 * nl * m}, m};
+    const wpoint_out_ptrs oo = {{out, out + nl * num_outputs, out + 2 * nl * num_outputs}, num_outputs};
+    host_w_ladder<C>(pp, num_outputs, nbits, seg_bits, oo);
+  };
+  switch (curve) {
+    case Bls12381G1::id: run(Bls12381G1(), 24); return 0;
+    case Bn254G1::id: run(Bn254G1(), 16); return 0;
+    case Grumpkin::id: run(Grumpkin(), 16); return 0;
     default: return -1;
   }
 }

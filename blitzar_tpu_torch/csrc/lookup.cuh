@@ -1,9 +1,10 @@
-// The per-thread schedule of ed_lookup_msm.cu: how thread (k, r) forms its
-// table indices, reads the entries they pick and adds them, in which
-// order. ed_lookup_msm.cu runs it on the card; host_harness.cpp runs the
+// The per-thread schedule of the two lookups, ed_lookup_msm.cu and
+// w_lookup_msm.cu: how thread (k, r) forms its table indices, reads the
+// entries they pick and adds them, in which order, one template over the
+// entry form. The kernels run it on the card; host_harness.cpp runs the
 // same code thread by thread, so the CPU tests
-// (tests/test_torch_lookup_body.py) hold the kernel's indices, order and
-// arithmetic against the plain version limb for limb.
+// (tests/test_torch_lookup_body.py) hold the kernels' indices, order and
+// arithmetic against the plain versions limb for limb.
 //
 // For bit-row r (output o, scalar bit b) and group g, idx[r, g] = sum_j
 // bit_b(scalar[o, g*w + j]) << j picks table entry (g, idx); row r's product
@@ -12,10 +13,12 @@
 // count, and adds their nonzero entries in increasing g (entry 0 is the
 // identity and is skipped): a 7-multiply mixed add for a niels entry, an
 // 8-multiply add for a cached one, each stage of independent multiplies one
-// non-inlined body (edwards25519.cuh). An entry is read with 16-byte
-// loads through the read-only cache straight into the add's operands; the
-// other warps of the SM cover the wait (the adds bound the lookup, not
-// the gathers).
+// non-inlined body (edwards25519.cuh); a 12-multiply complete add for a
+// Weierstrass entry, each multiply one call of one non-inlined Montgomery
+// body (weierstrass.cuh, mont.cuh). An entry is read with 16-byte loads
+// through the read-only cache straight into the add's operands; the other
+// warps of the SM cover the wait (the adds bound the lookup, not the
+// gathers).
 //
 // The scalars of output o start at scalars + o * row_stride * nbytes, so a
 // streamed chunk reads its slice of the whole upload in place (row_stride
@@ -26,11 +29,12 @@
 #pragma once
 
 #include "edwards25519.cuh"
+#include "weierstrass.cuh"
 
 namespace btt {
 
 struct lookup_query {
-  const word4* table;     // (groups, 2^w, coords, 8) words
+  const word4* table;     // (groups, 2^w, coords, words) words
   const uint8_t* scalars; // output o at o * row_stride * nbytes
   const uint8_t* signs;   // output o at o * row_stride, or null
   int64_t row_stride;
@@ -95,8 +99,12 @@ BTT_HD fe entry_coord(const word4* e, int c) {
   return fe_const(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w);
 }
 
+// An entry form: its accumulator (Point, identity()), its 16-byte words an
+// entry (kChunks) and the add of an accumulator and an entry.
 struct NielsForm {
+  using Point = ge_p3;
   static constexpr int kChunks = 6;  // 16-byte words an entry: (y + x, y - x, 2d*x*y)
+  BTT_HD static ge_p3 identity() { return ge_identity(); }
   BTT_HD static ge_p3 add(const ge_p3& acc, const word4* e) {
     ge_niels n;
     n.a = entry_coord(e, 0);
@@ -107,7 +115,9 @@ struct NielsForm {
 };
 
 struct CachedForm {
+  using Point = ge_p3;
   static constexpr int kChunks = 8;  // (y + x, y - x, z, 2d*t)
+  BTT_HD static ge_p3 identity() { return ge_identity(); }
   BTT_HD static ge_p3 add(const ge_p3& acc, const word4* e) {
     ge_cached c;
     c.a = entry_coord(e, 0);
@@ -118,13 +128,44 @@ struct CachedForm {
   }
 };
 
+// A projective Weierstrass entry of curve C: (X, Y, Z), K words each
+// (K / 4 16-byte words), added with the complete formula, one call of the
+// Montgomery body a multiply.
+template <class C>
+struct WForm {
+  using F = typename C::F;
+  using Point = wpoint<C>;
+  static constexpr int kCoordChunks = F::K / 4;
+  static constexpr int kChunks = 3 * kCoordChunks;  // 6 (K = 8) or 9 (K = 12)
+  BTT_HD static wpoint<C> identity() { return w_identity<C>(); }
+  BTT_HD static mfe<F> coord(const word4* e) {
+    mfe<F> r;
+#pragma unroll
+    for (int i = 0; i < kCoordChunks; ++i) {
+      const word4 u = load_word4(e + i);
+      r.v[4 * i] = u.x;
+      r.v[4 * i + 1] = u.y;
+      r.v[4 * i + 2] = u.z;
+      r.v[4 * i + 3] = u.w;
+    }
+    return r;
+  }
+  BTT_HD static wpoint<C> add(const wpoint<C>& acc, const word4* e) {
+    wpoint<C> p;
+    p.X = coord(e);
+    p.Y = coord(e + kCoordChunks);
+    p.Z = coord(e + 2 * kCoordChunks);
+    return w_add<C>(acc, p, mf_mul_call_op<F>());
+  }
+};
+
 // Thread (k, r)'s product.
 template <class Form>
-BTT_HD ge_p3 lookup_thread(const lookup_query& q, int64_t k, int64_t r) {
+BTT_HD typename Form::Point lookup_thread(const lookup_query& q, int64_t k, int64_t r) {
   const lookup_row row = lookup_row_of(q, r);
   const int64_t g0 = k * q.chunk_groups;
   const int64_t g1 = g0 + q.chunk_groups < q.groups ? g0 + q.chunk_groups : q.groups;
-  ge_p3 acc = ge_identity();
+  typename Form::Point acc = Form::identity();
   for (int64_t g = g0; g < g1; ++g) {
     const uint32_t idx = lookup_index(q, row, g);
     if (idx) acc = Form::add(acc, q.table + ((g << q.w) + idx) * Form::kChunks);

@@ -14,7 +14,9 @@
 // K word products a[j] * b[i] (32 x 32 -> 64 bits: a multiply for the low
 // and one for the high half), one multiply for u = t[0] * (-m^-1 mod 2^32)
 // and K word products u * m[j]. That is 4K^2 + K 32-bit multiplies per
-// field multiply: 264 for K = 8, 588 for K = 12.
+// field multiply: 264 for K = 8, 588 for K = 12. (A device body of PTX
+// carry chains, mad.lo.cc / madc.hi.cc, ran every Weierstrass kernel slower
+// than this C body on the H100: PERF.md §6.)
 //
 // Everything is BTT_HD: __host__ __device__ under nvcc, plain inline code
 // under a host compiler (tests/test_torch_native_arith.py compiles it with

@@ -26,9 +26,10 @@ as one column of 1 to 15 bytes has; another window than 8; a group count
 off the lookup's tile) goes to the few-row query (:func:`fewrow_products`):
 the selected entries are gathered per table chunk and summed by
 ``niels_tree_reduce_lanes`` (or ``niels_add`` and ``tree_reduce_lanes``). The
-ladder is ``doubling_combine`` for ristretto255 and, as
-blitzar_tpu/msm/fixed.py:611-623 runs it, one ``wdouble`` and one ``wadd``
-launch per bit over the outputs for a Weierstrass curve.
+ladder is one launch over all outputs of a query: ``doubling_combine`` for
+ristretto255, ``w_doubling_combine`` for a Weierstrass curve (where
+blitzar_tpu/msm/fixed.py:611-623 launches ``wdouble`` and ``wadd`` once
+each per bit).
 
 Scalar bits are LSB-first; row r = o * nbits + b; group g covers points
 g*w .. g*w + w - 1. Signed queries run the positive and the negative rows in
@@ -63,8 +64,8 @@ DEFAULT_WINDOW_WIDTH = 8
 # points per streamed chunk: a chunk's table at w = 8 is 2^15 groups x 256
 # entries, 1 GiB of cached ristretto255 entries (128 bytes each), 768 MiB of
 # bn254 G1 / Grumpkin and 1.125 GiB of bls12-381 G1 projective ones; its
-# lookup fills the card (2^15 groups split over 1024 chunks of 32 for a
-# 256-row query)
+# lookup fills the card (2^15 groups split over 521 chunks of 63 for a
+# 256-row query, cuda_point.lookup_chunks)
 STREAM_CHUNK_POINTS = 1 << 18
 
 # table entries a conversion (points to niels entries and back, files) holds
@@ -417,12 +418,7 @@ def doubling_combine(products, num_outputs: int, nbits: int, curve=ed):
     rows = curve.reshape_batch(products, (num_outputs, nbits))
     if curve is ed:
         return cuda_point.doubling_combine(rows)
-    # bit-major copy, so each step's (O,) row is a limb-major view
-    by_bit = type(rows)(*(c.transpose(1, 2).contiguous() for c in rows))
-    acc = curve.index_batch(by_bit, nbits - 1)
-    for b in range(nbits - 2, -1, -1):
-        acc = curve.add(curve.double(acc), curve.index_batch(by_bit, b))
-    return acc
+    return cuda_wpoint.w_doubling_combine(curve, rows)
 
 
 def combine_signed(products, num_outputs: int, nbits: int, curve=ed):

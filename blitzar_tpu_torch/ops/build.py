@@ -56,6 +56,7 @@ SIGNATURES = {
     "btt_tree_reduce_scratch": [_I, _I64, _I64, ctypes.POINTER(_I64)],
     "btt_wadd": [_I, _P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "btt_wdouble": [_I, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    "btt_w_doubling_combine": [_I, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
     # the proof kernels take the field's C ABI id first
     "btt_mont_mul_ew": [_I, _P, _I64, _P, _I64, _I64, _I64, _P, _P],
     "btt_mont_fold_round": [_I, _P, _I64, _I64, _I64, _I64, _P, _I64, _P, _P],

@@ -32,8 +32,9 @@ wrapper                 replaces                                 source
 
 ``ed_lookup_msm`` counts its launches on a cached table (a streamed chunk's)
 as ``ed_lookup_msm_cached``. The Weierstrass kernels (``w_build_table``,
-``w_lookup_msm``, ``wadd``, ``wdouble`` and ``tree_reduce_lanes``'s
-Weierstrass instantiations) have their wrappers in ``ops/cuda_wpoint.py``,
+``w_lookup_msm``, ``wadd``, ``wdouble``, ``w_doubling_combine`` and
+``tree_reduce_lanes``'s Weierstrass instantiations) have their wrappers in
+``ops/cuda_wpoint.py``,
 the proof kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``)
 in ``ops/cuda_mont.py``, the field kernels (``fmul``, ``fsq``, ``finvert``)
 in ``ops/cuda_field.py``; their launches are counted here too, so ``KERNELS``
@@ -71,6 +72,7 @@ KERNELS = (
     "w_lookup_msm",
     "wadd",
     "wdouble",
+    "w_doubling_combine",
     "mont_mul_ew",
     "mont_fold_round",
     "mont_sum_round",
@@ -81,9 +83,9 @@ KERNELS = (
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 INSTANCE_LAUNCHES: dict[str, int] = {}
 
-# (chunk, row) threads the lookup aims for: two waves of 512 threads (its
-# blocks at 128 registers) on each of the H100's 132 SMs; K = 528 for a
-# 32-byte query's 256 rows
+# (chunk, row) threads the lookups (ed_lookup_msm, w_lookup_msm) aim for:
+# two waves of 512 threads (blocks at 128 registers) on each of the H100's
+# 132 SMs; K = 528 for a 32-byte query's 256 rows
 LOOKUP_THREADS = 2 * 132 * 512
 
 
@@ -492,7 +494,8 @@ def whole_chunks(groups: int, nchunks: int) -> tuple[int, int]:
 
 
 def lookup_chunks(groups: int, rows: int) -> tuple[int, int]:
-    """(groups per chunk, chunk count K) of ``ed_lookup_msm``: about
+    """(groups per chunk, chunk count K) of ``ed_lookup_msm`` and
+    ``w_lookup_msm``: about
     ``LOOKUP_THREADS`` (chunk, row) threads, each walking one long chunk, so
     the reduce after it reads few (K, R) partials."""
     return whole_chunks(groups, -(-LOOKUP_THREADS // max(rows, 1)))
@@ -554,16 +557,16 @@ def query_index(scalars: torch.Tensor, signs, w: int) -> torch.Tensor:
     return (rows << weights).sum(dim=-1)
 
 
-def lookup_walk(table, scalars, signs, w: int, chunks=None, chunking=lookup_chunks):
-    """The plain lookups' walk over a query, in the kernels' order: the
-    number of (chunk, row) partials (K, R), then for each step s of a chunk
-    the (K, R) indices and the (K, R, coords, words) entries they pick
-    (padded groups pick entry 0). ``chunks`` (a 1-D index tensor) walks only
-    those chunks; ``chunking(groups, rows)`` is the kernel's chunk rule."""
+def lookup_walk(table, scalars, signs, w: int, chunks=None):
+    """The plain lookups' walk over a query, in the kernels' order (chunks
+    by :func:`lookup_chunks`): the number of (chunk, row) partials (K, R),
+    then for each step s of a chunk the (K, R) indices and the (K, R,
+    coords, words) entries they pick (padded groups pick entry 0).
+    ``chunks`` (a 1-D index tensor) walks only those chunks."""
     groups = table.shape[0]
     idx = query_index(scalars, signs, w)  # (R, G)
     rows = idx.shape[0]
-    chunk_groups, nchunks = chunking(groups, rows)
+    chunk_groups, nchunks = lookup_chunks(groups, rows)
     idx = torch.nn.functional.pad(idx, (0, nchunks * chunk_groups - groups))
     idx = idx.reshape(rows, nchunks, chunk_groups).permute(2, 1, 0)  # (cg, K, R)
     chunk_ids = torch.arange(nchunks, device=table.device) if chunks is None else chunks.to(table.device)

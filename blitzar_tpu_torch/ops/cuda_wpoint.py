@@ -23,7 +23,13 @@ wrapper                  replaces                                           sour
 ``wadd``                 ``_wadd_tiled`` :891                               wadd.cu
 ``wdouble``              ``_wdouble_tiled`` :907                            wdouble.cu
 ``w_tree_reduce_lanes``  ``_tree_tiled`` :344 (Weierstrass)                 tree_reduce_lanes.cu
+``w_doubling_combine``   ``_wdouble_tiled`` :907 + ``_wadd_tiled`` :891 in   w_doubling_combine.cu
+                         blitzar_tpu/msm/fixed.py:596-623's ladder
 =======================  =================================================  ======================
+
+``w_doubling_combine`` is the double-and-add ladder of a query as one
+launch over all its outputs, where blitzar_tpu launches ``wdouble`` and
+``wadd`` once each per bit.
 
 Launches count under the kernel's name in ``cuda_point.LAUNCHES`` and per
 curve in ``cuda_point.INSTANCE_LAUNCHES`` (``w_tree_reduce_lanes`` as
@@ -38,17 +44,16 @@ bls12-381).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..curves.weierstrass import PointP2, WCurve
 from . import build
 from .cuda_point import (
-    _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, limbs_to_words, lookup_walk,
-    query_args, tree_launch, whole_chunks, words_to_limbs,
+    _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, limbs_to_words, lookup_chunks,
+    lookup_walk, query_args, tree_launch, words_to_limbs,
 )
-
-# threads w_lookup_msm aims for: rows x group chunks (about 2048 per SM)
-W_LOOKUP_THREADS = 1 << 18
 
 # ---------------------------------------------------------------------------
 # table entries
@@ -78,8 +83,8 @@ def wadd(curve: WCurve, p: PointP2, q: PointP2) -> PointP2:
     """Elementwise complete p + q over equal batch shapes.
 
     Kernel csrc/wadd.cu, one thread per element. Bound: integer multiplies
-    at large batches (14 field multiplies per element); launch latency for
-    the few outputs of a ladder step."""
+    at large batches (12 field multiplies per element); launch latency for
+    one point (the signed query's Q_pos - Q_neg, the bucket engine)."""
     if not _on_card(p.x):
         return wadd_plain(curve, p, q)
     batch = tuple(p.x.shape[1:])
@@ -107,8 +112,8 @@ def wdouble(curve: WCurve, p: PointP2) -> PointP2:
     """Elementwise complete 2p.
 
     Kernel csrc/wdouble.cu, one thread per element. Bound: integer
-    multiplies at large batches (9 field multiplies per element); launch
-    latency for the few outputs of a ladder step."""
+    multiplies at large batches (8 field multiplies per element); launch
+    latency for one point (the bucket engine's Horner steps)."""
     if not _on_card(p.x):
         return wdouble_plain(curve, p)
     batch = tuple(p.x.shape[1:])
@@ -147,7 +152,7 @@ def w_build_table(curve: WCurve, points: PointP2, w: int) -> torch.Tensor:
 
     Kernel csrc/w_build_table.cu, thread (group, low w/2 bits of the entry)
     builds its 2^(w - w/2) entries by one complete add each. Bound: integer
-    multiplies (2^w - 1 adds of 14 field multiplies per group)."""
+    multiplies (2^w - 1 adds of 12 field multiplies per group)."""
     n_pad = points.x.shape[1]
     if n_pad % w:
         raise ValueError(f"point count {n_pad} is not a multiple of the window {w}")
@@ -169,17 +174,11 @@ def w_build_table(curve: WCurve, points: PointP2, w: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def w_lookup_chunks(groups: int, rows: int) -> tuple[int, int]:
-    """(groups per chunk, chunk count K) of ``w_lookup_msm``: enough (chunk,
-    row) threads to fill the card."""
-    return whole_chunks(groups, -(-W_LOOKUP_THREADS // max(rows, 1)))
-
-
 def w_lookup_msm_plain(curve: WCurve, table, scalars, signs, w: int, chunks=None) -> PointP2:
     """The partials of :func:`w_lookup_msm`, in the kernel's order of
     additions. ``chunks`` (a 1-D index tensor) computes only those chunks,
     (nlimbs, len(chunks), R): the comparison of a full-size run on a sample."""
-    shape, steps = lookup_walk(table, scalars, signs, w, chunks, w_lookup_chunks)
+    shape, steps = lookup_walk(table, scalars, signs, w, chunks)
     acc = curve.identity(shape, table.device)
     for ix, entries in steps:
         acc = curve.select(acc, curve._add_impl(acc, unpack_points(entries)), ix != 0)
@@ -189,16 +188,17 @@ def w_lookup_msm_plain(curve: WCurve, table, scalars, signs, w: int, chunks=None
 def w_lookup_msm(curve: WCurve, table: torch.Tensor, scalars: torch.Tensor, signs, w: int) -> PointP2:
     """Per-chunk partition products of a query: (nlimbs, K, R) partials
     whose sum over K is row r's sum over groups g of table[g, idx[r, g]]
-    (rows and indices as ``cuda_point.query_index``; ``w_lookup_chunks`` gives
-    K). scalars: (O, G*w, nbytes) uint8 magnitudes; signs: (O, G*w) uint8
-    (1 = negative) or None.
+    (rows and indices as ``cuda_point.query_index``; ``cuda_point.lookup_chunks``,
+    the rule of ``ed_lookup_msm``, gives K). scalars: (O, G*w, nbytes) uint8
+    magnitudes; signs: (O, G*w) uint8 (1 = negative) or None.
 
     Scalars and signs may be column slices of longer rows
     (``cuda_point.query_args``).
 
-    Kernel csrc/w_lookup_msm.cu, thread (k, r) gathers projective entries and
-    accumulates with complete adds, skipping entry 0. Bound: integer
-    multiplies, 14 field multiplies per nonzero index."""
+    Kernel csrc/w_lookup_msm.cu, thread (k, r) runs csrc/lookup.cuh's
+    schedule with the Weierstrass entry form: it gathers projective entries
+    and accumulates with complete adds, skipping entry 0. Bound: integer
+    multiplies, 12 field multiplies per nonzero index."""
     groups = _check_query(table, scalars, signs, w, {(3, curve.nlimbs // 2)})
     if not _on_card(table):
         return w_lookup_msm_plain(curve, table, scalars, signs, w)
@@ -206,7 +206,7 @@ def w_lookup_msm(curve: WCurve, table: torch.Tensor, scalars: torch.Tensor, sign
     table, scalars, signs, row = query_args(table, scalars, signs)
     num_outputs, n_pad, nbytes = scalars.shape
     rows = (2 if signs is not None else 1) * num_outputs * 8 * nbytes
-    chunk_groups, nchunks = w_lookup_chunks(groups, rows)
+    chunk_groups, nchunks = lookup_chunks(groups, rows)
     out = _empty_point((nchunks, rows), device, PointP2, curve.nlimbs)
     _launch(
         "w_lookup_msm", build.library().btt_w_lookup_msm,
@@ -238,3 +238,66 @@ def w_tree_reduce_lanes(curve: WCurve, p: PointP2) -> PointP2:
     if p.x.shape[1] == 0 or not _on_card(p.x):
         return w_tree_reduce_lanes_plain(curve, p)
     return tree_launch(curve.kernel_id, curve.name, p, curve.nlimbs, PointP2)
+
+
+# ---------------------------------------------------------------------------
+# w_doubling_combine  (replaces blitzar_tpu/msm/fixed.py:596-623's ladder on
+# pallas_point.py:_wdouble_tiled :907 and _wadd_tiled :891)
+# ---------------------------------------------------------------------------
+
+
+def ladder_segment_bits(nbits: int) -> int:
+    """Bits a segment of the ladder, L = ceil(sqrt(nbits)) (at most 32
+    segments): the critical path's adds, L - 1 in a segment's Horner run and
+    S - 1 in the fold, are fewest near L = S. 16 for 256 bits."""
+    return max(math.isqrt(nbits - 1) + 1 if nbits > 1 else 1, -(-nbits // 32))
+
+
+def w_doubling_combine_plain(curve: WCurve, products: PointP2, seg_bits: int | None = None) -> PointP2:
+    """:func:`w_doubling_combine` by ``wdouble_plain`` and ``wadd_plain`` in
+    the kernel's order (csrc/w_ladder.cuh): every segment's Horner run at
+    once over an (O, S) batch (the short top segment joins when its bits
+    begin), then the fold from the top segment down. ``seg_bits = nbits``
+    is blitzar_tpu's ladder."""
+    nbits = products.x.shape[2]
+    seg = seg_bits or ladder_segment_bits(nbits)
+    nseg = -(-nbits // seg)
+    dev = products.x.device
+    lo = torch.arange(nseg, device=dev) * seg
+    length = torch.clamp(nbits - lo, max=seg)
+    h = curve.index_batch(products, (slice(None), lo + length - 1))  # (nlimbs, O, S)
+    for s in range(1, seg):
+        step = wadd_plain(curve, wdouble_plain(curve, h),
+                          curve.index_batch(products, (slice(None), torch.clamp(lo + length - 1 - s, min=0))))
+        h = curve.select(h, step, (length > s)[None])
+    acc = curve.index_batch(h, (slice(None), nseg - 1))
+    for j in range(nseg - 2, -1, -1):
+        for _ in range(seg):
+            acc = wdouble_plain(curve, acc)
+        acc = wadd_plain(curve, acc, curve.index_batch(h, (slice(None), j)))
+    return acc
+
+
+def w_doubling_combine(curve: WCurve, products: PointP2) -> PointP2:
+    """(nlimbs, O, nbits) bit-row products -> (nlimbs, O) outputs:
+    sum_b 2^b * products[:, o, b], read in place (limb-major).
+
+    Kernel csrc/w_doubling_combine.cu, one launch for all outputs: one warp
+    an output, lanes on ``ladder_segment_bits`` segments by Horner, lane 0
+    folds them. Its coordinates equal :func:`w_doubling_combine_plain`'s
+    and are the same points as blitzar_tpu's ladder. Bound: latency (the
+    top bit's nbits - 1 doublings are a serial chain)."""
+    if not _on_card(products.x):
+        return w_doubling_combine_plain(curve, products)
+    num_outputs, nbits = products.x.shape[1], products.x.shape[2]
+    if nbits < 1:
+        raise ValueError("a ladder needs at least one bit")
+    device = products.x.device
+    coords, stride = _point_arg(products, device, (num_outputs, nbits), curve.nlimbs)
+    out = _empty_point((num_outputs,), device, PointP2, curve.nlimbs)
+    _launch(
+        "w_doubling_combine", build.library().btt_w_doubling_combine,
+        curve.kernel_id, *_ptrs(coords), stride, num_outputs, nbits, ladder_segment_bits(nbits), *_ptrs(out),
+        _stream(device), instance=curve.name,
+    )
+    return out

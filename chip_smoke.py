@@ -7,12 +7,14 @@ one GPU.
 
 Phases, each fatal on failure:
 
-1. build the kernels of the nineteen CUDA sources in ``blitzar_tpu_torch/csrc``
+1. build the kernels of the twenty CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
    registers and spills and the card's name and power limit;
 2. run each kernel at the shapes its path gives it at full width
    (ristretto255 2^20 commitment for the five Edwards kernels of the handle
-   path, bn254 G1 for the four Weierstrass ones, a 2^20 IPA round and a 2^20 sumcheck round
+   path, bn254 G1 for the five Weierstrass ones (the ladder
+   ``w_doubling_combine`` at one output's 256 bit-row products and at
+   seven), a 2^20 IPA round and a 2^20 sumcheck round
    for the three proof kernels, in both proof fields) and hold it against
    its plain PyTorch version on the same inputs (canonical values must be
    equal), timing both (a kernel's time is the median device time of one
@@ -33,7 +35,10 @@ Phases, each fatal on failure:
    at 2^16, one column of 32-byte counter scalars over 521 oracle points
    tiled to n (a prime period: a lookup that read the wrong group could not
    pass); the result must equal the oracle's collapsed sum
-   sum_j (sum_{i = j mod 521} s_i) G_j. Cold and warm commitments, the handle
+   sum_j (sum_{i = j mod 521} s_i) G_j, and each cold commitment's ladder
+   must be one ``w_doubling_combine`` launch with no ``wadd`` or ``wdouble``
+   (as must (e)'s streamed commitments in phase 12 and the bn254 G1 packed
+   and vlen queries of phase 14). Cold and warm commitments, the handle
    build and the median of five queries are timed;
 7. every commitment kernel of the handle path must have launched during
    phases 3-6 (the commitment path, counts from 0; the streamed path's
@@ -67,7 +72,9 @@ Phases, each fatal on failure:
    (``build_cached_table`` and the cached ``ed_lookup_msm`` on a 2^18-point
    chunk of (c), ``tree_reduce_lanes`` on the partials of that lookup and of
    each Weierstrass curve's first chunk), and every one of them, and every
-   instantiation of the templated ones, must have launched in phase 12;
+   instantiation of the templated ones (the ladder's too), must have
+   launched in phase 12; each curve's ``w_lookup_msm`` and
+   ``w_doubling_combine`` against plain on its first chunk of (e);
 14. handle files, packed and vlen queries and the generator disk cache
    (counts from 0, also by element count; the cache, off by default, in a
    fresh directory under ``build/`` for (iv) alone): (i) the ristretto255 2^20 handle written in the
@@ -93,7 +100,8 @@ Phases, each fatal on failure:
    scan and Horner) and 100000 x 10; a signed 8-byte 2^20 column and a
    skewed 2^16 column (one scalar everywhere: many rounds) against the
    default engine; bn254 G1 at 2^16 against the oracle's collapsed sum;
-   ``ed_double``, ``tree_reduce_lanes`` and ``ed_add`` must launch there;
+   ``ed_double``, ``wdouble`` (its Horner steps), ``tree_reduce_lanes`` and
+   ``ed_add`` must launch there;
 17. the few-row partition query (counts from 0, empty handle caches): 1-byte
    and 8-byte counter columns over 2^20 canonical generators through the
    default commitment entry equal the same commitment through
@@ -114,7 +122,10 @@ Phases, each fatal on failure:
    ``ed_lookup_msm``'s and ``tree_reduce_lanes``'s ptxas registers, stack
    frames and spills go to ``ptxas_lookup_and_reduce``, their readings
    before their redesign (constants) beside this run's to
-   ``earlier_lookup_reduce_ms``; neither is in the kernels line.
+   ``earlier_lookup_reduce_ms``; ``w_lookup_msm``'s and
+   ``w_doubling_combine``'s to ``ptxas_weierstrass_query`` and, beside the
+   lookup's and the 510-launch ladder's earlier readings,
+   ``earlier_w_query_ms``; none of it is in the kernels line.
 
 The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
 its path, time, plain time, bound, error), the card as ``nvidia-smi`` names
@@ -168,13 +179,27 @@ MULS_NIELS_FROM_ZINV = 4
 # 32-bit multiplies per Montgomery multiply of csrc/mont.cuh for K words
 # (CIOS: K^2 word products a_j b_i and K^2 u m_j, lo and hi each, plus K
 # multiplies for u); field multiplies per complete Weierstrass add and
-# double of csrc/weierstrass.cuh, the constant multiplies by 3b included
+# double of csrc/weierstrass.cuh: its multiplies by the constant 3b (two in
+# an add, one in a doubling) are a few modular additions (mul_b3), not
+# multiplies, so the function's least work counts 12 and 8
 IMAD_PER_MONT_MUL = {8: 4 * 8 * 8 + 8, 12: 4 * 12 * 12 + 12}
-MULS_WADD = 12 + 2
-MULS_WDOUBLE = 8 + 1
+MULS_WADD = 12
+MULS_WDOUBLE = 8
 # the oracle points a Weierstrass full-width run tiles to n (a prime period)
 W_PERIOD = 521
-W_KERNELS = ("w_build_table", "w_lookup_msm", "wadd", "wdouble")
+W_KERNELS = ("w_build_table", "w_lookup_msm", "wadd", "wdouble", "w_doubling_combine")
+# Earlier readings, not measured by this run: the Weierstrass query's two
+# device stages before their redesign, at bn254 G1 2^20 with one 32-byte
+# counter column (w_lookup_msm's device_ms; the ladder of one output's 256
+# bit-row products, then 255 wdouble and 255 wadd launches issued from
+# Python, and of seven, the packed query's shape, cuda_ms back to back),
+# from kernel_ab.py's first run of the parent tree in the chip call that
+# compared the trees, on an NVIDIA H100 80GB HBM3 at 700.00 W. Written
+# beside this run's times under their own key of chiprun_out/chip_smoke.json,
+# never into the kernels line.
+EARLIER_W_QUERY_MS = {"w_lookup_msm": 11.879648208618164, "ladder_1x256": 23.942239379882814,
+                      "ladder_7x256": 22.524960327148438}
+W_QUERY_SOURCES = {"w_lookup_msm": "w_lookup_msm.cu", "w_doubling_combine": "w_doubling_combine.cu"}
 
 
 def muls_niels_table_group(w: int) -> int:
@@ -449,6 +474,45 @@ def earlier_lookup_reduce_times(results: dict) -> dict:
     return out
 
 
+def w_query_ptxas(log_text: str, built_here: bool) -> dict:
+    """w_lookup_msm's and w_doubling_combine's registers, stack frames and
+    spills per curve instantiation (recorded; PERF.md states any spill), from
+    the ptxas log as :func:`table_build_ptxas` reads it."""
+    out = {"built_in_this_run": built_here}
+    for name, source in W_QUERY_SOURCES.items():
+        out[name] = ptxas_report(log_text, source)
+        check(any(f["entry"] for f in out[name]), f"{name}: ptxas reported its kernels")
+    return out
+
+
+def earlier_w_query_times(results: dict) -> dict:
+    """This run's Weierstrass lookup and ladder times beside the earlier
+    readings (constants)."""
+    ladder = results["w_doubling_combine"]
+    now = {"w_lookup_msm": results["w_lookup_msm"]["ms"], "ladder_1x256": ladder["cuda_ms"],
+           "ladder_7x256": ladder["cuda_ms_7_outputs"]}
+    out = {"note": "earlier_ms: readings before the redesign (kernel_ab.py on the parent tree), not measured by "
+                   "this run; the ladders as cuda_ms, back to back, host issue included"}
+    for key, was in EARLIER_W_QUERY_MS.items():
+        out[key] = {"ms": now[key], "earlier_ms": was}
+        print(f"    {key}: {now[key]:.4f} ms in this run (earlier reading, not this run: {was:.4f} ms)")
+    return out
+
+
+LADDER_KERNELS = ("w_doubling_combine", "wadd", "wdouble")
+
+
+def check_one_ladder(before: dict, what: str, queries: int = 1) -> None:
+    """The Weierstrass commitment(s) run since ``before`` (a copy of the
+    launch counts) ran their ladders as ``queries`` launches of
+    w_doubling_combine, and no wadd or wdouble (an unsigned query)."""
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    got = {k: cp.LAUNCHES[k] - before[k] for k in LADDER_KERNELS}
+    check(got == {"w_doubling_combine": queries, "wadd": 0, "wdouble": 0},
+          f"{what}: the ladder ran as {queries} w_doubling_combine launch(es), no wadd or wdouble ({got})")
+
+
 def earlier_table_build_times(results: dict) -> dict:
     """This run's table-build times beside the earlier readings."""
     out = {"note": "earlier_ms: readings before the redesign around csrc/table_build.cuh, not measured by this run"}
@@ -599,7 +663,7 @@ def w_output_equals(curve, got, o: int, pt) -> bool:
 
 
 def phase_wkernels(torch, dev) -> dict:
-    """The four Weierstrass kernels at the shapes of one bn254 G1 2^20
+    """The five Weierstrass kernels at the shapes of one bn254 G1 2^20
     commitment with 32-byte counter scalars, against their plain versions."""
     from blitzar_tpu_torch.curves import weierstrass as wc
     from blitzar_tpu_torch.msm import fixed
@@ -676,8 +740,38 @@ def phase_wkernels(torch, dev) -> dict:
           f"wdouble moves each of the {int(finite.sum())} bit-row products that are not the identity")
     record("wdouble", "blitzar_tpu/ops/pallas_point.py:907", "blitzar_tpu_torch/csrc/wdouble.cu",
            ms, plain_ms, err, 2 * point_bytes, MULS_WDOUBLE * imad)
-    # the whole ladder of that query: 255 wdouble and 255 wadd launches
-    results["wdouble"]["ladder_ms"] = cuda_ms(torch, lambda: fixed.doubling_combine(products, 1, 256, curve))
+
+    # w_doubling_combine: the ladder of that query's 256 bit-row products
+    # (one output), and of seven outputs (the packed query's Proof-of-SQL
+    # widths, padded to 256 bits: here the products rotated by 37 bits an
+    # output); held against plain on both. Bound: the function's least work,
+    # 255 doublings and adds an output (latency in fact: PERF.md gives the
+    # critical path in dependent multiplies)
+    nbits = 256
+    one = curve.reshape_batch(products, (1, nbits))
+    seven = curve.index_batch(one, (0, (torch.arange(nbits, device=dev)[None] + 37 * torch.arange(7, device=dev)[:, None])
+                                    % nbits))
+    ladder = functools.partial(cw.w_doubling_combine, curve)
+    ms = device_ms(torch, lambda: ladder(one), reps=5)
+    plain_ms = cuda_ms(torch, lambda: cw.w_doubling_combine_plain(curve, one), reps=1)
+    err = max(point_err(ladder(p), cw.w_doubling_combine_plain(curve, p)) for p in (one, seven))
+    record("w_doubling_combine", "blitzar_tpu/msm/fixed.py:596 (pallas_point.py:907, :891)",
+           "blitzar_tpu_torch/csrc/w_doubling_combine.cu", ms, plain_ms, err, (nbits + 1) * point_bytes,
+           (nbits - 1) * (MULS_WDOUBLE + MULS_WADD) * imad)
+    rec = results["w_doubling_combine"]
+    rec["ms_7_outputs"] = device_ms(torch, lambda: ladder(seven), reps=5)
+    b_ms, _ = bound((nbits + 1) * 7 * point_bytes, 7 * (nbits - 1) * (MULS_WDOUBLE + MULS_WADD) * imad)
+    rec["bound_ms_7_outputs"] = b_ms
+    # back to back, the host's issue time counted (as the earlier ladder's
+    # 510 launches were timed)
+    rec["cuda_ms"] = cuda_ms(torch, lambda: fixed.doubling_combine(products, 1, nbits, curve), reps=5)
+    rec["cuda_ms_7_outputs"] = cuda_ms(torch, lambda: ladder(seven), reps=5)
+    seg = cw.ladder_segment_bits(nbits)
+    nseg = -(-nbits // seg)
+    rec["segment_bits"] = seg
+    rec["critical_path_muls"] = ((seg - 1) * (MULS_WDOUBLE + MULS_WADD) + seg * (nseg - 1) * MULS_WDOUBLE
+                                 + (nseg - 1) * MULS_WADD)
+    rec["critical_path_muls_one_segment"] = (nbits - 1) * (MULS_WDOUBLE + MULS_WADD)
     return results
 
 
@@ -863,6 +957,7 @@ def phase_w_full_width(torch, timings: dict) -> dict:
         before = dict(cp.LAUNCHES)
         got, ms = timed(torch, lambda: entry([desc], gens))
         check(w_output_equals(curve, got, 0, expected), f"{key} commitment equals the oracle's collapsed sum ({ms:.1f} ms)")
+        check_one_ladder(before, f"{key} cold commitment")
         timings[f"{key}_commit_cold_ms"] = ms
         if log_n == 20:
             per_commitment = {k: cp.LAUNCHES[k] - before[k] for k in cp.KERNELS}
@@ -1219,7 +1314,8 @@ def phase_ipa_full_width(torch, timings: dict) -> None:
 # ones that the large-n phase must launch
 LARGE_KERNELS = ("build_cached_table", "ed_lookup_msm_cached", "tree_reduce_lanes")
 LARGE_INSTANCES = tuple(f"tree_reduce_lanes/{c}" for c in ("ristretto255", "bls12_381_g1", "bn254_g1", "grumpkin")) + tuple(
-    f"{k}/{c}" for k in ("w_build_table", "w_lookup_msm") for c in ("bls12_381_g1", "bn254_g1", "grumpkin"))
+    f"{k}/{c}" for k in ("w_build_table", "w_lookup_msm", "w_doubling_combine")
+    for c in ("bls12_381_g1", "bn254_g1", "grumpkin"))
 MULS_CADD = 8
 CHUNK = 1 << 18  # msm/fixed.py STREAM_CHUNK_POINTS, the chunk the kernels are held at
 
@@ -1334,10 +1430,12 @@ def phase_large_n(torch, timings: dict) -> dict:
         gens, pts = tiled_generators(curve, n, dev)
         rows = counter_scalars(n, 32)
         expected = curve.oracle.msm(collapsed_scalars(rows), pts)
+        before = dict(cp.LAUNCHES)
         got, timings[f"{key}_commit_ms"] = timed(
             torch, lambda: api.COMMITMENT_ENTRIES[curve]([api.SequenceDescriptor(32, n, rows)], gens))
         check(w_output_equals(curve, got, 0, expected),
               f"(e) {key} streamed commitment equals the oracle's collapsed sum ({timings[f'{key}_commit_ms']:.1f} ms)")
+        check_one_ladder(before, f"(e) {key} streamed commitment")
         check(not engine._HANDLE_CACHE, f"(e) {key} built no handle")
         del gens
     clear_handles(torch)
@@ -1394,9 +1492,10 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
     2^18-point chunk of the 2^24 query (w = 8, its 32-byte scalars; plain on
     512 groups and 16 lookup chunks spread over the chunk), tree_reduce_lanes
     on that lookup's (K, 256) partials (K = 521) and on a (1024, 256) tiling
-    of them, and on the (1024, 256) partials of each Weierstrass curve's
-    first chunk of (e) (compared as points: the kernel adds in another
-    order)."""
+    of them, and on the (K, 256) partials of each Weierstrass curve's first
+    chunk of (e) (compared as points: the kernel adds in another order);
+    each curve's w_lookup_msm on that chunk (plain on 16 spread chunks) and
+    w_doubling_combine on its 256 bit-row products, limb for limb."""
     from blitzar_tpu_torch import generators
     from blitzar_tpu_torch.curves import edwards25519 as ed
     from blitzar_tpu_torch.curves import weierstrass as wc
@@ -1466,14 +1565,42 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
         ed.points_equal, wide, 256, MULS_ADD * IMAD_PER_FIELD_MUL)
     del wide
     wscalars = torch.from_numpy(counter_scalars(CHUNK, 32)[None]).to(dev)
+    results["w_lookup_msm_by_curve"], results["w_doubling_combine_by_curve"] = {}, {}
     for curve in (wc.BLS12381_G1, wc.BN254_G1, wc.GRUMPKIN):
         wgens, _ = tiled_generators(curve, CHUNK, dev)
-        wpartials = cw.w_lookup_msm(curve, cw.w_build_table(curve, wgens, w), wscalars, None, w)
+        wtable = cw.w_build_table(curve, wgens, w)
+        wpartials = cw.w_lookup_msm(curve, wtable, wscalars, None, w)
         results["tree_reduce_lanes"][curve.name] = tree_record(
             curve.name, functools.partial(cw.w_tree_reduce_lanes, curve, wpartials),
             functools.partial(cw.w_tree_reduce_lanes_plain, curve, wpartials), curve.points_equal, wpartials,
             3 * curve.nlimbs * 4, MULS_WADD * IMAD_PER_MONT_MUL[curve.nlimbs // 2])
-        del wgens, wpartials
+        # each curve's instantiation of the lookup (plain on 16 spread chunks)
+        # and of the ladder (that chunk's 256 bit-row products) against plain
+        imad = IMAD_PER_MONT_MUL[curve.nlimbs // 2]
+        point_bytes = 3 * curve.nlimbs * 4
+        sub: dict = {}
+        ms = device_ms(torch, lambda: cw.w_lookup_msm(curve, wtable, wscalars, None, w))
+        k = wpartials.x.shape[1]
+        chunks = spread(16, k)
+        plain_ms = cuda_ms(torch, lambda: cw.w_lookup_msm_plain(curve, wtable, wscalars, None, w, chunks), reps=1)
+        err = point_err(curve.index_batch(wpartials, chunks), cw.w_lookup_msm_plain(curve, wtable, wscalars, None, w,
+                                                                                    chunks))
+        nonzero, touched = lookup_work(torch, wscalars, w, groups)
+        kernel_record(sub, "w_lookup_msm", "blitzar_tpu/ops/pallas_point.py:636",
+                      "blitzar_tpu_torch/csrc/w_lookup_msm.cu", ms, plain_ms, err,
+                      wscalars.numel() + touched * point_bytes // 2 + wpartials.x.numel() * 4 * 3,
+                      nonzero * MULS_WADD * imad, len(chunks) / k, compared=f"{curve.name} canonical limbs")
+        results["w_lookup_msm_by_curve"][curve.name] = {**sub["w_lookup_msm"], "shape": [k, wpartials.x.shape[2]]}
+        products = curve.reshape_batch(cw.w_tree_reduce_lanes(curve, wpartials), (1, -1))
+        nbits = products.x.shape[2]
+        ms = device_ms(torch, lambda: cw.w_doubling_combine(curve, products), reps=5)
+        plain_ms = cuda_ms(torch, lambda: cw.w_doubling_combine_plain(curve, products), reps=1)
+        err = point_err(cw.w_doubling_combine(curve, products), cw.w_doubling_combine_plain(curve, products))
+        kernel_record(sub, "w_doubling_combine", "blitzar_tpu/msm/fixed.py:596 (pallas_point.py:907, :891)",
+                      "blitzar_tpu_torch/csrc/w_doubling_combine.cu", ms, plain_ms, err, (nbits + 1) * point_bytes,
+                      (nbits - 1) * (MULS_WDOUBLE + MULS_WADD) * imad, compared=f"{curve.name} canonical limbs")
+        results["w_doubling_combine_by_curve"][curve.name] = sub["w_doubling_combine"]
+        del wgens, wtable, wpartials
     return results
 
 
@@ -1628,10 +1755,13 @@ def phase_files(torch, timings: dict, work: str) -> None:
     for curve, handle in ((ed, ed_handle), (bn, bn_handle)):
         name = "ristretto255" if curve is ed else curve.name
         for kind, lengths in (("packed", None), ("vlen", POSQL_LENGTHS)):
+            before = dict(cp.LAUNCHES)
             if lengths is None:
                 got, ms = timed(torch, lambda: api.fixed_packed_multiexponentiation(handle, POSQL_BITS, n, packed))
             else:
                 got, ms = timed(torch, lambda: api.fixed_vlen_multiexponentiation(handle, POSQL_BITS, lengths, packed))
+            if curve is bn:
+                check_one_ladder(before, f"(iii) {kind} {name} 2^20 query")
             scalars = own_scalars(bits, POSQL_BITS, lengths)
             each, each_ms = timed(torch, lambda: [api.fixed_multiexponentiation(handle, s[None]) for s in scalars])
             each = [comparable(curve, p)[0] for p in each]
@@ -1806,7 +1936,7 @@ def phase_field_kernels(torch, dev, path_shapes: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 # the kernels that only these paths launch, each required on its own path
-BUCKET_KERNELS = ("ed_double",)
+BUCKET_KERNELS = ("ed_double", "wdouble")
 FEWROW_KERNELS = ("niels_add", "niels_tree_reduce_lanes")
 MULS_NIELS_ADD = 8
 QUERY_REPS = 5
@@ -2244,6 +2374,7 @@ def main() -> int:
                 print(f"    {line.strip()}")
         report["ptxas_table_builds"] = table_build_ptxas(log, built_here)
         report["ptxas_lookup_and_reduce"] = lookup_reduce_ptxas(log, built_here)
+        report["ptxas_weierstrass_query"] = w_query_ptxas(log, built_here)
         TREE_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
@@ -2280,8 +2411,11 @@ def main() -> int:
         large_launches = dict(cp.LAUNCHES)
         large_instances = dict(cp.INSTANCE_LAUNCHES)
         results.update(phase_large_kernels(torch, torch.device("cuda"), large["rows24"]))
+        results["w_lookup_msm"]["by_curve_2^18_chunk"] = results.pop("w_lookup_msm_by_curve")
+        results["w_doubling_combine"]["by_curve_2^18_chunk"] = results.pop("w_doubling_combine_by_curve")
         report["earlier_table_build_ms"] = earlier_table_build_times(results)
         report["earlier_lookup_reduce_ms"] = earlier_lookup_reduce_times(results)
+        report["earlier_w_query_ms"] = earlier_w_query_times(results)
         # handle files, packed and vlen queries, the disk cache: counts from
         # 0 over (i)-(iv), also by element count; then the field kernels
         # against their plain versions at those counts
@@ -2341,7 +2475,8 @@ def main() -> int:
               f"fmul, finvert, and mont_mul_ew in both base fields, launched on the files and cache path: "
               f"{ {k: file_launches[k] for k in FILE_KERNELS} } {file_instances}")
         check(all(bucket_launches[k] > 0 for k in BUCKET_KERNELS + ("tree_reduce_lanes", "ed_add")),
-              f"ed_double, tree_reduce_lanes and ed_add launched on the bucket engine's path: {bucket_launches}")
+              f"ed_double, wdouble, tree_reduce_lanes and ed_add launched on the bucket engine's path: "
+              f"{bucket_launches}")
         check(all(fewrow_launches[k] > 0 for k in FEWROW_KERNELS),
               f"niels_add and niels_tree_reduce_lanes launched on the few-row query's path: "
               f"{ {k: fewrow_launches[k] for k in FEWROW_KERNELS} }")

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time the kernels that the Edwards adds (csrc/edwards25519.cuh), the
-partition lookup and the tree reduce reach, in one checkout of the
-repository, at the shapes of its main paths, each checked against its plain
-version; one run per checkout, in turns, compares two trees on one card:
+Weierstrass adds and the Montgomery multiply (csrc/weierstrass.cuh,
+csrc/mont.cuh), the partition lookups, the ladders and the tree reduce
+reach, in one checkout of the repository, at the shapes of its main paths,
+each checked against its plain version; one run per checkout, in turns,
+compares two trees on one card:
 
     python3 kernel_ab.py --root build/ab/parent --out chiprun_out/ab/1_parent.json
     python3 kernel_ab.py --root .               --out chiprun_out/ab/2_change.json
@@ -21,19 +23,36 @@ script's, so both trees run the same work. Cases:
   ``niels_tree_reduce_lanes`` (the few-row query's first row block at
   2^20, one-byte column), ``build_cached_table`` and the cached
   ``ed_lookup_msm`` on a 2^18-point chunk (w = 8, random 32-byte scalars);
+- the Weierstrass query (section ``weierstrass``): ``w_build_table`` and
+  ``w_lookup_msm`` at bn254 G1 2^20 (one 32-byte counter column over the
+  oracle's 521 points tiled), the ladder of that query's 256 bit-row
+  products and of seven outputs (``fixed.doubling_combine``: the kernel
+  ``w_doubling_combine``, or a tree's 510 ``wdouble``/``wadd`` launches;
+  also timed back to back, host issue included, as ``cuda_ms``; the
+  kernel, where the tree has it, also in one segment, blitzar_tpu's
+  order), ``wadd`` and ``wdouble`` at one point and at 512, and on a
+  2^18-point chunk of each curve (random 32-byte scalars) ``w_lookup_msm``,
+  ``w_tree_reduce_lanes`` on its partials and the ladder of the 256 bit-row
+  products they sum to;
+- the proof kernels (section ``mont``): ``mont_mul_ew``, ``mont_fold_round``
+  and ``mont_sum_round`` (degree 3) at chip_smoke.py's 2^20 shapes, in both
+  proof fields, ``mont_mul_ew`` also in the two Weierstrass base fields;
 - ``tree_reduce_lanes`` at every (curve, size, cols) that chip_smoke.py's
-  paths launched it at (its phase 19), on the same tiled points as there.
+  paths launched it at (its phase 19), on the same tiled points as there
+  (section ``trees``).
 
 Each case's result is held against its plain version (canonical limbs, or
-points for the tree reduces; on a spread sample where the plain version is
-large); the JSON holds each case's ``ms`` and whether it matched. Needs one
-CUDA card.
+points for the tree reduces and the ladders; on a spread sample where the
+plain version is large); the JSON holds each case's ``ms`` and whether it
+matched. ``--sections`` runs some of the four sections (``edwards``,
+``weierstrass``, ``mont``, ``trees``). Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import importlib.util
 import json
 import os
 import sys
@@ -66,11 +85,22 @@ TREE_SHAPES = (
 TREE_CHECK_COLS = 8
 
 
+SECTIONS = ("edwards", "weierstrass", "mont", "trees")
+# the Weierstrass lookups' partials at the shapes their chunk rules give a
+# 256-row query: K = 1024 (the rule before w_lookup_msm took lookup_chunks),
+# 527 at 2^20 and 521 at a 2^18-point chunk since
+W_TREE_SHAPES = [(c, s, 256) for c in ("bls12_381_g1", "bn254_g1", "grumpkin") for s in (521, 527)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose blitzar_tpu_torch is timed")
     ap.add_argument("--out", required=True, help="JSON file to write")
+    ap.add_argument("--sections", default=",".join(SECTIONS), help="comma-separated sections to run")
     args = ap.parse_args()
+    sections = args.sections.split(",")
+    if not set(sections) <= set(SECTIONS):
+        ap.error(f"sections are {SECTIONS}")
     import torch
 
     if not torch.cuda.is_available():
@@ -78,31 +108,50 @@ def main() -> int:
         return 1
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    sys.path.insert(1, HERE)
-    import chip_smoke as cs
-    from blitzar_tpu_torch import generators
-    from blitzar_tpu_torch.curves import edwards25519 as ed
-    from blitzar_tpu_torch.curves import weierstrass as wc
-    from blitzar_tpu_torch.fields import fp25519 as F
-    from blitzar_tpu_torch.msm import fixed
+    # this script's chip_smoke.py (its helpers), whichever tree is timed
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     from blitzar_tpu_torch.ops import build
     from blitzar_tpu_torch.ops import cuda_point as cp
-    from blitzar_tpu_torch.ops import cuda_wpoint as cw
 
     assert os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(cp.__file__)))) == root, cp.__file__
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     build.library()
-    report = {"root": root, "card": cs.card_line(), "build_s": time.perf_counter() - t0, "cases": {}}
+    report = {"root": root, "card": cs.card_line(), "build_s": time.perf_counter() - t0,
+              "ptxas": {src: cs.ptxas_report((build.BUILD_ROOT / build.digest() / "ptxas.log").read_text(), src)
+                        for src in ("w_lookup_msm.cu", "w_doubling_combine.cu", "wadd.cu", "wdouble.cu")},
+              "cases": {}}
     cases = report["cases"]
-    spread = functools.partial(cs.spread_indices, torch, dev)
-    ed_err = functools.partial(cs.point_err, canonical=F.canonicalize)
 
     def case(name, fn, ok, reps=5, **extra):
         ms = cs.device_ms(torch, fn, reps=reps)
         cases[name] = {"ms": ms, "ok": bool(ok), **extra}
         print(f"{'ok ' if ok else 'BAD'} {name}: {ms:.4f} ms", flush=True)
 
+    for section in SECTIONS:
+        if section in sections:
+            globals()[f"section_{section}"](torch, cs, dev, case)
+            torch.cuda.empty_cache()
+
+    report["all_ok"] = all(c["ok"] for c in cases.values())
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"root": root, "all_ok": report["all_ok"], "cases": len(cases)}))
+    return 0 if report["all_ok"] else 1
+
+
+def section_edwards(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    spread = functools.partial(cs.spread_indices, torch, dev)
+    ed_err = functools.partial(cs.point_err, canonical=F.canonicalize)
     n, w = 1 << 20, 8
     groups = n // w
     r0, r1 = generators._xorshift_limbs(torch.arange(n, device=dev))
@@ -157,11 +206,144 @@ def main() -> int:
          ed_err(ed.index_batch(cpartials, chunks), cp.ed_lookup_msm_plain(ctable, cscalars, None, w, chunks)) == 0,
          chunks=k)
     del gens, cgens, ctable, cpartials, r0, r1
-    torch.cuda.empty_cache()
 
+
+
+def ladder_reference(curve, rows, nbits: int):
+    """One segment's ladder on the plain adds (wdouble_plain, wadd_plain),
+    blitzar_tpu's order: every tree's result is the same point."""
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    acc = curve.index_batch(rows, (slice(None), nbits - 1))
+    for b in range(nbits - 2, -1, -1):
+        acc = cw.wadd_plain(curve, cw.wdouble_plain(curve, acc), curve.index_batch(rows, (slice(None), b)))
+    return acc
+
+
+def section_weierstrass(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    spread = functools.partial(cs.spread_indices, torch, dev)
+    n, w = 1 << 20, 8
+    groups = n // w
+    bn = wc.BN254_G1
+    gens, _ = cs.tiled_generators(bn, n, dev)
+    table = cw.w_build_table(bn, gens, w)
+    sel = spread(64, groups)
+    members = bn.index_batch(gens, (sel[:, None] * w + torch.arange(w, device=dev)).reshape(-1))
+    case("w_build_table/bn254_g1/2^20", lambda: cw.w_build_table(bn, gens, w),
+         torch.equal(table[sel], cw.w_build_table_plain(bn, members, w)), reps=3)
+    scalars = torch.from_numpy(cs.counter_scalars(n, 32)[None]).to(dev)
+    partials = cw.w_lookup_msm(bn, table, scalars, None, w)
+    k = partials.x.shape[1]
+    chunks = spread(4, k)
+    case("w_lookup_msm/bn254_g1/2^20", lambda: cw.w_lookup_msm(bn, table, scalars, None, w),
+         cs.point_err(bn.index_batch(partials, chunks), cw.w_lookup_msm_plain(bn, table, scalars, None, w, chunks)) == 0,
+         chunks=k)
+    products = cw.w_tree_reduce_lanes(bn, partials)  # (256,) bit-row products
+    cols = spread(8, partials.x.shape[2])
+    ok = bool(bn.points_equal(bn.index_batch(products, cols),
+                              cw.w_tree_reduce_lanes_plain(bn, bn.index_batch(partials, (slice(None), cols)))).all())
+    case("w_tree_reduce_lanes/bn254_g1/lookup_partials_2^20", lambda: cw.w_tree_reduce_lanes(bn, partials), ok,
+         shape=[k, partials.x.shape[2]])
+    del table, partials
+
+    nbits = 256
+    rows = {1: products, 7: bn.index_batch(products, ((torch.arange(nbits, device=dev)[None]
+                                                        + 37 * torch.arange(7, device=dev)[:, None]) % nbits).reshape(-1))}
+    # a tree that issues the ladder as 510 launches queues too many behind
+    # device_ms's sleep for more than one rep
+    kernel = hasattr(cw, "w_doubling_combine")
+    for outputs, flat in rows.items():
+        got = fixed.doubling_combine(flat, outputs, nbits, bn)
+        want = ladder_reference(bn, bn.reshape_batch(flat, (outputs, nbits)), nbits)
+        case(f"ladder/bn254_g1/{outputs}x{nbits}", lambda: fixed.doubling_combine(flat, outputs, nbits, bn),
+             bool(bn.points_equal(got, want).all()), reps=5 if kernel else 1,
+             cuda_ms=cs.cuda_ms(torch, lambda: fixed.doubling_combine(flat, outputs, nbits, bn), reps=5))
+        if kernel:  # the same kernel in one segment: blitzar_tpu's order, its coordinates
+            one = functools.partial(cw.w_doubling_combine, bn, bn.reshape_batch(flat, (outputs, nbits)))
+            seg_rule = cw.ladder_segment_bits
+            cw.ladder_segment_bits = lambda nb: nb
+            try:
+                case(f"ladder/bn254_g1/{outputs}x{nbits}/one_segment", one, cs.point_err(one(), want) == 0, reps=5)
+            finally:
+                cw.ladder_segment_bits = seg_rule
+
+    lo, hi = bn.index_batch(products, slice(0, 128)), bn.index_batch(products, slice(128, 256))
+    pairs = bn.cat([products, products]), bn.cat([lo, hi, hi, lo])  # 512 points
+    one = bn.index_batch(products, slice(0, 1)), bn.index_batch(products, slice(1, 2))
+    for label, (p, q) in (("1", one), ("512", pairs)):
+        case(f"wadd/bn254_g1/{label}", lambda: cw.wadd(bn, p, q), cs.point_err(cw.wadd(bn, p, q), cw.wadd_plain(bn, p, q)) == 0,
+             reps=50)
+        case(f"wdouble/bn254_g1/{label}", lambda: cw.wdouble(bn, p),
+             cs.point_err(cw.wdouble(bn, p), cw.wdouble_plain(bn, p)) == 0, reps=50)
+    del gens, products
+
+    chunk = cs.CHUNK
+    rng = np.random.default_rng(6)
+    cscalars = torch.from_numpy(rng.integers(0, 256, size=(1, chunk, 32), dtype=np.uint8)).to(dev)
+    for curve in wc.CURVES:
+        cgens, _ = cs.tiled_generators(curve, chunk, dev)
+        ctable = cw.w_build_table(curve, cgens, w)
+        cpartials = cw.w_lookup_msm(curve, ctable, cscalars, None, w)
+        k = cpartials.x.shape[1]
+        chunks = spread(4, k)
+        case(f"w_lookup_msm/{curve.name}/2^18", lambda: cw.w_lookup_msm(curve, ctable, cscalars, None, w),
+             cs.point_err(curve.index_batch(cpartials, chunks),
+                          cw.w_lookup_msm_plain(curve, ctable, cscalars, None, w, chunks)) == 0, chunks=k)
+        cols = spread(8, cpartials.x.shape[2])
+        ok = bool(curve.points_equal(curve.index_batch(cw.w_tree_reduce_lanes(curve, cpartials), cols),
+                                     cw.w_tree_reduce_lanes_plain(curve, curve.index_batch(cpartials, (slice(None), cols))))
+                  .all())
+        case(f"w_tree_reduce_lanes/{curve.name}/lookup_partials_2^18", lambda: cw.w_tree_reduce_lanes(curve, cpartials),
+             ok, shape=[k, cpartials.x.shape[2]])
+        cproducts = cw.w_tree_reduce_lanes(curve, cpartials)
+        want = ladder_reference(curve, curve.reshape_batch(cproducts, (1, nbits)), nbits)
+        case(f"ladder/{curve.name}/1x{nbits}_2^18", lambda: fixed.doubling_combine(cproducts, 1, nbits, curve),
+             bool(curve.points_equal(fixed.doubling_combine(cproducts, 1, nbits, curve), want).all()),
+             reps=5 if kernel else 1,
+             cuda_ms=cs.cuda_ms(torch, lambda: fixed.doubling_combine(cproducts, 1, nbits, curve), reps=5))
+        del cgens, ctable, cpartials, cproducts
+
+
+def section_mont(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+
+    n, m = 1 << 20, 3
+    for fid, field in cm.MUL_FIELDS.items():
+        a = cs.random_canonical(torch, field, (n,), dev, 1)
+        b = cs.random_canonical(torch, field, (n,), dev, 2)
+        case(f"mont_mul_ew/{field.name}/2^20", lambda: cm.mont_mul_ew(field, a, b),
+             torch.equal(cm.mont_mul_ew(field, a, b), cm.mont_mul_ew_plain(field, a, b)), reps=10)
+        if fid not in cm.FIELDS:
+            continue
+        table = cs.random_canonical(torch, field, (m, n), dev, 3)
+        r = cs.random_canonical(torch, field, (1,), dev, 4)
+        case(f"mont_fold_round/{field.name}/3x2^20", lambda: cm.mont_fold_round(field, table, r),
+             torch.equal(cm.mont_fold_round(field, table, r), cm.mont_fold_round_plain(field, table, r)), reps=10)
+        ptable, pterms = cs.SUMCHECK_BENCH
+        mults = field.from_ints([mu for mu, _ in ptable], dev)
+        lengths = torch.tensor([k for _, k in ptable], dtype=torch.int32, device=dev)
+        terms = torch.tensor(pterms, dtype=torch.int32, device=dev)
+        run = functools.partial(cm.mont_sum_round, field, table, mults, lengths, terms, 3)
+        case(f"mont_sum_round/{field.name}/degree3", run,
+             torch.equal(run(), cm.mont_sum_round_plain(field, table, mults, lengths, terms, 3)), reps=10)
+        del a, b, table
+
+
+def section_trees(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    spread = functools.partial(cs.spread_indices, torch, dev)
     curves = {c.name: c for c in wc.CURVES}
     ed_base = generators.get_precomputed_generators(1 << 16, 0, dev)
-    for instance, size, cols in TREE_SHAPES:
+    for instance, size, cols in TREE_SHAPES + W_TREE_SHAPES:
         curve = curves.get(instance)
         ix = torch.arange(size * cols, device=dev)
         if curve is None:
@@ -179,14 +361,6 @@ def main() -> int:
         ok = bool(equal(pick(kernel(batch), cols_ix), plain(pick(batch, (slice(None), cols_ix)))).all())
         case(f"tree_reduce_lanes/{instance}/{size}x{cols}", lambda: kernel(batch), ok)
         del batch
-    torch.cuda.empty_cache()
-
-    report["all_ok"] = all(c["ok"] for c in cases.values())
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(report, f, indent=1)
-    print(json.dumps({"root": root, "all_ok": report["all_ok"], "cases": len(cases)}))
-    return 0 if report["all_ok"] else 1
 
 
 if __name__ == "__main__":

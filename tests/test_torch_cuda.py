@@ -624,3 +624,124 @@ def test_w_tree_reduce_lanes_kernel_shapes(dev, curve, size, cols):
                                 (size, cols))
     got = cw.w_tree_reduce_lanes(curve, _on(batch, dev))
     assert curve.to_affine_ints(_on(got, "cpu")) == curve.to_affine_ints(cw.w_tree_reduce_lanes_plain(curve, batch))
+
+
+# ---------------------------------------------------------------------------
+# the Weierstrass query redesigned: w_lookup_msm on lookup.cuh's schedule,
+# the ladder in one launch (w_doubling_combine), the device multiply
+# ---------------------------------------------------------------------------
+
+from blitzar_tpu_torch.msm import fixed  # noqa: E402
+
+
+def _w_points(curve, count: int, seed: int):
+    pts = curve.oracle.random_points(count, seed=seed)
+    return curve.from_affine_ints([None if i % 5 == 3 else p for i, p in enumerate(pts)], "cpu")
+
+
+@pytest.mark.parametrize("short", [False, True], ids=["card_rule", "short_last_chunk"])
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+@pytest.mark.parametrize("w", [4, 8])
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_w_lookup_kernel_edges(dev, monkeypatch, curve, w, signed, short):
+    """The cases of test_lookup_kernel_edges on the Weierstrass form: the
+    middle third of a three-output 2-byte upload over 11 groups, the card's
+    chunk rule and a short last chunk; limb for limb the plain partials."""
+    rows = (2 if signed else 1) * 3 * 16
+    if short:
+        monkeypatch.setattr(cp, "LOOKUP_THREADS", 4 * rows)
+    n = 11 * w
+    table = cw.w_build_table_plain(curve, _w_points(curve, n, 40 * w + signed), w)
+    rng = np.random.default_rng(w + 2 * signed)
+    upload = torch.from_numpy(rng.integers(0, 256, size=(3, 3 * n, 2), dtype=np.uint8))
+    signs = torch.from_numpy(rng.integers(0, 2, size=(3, 3 * n), dtype=np.uint8)) if signed else None
+    chunk = slice(n, 2 * n)
+    want = cw.w_lookup_msm_plain(curve, table, upload[:, chunk], None if signs is None else signs[:, chunk], w)
+    got = cw.w_lookup_msm(curve, table.to(dev), upload.to(dev)[:, chunk],
+                          None if signs is None else signs.to(dev)[:, chunk], w)
+    assert want.x.shape[1:] == (4 if short else 11, rows)
+    assert _w_same(got, want)
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_w_lookup_kernel_many_row_blocks(dev, curve):
+    """Three 32-byte outputs (768 rows: three blocks of 256) over 37 groups
+    at w = 8 built on the card, counter-like scalars whose upper 16 bytes are
+    zero: every partial equals the plain one."""
+    w, groups = 8, 37
+    table = cw.w_build_table(curve, _on(_w_points(curve, groups * w, 41), dev), w)
+    scalars = np.random.default_rng(6).integers(0, 256, size=(3, groups * w, 32), dtype=np.uint8)
+    scalars[:, :, 16:] = 0
+    scalars = torch.from_numpy(scalars)
+    got = cw.w_lookup_msm(curve, table, scalars.to(dev), None, w)
+    assert got.x.shape[1:] == (cp.lookup_chunks(groups, 768)[1], 768)
+    assert _w_same(got, cw.w_lookup_msm_plain(curve, table.cpu(), scalars, None, w))
+
+
+def _ladder_products(curve, outputs: int, nbits: int):
+    pts = curve.oracle.random_points(24, seed=nbits)
+    rows = [None if (o == 0 and b >= nbits // 2 and nbits > 1) or (o * nbits + b) % 7 == 5
+            else pts[(5 * o + 3 * b) % 24] for o in range(outputs) for b in range(nbits)]
+    return curve.reshape_batch(curve.from_affine_ints(rows, "cpu"), (outputs, nbits))
+
+
+@pytest.mark.parametrize("outputs, nbits", [(1, 1), (3, 8), (2, 9), (1, 256), (7, 256), (14, 64)])
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_w_doubling_combine_kernel(dev, curve, outputs, nbits):
+    """The ladder kernel on (nlimbs, O, nbits) products (identity rows among
+    them) against its plain version limb for limb, read in place from the
+    (R,) products of a query; the same points as blitzar_tpu's one-segment
+    order."""
+    products = _ladder_products(curve, outputs, nbits)
+    want = cw.w_doubling_combine_plain(curve, products)
+    flat = _on(curve.reshape_batch(products, (outputs * nbits,)), dev)
+    before = dict(cp.LAUNCHES)
+    got = fixed.doubling_combine(flat, outputs, nbits, curve)
+    assert cp.LAUNCHES["w_doubling_combine"] == before["w_doubling_combine"] + 1
+    assert (cp.LAUNCHES["wadd"], cp.LAUNCHES["wdouble"]) == (before["wadd"], before["wdouble"])
+    assert _w_same(got, want)
+    if nbits <= 64:
+        one = cw.w_doubling_combine_plain(curve, products, nbits)
+        assert bool(curve.points_equal(_on(got, "cpu"), one).all())
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_w_query_ladder_is_one_launch(dev, curve):
+    """A handle's unsigned query runs the ladder once and no wadd or
+    wdouble; a signed one runs it once over both halves and one wadd (Q_pos
+    - Q_neg); both equal the oracle."""
+    n = 64
+    pts = curve.oracle.random_points(n, seed=42)
+    handle = fixed.MultiexpHandle(curve.from_affine_ints(pts, dev), curve=curve)
+    rng = np.random.default_rng(43)
+    mags = rng.integers(0, 256, size=(2, n, 16), dtype=np.uint8)
+    signs = rng.integers(0, 2, size=(2, n), dtype=np.uint8)
+    vals = [[int.from_bytes(bytes(mags[o, i]), "little") for i in range(n)] for o in range(2)]
+    cp.reset_launches()
+    got = fixed.fixed_multiexponentiation(handle, mags)
+    assert (cp.LAUNCHES["w_doubling_combine"], cp.LAUNCHES["wadd"], cp.LAUNCHES["wdouble"]) == (1, 0, 0)
+    assert curve.to_affine_ints(_on(got, "cpu")) == [curve.oracle.msm(v, pts) for v in vals]
+    cp.reset_launches()
+    got = fixed.fixed_multiexponentiation_signed(handle, mags, signs)
+    assert (cp.LAUNCHES["w_doubling_combine"], cp.LAUNCHES["wadd"], cp.LAUNCHES["wdouble"]) == (1, 1, 0)
+    signed = [[-v if s else v for v, s in zip(row, srow)] for row, srow in zip(vals, signs)]
+    assert curve.to_affine_ints(_on(got, "cpu")) == [curve.oracle.msm(v, pts) for v in signed]
+
+
+@pytest.mark.parametrize("fid", [0, 1, 2, 3])
+def test_mont_mul_ew_edge_words(dev, fid):
+    """mf_mul's device body in every field of mont_mul_ew: the words 0, 1,
+    2, m - 1, m - 2 and R mod m against each other, all-ones words and other
+    raw rows below R (not m) times canonical b (mont.cuh allows a < R), and
+    seeded pairs: exactly a b R^-1 mod m, canonical."""
+    field = cm.MUL_FIELDS[fid]
+    m, big_r = field.modulus, 1 << field.radix_bits
+    canon = [0, 1, 2, m - 1, m - 2, (m - 1) // 2, field.r]
+    raw = canon + [big_r - 1, m, m + 1, big_r - 2]
+    rng = np.random.default_rng(fid)
+    rand = [int.from_bytes(rng.bytes(field.nbytes), "little") % m for _ in range(128)]
+    pairs = [(a, b) for a in raw for b in canon] + list(zip(rand, rand[1:] + rand[:1]))
+    limbs = lambda vals: torch.tensor([field.int_limbs(v) for v in vals], dtype=torch.int32).T.contiguous()  # noqa: E731
+    a, b = limbs([p[0] for p in pairs]), limbs([p[1] for p in pairs])
+    r_inv = pow(big_r, -1, m)
+    assert torch.equal(cm.mont_mul_ew(field, a.to(dev), b.to(dev)).cpu(), limbs([x * y * r_inv % m for x, y in pairs]))

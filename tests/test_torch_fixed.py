@@ -18,6 +18,7 @@ from blitzar_tpu.msm import fixed as jfixed
 from blitzar_tpu.refimpl import core as R
 from blitzar_tpu_torch.curves import edwards25519 as ted
 from blitzar_tpu_torch.curves import ristretto as trst
+from blitzar_tpu_torch.curves import weierstrass as wc
 from blitzar_tpu_torch.msm import engine as tengine
 from blitzar_tpu_torch.msm import fixed as tfixed
 from blitzar_tpu_torch.ops import cuda_point, cuda_wpoint
@@ -121,14 +122,20 @@ def test_window_padding_matches_oracle(n):
 
 
 def test_lookup_chunks_cover_every_group():
-    """Both lookups' chunk rules cover every group, no chunk empty, with
-    about LOOKUP_THREADS (ed_lookup_msm) or W_LOOKUP_THREADS (w_lookup_msm)
-    (chunk, row) threads."""
+    """The lookups' chunk rule (one for ed_lookup_msm and w_lookup_msm)
+    covers every group, no chunk empty, with about LOOKUP_THREADS (chunk,
+    row) threads; the Weierstrass plain lookup's partials follow it."""
+    target = cuda_point.LOOKUP_THREADS
     for groups, rows in [(1, 1), (5, 3072), (12500, 2560), (131072, 256), (32768, 256), (7, 1)]:
-        for (cg, k), target in [(cuda_point.lookup_chunks(groups, rows), cuda_point.LOOKUP_THREADS),
-                                (cuda_wpoint.w_lookup_chunks(groups, rows), cuda_wpoint.W_LOOKUP_THREADS)]:
-            assert (k - 1) * cg < groups <= k * cg and k * rows < target + rows
-            assert k == groups or k * rows > target // 2
+        cg, k = cuda_point.lookup_chunks(groups, rows)
+        assert (k - 1) * cg < groups <= k * cg and k * rows < target + rows
+        assert k == groups or k * rows > target // 2
+    assert not hasattr(cuda_wpoint, "W_LOOKUP_THREADS") and not hasattr(cuda_wpoint, "w_lookup_chunks")
+    curve = wc.BN254_G1
+    table = torch.zeros((16, 256, 3, 8), dtype=torch.int32)
+    scalars = torch.zeros((1, 128, 16), dtype=torch.uint8)
+    partials = cuda_wpoint.w_lookup_msm_plain(curve, table, scalars, None, 8)
+    assert partials.x.shape == (curve.nlimbs,) + (cuda_point.lookup_chunks(16, 128)[1], 128)
 
 
 def test_beyond_handle_range_raises():

@@ -293,6 +293,26 @@ def test_weierstrass_add_double_match_plain(harness, curve):
     assert curve.to_affine_ints(curve._add_impl(p, q))[-3:] == [orc.add(orc.add(a, a), orc.add(b, b)) for a, b in zip(ps[-3:], qs[-3:])]
 
 
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_mul_b3_matches_montgomery_multiply(harness, curve):
+    """weierstrass.cuh's mul_b3 (x * 3b by modular additions: 3b = 12, 9,
+    -51) against mf_mul by 3b in Montgomery form and the plain multiply by
+    the constant: equal canonical words at the words 0, 1 and m - 1, at the
+    values 0, 1 and m - 1, and at seeded random values."""
+    field = curve.field
+    m = field.modulus
+    r_inv = pow(field.r, -1, m)
+    words = [0, 1, m - 1]  # Montgomery words w hold the value w R^-1
+    a = torch.cat([field.from_ints([w * r_inv % m for w in words], "cpu"), _mont_values(field, 5)], dim=1)
+    assert field.to_ints(a)[:3] == [w * r_inv % m for w in words]
+    fn = functools.partial(harness.btt_host_mul_b3, ctypes.c_int(curve.kernel_id))
+    by_adds = _run(functools.partial(fn, ctypes.c_int(0)), a.numpy(), out_shape=tuple(a.shape))
+    by_mul = _run(functools.partial(fn, ctypes.c_int(1)), a.numpy(), out_shape=tuple(a.shape))
+    assert np.array_equal(by_adds, by_mul)
+    assert np.array_equal(by_adds, field.mul_const(a, curve.b3).numpy())
+    assert field.to_ints(torch.from_numpy(by_adds)) == [v * curve.b3 % m for v in field.to_ints(a)]
+
+
 # ---------------------------------------------------------------------------
 # the proof fields and the sumcheck kernels' lane code (mont.cuh Scalar25519
 # and Bn254Fr by SXT_FIELD_* id, sumcheck.cuh)
