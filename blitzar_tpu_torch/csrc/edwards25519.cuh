@@ -137,20 +137,18 @@ BTT_HD ge_p3 ge_cadd(const ge_p3& p, const ge_cached& q, Mul mul = Mul()) {
   return ge_from_efgh(fe_sub(b, a), fe_sub(d, c), fe_add(d, c), fe_add(b, a), mul);
 }
 
-BTT_HD ge_p3 ge_double(const ge_p3& p) {
-  fe a = fe_sq(p.X);
-  fe b = fe_sq(p.Y);
-  fe c = fe_mul_small(fe_sq(p.Z), 2);
-  fe h = fe_add(a, b);
-  fe e = fe_sub(h, fe_sq(fe_add(p.X, p.Y)));
-  fe g = fe_sub(a, b);
-  fe f = fe_add(c, g);
-  ge_p3 r;
-  r.X = fe_mul(e, f);
-  r.Y = fe_mul(g, h);
-  r.Z = fe_mul(f, g);
-  r.T = fe_mul(e, h);
-  return r;
+// Doubling (dbl-2008-hwcd): two stages of four independent multiplies, the
+// squares X^2, Y^2, Z^2, (X + Y)^2, then ge_from_efgh. The multiply policy
+// as the adds'; inlined by default (ed_double.cu, the host harness).
+template <class Mul = fe_mul_op>
+BTT_HD ge_p3 ge_double(const ge_p3& p, Mul mul = Mul()) {
+  const fe s = fe_add(p.X, p.Y);
+  const fes<4> q = mul.template n<4>({{p.X, p.Y, p.Z, s}}, {{p.X, p.Y, p.Z, s}});
+  const fe a = q.v[0], b = q.v[1];
+  const fe c = fe_mul_small(q.v[2], 2);
+  const fe h = fe_add(a, b);
+  const fe g = fe_sub(a, b);
+  return ge_from_efgh(fe_sub(h, q.v[3]), fe_add(c, g), g, h, mul);
 }
 
 // Extended -> affine niels, with one inversion of Z.

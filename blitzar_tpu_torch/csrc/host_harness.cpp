@@ -1,7 +1,7 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
 // fp25519.cuh, edwards25519.cuh, niels_tree.cuh, table_build.cuh, lookup.cuh,
-// mont.cuh, weierstrass.cuh, w_ladder.cuh, sumcheck.cuh and tree_reduce.cuh are
+// mont.cuh, weierstrass.cuh, ladder.cuh, sumcheck.cuh and tree_reduce.cuh are
 // compiled here by a
 // host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
@@ -11,12 +11,12 @@
 // (3, 16, n), a cached batch (4, 16, n), a Weierstrass point batch (3,
 // nlimbs, n), a sumcheck MLE table (16, m, 2 mid).
 #include "edwards25519.cuh"
+#include "ladder.cuh"
 #include "lookup.cuh"
 #include "niels_tree.cuh"
 #include "sumcheck.cuh"
 #include "table_build.cuh"
 #include "tree_reduce.cuh"
-#include "w_ladder.cuh"
 #include "weierstrass.cuh"
 
 #include <vector>
@@ -143,16 +143,16 @@ void host_w_lookup(const lookup_query& q, int64_t rows, int64_t nchunks, const w
   }
 }
 
-// w_doubling_combine.cu's warps: each output's lanes one after another,
-// then lane 0's fold
-template <class C>
-void host_w_ladder(const wpoint_ptrs& products, int64_t num_outputs, int nbits, int seg_bits,
-                   const wpoint_out_ptrs& out) {
-  const int nseg = w_ladder_segments(nbits, seg_bits);
-  std::vector<wpoint<C>> seg(nseg);
+// ladder.cuh's ladder_kernel (doubling_combine.cu, w_doubling_combine.cu):
+// each output's lanes one after another, then lane 0's fold
+template <class G>
+void host_ladder(const typename G::In& products, int64_t num_outputs, int nbits, int seg_bits,
+                 const typename G::Out& out) {
+  const int nseg = ladder_segments(nbits, seg_bits);
+  std::vector<typename G::P> seg(nseg);
   for (int64_t o = 0; o < num_outputs; ++o) {
-    for (int j = 0; j < nseg; ++j) seg[j] = w_ladder_segment<C>(products, o * nbits, nbits, seg_bits, j);
-    w_store<C>(out, o, w_ladder_fold<C>(seg.data(), nseg, seg_bits));
+    for (int j = 0; j < nseg; ++j) seg[j] = ladder_segment<G>(products, o * nbits, nbits, seg_bits, j);
+    G::store(out, o, ladder_fold<G>(seg.data(), nseg, seg_bits));
   }
 }
 
@@ -197,14 +197,16 @@ void host_lookup(const lookup_query& q, int64_t rows, int64_t nchunks, const poi
   }
 }
 
-// The warps of build_cached_table.cu, one group and one lane after another.
-void host_cached_groups(const point_ptrs& pts, int w, int64_t groups, word4* table) {
-  const run_shape s = run_shape_of(w);
-  std::vector<ge_cached> gens(w);
+// lane_build_kernel (build_cached_table.cu, w_build_table.cu): one group
+// and one lane after another.
+template <class Form>
+void host_lane_groups(const typename Form::In& pts, int w, int64_t groups, word4* table) {
+  const run_shape s = lane_shape_of(w);
+  std::vector<typename Form::Point> gens(w);
   for (int64_t g = 0; g < groups; ++g) {
-    for (int j = 0; j < w; ++j) gens[j] = ge_to_sum_form(ge_load(pts, g * w + j));
-    for (int t = 0; t < (1 << s.L); ++t) {
-      cached_lane_entries(gens.data(), s.L, s.H, cached_rows{table + (g << w) * 8, s.L, t});
+    for (int j = 0; j < w; ++j) gens[j] = Form::point(pts, g * w + j);
+    for (int64_t t = 0; t < (int64_t(1) << s.L); ++t) {
+      lane_entries<Form>(gens.data(), s.L, s.H, lane_rows<Form>{table + (g << w) * Form::kChunks, s.L, (int)t});
     }
   }
 }
@@ -331,17 +333,23 @@ int btt_host_w_lookup(int curve, const int32_t* table, const uint8_t* scalars, c
   }
 }
 
-// w_doubling_combine.cu on the host: products (3, nlimbs, O * nbits), out
-// (3, nlimbs, O). Returns -1 for another curve id or more than 32 segments.
-int btt_host_w_ladder(int curve, const int32_t* products, int64_t num_outputs, int nbits, int seg_bits,
-                      int32_t* out) {
-  if (nbits < 1 || seg_bits < 1 || w_ladder_segments(nbits, seg_bits) > 32) return -1;
+// doubling_combine.cu and w_doubling_combine.cu on the host: curve 0
+// ristretto255, products (4, 16, O * nbits), out (4, 16, O); 1-3 as
+// btt_host_w, products (3, nlimbs, O * nbits), out (3, nlimbs, O). Returns
+// -1 for another curve id or arguments the launchers reject.
+int btt_host_ladder(int curve, const int32_t* products, int64_t num_outputs, int nbits, int seg_bits,
+                    int32_t* out) {
+  if (!ladder_args_ok(nbits, seg_bits)) return -1;
   const int64_t m = num_outputs * nbits;
+  if (curve == 0) {
+    host_ladder<EdLadder>(in_points(products, m), num_outputs, nbits, seg_bits, out_points(out, num_outputs));
+    return 0;
+  }
   auto run = [&](auto curve_tag, int64_t nl) {
     using C = decltype(curve_tag);
     const wpoint_ptrs pp = {{products, products + nl * m, products + 2 * nl * m}, m};
     const wpoint_out_ptrs oo = {{out, out + nl * num_outputs, out + 2 * nl * num_outputs}, num_outputs};
-    host_w_ladder<C>(pp, num_outputs, nbits, seg_bits, oo);
+    host_ladder<WLadder<C>>(pp, num_outputs, nbits, seg_bits, oo);
   };
   switch (curve) {
     case Bls12381G1::id: run(Bls12381G1(), 24); return 0;
@@ -499,9 +507,27 @@ void btt_host_lookup(const int32_t* table, const uint8_t* scalars, const uint8_t
 // build_cached_table.cu; returns -1 for a window it does not take.
 int btt_host_build_cached_table(const int32_t* points, int64_t n, int w, int32_t* table) {
   if (w < 1 || w > 8 || n % w) return -1;
-  const point_ptrs pts = in_points(points, n);
-  host_cached_groups(pts, w, n / w, reinterpret_cast<word4*>(table));
+  host_lane_groups<CachedBuild>(in_points(points, n), w, n / w, reinterpret_cast<word4*>(table));
   return 0;
+}
+
+// points (3, nlimbs, n) -> table (n / w, 2^w, 3, K) words of
+// w_build_table.cu; returns -1 for another curve id or a window it does not
+// take.
+int btt_host_w_build_table(int curve, const int32_t* points, int64_t n, int w, int32_t* table) {
+  if (w < 1 || w > kMaxLaneWindow || n % w) return -1;
+  word4* t = reinterpret_cast<word4*>(table);
+  auto run = [&](auto curve_tag, int64_t nl) {
+    using C = decltype(curve_tag);
+    const wpoint_ptrs pp = {{points, points + nl * n, points + 2 * nl * n}, n};
+    host_lane_groups<WBuild<C>>(pp, w, n / w, t);
+  };
+  switch (curve) {
+    case Bls12381G1::id: run(Bls12381G1(), 24); return 0;
+    case Bn254G1::id: run(Bn254G1(), 16); return 0;
+    case Grumpkin::id: run(Grumpkin(), 16); return 0;
+    default: return -1;
+  }
 }
 
 // points (4, 16, n) -> table (n / w, 2^w, 3, 8) words of

@@ -1,15 +1,15 @@
-// The partition-table builds of build_niels_table.cu and build_cached_table.cu:
-// the order in which a lane forms its entries and, for the niels form, one
-// batch inversion per run of entries. Both replace
+// The partition-table builds of build_niels_table.cu, build_cached_table.cu
+// and w_build_table.cu: the order in which a lane forms its entries and, for
+// the niels form, one batch inversion per run of entries. All three replace
 // blitzar_tpu/ops/pallas_point.py:_build_split_tiled (:806); the subset sums
 // are its _subset_double_concat (:745-759), the niels inversion its
 // _lane_batch_invert (:709-735).
 //
 // Entry v of a group is the sum of the group's points j over the set bits j
 // of v. blitzar_tpu adds them in increasing j from the identity: entry v =
-// entry(v - 2^top) + P_top. The cached form is projective, so that order is
-// part of its contract; the niels form is affine and canonical, so no
-// order of additions can change it.
+// entry(v - 2^top) + P_top. The cached and the Weierstrass forms are
+// projective, so that order is part of their contract; the niels form is
+// affine and canonical, so no order of additions can change it.
 //
 // A run is up to 2^8 consecutive entries of one group (a whole group for
 // w <= 8), spread over 2^L lanes (L = min(w, 2), 32 >> L runs a warp):
@@ -19,22 +19,35 @@
 // rows one add each, every lane at work: at w = 8, 65 steps a lane for 8
 // runs a warp, 8.1 a run against 8 for 255 adds over 32 lanes. Each lane
 // runs one loop with one add in its body, and every multiply calls one
-// body (fe_mul_call, fp25519.cuh's fe_mul_call_op), so the kernels stay
-// small enough for the instruction cache and few registers are live.
+// body (fe_mul_call, fp25519.cuh's fe_mul_call_op; mont.cuh's mf_mul_call
+// for the Weierstrass form), so the kernels stay small enough for the
+// instruction cache and few registers are live.
 //
-// Everything here is BTT_HD: the kernels run it a lane at a time, and
-// host_harness.cpp runs the same code over every lane in turn for the CPU
-// tests (tests/test_torch_table_build.py).
+// The cached and the Weierstrass forms share one schedule and one kernel
+// (lane_entries, lane_build_kernel), templated over the entry form
+// (CachedBuild, WBuild<C>): each row is one add to its parent row, which
+// the same lane stored earlier and reads back from the table, and each
+// entry is stored as 16-byte words. A Weierstrass group wider than 8 keeps
+// 64 rows a lane and takes 2^(w - 6) lanes (lane_shape_of), so every
+// parent is still the lane's own row.
+//
+// Everything here but the kernel is BTT_HD: the kernels run it a lane at a
+// time, and host_harness.cpp runs the same code over every lane in turn
+// for the CPU tests (tests/test_torch_table_build.py,
+// tests/test_torch_wbuild.py).
 #pragma once
 
 #include "edwards25519.cuh"
+#include "weierstrass.cuh"
 
 namespace btt {
 
 constexpr int kRunBits = 8;   // at most 2^8 entries a run
 constexpr int kLaneBits = 2;  // at most 4 lanes a run
 // the most points a warp's runs hold, (32 >> L) * bits: 64 from w = 8 on,
-// at most 16 below w = kLaneBits
+// at most 16 below w = kLaneBits; a Weierstrass warp of lane_shape_of(w)
+// lanes holds (32 >> L) * w <= 36 points for 8 < w < 11, w above (w <= 30,
+// kMaxLaneWindow)
 constexpr int kWarpPoints = (32 >> kLaneBits) * kRunBits > 16 ? (32 >> kLaneBits) * kRunBits : 16;
 
 // The split of a run's bits into lane bits L and row bits H, and the run's
@@ -80,7 +93,8 @@ BTT_HD fe load_raw(const word4* src) {
 }
 
 // ---------------------------------------------------------------------------
-// the cached form: blitzar_tpu's order, each row from its parent in the table
+// the cached and the Weierstrass forms: blitzar_tpu's order, each row from
+// its parent in the table
 // ---------------------------------------------------------------------------
 
 // A point as (Y + X, Y - X, Z, T): the second operand of cached_sum.
@@ -125,20 +139,29 @@ BTT_HD ge_cached cached_sum(const ge_cached& p, const ge_cached& q) {
   return r;
 }
 
-// Lane t's rows of a group in a cached table (8 words4 an entry, canonical).
-struct cached_rows {
-  word4* group;  // the group's first entry
-  int L, t;
-  BTT_HD word4* at(int k) const { return group + (int64_t)(t + (k << L)) * 8; }
-  BTT_HD void store(int k, const ge_cached& c) const {
-    word4* dst = at(k);
+// An entry form of the lane schedule: its points (Point: the running sum,
+// an entry, and each of the group's points as the add takes them), the
+// public batch the points come from (In, point), the identity, the add, and
+// an entry's 16-byte words (kChunks) with their store and load. The load
+// reads words this thread stored in the same launch, so it goes through
+// plain loads, not the read-only cache.
+
+// ristretto255's cached entries: (Y + X, Y - X, Z, 2d*T), 8 words4,
+// canonical; the group's points in sum form.
+struct CachedBuild {
+  using Point = ge_cached;
+  using In = point_ptrs;
+  static constexpr int kChunks = 8;
+  BTT_HD static Point point(const In& p, int64_t i) { return ge_to_sum_form(ge_load(p, i)); }
+  BTT_HD static Point identity() { return cached_identity(); }
+  BTT_HD static Point add(const Point& acc, const Point& q) { return cached_sum(acc, q); }
+  BTT_HD static void store(word4* dst, const Point& c) {
     store_canonical(dst, c.a);
     store_canonical(dst + 2, c.b);
     store_canonical(dst + 4, c.z);
     store_canonical(dst + 6, c.t);
   }
-  BTT_HD ge_cached load(int k) const {
-    const word4* src = at(k);
+  BTT_HD static Point load(const word4* src) {
     ge_cached c;
     c.a = load_raw(src);
     c.b = load_raw(src + 2);
@@ -148,31 +171,142 @@ struct cached_rows {
   }
 };
 
+// A Weierstrass curve's projective entries (X, Y, Z): K words each, K / 4
+// words4 (6 an entry for bn254 G1 and Grumpkin, 9 for bls12-381 G1), as
+// lookup.cuh's WForm reads them; the complete add with one call of the
+// Montgomery body a multiply (mf_mul_call_op), 12 multiplies.
+template <class C>
+struct WBuild {
+  using F = typename C::F;
+  using Point = wpoint<C>;
+  using In = wpoint_ptrs;
+  static constexpr int kCoordChunks = F::K / 4;
+  static constexpr int kChunks = 3 * kCoordChunks;
+  BTT_HD static Point point(const In& p, int64_t i) { return w_load<C>(p, i); }
+  BTT_HD static Point identity() { return w_identity<C>(); }
+  BTT_HD static Point add(const Point& acc, const Point& q) { return w_add<C>(acc, q, mf_mul_call_op<F>()); }
+  BTT_HD static void store_coord(word4* dst, const mfe<F>& a) {
+#pragma unroll
+    for (int i = 0; i < kCoordChunks; ++i) dst[i] = make_word4(a.v[4 * i], a.v[4 * i + 1], a.v[4 * i + 2], a.v[4 * i + 3]);
+  }
+  BTT_HD static mfe<F> load_coord(const word4* src) {
+    mfe<F> r;
+#pragma unroll
+    for (int i = 0; i < kCoordChunks; ++i) {
+      const word4 u = src[i];
+      r.v[4 * i] = u.x;
+      r.v[4 * i + 1] = u.y;
+      r.v[4 * i + 2] = u.z;
+      r.v[4 * i + 3] = u.w;
+    }
+    return r;
+  }
+  BTT_HD static void store(word4* dst, const Point& p) {
+    store_coord(dst, p.X);
+    store_coord(dst + kCoordChunks, p.Y);
+    store_coord(dst + 2 * kCoordChunks, p.Z);
+  }
+  BTT_HD static Point load(const word4* src) {
+    Point p;
+    p.X = load_coord(src);
+    p.Y = load_coord(src + kCoordChunks);
+    p.Z = load_coord(src + 2 * kCoordChunks);
+    return p;
+  }
+};
+
+// The lanes of a group's subset sums: 2^L lanes of 2^H rows (L + H = w).
+// Up to w = 8, L = min(w, 2) (run_shape_of); above, H stays 6 and L grows,
+// so a lane's work stays that of w = 8 and a wide group spreads over more
+// lanes (a warp, or several, for L >= 5). Lane t's row k is entry t + 2^L k,
+// whose parent (k minus its top bit) is that lane's own row.
+BTT_HD run_shape lane_shape_of(int w) {
+  if (w <= kRunBits) return run_shape_of(w);
+  run_shape s;
+  s.bits = w;
+  s.H = kRunBits - kLaneBits;
+  s.L = w - s.H;
+  return s;
+}
+
+// the widest Weierstrass window w_build_table takes (a group of 2^31
+// entries would not fit the card)
+constexpr int kMaxLaneWindow = 30;
+
+// Lane t's rows of a group of an entry form's table.
+template <class Form>
+struct lane_rows {
+  word4* group;  // the group's first entry
+  int L, t;
+  BTT_HD word4* at(int k) const { return group + ((int64_t)t + ((int64_t)k << L)) * Form::kChunks; }
+  BTT_HD void store(int k, const typename Form::Point& p) const { Form::store(at(k), p); }
+  BTT_HD typename Form::Point load(int k) const { return Form::load(at(k)); }
+};
+
 // Lane t's entries of a group in blitzar_tpu's order: step s < L adds
 // point s if bit s of t is set (row 0 is the last of them); step L - 1 + k
 // forms row k from its parent row k - 2^j (j = k's top bit), read back from
 // the table where this lane stored it, plus point L + j. pts: the group's
-// points in sum form.
-BTT_HD void cached_lane_entries(const ge_cached* pts, int L, int H, const cached_rows& rows) {
-  ge_cached acc = cached_identity();
+// points as the form's add takes them.
+template <class Form>
+BTT_HD void lane_entries(const typename Form::Point* pts, int L, int H, const lane_rows<Form>& rows) {
+  typename Form::Point acc = Form::identity();
   const int steps = L + (1 << H) - 1;
 #if defined(__CUDA_ARCH__)
 #pragma unroll 1
 #endif
   for (int s = 0; s < steps; ++s) {
     int j = s, row = 0;
-    bool add = (rows.t >> s) & 1;
-    if (s >= L) {
+    bool add = true;
+    if (s < L) {
+      add = (rows.t >> s) & 1;
+    } else {
       row = s - L + 1;
       const int top = top_bit(row);
       j = L + top;
       acc = rows.load(row ^ (1 << top));
-      add = true;
     }
-    if (add) acc = cached_sum(acc, pts[j]);
+    if (add) acc = Form::add(acc, pts[j]);
     if (s >= L - 1) rows.store(row, acc);
   }
 }
+
+#if defined(__CUDACC__)
+constexpr int kBuildWarps = 4;  // warps a block of lane_build_kernel
+
+// One lane a thread, lanes of a group side by side: the warp's groups'
+// points (at most kWarpPoints) are read once into shared memory in the
+// form's own representation, then each lane runs lane_entries. No block
+// barrier: a warp reads the points it uses.
+template <class Form>
+__global__ void __launch_bounds__(32 * kBuildWarps)
+lane_build_kernel(typename Form::In pts, int w, int64_t groups, word4* table) {
+  __shared__ typename Form::Point gens[kBuildWarps][kWarpPoints];
+  const run_shape shape = lane_shape_of(w);
+  const int L = shape.L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t first_lane = ((int64_t)blockIdx.x * kBuildWarps + warp) * 32;
+  const int64_t first = first_lane >> L;  // the warp's first group
+  const int per_warp = L <= 5 ? 32 >> L : 1;
+  for (int i = lane; i < per_warp * w; i += 32) {
+    const int64_t g = first + i / w;
+    if (g < groups) gens[warp][i] = Form::point(pts, g * w + i % w);
+  }
+  __syncwarp();
+  const int64_t g = (first_lane + lane) >> L;
+  if (g >= groups) return;
+  const lane_rows<Form> rows{table + (g << w) * Form::kChunks, L, (int)((first_lane + lane) & ((1 << L) - 1))};
+  lane_entries<Form>(gens[warp] + (g - first) * w, L, shape.H, rows);
+}
+
+template <class Form>
+void launch_lane_build(const typename Form::In& pts, int w, int64_t groups, word4* table, cudaStream_t stream) {
+  const int64_t lanes = groups << lane_shape_of(w).L;
+  const int64_t threads = 32 * kBuildWarps;
+  const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
+  lane_build_kernel<Form><<<blocks, (unsigned)threads, 0, stream>>>(pts, w, groups, table);
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // the niels form: a Gray-code walk and one batch inversion a run

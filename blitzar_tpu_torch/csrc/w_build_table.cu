@@ -14,69 +14,42 @@
 // with t the top bit of v, entry 0 = the identity. This kernel adds in that
 // same order, so its projective values equal blitzar_tpu's bit for bit.
 //
-// Design: thread (g, lo) owns the 2^(w - L) entries of group g whose low
-// L = w/2 bits are lo. It builds entry lo from the identity (popcount(lo)
-// adds over the group's points, read from global memory and shared through
-// L1 by the group's 2^L threads), then each entry (hi, lo) in increasing hi
-// with one add to entry (hi minus its top bit, lo), which it wrote itself
-// earlier and reads back. Per group of w = 8 that is 272 complete adds
-// against the 255 the function needs; no thread waits for another.
-// Bound: integer multiplies (14 field multiplies per add), not the table's
-// bytes (3.2 GB for bn254 at 2^20 against ~30 ms of multiplies at peak).
+// Design: table_build.cuh's lane schedule, the one build_cached_table.cu
+// runs, with the Weierstrass entry form (WBuild<C>). Up to w = 8 a group's
+// entries go over 4 lanes (L = min(w, 2)), lane t owns entries t + 4k; a
+// wider group over 2^(w - 6) lanes of 64 rows. The warp's groups' points
+// are converted from 16-bit limbs to Montgomery words once, into shared
+// memory; each lane forms its row 0 (at most L adds), then each row by one
+// complete add to its parent row, read back from the table where the lane
+// stored it, plus one point: at w = 8, 65 steps a lane, 256 adds a group against
+// the 255 the function needs. Every multiply calls one non-inlined
+// Montgomery body (mf_mul_call_op: inlined copies overflow the instruction
+// cache), and an entry moves as 16-byte words (6 for K = 8, 9 for K = 12),
+// so the 4 lanes of a group's row write 384 or 576 contiguous bytes.
+// Bound: integer multiplies (12 field multiplies an add), not the table's
+// bytes (3.2 GB for bn254 G1 at 2^20 against ~6.3 ms of multiplies at the
+// H100's peak).
 #include <cuda_runtime.h>
 
-#include "weierstrass.cuh"
+#include "table_build.cuh"
 
 using namespace btt;
 
-template <class C>
-__global__ void __launch_bounds__(128)
-w_build_table_kernel(wpoint_ptrs pts, int w, int64_t groups, uint32_t* table) {
-  constexpr int E = 3 * C::F::K;  // words per entry
-  int lo_bits = w >> 1;
-  uint32_t hi_count = 1u << (w - lo_bits);
-  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (groups << lo_bits)) return;
-  int64_t g = tid >> lo_bits;
-  uint32_t lo = (uint32_t)(tid & ((1 << lo_bits) - 1));
-  uint32_t* group = table + (g << w) * E;
-  wpoint<C> acc = w_identity<C>();
-  for (int j = 0; j < lo_bits; ++j) {
-    if ((lo >> j) & 1u) acc = w_add<C>(acc, w_load<C>(pts, g * w + j));
-  }
-  w_entry_store<C>(group + (int64_t)lo * E, acc);
-  for (uint32_t hi = 1; hi < hi_count; ++hi) {
-    int top = 31 - __clz((int)hi);
-    uint32_t prev = ((hi ^ (1u << top)) << lo_bits) | lo;
-    wpoint<C> sum = w_add<C>(w_entry_load<C>(group + (int64_t)prev * E),
-                             w_load<C>(pts, g * w + lo_bits + top));
-    w_entry_store<C>(group + (int64_t)((hi << lo_bits) | lo) * E, sum);
-  }
-}
-
-template <class C>
-static void launch_build(wpoint_ptrs pts, int w, int64_t groups, uint32_t* table,
-                         cudaStream_t stream) {
-  const int threads = 128;
-  int64_t total = groups << (w >> 1);
-  int64_t blocks = (total + threads - 1) / threads;
-  w_build_table_kernel<C><<<(unsigned)blocks, threads, 0, stream>>>(pts, w, groups, table);
-}
-
 // curve: 1 bls12-381 G1, 2 bn254 G1, 3 Grumpkin. points: three
 // (2K, groups * w) int32 coordinate arrays with the given limb stride;
-// table: (groups, 2^w, 3, K) 32-bit words.
+// table: (groups, 2^w, 3, K) 32-bit words; 1 <= w <= 30.
 extern "C" int btt_w_build_table(int curve, const void* x, const void* y, const void* z,
                                  int64_t limb_stride, int w, int64_t groups, void* table,
                                  void* stream) {
-  wpoint_ptrs pts = {{(const int32_t*)x, (const int32_t*)y, (const int32_t*)z}, limb_stride};
+  if (w < 1 || w > kMaxLaneWindow) return (int)cudaErrorInvalidValue;
+  const wpoint_ptrs pts = {{(const int32_t*)x, (const int32_t*)y, (const int32_t*)z}, limb_stride};
   if (groups > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    uint32_t* t = (uint32_t*)table;
+    word4* t = (word4*)table;
     switch (curve) {
-      case Bls12381G1::id: launch_build<Bls12381G1>(pts, w, groups, t, s); break;
-      case Bn254G1::id: launch_build<Bn254G1>(pts, w, groups, t, s); break;
-      case Grumpkin::id: launch_build<Grumpkin>(pts, w, groups, t, s); break;
+      case Bls12381G1::id: launch_lane_build<WBuild<Bls12381G1>>(pts, w, groups, t, s); break;
+      case Bn254G1::id: launch_lane_build<WBuild<Bn254G1>>(pts, w, groups, t, s); break;
+      case Grumpkin::id: launch_lane_build<WBuild<Grumpkin>>(pts, w, groups, t, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -7,10 +7,11 @@
 // each per bit), which the port ran as 2 (nbits - 1) one-point launches
 // from Python.
 //
-// Design: one warp per output. Lane j < S sums its segment of seg_bits bit
-// rows by Horner; lane 0 then folds the S segments (w_ladder.cuh, which
-// also gives the order). The products are read in place, (nlimbs, O,
-// nbits) limb-major.
+// Design: ladder.cuh's ladder with the Weierstrass policy (WLadder<C>), as
+// doubling_combine.cu runs it for ristretto255: one warp per output, lane
+// j < S sums its segment of seg_bits bit rows by Horner, lane 0 folds the
+// S segments. The products are read in place, (nlimbs, O, nbits)
+// limb-major.
 //
 // Bound: latency, not throughput. A query has few outputs, so the card is
 // nearly idle; the critical path of a 256-bit output is 255 doublings of
@@ -18,27 +19,9 @@
 // the fold).
 #include <cuda_runtime.h>
 
-#include "w_ladder.cuh"
+#include "ladder.cuh"
 
 using namespace btt;
-
-template <class C>
-__global__ void __launch_bounds__(32)
-w_doubling_combine_kernel(wpoint_ptrs products, int nbits, int seg_bits, wpoint_out_ptrs out) {
-  __shared__ wpoint<C> seg[32];
-  const int64_t o = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int nseg = w_ladder_segments(nbits, seg_bits);
-  if (lane < nseg) seg[lane] = w_ladder_segment<C>(products, o * nbits, nbits, seg_bits, lane);
-  __syncwarp();
-  if (lane == 0) w_store<C>(out, o, w_ladder_fold<C>(seg, nseg, seg_bits));
-}
-
-template <class C>
-static void launch_combine(const wpoint_ptrs& products, int64_t num_outputs, int nbits, int seg_bits,
-                           const wpoint_out_ptrs& out, cudaStream_t stream) {
-  w_doubling_combine_kernel<C><<<(unsigned)num_outputs, 32, 0, stream>>>(products, nbits, seg_bits, out);
-}
 
 // curve: 1 bls12-381 G1, 2 bn254 G1, 3 Grumpkin. products: three (2K, O,
 // nbits) int32 coordinate arrays with the given limb stride; out: three
@@ -46,17 +29,15 @@ static void launch_combine(const wpoint_ptrs& products, int64_t num_outputs, int
 extern "C" int btt_w_doubling_combine(int curve, const void* px, const void* py, const void* pz,
                                       int64_t limb_stride, int64_t num_outputs, int nbits, int seg_bits,
                                       void* ox, void* oy, void* oz, void* stream) {
-  if (nbits < 1 || seg_bits < 1 || w_ladder_segments(nbits, seg_bits) > 32 || num_outputs > 0x7fffffff) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!ladder_args_ok(nbits, seg_bits) || num_outputs > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const wpoint_ptrs in = {{(const int32_t*)px, (const int32_t*)py, (const int32_t*)pz}, limb_stride};
   const wpoint_out_ptrs out = {{(int32_t*)ox, (int32_t*)oy, (int32_t*)oz}, num_outputs};
   if (num_outputs > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     switch (curve) {
-      case Bls12381G1::id: launch_combine<Bls12381G1>(in, num_outputs, nbits, seg_bits, out, s); break;
-      case Bn254G1::id: launch_combine<Bn254G1>(in, num_outputs, nbits, seg_bits, out, s); break;
-      case Grumpkin::id: launch_combine<Grumpkin>(in, num_outputs, nbits, seg_bits, out, s); break;
+      case Bls12381G1::id: launch_ladder<WLadder<Bls12381G1>>(in, num_outputs, nbits, seg_bits, out, s); break;
+      case Bn254G1::id: launch_ladder<WLadder<Bn254G1>>(in, num_outputs, nbits, seg_bits, out, s); break;
+      case Grumpkin::id: launch_ladder<WLadder<Grumpkin>>(in, num_outputs, nbits, seg_bits, out, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -191,29 +191,4 @@ BTT_HD void w_store(const wpoint_out_ptrs& p, int64_t i, const wpoint<C>& q) {
   mf_store<F>(p.c[2] + i, p.limb_stride, q.Z);
 }
 
-// A table entry is 3K consecutive words: X, Y, Z.
-template <class C>
-BTT_HD void w_entry_store(uint32_t* entry, const wpoint<C>& q) {
-  constexpr int K = C::F::K;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    entry[k] = q.X.v[k];
-    entry[K + k] = q.Y.v[k];
-    entry[2 * K + k] = q.Z.v[k];
-  }
-}
-
-template <class C>
-BTT_HD wpoint<C> w_entry_load(const uint32_t* entry) {
-  constexpr int K = C::F::K;
-  wpoint<C> r;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    r.X.v[k] = entry[k];
-    r.Y.v[k] = entry[K + k];
-    r.Z.v[k] = entry[2 * K + k];
-  }
-  return r;
-}
-
 }  // namespace btt

@@ -39,7 +39,7 @@ SIGNATURES = {
     "btt_build_niels_table": [_P, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "btt_build_cached_table": [_P, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "btt_ed_lookup_msm": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I64, _I64, _P, _P, _P, _P, _P],
-    "btt_doubling_combine": [_P, _P, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P],
+    "btt_doubling_combine": [_P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P],
     "btt_ed_add": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_ed_double": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_niels_add": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],

@@ -45,6 +45,7 @@ launches of each curve's instantiation of a templated kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -696,27 +697,67 @@ def tree_reduce_lanes(p: ed.PointP3) -> ed.PointP3:
 # ---------------------------------------------------------------------------
 
 
-def doubling_combine_plain(products: ed.PointP3) -> ed.PointP3:
+def ladder_segment_bits(nbits: int) -> int:
+    """Bits a segment of the ladder (csrc/ladder.cuh), L = ceil(sqrt(nbits))
+    (at most 32 segments): the critical path's adds, L - 1 in a segment's
+    Horner run and S - 1 in the fold, are fewest near L = S. 16 for 256
+    bits."""
+    return max(math.isqrt(nbits - 1) + 1 if nbits > 1 else 1, -(-nbits // 32))
+
+
+def ladder_plain(group, products, seg: int):
+    """The ladder of csrc/ladder.cuh on a group's plain adds, in the
+    kernels' order: every segment's Horner run at once over an (O, S) batch
+    (the short top segment joins when its bits begin), then the fold from
+    the top segment down. ``group``: ``curves.edwards25519`` or a
+    ``WCurve`` (``_add_impl``, ``_double_impl``, ``index_batch``,
+    ``select``). ``seg = nbits`` (one segment) is blitzar_tpu's ladder."""
     nbits = products.x.shape[2]
-    acc = ed.index_batch(products, (slice(None), nbits - 1))
-    for b in range(nbits - 2, -1, -1):
-        acc = ed._add_impl(ed._double_impl(acc), ed.index_batch(products, (slice(None), b)))
+    nseg = -(-nbits // seg)
+    dev = products.x.device
+    lo = torch.arange(nseg, device=dev) * seg
+    length = torch.clamp(nbits - lo, max=seg)
+    h = group.index_batch(products, (slice(None), lo + length - 1))  # (nlimbs, O, S)
+    for s in range(1, seg):
+        below = group.index_batch(products, (slice(None), torch.clamp(lo + length - 1 - s, min=0)))
+        h = group.select(h, group._add_impl(group._double_impl(h), below), (length > s)[None])
+    acc = group.index_batch(h, (slice(None), nseg - 1))
+    for j in range(nseg - 2, -1, -1):
+        for _ in range(seg):
+            acc = group._double_impl(acc)
+        acc = group._add_impl(acc, group.index_batch(h, (slice(None), j)))
     return acc
 
 
-def doubling_combine(products: ed.PointP3) -> ed.PointP3:
+def doubling_combine_plain(products: ed.PointP3, seg_bits: int | None = None) -> ed.PointP3:
+    """:func:`doubling_combine` on the plain adds. By default in one
+    segment, blitzar_tpu's ladder and coordinates (so the CPU path's
+    commitments equal blitzar_tpu's limb for limb); ``seg_bits`` gives the
+    kernel's order in segments of that many bits (the same points)."""
+    return ladder_plain(ed, products, seg_bits or products.x.shape[2])
+
+
+def doubling_combine(products: ed.PointP3, seg_bits: int | None = None) -> ed.PointP3:
     """(16, O, nbits) bit products -> (16, O): sum_b 2^b * products[:, o, b],
     by a double-and-add ladder from the top bit.
 
-    Kernel csrc/doubling_combine.cu, one thread per output. Bound: latency of
-    the serial ladder (nbits - 1 doublings and adds per output)."""
+    Kernel csrc/doubling_combine.cu, one launch for all outputs: one warp
+    an output, lanes on segments of ``seg_bits`` bits (default
+    ``ladder_segment_bits``) by Horner, lane 0 folds them
+    (csrc/ladder.cuh). The outputs are the points of
+    :func:`doubling_combine_plain`, its coordinates with the same
+    ``seg_bits`` (which a CPU tensor gets: one segment by default). Bound:
+    latency (the top bit's nbits - 1 doublings are a serial chain)."""
     if not _on_card(products.x):
-        return doubling_combine_plain(products)
+        return doubling_combine_plain(products, seg_bits)
     num_outputs, nbits = products.x.shape[1], products.x.shape[2]
+    if nbits < 1:
+        raise ValueError("a ladder needs at least one bit")
     coords, stride = _point_arg(products, products.x.device, (num_outputs, nbits))
     out = _empty_point((num_outputs,), products.x.device)
     _launch(
         "doubling_combine", build.library().btt_doubling_combine,
-        *_ptrs(coords), stride, num_outputs, nbits, *_ptrs(out), _stream(products.x.device),
+        *_ptrs(coords), stride, num_outputs, nbits, seg_bits or ladder_segment_bits(nbits), *_ptrs(out),
+        _stream(products.x.device),
     )
     return out

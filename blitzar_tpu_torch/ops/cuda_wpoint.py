@@ -44,15 +44,13 @@ bls12-381).
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ..curves.weierstrass import PointP2, WCurve
 from . import build
 from .cuda_point import (
-    _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, limbs_to_words, lookup_chunks,
-    lookup_walk, query_args, tree_launch, words_to_limbs,
+    _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, ladder_plain, ladder_segment_bits,
+    limbs_to_words, lookup_chunks, lookup_walk, query_args, tree_launch, words_to_limbs,
 )
 
 # ---------------------------------------------------------------------------
@@ -150,15 +148,19 @@ def w_build_table(curve: WCurve, points: PointP2, w: int) -> torch.Tensor:
     projective and in blitzar_tpu's order of additions (so equal to its
     table bit for bit); entry 0 is the identity (0, 1, 0).
 
-    Kernel csrc/w_build_table.cu, thread (group, low w/2 bits of the entry)
-    builds its 2^(w - w/2) entries by one complete add each. Bound: integer
-    multiplies (2^w - 1 adds of 12 field multiplies per group)."""
+    Kernel csrc/w_build_table.cu on csrc/table_build.cuh's lane schedule
+    (``build_cached_table``'s): lane t of a group builds entries t + 2^L k
+    (4 lanes up to w = 8, 2^(w - 6) above), each by one complete add to
+    its parent entry, which the lane stored earlier. Bound: integer
+    multiplies (2^w - 1 adds of 12 field multiplies per group); w <= 30."""
     n_pad = points.x.shape[1]
     if n_pad % w:
         raise ValueError(f"point count {n_pad} is not a multiple of the window {w}")
     groups = n_pad // w
     if not _on_card(points.x):
         return w_build_table_plain(curve, points, w)
+    if w > 30:
+        raise ValueError(f"w_build_table takes windows of 1..30 bits, not {w}")
     coords, stride = _point_arg(points, points.x.device, (n_pad,), curve.nlimbs)
     table = torch.empty((groups, 1 << w, 3, curve.nlimbs // 2), dtype=torch.int32, device=points.x.device)
     _launch(
@@ -246,49 +248,26 @@ def w_tree_reduce_lanes(curve: WCurve, p: PointP2) -> PointP2:
 # ---------------------------------------------------------------------------
 
 
-def ladder_segment_bits(nbits: int) -> int:
-    """Bits a segment of the ladder, L = ceil(sqrt(nbits)) (at most 32
-    segments): the critical path's adds, L - 1 in a segment's Horner run and
-    S - 1 in the fold, are fewest near L = S. 16 for 256 bits."""
-    return max(math.isqrt(nbits - 1) + 1 if nbits > 1 else 1, -(-nbits // 32))
-
-
 def w_doubling_combine_plain(curve: WCurve, products: PointP2, seg_bits: int | None = None) -> PointP2:
     """:func:`w_doubling_combine` by ``wdouble_plain`` and ``wadd_plain`` in
-    the kernel's order (csrc/w_ladder.cuh): every segment's Horner run at
-    once over an (O, S) batch (the short top segment joins when its bits
-    begin), then the fold from the top segment down. ``seg_bits = nbits``
-    is blitzar_tpu's ladder."""
-    nbits = products.x.shape[2]
-    seg = seg_bits or ladder_segment_bits(nbits)
-    nseg = -(-nbits // seg)
-    dev = products.x.device
-    lo = torch.arange(nseg, device=dev) * seg
-    length = torch.clamp(nbits - lo, max=seg)
-    h = curve.index_batch(products, (slice(None), lo + length - 1))  # (nlimbs, O, S)
-    for s in range(1, seg):
-        step = wadd_plain(curve, wdouble_plain(curve, h),
-                          curve.index_batch(products, (slice(None), torch.clamp(lo + length - 1 - s, min=0))))
-        h = curve.select(h, step, (length > s)[None])
-    acc = curve.index_batch(h, (slice(None), nseg - 1))
-    for j in range(nseg - 2, -1, -1):
-        for _ in range(seg):
-            acc = wdouble_plain(curve, acc)
-        acc = wadd_plain(curve, acc, curve.index_batch(h, (slice(None), j)))
-    return acc
+    the kernel's order (csrc/ladder.cuh, ``cuda_point.ladder_plain``).
+    ``seg_bits = nbits`` is blitzar_tpu's ladder."""
+    return ladder_plain(curve, products, seg_bits or ladder_segment_bits(products.x.shape[2]))
 
 
-def w_doubling_combine(curve: WCurve, products: PointP2) -> PointP2:
+def w_doubling_combine(curve: WCurve, products: PointP2, seg_bits: int | None = None) -> PointP2:
     """(nlimbs, O, nbits) bit-row products -> (nlimbs, O) outputs:
     sum_b 2^b * products[:, o, b], read in place (limb-major).
 
     Kernel csrc/w_doubling_combine.cu, one launch for all outputs: one warp
-    an output, lanes on ``ladder_segment_bits`` segments by Horner, lane 0
-    folds them. Its coordinates equal :func:`w_doubling_combine_plain`'s
-    and are the same points as blitzar_tpu's ladder. Bound: latency (the
-    top bit's nbits - 1 doublings are a serial chain)."""
+    an output, lanes on segments of ``seg_bits`` bits (default
+    ``ladder_segment_bits``) by Horner, lane 0 folds them
+    (csrc/ladder.cuh, the ladder of ``doubling_combine``). Its coordinates
+    equal :func:`w_doubling_combine_plain`'s with the same ``seg_bits`` and
+    are the same points as blitzar_tpu's ladder. Bound: latency (the top
+    bit's nbits - 1 doublings are a serial chain)."""
     if not _on_card(products.x):
-        return w_doubling_combine_plain(curve, products)
+        return w_doubling_combine_plain(curve, products, seg_bits)
     num_outputs, nbits = products.x.shape[1], products.x.shape[2]
     if nbits < 1:
         raise ValueError("a ladder needs at least one bit")
@@ -297,7 +276,7 @@ def w_doubling_combine(curve: WCurve, products: PointP2) -> PointP2:
     out = _empty_point((num_outputs,), device, PointP2, curve.nlimbs)
     _launch(
         "w_doubling_combine", build.library().btt_w_doubling_combine,
-        curve.kernel_id, *_ptrs(coords), stride, num_outputs, nbits, ladder_segment_bits(nbits), *_ptrs(out),
-        _stream(device), instance=curve.name,
+        curve.kernel_id, *_ptrs(coords), stride, num_outputs, nbits, seg_bits or ladder_segment_bits(nbits),
+        *_ptrs(out), _stream(device), instance=curve.name,
     )
     return out

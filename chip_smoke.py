@@ -14,7 +14,10 @@ Phases, each fatal on failure:
    (ristretto255 2^20 commitment for the five Edwards kernels of the handle
    path, bn254 G1 for the five Weierstrass ones (the ladder
    ``w_doubling_combine`` at one output's 256 bit-row products and at
-   seven), a 2^20 IPA round and a 2^20 sumcheck round
+   seven; ``doubling_combine`` at one, two, seven and ten outputs, limb
+   for limb the plain version in the kernel's segments and, run in one
+   segment, in blitzar_tpu's order), a 2^20 IPA round and a 2^20 sumcheck
+   round
    for the three proof kernels, in both proof fields) and hold it against
    its plain PyTorch version on the same inputs (canonical values must be
    equal), timing both (a kernel's time is the median device time of one
@@ -73,8 +76,8 @@ Phases, each fatal on failure:
    chunk of (c), ``tree_reduce_lanes`` on the partials of that lookup and of
    each Weierstrass curve's first chunk), and every one of them, and every
    instantiation of the templated ones (the ladder's too), must have
-   launched in phase 12; each curve's ``w_lookup_msm`` and
-   ``w_doubling_combine`` against plain on its first chunk of (e);
+   launched in phase 12; each curve's ``w_build_table``, ``w_lookup_msm``
+   and ``w_doubling_combine`` against plain on its first chunk of (e);
 14. handle files, packed and vlen queries and the generator disk cache
    (counts from 0, also by element count; the cache, off by default, in a
    fresh directory under ``build/`` for (iv) alone): (i) the ristretto255 2^20 handle written in the
@@ -125,7 +128,21 @@ Phases, each fatal on failure:
    ``earlier_lookup_reduce_ms``; ``w_lookup_msm``'s and
    ``w_doubling_combine``'s to ``ptxas_weierstrass_query`` and, beside the
    lookup's and the 510-launch ladder's earlier readings,
-   ``earlier_w_query_ms``; none of it is in the kernels line.
+   ``earlier_w_query_ms``; the two ladders' to ``ptxas_ladders`` and
+   ``w_build_table``'s (no spill allowed) to ``ptxas_table_builds``, their
+   times by shape beside their readings before their redesign around
+   ``csrc/table_build.cuh``'s lane schedule and ``csrc/ladder.cuh``
+   (constants) to ``earlier_build_ladder_ms``; none of it is in the kernels
+   line;
+20. ``w_build_table`` (by curve, groups and w), ``doubling_combine`` (by
+   outputs and bits) and ``mont_sum_round`` (by field, round size, degree,
+   MLEs and products) at every shape the paths of phases 3-17 launched
+   them at (counted as phase 19 counts the tree reduce): timed, bounded,
+   held against their plain versions, and launches x (time - bound)
+   summed over the shapes (``kernels_by_shape``); then every kernel's
+   launches x (time - bound) on its paths, largest first (``ranking``:
+   per shape where phases 15, 19 and 20 time them, else at the headline
+   shape).
 
 The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
 its path, time, plain time, bound, error), the card as ``nvidia-smi`` names
@@ -165,6 +182,9 @@ MULS_ADD = 9
 MULS_MADD = 7
 MULS_DOUBLE = 8
 MULS_INVERT = 265
+# the outputs of the ristretto255 ladders the paths launch (one column,
+# an IPA round's L and R, the packed query's seven widths, 100000 x 10)
+LADDER_OUTPUTS = (1, 2, 7, 10)
 MULS_ELLIGATOR = 288
 MULS_ELLIGATOR_FORM = 2 * MULS_ELLIGATOR + MULS_ADD
 # the least a niels table needs, per group of w points and V = 2^w entries:
@@ -214,7 +234,24 @@ def muls_niels_table_group(w: int) -> int:
 # HBM3 at 700.00 W. Written beside this run's times under its own key of
 # chiprun_out/chip_smoke.json, never into the kernels line.
 EARLIER_TABLE_BUILD_MS = {"build_niels_table": 322.45062255859375, "build_cached_table": 4.6976637840271}
-TABLE_BUILD_SOURCES = {"build_niels_table": "build_niels_table.cu", "build_cached_table": "build_cached_table.cu"}
+TABLE_BUILD_SOURCES = {"build_niels_table": "build_niels_table.cu", "build_cached_table": "build_cached_table.cu",
+                       "w_build_table": "w_build_table.cu"}
+# The same for w_build_table before it took table_build.cuh's lane schedule
+# and for the ristretto255 ladder before it took ladder.cuh's segments (one
+# thread an output), with build_cached_table and the Weierstrass ladder, which
+# share their code now: kernel_ab.py's first run of the parent tree (sections
+# tables and ladders), run in turns with this tree on one NVIDIA H100 80GB
+# HBM3 at 700.00 W; keys as this run's records name the shapes
+# (the earlier ristretto255 ladder ran blitzar_tpu's one-segment order; the
+# Weierstrass ladder was read on the oracle's points tiled).
+EARLIER_BUILD_LADDER_MS = {
+    "w_build_table/bn254_g1/2^20": 27.39708709716797, "w_build_table/bls12_381_g1/2^18": 20.50009536743164,
+    "w_build_table/bn254_g1/2^18": 6.624351978302002, "w_build_table/grumpkin/2^18": 7.438208103179932,
+    "build_cached_table/2^18": 1.6424000263214111, "doubling_combine/1x256": 1.7111839652061462,
+    "doubling_combine/2x256": 1.7111520171165466, "doubling_combine/7x256": 1.712112009525299,
+    "doubling_combine/10x256": 1.7283200025558472, "w_doubling_combine/bn254_g1/1x256": 1.931327998638153,
+}
+LADDER_SOURCES = {"doubling_combine": "doubling_combine.cu", "w_doubling_combine": "w_doubling_combine.cu"}
 # The same for the lookup and its reduce before their redesign around
 # csrc/lookup.cuh and the coalesced tree_reduce.cuh: the parent tree's own
 # chip_smoke.py in the chip call that compared the trees (its first run), on
@@ -513,6 +550,38 @@ def check_one_ladder(before: dict, what: str, queries: int = 1) -> None:
           f"{what}: the ladder ran as {queries} w_doubling_combine launch(es), no wadd or wdouble ({got})")
 
 
+def ladder_ptxas(log_text: str, built_here: bool) -> dict:
+    """The two ladders' registers, stack frames and spills per instantiation
+    (recorded; PERF.md states any spill), from the ptxas log as
+    :func:`table_build_ptxas` reads it."""
+    out = {"built_in_this_run": built_here}
+    for name, source in LADDER_SOURCES.items():
+        out[name] = ptxas_report(log_text, source)
+        check(any(f["entry"] for f in out[name]), f"{name}: ptxas reported its kernels")
+    return out
+
+
+def build_ladder_times(results: dict) -> dict:
+    """This run's w_build_table, build_cached_table and ladder times by
+    shape, beside the earlier readings (constants)."""
+    ed_ladder = results["doubling_combine"]
+    now = {"w_build_table/bn254_g1/2^20": results["w_build_table"]["ms"],
+           "build_cached_table/2^18": results["build_cached_table"]["ms"],
+           "w_doubling_combine/bn254_g1/1x256": results["w_doubling_combine"]["ms"]}
+    for name, rec in results["w_build_table"]["by_curve_2^18_chunk"].items():
+        now[f"w_build_table/{name}/2^18"] = rec["ms"]
+    for outputs, rec in ed_ladder["by_outputs"].items():
+        now[f"doubling_combine/{outputs}x256"] = rec["ms"]
+        now[f"doubling_combine/{outputs}x256/one_segment"] = rec["ms_one_segment"]
+    out = {"note": "earlier_ms: readings before the redesign (kernel_ab.py on the parent tree), not measured by "
+                   "this run"}
+    for key, ms in now.items():
+        was = EARLIER_BUILD_LADDER_MS.get(key)
+        out[key] = {"ms": ms, "earlier_ms": was}
+        print(f"    {key}: {ms:.4f} ms in this run (earlier reading, not this run: {was} ms)")
+    return out
+
+
 def earlier_table_build_times(results: dict) -> dict:
     """This run's table-build times beside the earlier readings."""
     out = {"note": "earlier_ms: readings before the redesign around csrc/table_build.cuh, not measured by this run"}
@@ -615,15 +684,53 @@ def phase_kernels(torch, dev) -> dict:
     record("ed_add", "blitzar_tpu/ops/pallas_point.py:237", "blitzar_tpu_torch/csrc/ed_add.cu",
            ms, plain_ms, err, count * 3 * 256, count * MULS_ADD * IMAD_PER_FIELD_MUL)
 
-    # doubling_combine: the 256 bit-row products of the one output
-    products = ed.reshape_batch(cp.tree_reduce_lanes(partials), (1, 256))
-    ms = device_ms(torch, lambda: cp.doubling_combine(products))
-    out = cp.doubling_combine(products)
+    # doubling_combine: the ladder of the 256 bit-row products of the one
+    # output, and of 2, 7 and 10 outputs (an IPA round's L and R, the packed
+    # query's Proof-of-SQL widths, the ten columns of 100000 x 10: here the
+    # products rotated by 37 bits an output); limb for limb the plain version
+    # in the kernel's segments, and the same points as blitzar_tpu's
+    # one-segment ladder (the default plain version), which the kernel also
+    # runs with seg_bits = nbits, limb for limb
+    nbits = 256
+    products = ed.reshape_batch(cp.tree_reduce_lanes(partials), (1, nbits))
+    seg_bits = cp.ladder_segment_bits(nbits)
+    ms = device_ms(torch, lambda: cp.doubling_combine(products), reps=5)
     plain_ms = cuda_ms(torch, lambda: cp.doubling_combine_plain(products), reps=1)
-    err = ed_err(out, cp.doubling_combine_plain(products))
+    by_outputs, err, unequal = {}, 0, 0
+    for outputs in LADDER_OUTPUTS:
+        rows = ed.index_batch(products, (0, (torch.arange(nbits, device=dev)[None]
+                                             + 37 * torch.arange(outputs, device=dev)[:, None]) % nbits))
+        got = cp.doubling_combine(rows)
+        one = cp.doubling_combine_plain(rows)
+        err = max(err, ed_err(got, cp.doubling_combine_plain(rows, seg_bits)),
+                  ed_err(cp.doubling_combine(rows, seg_bits=nbits), one))
+        unequal += int((~ed.points_equal(got, one)).sum())
+        b_ms, _ = bound(outputs * (nbits + 1) * 256, outputs * (nbits - 1) * (MULS_DOUBLE + MULS_ADD)
+                        * IMAD_PER_FIELD_MUL)
+        by_outputs[str(outputs)] = {"ms": device_ms(torch, lambda: cp.doubling_combine(rows), reps=5),
+                                    "ms_one_segment": device_ms(torch, lambda: cp.doubling_combine(rows, seg_bits=nbits),
+                                                                reps=5),
+                                    "bound_ms": b_ms}
+    check(unequal == 0, f"doubling_combine at {LADDER_OUTPUTS} outputs: the same points as blitzar_tpu's "
+                        f"one-segment ladder")
     record("doubling_combine", "blitzar_tpu/ops/pallas_point.py:982", "blitzar_tpu_torch/csrc/doubling_combine.cu",
-           ms, plain_ms, err, 256 * 256 + 256, 255 * (MULS_DOUBLE + MULS_ADD) * IMAD_PER_FIELD_MUL)
+           ms, plain_ms, err, (nbits + 1) * 256, (nbits - 1) * (MULS_DOUBLE + MULS_ADD) * IMAD_PER_FIELD_MUL,
+           compared="canonical limbs, in the kernel's segments and in one")
+    rec = results["doubling_combine"]
+    rec["by_outputs"] = by_outputs
+    nseg = -(-nbits // seg_bits)
+    rec["segment_bits"] = seg_bits
+    rec["critical_path_muls"] = ((seg_bits - 1) * (MULS_DOUBLE + MULS_ADD) + seg_bits * (nseg - 1) * MULS_DOUBLE
+                                 + (nseg - 1) * MULS_ADD)
+    rec["critical_path_muls_one_segment"] = (nbits - 1) * (MULS_DOUBLE + MULS_ADD)
     return results
+
+
+@functools.lru_cache(maxsize=None)
+def oracle_points(curve) -> tuple:
+    """The oracle's W_PERIOD points random_points(521, seed=7), derived once
+    a curve (in Python integers, about a second each on the host)."""
+    return tuple(curve.oracle.random_points(W_PERIOD, seed=7))
 
 
 def tiled_generators(curve, n: int, dev):
@@ -631,7 +738,7 @@ def tiled_generators(curve, n: int, dev):
     on the card: (points, the oracle points)."""
     import torch
 
-    pts = curve.oracle.random_points(W_PERIOD, seed=7)
+    pts = list(oracle_points(curve))
     base = curve.from_affine_ints(pts, dev)
     return curve.index_batch(base, torch.arange(n, device=dev) % W_PERIOD), pts
 
@@ -662,6 +769,28 @@ def w_output_equals(curve, got, o: int, pt) -> bool:
                 and bytes(got["y"][o]) == pt[1].to_bytes(nb, "little"))
 
 
+def w_build_record(torch, dev, curve, gens, w: int, reps: int = 1, sample_groups: int = 512) -> dict:
+    """w_build_table on all of ``gens``: its record (device time, bound,
+    the largest limb difference from the plain version on ``sample_groups``
+    groups spread over all of them, the last included)."""
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    n = gens.x.shape[1]
+    groups = n // w
+    ms = device_ms(torch, lambda: cw.w_build_table(curve, gens, w), reps=reps)
+    table = cw.w_build_table(curve, gens, w)
+    sel = spread_indices(torch, dev, min(groups, sample_groups), groups)
+    members = curve.index_batch(gens, (sel[:, None] * w + torch.arange(w, device=dev)).reshape(-1))
+    plain_ms = cuda_ms(torch, lambda: cw.w_build_table_plain(curve, members, w), reps=1)
+    err = int((table[sel].long() - cw.w_build_table_plain(curve, members, w).long()).abs().max())
+    sub: dict = {}
+    kernel_record(sub, "w_build_table", "blitzar_tpu/ops/pallas_point.py:806", "blitzar_tpu_torch/csrc/w_build_table.cu",
+                  ms, plain_ms, err, n * 3 * curve.nlimbs * 4 + table.numel() * 4,
+                  groups * ((1 << w) - 1) * MULS_WADD * IMAD_PER_MONT_MUL[curve.nlimbs // 2], len(sel) / groups,
+                  compared=f"{curve.name} canonical limbs, {groups} groups, w = {w}")
+    return {**sub["w_build_table"], "groups": groups, "w": w}
+
+
 def phase_wkernels(torch, dev) -> dict:
     """The five Weierstrass kernels at the shapes of one bn254 G1 2^20
     commitment with 32-byte counter scalars, against their plain versions."""
@@ -683,16 +812,8 @@ def phase_wkernels(torch, dev) -> dict:
     gens, _ = tiled_generators(curve, n, dev)
 
     # w_build_table: all groups; plain on 512 groups spread over all of them
-    ms = device_ms(torch, lambda: cw.w_build_table(curve, gens, w), reps=1)
+    results["w_build_table"] = w_build_record(torch, dev, curve, gens, w, reps=3)
     table = cw.w_build_table(curve, gens, w)
-    g_plain = min(groups, 512)
-    sel = spread(g_plain, groups)
-    members = curve.index_batch(gens, (sel[:, None] * w + torch.arange(w, device=dev)).reshape(-1))
-    plain_ms = cuda_ms(torch, lambda: cw.w_build_table_plain(curve, members, w), reps=1)
-    err = int((table[sel].long() - cw.w_build_table_plain(curve, members, w).long()).abs().max())
-    record("w_build_table", "blitzar_tpu/ops/pallas_point.py:806", "blitzar_tpu_torch/csrc/w_build_table.cu",
-           ms, plain_ms, err, n * point_bytes + table.numel() * 4,
-           groups * ((1 << w) - 1) * MULS_WADD * imad, g_plain / groups)
 
     # w_lookup_msm: one 32-byte output; plain on 16 of the chunks, spread
     scalars = torch.from_numpy(counter_scalars(n, 32)[None]).to(dev)
@@ -1566,8 +1687,12 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
     del wide
     wscalars = torch.from_numpy(counter_scalars(CHUNK, 32)[None]).to(dev)
     results["w_lookup_msm_by_curve"], results["w_doubling_combine_by_curve"] = {}, {}
+    results["w_build_table_by_curve"] = {}
     for curve in (wc.BLS12381_G1, wc.BN254_G1, wc.GRUMPKIN):
         wgens, _ = tiled_generators(curve, CHUNK, dev)
+        # each curve's table build at a streamed chunk (plain on 512 groups
+        # spread over it), limb for limb
+        results["w_build_table_by_curve"][curve.name] = w_build_record(torch, dev, curve, wgens, w)
         wtable = cw.w_build_table(curve, wgens, w)
         wpartials = cw.w_lookup_msm(curve, wtable, wscalars, None, w)
         results["tree_reduce_lanes"][curve.name] = tree_record(
@@ -1962,11 +2087,11 @@ def counted(*totals):
     from blitzar_tpu_torch.ops import cuda_point as cp
 
     cp.reset_launches()
-    was, TREE_SHAPES.on = TREE_SHAPES.on, True
+    was, PATH_SHAPES.on = PATH_SHAPES.on, True
     try:
         yield
     finally:
-        TREE_SHAPES.on = was
+        PATH_SHAPES.on = was
     for total in totals:
         for k, v in cp.LAUNCHES.items():
             total[k] = total.get(k, 0) + v
@@ -2233,28 +2358,30 @@ def phase_fewrow_kernels(torch, dev, inputs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-class TreeShapes:
-    """tree_reduce_lanes launches by path and by (instance, size, cols):
-    counted while a path's calls run (a whole phase, or only inside
-    :func:`counted` where a phase counts its main-path calls alone)."""
+class PathShapes:
+    """Launches of the kernels whose time depends on their shape
+    (``SHAPE_KEYS``), by kernel, by path and by shape: counted while a
+    path's calls run (a whole phase, or only inside :func:`counted` where a
+    phase counts its main-path calls alone)."""
 
     def __init__(self):
         self.path, self.on, self.counts = None, False, {}
 
     def install(self) -> None:
+        from blitzar_tpu_torch.ops import cuda_mont as cm
         from blitzar_tpu_torch.ops import cuda_point as cp
+        from blitzar_tpu_torch.ops import cuda_wpoint as cw
 
         launch = cp._launch
 
         def counting(name, fn, *args, instance=None):
             launch(name, fn, *args, instance=instance)
-            if name == "tree_reduce_lanes" and self.on and self.path:
-                # the launcher's arguments: curve, 4 coordinates, stride, size, cols, ...
-                by = self.counts.setdefault(self.path, {})
-                key = (instance, int(args[6]), int(args[7]))
+            if name in SHAPE_KEYS and self.on and self.path:
+                by = self.counts.setdefault(name, {}).setdefault(self.path, {})
+                key = SHAPE_KEYS[name](instance, args)
                 by[key] = by.get(key, 0) + 1
 
-        cp._launch = counting
+        cp._launch = cw._launch = cm._launch = counting
 
     @contextlib.contextmanager
     def phase(self, path: str, on: bool = True):
@@ -2265,7 +2392,20 @@ class TreeShapes:
             self.path, self.on = None, False
 
 
-TREE_SHAPES = TreeShapes()
+# a launch's shape from its launcher's arguments: tree_reduce_lanes (curve,
+# 4 coordinates, stride, size, cols, ...) by (instance, size, cols);
+# w_build_table (curve, 3 coordinates, stride, w, groups, ...) by (instance,
+# groups, w); doubling_combine (4 coordinates, stride, outputs, nbits, ...)
+# by (outputs, nbits); mont_sum_round (field, degree, table, stride(0),
+# stride(1), mid, mults, products, ...) by (field id, mid, degree, MLEs,
+# products)
+SHAPE_KEYS = {
+    "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
+    "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
+    "doubling_combine": lambda instance, a: (int(a[5]), int(a[6])),
+    "mont_sum_round": lambda instance, a: (int(a[0]), int(a[5]), int(a[1]), int(a[3]) // int(a[4]), int(a[7])),
+}
+PATH_SHAPES = PathShapes()
 TREE_SAMPLE_COLS = 64
 
 
@@ -2337,6 +2477,142 @@ def phase_tree_shapes(torch, dev, counts: dict) -> dict:
             "slower_than_earlier": slower}
 
 
+def shape_paths(counts: dict) -> dict:
+    """{path: {key: launches}} -> {key: {path: launches}}"""
+    shapes: dict = {}
+    for path, by in counts.items():
+        for key, n in by.items():
+            shapes.setdefault(key, {})[path] = n
+    return shapes
+
+
+def sum_round_table(m: int, products: int, degree: int):
+    """A product table for a mont_sum_round shape: the sumcheck benchmark's
+    where the shape is its own (3 MLEs, 2 products of degree 3), else
+    ``products`` products of ``degree`` factors over the m MLEs in turn."""
+    if (m, products, degree) == (3, len(SUMCHECK_BENCH[0]), 3):
+        return SUMCHECK_BENCH
+    terms = [(p + j) % m for p in range(products) for j in range(degree)]
+    return [(1, degree)] * products, terms
+
+
+def phase_ranked_shapes(torch, dev, counts: dict) -> dict:
+    """w_build_table (by curve, groups, w), doubling_combine (by outputs and
+    bits) and mont_sum_round (by field, round size, degree, MLEs, products)
+    at every shape a path launched them at, as phase 19 holds
+    tree_reduce_lanes: each shape's device time, bound, launches and
+    launches x (ms - bound), held against the plain version (the table on
+    up to 64 groups, the ladder in the kernel's segments and the round in
+    full, limb for limb), and the sum over the shapes. The inputs are the
+    oracle's 521 points tiled (w_build_table), the first 2^16 generators
+    tiled (doubling_combine) and random canonical tables (mont_sum_round);
+    a round's product table is the benchmark's where the shape is its own
+    (``sum_round_table``)."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    curves = {c.name: c for c in wc.CURVES}
+    out: dict = {}
+
+    def finish(name: str, records: list) -> None:
+        total = sum(r["launches_x_gap_ms"] for r in records)
+        out[name] = {"shapes": records, "launches": sum(r["launches"] for r in records), "launches_x_gap_ms": total}
+        print(f"    {name}: {len(records)} shapes, {out[name]['launches']} launches, launches x gap {total:.3f} ms")
+
+    records = []
+    for (instance, groups, w), paths in sorted(shape_paths(counts.get("w_build_table", {})).items()):
+        curve = curves[instance]
+        gens, _ = tiled_generators(curve, groups * w, dev)
+        rec = w_build_record(torch, dev, curve, gens, w, reps=3, sample_groups=64)
+        launches = sum(paths.values())
+        records.append({"instance": instance, "groups": groups, "w": w, "launches": launches,
+                        "launches_by_path": paths, "ms": rec["ms"], "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"], "plain_ms": rec["plain_ms"], "max_abs_err": rec["max_abs_err"],
+                        "launches_x_gap_ms": launches * (rec["ms"] - rec["bound_ms"])})
+        del gens
+    finish("w_build_table", records)
+
+    records = []
+    ed_base = generators.get_precomputed_generators(1 << 16, 0, dev)
+    for (outputs, nbits), paths in sorted(shape_paths(counts.get("doubling_combine", {})).items()):
+        rows = ed.reshape_batch(ed.index_batch(ed_base, torch.arange(outputs * nbits, device=dev) % (1 << 16)),
+                                (outputs, nbits))
+        ms = device_ms(torch, lambda: cp.doubling_combine(rows), reps=5)
+        seg_bits = cp.ladder_segment_bits(nbits)
+        plain_ms = cuda_ms(torch, lambda: cp.doubling_combine_plain(rows, seg_bits), reps=1)
+        err = point_err(cp.doubling_combine(rows), cp.doubling_combine_plain(rows, seg_bits), F.canonicalize)
+        b_ms, b_by = bound(outputs * (nbits + 1) * 256,
+                           outputs * (nbits - 1) * (MULS_DOUBLE + MULS_ADD) * IMAD_PER_FIELD_MUL)
+        launches = sum(paths.values())
+        check(err == 0, f"doubling_combine at ({outputs}, {nbits}), {launches} launches {paths}: equal to plain "
+                        f"in the kernel's segments, tolerance 0 on canonical limbs ({ms:.4f} ms)")
+        records.append({"outputs": outputs, "nbits": nbits, "launches": launches, "launches_by_path": paths,
+                        "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms, "max_abs_err": float(err),
+                        "launches_x_gap_ms": launches * (ms - b_ms)})
+        del rows
+    del ed_base
+    finish("doubling_combine", records)
+
+    records = []
+    for (fid, mid, degree, m, products), paths in sorted(shape_paths(counts.get("mont_sum_round", {})).items()):
+        field = cm.FIELDS[fid]
+        ptable, pterms = sum_round_table(m, products, degree)
+        mles = random_canonical(torch, field, (m, 2 * mid), dev, mid + degree)
+        mults = field.from_ints([mu for mu, _ in ptable], dev)
+        lengths = torch.tensor([k for _, k in ptable], dtype=torch.int32, device=dev)
+        terms = torch.tensor(pterms, dtype=torch.int32, device=dev)
+        run = functools.partial(cm.mont_sum_round, field, mles, mults, lengths, terms, degree)
+        plain = functools.partial(cm.mont_sum_round_plain, field, mles, mults, lengths, terms, degree)
+        ms = device_ms(torch, run, reps=5)
+        plain_ms = cuda_ms(torch, plain, reps=1)
+        err = int((run().long() - plain().long()).abs().max())
+        b_ms, b_by = bound(m * 2 * mid * field.nlimbs * 4,
+                           sum_round_muls(ptable, pterms, mid) * IMAD_PER_MONT_MUL[field.nlimbs // 2])
+        launches = sum(paths.values())
+        check(err == 0, f"mont_sum_round {field.name} at mid {mid}, degree {degree}, {m} MLEs, {products} products, "
+                        f"{launches} launches {paths}: equal to plain ({ms:.4f} ms)")
+        records.append({"field": field.name, "mid": mid, "degree": degree, "mles": m, "products": products,
+                        "launches": launches, "launches_by_path": paths, "ms": ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "plain_ms": plain_ms, "max_abs_err": float(err),
+                        "launches_x_gap_ms": launches * (ms - b_ms)})
+        del mles
+    finish("mont_sum_round", records)
+    torch.cuda.empty_cache()
+    return out
+
+
+def ranking(kernels: list, shapes: dict, tree_shapes: dict) -> list:
+    """Every kernel's launches x (ms - bound), largest first: over every
+    path and every shape a path launched it at for the kernels timed by
+    shape (phases 19 and 20), over phase 15's element counts for the field
+    kernels, else its path's launches at its headline shape."""
+    rows = []
+    for rec in kernels:
+        name, launches = rec["name"], rec["launches"]
+        if name in shapes:
+            gap, launches, how = shapes[name]["launches_x_gap_ms"], shapes[name]["launches"], "every shape"
+        elif name == "tree_reduce_lanes":
+            gap = tree_shapes["launches_x_gap_ms"]
+            launches = sum(r["launches"] for r in tree_shapes["shapes"])
+            how = "every shape"
+        elif "by_elements" in rec:
+            gap = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rec["by_elements"].values())
+            how = "every element count of the files path"
+        else:
+            gap, how = launches * (rec["ms"] - rec["bound_ms"]), "headline shape"
+        # mont_mul_ew's base-field instantiations on the files path, by count
+        for field in rec.get("base_fields", {}).values():
+            gap += sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in field["by_elements"].values())
+            launches += sum(r["launches"] for r in field["by_elements"].values())
+            how = "headline shape; base fields at every element count of the files path"
+        rows.append({"kernel": name, "launches": launches, "launches_x_gap_ms": gap, "shapes": how})
+    return sorted(rows, key=lambda r: -r["launches_x_gap_ms"])
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "blitzar_tpu_torch", "csrc")):
         print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -2375,7 +2651,8 @@ def main() -> int:
         report["ptxas_table_builds"] = table_build_ptxas(log, built_here)
         report["ptxas_lookup_and_reduce"] = lookup_reduce_ptxas(log, built_here)
         report["ptxas_weierstrass_query"] = w_query_ptxas(log, built_here)
-        TREE_SHAPES.install()
+        report["ptxas_ladders"] = ladder_ptxas(log, built_here)
+        PATH_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
         results.update(phase_wkernels(torch, torch.device("cuda")))
@@ -2384,7 +2661,7 @@ def main() -> int:
         # the commitment path: launches counted from 0 over phases 3-6
         api.init("gpu")
         cp.reset_launches()
-        with TREE_SHAPES.phase("commitment"):
+        with PATH_SHAPES.phase("commitment"):
             phase_api_small(torch)
             phase_w_api_small(torch)
             per_commitment = phase_full_width(torch, report["timings"])
@@ -2397,7 +2674,7 @@ def main() -> int:
         generators.CACHE.reset()
         engine.clear_handle_cache()
         cp.reset_launches()
-        with TREE_SHAPES.phase("proof"):
+        with PATH_SHAPES.phase("proof"):
             phase_proof_vectors(torch)
             phase_sumcheck_full_width(torch, report["timings"])
             phase_ipa_full_width(torch, report["timings"])
@@ -2406,22 +2683,24 @@ def main() -> int:
         # handle caches; then (h), the kernels against their plain versions
         clear_handles(torch)
         cp.reset_launches()
-        with TREE_SHAPES.phase("large_n"):
+        with PATH_SHAPES.phase("large_n"):
             large = phase_large_n(torch, report["timings"])
         large_launches = dict(cp.LAUNCHES)
         large_instances = dict(cp.INSTANCE_LAUNCHES)
         results.update(phase_large_kernels(torch, torch.device("cuda"), large["rows24"]))
         results["w_lookup_msm"]["by_curve_2^18_chunk"] = results.pop("w_lookup_msm_by_curve")
         results["w_doubling_combine"]["by_curve_2^18_chunk"] = results.pop("w_doubling_combine_by_curve")
+        results["w_build_table"]["by_curve_2^18_chunk"] = results.pop("w_build_table_by_curve")
         report["earlier_table_build_ms"] = earlier_table_build_times(results)
         report["earlier_lookup_reduce_ms"] = earlier_lookup_reduce_times(results)
         report["earlier_w_query_ms"] = earlier_w_query_times(results)
+        report["earlier_build_ladder_ms"] = build_ladder_times(results)
         # handle files, packed and vlen queries, the disk cache: counts from
         # 0 over (i)-(iv), also by element count; then the field kernels
         # against their plain versions at those counts
         clear_handles(torch)
         cp.reset_launches()
-        with launch_shapes({}) as file_shapes, TREE_SHAPES.phase("files"):
+        with launch_shapes({}) as file_shapes, PATH_SHAPES.phase("files"):
             phase_files(torch, report["timings"], work)
         file_launches = dict(cp.LAUNCHES)
         file_instances = dict(cp.INSTANCE_LAUNCHES)
@@ -2431,18 +2710,24 @@ def main() -> int:
         # caches: each path's launches are those of its main-path calls
         # alone, counted from 0 around each; then their kernels against plain
         clear_handles(torch)
-        with TREE_SHAPES.phase("bucket", on=False):
+        with PATH_SHAPES.phase("bucket", on=False):
             bucket_launches = phase_bucket(torch, report["timings"])
         clear_handles(torch)
-        with TREE_SHAPES.phase("fewrow", on=False):
+        with PATH_SHAPES.phase("fewrow", on=False):
             fewrow_inputs, fewrow_launches = phase_fewrow(torch, report["timings"])
         results.update(phase_fewrow_kernels(torch, torch.device("cuda"), fewrow_inputs))
         del fewrow_inputs
         clear_handles(torch)
         # tree_reduce_lanes at every shape the paths above launched it at
-        tree_shapes = phase_tree_shapes(torch, torch.device("cuda"), TREE_SHAPES.counts)
+        tree_shapes = phase_tree_shapes(torch, torch.device("cuda"), PATH_SHAPES.counts.get("tree_reduce_lanes", {}))
         report["tree_reduce_lanes_by_shape"] = tree_shapes
         results["tree_reduce_lanes"]["launches_x_gap_ms_all_shapes"] = tree_shapes["launches_x_gap_ms"]
+        # w_build_table, doubling_combine and mont_sum_round at every shape
+        # the paths launched them at
+        ranked = report["kernels_by_shape"] = phase_ranked_shapes(torch, torch.device("cuda"), PATH_SHAPES.counts)
+        for name, rec in ranked.items():
+            results[name]["launches_x_gap_ms_all_shapes"] = rec["launches_x_gap_ms"]
+            results[name]["launches_all_paths"] = rec["launches"]
         results["mont_mul_ew"]["launches_files_path_by_field"] = {
             k.split("/")[1]: v for k, v in file_instances.items() if k.startswith("mont_mul_ew/")}
         for name in cp.KERNELS:
@@ -2481,6 +2766,10 @@ def main() -> int:
               f"niels_add and niels_tree_reduce_lanes launched on the few-row query's path: "
               f"{ {k: fewrow_launches[k] for k in FEWROW_KERNELS} }")
         report["kernels"] = [results[k] for k in cp.KERNELS]
+        report["ranking"] = ranking(report["kernels"], ranked, tree_shapes)
+        for row in report["ranking"][:8]:
+            print(f"    rank: {row['kernel']} {row['launches_x_gap_ms']:.3f} ms over {row['launches']} launches "
+                  f"({row['shapes']})")
         report["card"] = card
         report["device"] = torch.cuda.get_device_name(0)
         print("timings: " + json.dumps(report["timings"]), flush=True)

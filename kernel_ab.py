@@ -39,13 +39,21 @@ script's, so both trees run the same work. Cases:
   proof fields, ``mont_mul_ew`` also in the two Weierstrass base fields;
 - ``tree_reduce_lanes`` at every (curve, size, cols) that chip_smoke.py's
   paths launched it at (its phase 19), on the same tiled points as there
-  (section ``trees``).
+  (section ``trees``);
+- the two table builds of csrc/table_build.cuh's lane schedule (section
+  ``tables``): ``w_build_table`` at bn254 G1 2^20 and on a 2^18-point chunk
+  of each curve, ``build_cached_table`` on a 2^18-point chunk;
+- the ladders of csrc/ladder.cuh (section ``ladders``):
+  ``doubling_combine`` at 1, 2, 7 and 10 outputs, also in one segment
+  where the tree takes ``seg_bits``, and bn254 G1's ladder of one and seven
+  outputs.
 
 Each case's result is held against its plain version (canonical limbs, or
 points for the tree reduces and the ladders; on a spread sample where the
 plain version is large); the JSON holds each case's ``ms`` and whether it
-matched. ``--sections`` runs some of the four sections (``edwards``,
-``weierstrass``, ``mont``, ``trees``). Needs one CUDA card.
+matched. ``--sections`` runs some of the six sections (``edwards``,
+``weierstrass``, ``mont``, ``trees``, ``tables``, ``ladders``). Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from __future__ import annotations
 import argparse
 import functools
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -85,7 +94,7 @@ TREE_SHAPES = (
 TREE_CHECK_COLS = 8
 
 
-SECTIONS = ("edwards", "weierstrass", "mont", "trees")
+SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders")
 # the Weierstrass lookups' partials at the shapes their chunk rules give a
 # 256-row query: K = 1024 (the rule before w_lookup_msm took lookup_chunks),
 # 527 at 2^20 and 521 at a 2^18-point chunk since
@@ -121,7 +130,8 @@ def main() -> int:
     build.library()
     report = {"root": root, "card": cs.card_line(), "build_s": time.perf_counter() - t0,
               "ptxas": {src: cs.ptxas_report((build.BUILD_ROOT / build.digest() / "ptxas.log").read_text(), src)
-                        for src in ("w_lookup_msm.cu", "w_doubling_combine.cu", "wadd.cu", "wdouble.cu")},
+                        for src in ("w_lookup_msm.cu", "w_doubling_combine.cu", "wadd.cu", "wdouble.cu",
+                                    "w_build_table.cu", "build_cached_table.cu", "doubling_combine.cu")},
               "cases": {}}
     cases = report["cases"]
 
@@ -180,7 +190,7 @@ def section_edwards(torch, cs, dev, case) -> None:
 
     products = ed.reshape_batch(ed.index_batch(gens, slice(0, 256)), (1, 256))
     case("doubling_combine", lambda: cp.doubling_combine(products),
-         ed_err(cp.doubling_combine(products), cp.doubling_combine_plain(products)) == 0, reps=20)
+         bool(ed.points_equal(cp.doubling_combine(products), cp.doubling_combine_plain(products)).all()), reps=20)
 
     idx = cp.query_index(torch.from_numpy(cs.counter_scalars(n, 1)[None]).to(dev), None, w)
     entries = fixed.chunk_entries(table, idx[fixed.fewrow_blocks(table, 8)[0]], w)
@@ -331,6 +341,77 @@ def section_mont(torch, cs, dev, case) -> None:
         case(f"mont_sum_round/{field.name}/degree3", run,
              torch.equal(run(), cm.mont_sum_round_plain(field, table, mults, lengths, terms, 3)), reps=10)
         del a, b, table
+
+
+def section_tables(torch, cs, dev, case) -> None:
+    """The two table builds of table_build.cuh's lane schedule:
+    w_build_table at bn254 G1 2^20 and on a 2^18-point chunk of each curve
+    (the oracle's 521 points tiled, w = 8), build_cached_table on a
+    2^18-point chunk of the canonical generators; limb for limb the plain
+    version on 64 groups spread over the table."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    spread = functools.partial(cs.spread_indices, torch, dev)
+    w = 8
+    for curve, n in [(wc.BN254_G1, 1 << 20)] + [(c, cs.CHUNK) for c in wc.CURVES]:
+        groups = n // w
+        gens, _ = cs.tiled_generators(curve, n, dev)
+        table = cw.w_build_table(curve, gens, w)
+        sel = spread(64, groups)
+        members = curve.index_batch(gens, (sel[:, None] * w + torch.arange(w, device=dev)).reshape(-1))
+        case(f"w_build_table/{curve.name}/2^{n.bit_length() - 1}", lambda: cw.w_build_table(curve, gens, w),
+             torch.equal(table[sel], cw.w_build_table_plain(curve, members, w)), reps=3)
+        del gens, table
+    cgens = generators.get_precomputed_generators(cs.CHUNK, 0, dev)
+    cgroups = cs.CHUNK // w
+    ctable = cp.build_cached_table(cgens, w)
+    sel = spread(64, cgroups)
+    members = ed.index_batch(cgens, (sel[:, None] * w + torch.arange(w, device=dev)).reshape(-1))
+    case("build_cached_table/2^18", lambda: cp.build_cached_table(cgens, w),
+         torch.equal(ctable[sel], cp.build_cached_table_plain(members, w)), reps=5)
+    del cgens, ctable
+
+
+def section_ladders(torch, cs, dev, case) -> None:
+    """The two ladders of ladder.cuh: doubling_combine at 1, 2, 7 and 10
+    outputs of 256 bit-row products (the first 2^16 generators tiled, an
+    output rotated by 37 bits from the one before), also in one segment
+    (blitzar_tpu's order) where the tree's wrapper takes ``seg_bits``; the
+    same points as the one-segment plain version. w_doubling_combine's bn254
+    G1 ladder of one and of seven outputs, as section weierstrass."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    nbits = 256
+    base = ed.reshape_batch(ed.index_batch(generators.get_precomputed_generators(1 << 16, 0, dev),
+                                           torch.arange(nbits, device=dev)), (1, nbits))
+    segments = "seg_bits" in inspect.signature(cp.doubling_combine).parameters
+    for outputs in cs.LADDER_OUTPUTS:
+        rows = ed.index_batch(base, (0, (torch.arange(nbits, device=dev)[None]
+                                         + 37 * torch.arange(outputs, device=dev)[:, None]) % nbits))
+        want = cp.doubling_combine_plain(rows)
+        case(f"doubling_combine/{outputs}x{nbits}", lambda: cp.doubling_combine(rows),
+             bool(ed.points_equal(cp.doubling_combine(rows), want).all()), reps=10)
+        if segments:
+            one = functools.partial(cp.doubling_combine, rows, seg_bits=nbits)
+            case(f"doubling_combine/{outputs}x{nbits}/one_segment", one,
+                 cs.point_err(one(), want, F.canonicalize) == 0, reps=10)
+    bn = wc.BN254_G1
+    gens, _ = cs.tiled_generators(bn, nbits, dev)
+    for outputs in (1, 7):
+        flat = bn.index_batch(gens, ((torch.arange(nbits, device=dev)[None]
+                                      + 37 * torch.arange(outputs, device=dev)[:, None]) % nbits).reshape(-1))
+        want = ladder_reference(bn, bn.reshape_batch(flat, (outputs, nbits)), nbits)
+        case(f"ladder/bn254_g1/{outputs}x{nbits}/tiled", lambda: fixed.doubling_combine(flat, outputs, nbits, bn),
+             bool(bn.points_equal(fixed.doubling_combine(flat, outputs, nbits, bn), want).all()), reps=10)
 
 
 def section_trees(torch, cs, dev, case) -> None:

@@ -67,7 +67,9 @@ def test_table_lookup_combine_kernels(dev, signed):
     got = cp.ed_lookup_msm(got_table, scalars.to(dev), None if signs is None else signs.to(dev), w)
     assert _same(got, want)
     products = ed.reshape_batch(ed.tree_reduce(want, want.x.shape[1]), (-1, 16))
-    assert _same(cp.doubling_combine(ed.PointP3(*(c.to(dev) for c in products))), cp.doubling_combine_plain(products))
+    got = cp.doubling_combine(ed.PointP3(*(c.to(dev) for c in products)))
+    assert _same(got, cp.doubling_combine_plain(products, cp.ladder_segment_bits(16)))
+    assert bool(ed.points_equal(ed.PointP3(*(c.cpu() for c in got)), cp.doubling_combine_plain(products)).all())
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -745,3 +747,53 @@ def test_mont_mul_ew_edge_words(dev, fid):
     a, b = limbs([p[0] for p in pairs]), limbs([p[1] for p in pairs])
     r_inv = pow(big_r, -1, m)
     assert torch.equal(cm.mont_mul_ew(field, a.to(dev), b.to(dev)).cpu(), limbs([x * y * r_inv % m for x, y in pairs]))
+
+
+# ---------------------------------------------------------------------------
+# w_build_table on table_build.cuh's lane schedule; the ristretto255 ladder
+# on ladder.cuh's segments
+# ---------------------------------------------------------------------------
+
+# every window up to 8 (4 lanes a group, 32 groups a block: 33 spill into a
+# second block), then 8, 16, 32 lanes a group, one warp (w = 11), two and
+# four warps a group (w = 12, 13)
+W_TABLE_CASES = [(w, 33) for w in range(1, 9)] + [(9, 5), (10, 3), (11, 3), (12, 3), (13, 2)]
+
+
+@pytest.mark.parametrize("w, groups", W_TABLE_CASES)
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_w_table_kernel(dev, curve, w, groups):
+    """The table of the card equals the plain version's limb for limb
+    (blitzar_tpu's order of adds; identity points among the generators)."""
+    pts = _w_points(curve, groups * w, 50 * w + groups)
+    before = cp.LAUNCHES["w_build_table"]
+    got = cw.w_build_table(curve, _on(pts, dev), w)
+    assert cp.LAUNCHES["w_build_table"] == before + 1
+    assert torch.equal(got.cpu(), cw.w_build_table_plain(curve, pts, w))
+
+
+def _ed_ladder_products(outputs: int, nbits: int) -> ed.PointP3:
+    r0, r1 = _r(24, nbits)
+    pts = ed._double_impl(cp.elligator_form_plain(r0, r1))
+    idx = torch.tensor([(5 * o + 3 * b) % 24 for o in range(outputs) for b in range(nbits)])
+    ident = torch.tensor([(o == 0 and b >= nbits // 2 and nbits > 1) or (o * nbits + b) % 7 == 5
+                          for o in range(outputs) for b in range(nbits)])
+    rows = ed.select(ed.index_batch(pts, idx), ed.identity((len(idx),)), ident)
+    return ed.reshape_batch(rows, (outputs, nbits))
+
+
+@pytest.mark.parametrize("outputs, nbits", [(1, 1), (3, 8), (2, 9), (1, 256), (2, 256), (7, 256), (10, 256),
+                                            (14, 64)])
+def test_doubling_combine_kernel(dev, outputs, nbits):
+    """One launch a query; in the kernel's segments limb for limb the plain
+    version in the same segments, in one segment limb for limb blitzar_tpu's
+    order (the default plain version); the two the same points."""
+    products = _ed_ladder_products(outputs, nbits)
+    flat = _on(ed.reshape_batch(products, (outputs * nbits,)), dev)
+    before = cp.LAUNCHES["doubling_combine"]
+    got = fixed.doubling_combine(flat, outputs, nbits)
+    assert cp.LAUNCHES["doubling_combine"] == before + 1
+    assert _same(got, cp.doubling_combine_plain(products, cp.ladder_segment_bits(nbits)))
+    want = cp.doubling_combine_plain(products)
+    assert _same(cp.doubling_combine(_on(products, dev), seg_bits=nbits), want)
+    assert bool(ed.points_equal(_on(got, "cpu"), want).all())

@@ -1,15 +1,18 @@
-"""The Weierstrass ladder of one launch (csrc/w_ladder.cuh, run by
-csrc/w_doubling_combine.cu): out[o] = sum_b 2^b * products[o, b], compiled
-for the host with g++ through csrc/host_harness.cpp, which runs each
-output's lanes one after another and then lane 0's fold.
+"""The ladder of one launch (csrc/ladder.cuh, run by
+csrc/w_doubling_combine.cu for the Weierstrass curves and by
+csrc/doubling_combine.cu for ristretto255): out[o] = sum_b 2^b *
+products[o, b], compiled for the host with g++ through
+csrc/host_harness.cpp, which runs each output's lanes one after another and
+then lane 0's fold.
 
 With one segment (seg_bits = nbits) the ladder is blitzar_tpu's order, and
 its coordinates equal blitzar_tpu's ``_doubling_combine``
 (blitzar_tpu/msm/fixed.py:596) limb for limb; with the kernel's segments
 (``ladder_segment_bits``) they equal the port's plain version in the same
-order (``w_doubling_combine_plain``) limb for limb, and blitzar_tpu's as
-points. All three curves, one and three outputs, 1, 8 and 256 bits, and
-bit rows that are the identity."""
+order (``w_doubling_combine_plain``, ``doubling_combine_plain(products,
+seg_bits)``) limb for limb, and blitzar_tpu's as points. All four curves,
+one and three outputs (ten for ristretto255), 1, 8 and 256 bits, and bit
+rows that are the identity."""
 
 import ctypes
 
@@ -18,12 +21,16 @@ import numpy as np
 import pytest
 import torch
 
+from blitzar_tpu.curves import edwards25519 as jed
 from blitzar_tpu.curves import weierstrass as jw
+from blitzar_tpu.fields import fp25519 as JF
 from blitzar_tpu.msm import fixed as jfixed
+from blitzar_tpu_torch.curves import edwards25519 as ted
 from blitzar_tpu_torch.curves import weierstrass as wc
+from blitzar_tpu_torch.fields import fp25519 as TF
 from blitzar_tpu_torch.msm import fixed as tfixed
-from blitzar_tpu_torch.ops import cuda_wpoint
-from blitzar_tpu_torch.utils.limbs import from_jax_points, to_jax_points
+from blitzar_tpu_torch.ops import cuda_point, cuda_wpoint
+from blitzar_tpu_torch.utils.limbs import from_jax_points, to_jax_points, to_tensor
 
 import torch_host_harness
 
@@ -61,12 +68,13 @@ def _products(curve, outputs: int, nbits: int):
 
 
 def _host_ladder(harness, curve, products, seg_bits: int) -> np.ndarray:
+    """The harness's ladder; curve None: ristretto255 (curve id 0)."""
     _, outputs, nbits = products.x.shape
-    p = np.ascontiguousarray(np.stack([c.reshape(curve.nlimbs, -1).numpy() for c in products]))
-    out = np.zeros((3, curve.nlimbs, outputs), np.int32)
-    rc = harness.btt_host_w_ladder(ctypes.c_int(curve.kernel_id), ctypes.c_void_p(p.ctypes.data),
-                                   ctypes.c_int64(outputs), ctypes.c_int(nbits), ctypes.c_int(seg_bits),
-                                   ctypes.c_void_p(out.ctypes.data))
+    p = np.ascontiguousarray(np.stack([c.reshape(c.shape[0], -1).numpy() for c in products]))
+    out = np.zeros((len(products), p.shape[1], outputs), np.int32)
+    rc = harness.btt_host_ladder(ctypes.c_int(curve.kernel_id if curve else 0), ctypes.c_void_p(p.ctypes.data),
+                                 ctypes.c_int64(outputs), ctypes.c_int(nbits), ctypes.c_int(seg_bits),
+                                 ctypes.c_void_p(out.ctypes.data))
     assert rc == 0
     return out
 
@@ -121,3 +129,85 @@ def test_ladder_matches_blitzar_tpu(harness, curve, outputs, nbits):
     if outputs == 3:  # output 2's only point is bit 0's
         assert curve.to_affine_ints(curve.index_batch(got, slice(2, 3))) == \
             curve.to_affine_ints(curve.index_batch(products, (slice(2, 3), 0)))
+
+
+# ---------------------------------------------------------------------------
+# ristretto255: the same ladder on extended Edwards points
+# ---------------------------------------------------------------------------
+
+ED_SHAPES = [(1, 1), (3, 1), (1, 8), (3, 8), (1, 256), (10, 256)]
+
+
+def _ed_products(outputs: int, nbits: int) -> ted.PointP3:
+    """(16, O, nbits) bit-row products: 24 seeded points (the plain
+    elligator form of seeded field elements, doubled so z != 1) with the
+    identity rows of _products."""
+    rng = np.random.default_rng(nbits + outputs)
+    r = rng.integers(0, 1 << 16, size=(2, 16, 24)).astype(np.int64)
+    r[:, 15] &= 0x7FFF
+    pts = ted._double_impl(cuda_point.elligator_form_plain(to_tensor(r[0], "cpu"), to_tensor(r[1], "cpu")))
+    idx, ident = [], []
+    for o in range(outputs):
+        for b in range(nbits):
+            idx.append((5 * o + 3 * b) % 24)
+            ident.append((o == 0 and nbits > 1 and b >= nbits // 2) or (o == 2 and b > 0) or (o * nbits + b) % 7 == 5)
+    rows = ted.index_batch(pts, torch.tensor(idx))
+    keep = ~torch.tensor(ident)
+    rows = ted.PointP3(*(torch.where(keep, c, ic) for c, ic in zip(rows, ted.identity((len(idx),)))))
+    return ted.reshape_batch(rows, (outputs, nbits))
+
+
+def _ed_canon(p) -> np.ndarray:
+    return np.stack([TF.canonicalize(c).numpy() for c in p])
+
+
+def _ed_points(a: np.ndarray) -> ted.PointP3:
+    return ted.PointP3(*(torch.from_numpy(c) for c in a))
+
+
+def test_ed_segment_rule_is_shared():
+    """One rule for both kernels' segments."""
+    assert cuda_point.ladder_segment_bits is cuda_wpoint.ladder_segment_bits
+
+
+@pytest.mark.parametrize("outputs, nbits", ED_SHAPES)
+def test_ed_ladder_body_matches_plain(harness, outputs, nbits):
+    """The header's Edwards ladder in the kernel's segments equals
+    doubling_combine_plain in the same segments limb for limb; in one
+    segment it equals the default plain version (blitzar_tpu's order) limb
+    for limb; the two orders give the same points."""
+    products = _ed_products(outputs, nbits)
+    seg_bits = cuda_point.ladder_segment_bits(nbits)
+    seg = _host_ladder(harness, None, products, seg_bits)
+    assert np.array_equal(seg, _ed_canon(cuda_point.doubling_combine_plain(products, seg_bits)))
+    one = _host_ladder(harness, None, products, nbits)
+    # the query's ladder on the plain version (doubling_combine on a CPU tensor)
+    flat = ted.reshape_batch(products, (outputs * nbits,))
+    assert np.array_equal(one, _ed_canon(tfixed.doubling_combine(flat, outputs, nbits)))
+    assert bool(ted.points_equal(_ed_points(seg), _ed_points(one)).all())
+
+
+def test_ed_ladder_matches_blitzar_tpu(harness):
+    """blitzar_tpu's _doubling_combine on three outputs' 256 bit-row
+    products: limb for limb against the one-segment ladder, the same points
+    as the kernel's segments; output 2's only point is bit 0's."""
+    outputs, nbits = 3, 256
+    products = _ed_products(outputs, nbits)
+    jp = jed.PointP3(*(jnp.asarray(c) for c in to_jax_points(products)))
+    want = np.stack([np.asarray(JF.canonicalize(c)) for c in jfixed._doubling_combine(jp, nbits)])
+    one = _host_ladder(harness, None, products, nbits)
+    assert np.array_equal(one.astype(np.uint32), want.astype(np.uint32))
+    seg = _ed_points(_host_ladder(harness, None, products, cuda_point.ladder_segment_bits(nbits)))
+    assert bool(ted.points_equal(seg, from_jax_points(want, device="cpu")).all())
+    assert bool(ted.points_equal(ted.index_batch(seg, slice(2, 3)),
+                                 ted.index_batch(products, (slice(2, 3), 0))).all())
+
+
+def test_harness_rejects_ladders_the_kernels_reject(harness):
+    """More than 32 segments, or no bit, as the launchers."""
+    p = np.zeros(4 * 16 * 40, np.int32)
+    out = np.zeros(4 * 16, np.int32)
+    for nbits, seg_bits in ((40, 1), (0, 1), (8, 0)):
+        assert harness.btt_host_ladder(ctypes.c_int(0), ctypes.c_void_p(p.ctypes.data), ctypes.c_int64(1),
+                                       ctypes.c_int(nbits), ctypes.c_int(seg_bits),
+                                       ctypes.c_void_p(out.ctypes.data)) == -1
