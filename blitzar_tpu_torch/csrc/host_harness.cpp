@@ -1,7 +1,8 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
 // fp25519.cuh, edwards25519.cuh, niels_tree.cuh, table_build.cuh, lookup.cuh,
-// mont.cuh, weierstrass.cuh, ladder.cuh, sumcheck.cuh and tree_reduce.cuh are
+// mont.cuh, weierstrass.cuh, ladder.cuh, sumcheck.cuh, tree_reduce.cuh and
+// w_affine.cuh are
 // compiled here by a
 // host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
@@ -9,7 +10,8 @@
 // function loops over n elements in the public layout: a field batch is a
 // (nlimbs, n) int32 array, an Edwards point batch (4, 16, n), a niels batch
 // (3, 16, n), a cached batch (4, 16, n), a Weierstrass point batch (3,
-// nlimbs, n), a sumcheck MLE table (16, m, 2 mid).
+// nlimbs, n), a sumcheck MLE table (16, m, 2 mid), a Weierstrass table
+// chunk (count, 3, K) words.
 #include "edwards25519.cuh"
 #include "ladder.cuh"
 #include "lookup.cuh"
@@ -17,6 +19,7 @@
 #include "sumcheck.cuh"
 #include "table_build.cuh"
 #include "tree_reduce.cuh"
+#include "w_affine.cuh"
 #include "weierstrass.cuh"
 
 #include <vector>
@@ -72,30 +75,79 @@ void host_mont(int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t
   host_mont_field<typename C::F>(op, a, b, out, n);
 }
 
-// The sumcheck round of mont_sum_round.cu with one lane after another: the
-// lanes' shares summed in order into out (16, D + 1).
+// The sumcheck round of mont_sum_round.cu, its grid simulated: nblocks
+// blocks of `threads` threads, thread t of block b adding lanes
+// b * threads + t + k * nblocks * threads; each block's per-(product,
+// point) partials, their sums over the blocks and the last block's finish
+// (round_point, round_coefficient); out (16, D + 1).
+template <class F, int L>
+void host_sum_product(const mle_ptrs& t, int64_t mid, const int32_t* terms, int64_t nblocks, int64_t threads,
+                      std::vector<mfe<F>>& colsums, int col) {
+  for (int k = 0; k <= L; ++k) colsums[col + k] = mf_zero<F>();
+  for (int64_t b = 0; b < nblocks; ++b) {
+    mfe<F> part[L + 1];
+    for (int k = 0; k <= L; ++k) part[k] = mf_zero<F>();
+    for (int64_t th = 0; th < threads; ++th) {
+      mfe<F> acc[L + 1];
+      for (int k = 0; k <= L; ++k) acc[k] = mf_zero<F>();
+      for (int64_t i = b * threads + th; i < mid; i += nblocks * threads) {
+        add_product_points<F, L, mf_mul_op<F>>(t, mid, i, terms, acc);
+      }
+      for (int k = 0; k <= L; ++k) part[k] = mf_add<F>(part[k], acc[k]);
+    }
+    for (int k = 0; k <= L; ++k) colsums[col + k] = mf_add<F>(colsums[col + k], part[k]);
+  }
+}
+
 template <class F, int D>
 void host_sum_round(const int32_t* mles, int64_t m, int64_t mid, const int32_t* mults, int num_products,
-                    const int32_t* lengths, const int32_t* terms, int32_t* out) {
+                    const int32_t* lengths, const int32_t* terms, const int32_t* interp, int64_t nblocks,
+                    int64_t threads, int32_t* out) {
   mle_ptrs t = {mles, m * 2 * mid, 2 * mid};
   product_ptrs p = {mults, lengths, terms, num_products};
-  mfe<F> acc[D + 1];
-  for (int k = 0; k <= D; ++k) acc[k] = mf_zero<F>();
-  for (int64_t i = 0; i < mid; ++i) sum_lane<F, D>(t, mid, i, p, acc);
-  for (int k = 0; k <= D; ++k) mf_store<F>(out + k, D + 1, acc[k]);
+  std::vector<int> rep(num_products);
+  std::vector<mfe<F>> colsums(num_products * (D + 1));
+  int first = 0;
+  for (int q = 0; q < num_products; first += lengths[q], ++q) {
+    rep[q] = same_product(p, q, first);
+    if (rep[q] != q) continue;
+    const int col = q * (D + 1);
+    switch (lengths[q]) {
+      case 1: host_sum_product<F, 1>(t, mid, terms + first, nblocks, threads, colsums, col); break;
+      case 2: host_sum_product<F, 2>(t, mid, terms + first, nblocks, threads, colsums, col); break;
+      case 3: host_sum_product<F, 3>(t, mid, terms + first, nblocks, threads, colsums, col); break;
+      case 4: host_sum_product<F, 4>(t, mid, terms + first, nblocks, threads, colsums, col); break;
+      default: host_sum_product<F, 5>(t, mid, terms + first, nblocks, threads, colsums, col); break;
+    }
+  }
+  mfe<F> values[D + 1];
+  for (int k = 0; k <= D; ++k) values[k] = round_point<F, D>(p, rep.data(), colsums.data(), k);
+  for (int j = 0; j <= D; ++j) {
+    mfe<F> c = mf_zero<F>();
+    for (int k = 0; k <= D; ++k) c = mf_add<F>(c, interp_term<F, D>(interp, values, j, k));
+    mf_store<F>(out + j, D + 1, c);
+  }
 }
 
 template <class F>
 int host_sum_round_degree(int degree, const int32_t* mles, int64_t m, int64_t mid, const int32_t* mults,
-                          int num_products, const int32_t* lengths, const int32_t* terms, int32_t* out) {
+                          int num_products, const int32_t* lengths, const int32_t* terms, const int32_t* interp,
+                          int64_t nblocks, int64_t threads, int32_t* out) {
+  for (int q = 0; q < num_products; ++q) {
+    if (lengths[q] < 1 || lengths[q] > degree) return -1;
+  }
+  if (nblocks < 1 || threads < 1) return -1;
+#define BTT_SUM_ROUND(D) \
+  host_sum_round<F, D>(mles, m, mid, mults, num_products, lengths, terms, interp, nblocks, threads, out)
   switch (degree) {
-    case 1: host_sum_round<F, 1>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
-    case 2: host_sum_round<F, 2>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
-    case 3: host_sum_round<F, 3>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
-    case 4: host_sum_round<F, 4>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
-    case 5: host_sum_round<F, 5>(mles, m, mid, mults, num_products, lengths, terms, out); return 0;
+    case 1: BTT_SUM_ROUND(1); return 0;
+    case 2: BTT_SUM_ROUND(2); return 0;
+    case 3: BTT_SUM_ROUND(3); return 0;
+    case 4: BTT_SUM_ROUND(4); return 0;
+    case 5: BTT_SUM_ROUND(5); return 0;
     default: return -1;
   }
+#undef BTT_SUM_ROUND
 }
 
 // the fold of mont_fold_round.cu: out (16, m, mid) from mles (16, m, 2 mid)
@@ -263,13 +315,19 @@ int btt_host_field_mont(int field, int op, const int32_t* a, const int32_t* b, i
   }
 }
 
+// mles (16, m, 2 mid); interp (16, (degree + 1)^2), cuda_mont.interpolation;
+// nblocks x threads the simulated grid; returns -1 for another field, a
+// product length outside 1..degree or an empty grid
 int btt_host_sum_round(int field, int degree, const int32_t* mles, int64_t m, int64_t mid, const int32_t* mults,
-                       int num_products, const int32_t* lengths, const int32_t* terms, int32_t* out) {
+                       int num_products, const int32_t* lengths, const int32_t* terms, const int32_t* interp,
+                       int64_t nblocks, int64_t threads, int32_t* out) {
   switch (field) {
     case kFieldScalar255:
-      return host_sum_round_degree<Scalar25519>(degree, mles, m, mid, mults, num_products, lengths, terms, out);
+      return host_sum_round_degree<Scalar25519>(degree, mles, m, mid, mults, num_products, lengths, terms, interp,
+                                                nblocks, threads, out);
     case kFieldGrumpkin:
-      return host_sum_round_degree<Bn254Fr>(degree, mles, m, mid, mults, num_products, lengths, terms, out);
+      return host_sum_round_degree<Bn254Fr>(degree, mles, m, mid, mults, num_products, lengths, terms, interp,
+                                            nblocks, threads, out);
     default: return -1;
   }
 }
@@ -526,6 +584,31 @@ int btt_host_w_build_table(int curve, const int32_t* points, int64_t n, int w, i
     case Bls12381G1::id: run(Bls12381G1(), 24); return 0;
     case Bn254G1::id: run(Bn254G1(), 16); return 0;
     case Grumpkin::id: run(Grumpkin(), 16); return 0;
+    default: return -1;
+  }
+}
+
+// entries (count, 3, K) words of a Weierstrass table chunk -> rows (count,
+// 2K) words, w_affine.cu's tiles of 32 x per entries (the kernel's per is
+// 64) one lane after another; returns -1 for another curve.
+int btt_host_w_affine(int curve, const int32_t* entries, int64_t count, int per, int32_t* rows) {
+  if (per < 1) return -1;
+  auto run = [&](auto field_tag) {
+    using F = decltype(field_tag);
+    const uint32_t* e = reinterpret_cast<const uint32_t*>(entries);
+    uint32_t* r = reinterpret_cast<uint32_t*>(rows);
+    for (int64_t tile = 0; tile < count; tile += 32LL * per) {
+      for (int lane = 0; lane < 32; ++lane) {
+        const int64_t left = count - tile - lane;
+        const int n = left <= 0 ? 0 : (int)(left < 32LL * per ? (left + 31) / 32 : per);
+        affine_entries<F, mf_mul_op<F>>(e, r, tile + lane, 32, n);
+      }
+    }
+  };
+  switch (curve) {
+    case Bls12381G1::id: run(Bls12381Fp()); return 0;
+    case Bn254G1::id: run(Bn254Fp()); return 0;
+    case Grumpkin::id: run(Bn254Fr()); return 0;
     default: return -1;
   }
 }

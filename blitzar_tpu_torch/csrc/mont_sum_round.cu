@@ -5,21 +5,26 @@
 // Replaces blitzar_tpu/ops/pallas_point.py:mont_sum_round (:1077, body
 // _mont_sum_body_factory :1026) for the curve25519 scalar field and the
 // Grumpkin base field, picked by the field's C ABI id; the degree (1..5)
-// picks one of five instantiations, so the accumulators are registers. The
-// product table is data (three small device arrays), not a template: one
-// build serves every proof shape.
+// picks one of five instantiations. The product table is data (three small
+// device arrays), not a template: one build serves every proof shape.
 //
-// Design: pass 1, thread per lane (grid-stride), expands its lanes' products
-// (sumcheck.cuh:sum_lane) into degree + 1 accumulators; each block then sums
-// its threads' accumulators by modular adds in shared memory, one
-// coefficient at a time, and writes one partial per coefficient. Pass 2, one
-// block, sums the partials the same way. There is no atomic add on field
-// elements, and every sum is exact mod m, so the order of additions does not
-// change the result. Work: (len - 1)(len + 2) field multiplies a lane per
-// product of len factors (2 more for the multiplier), 264 32-bit multiplies
-// each, and 64 bytes read per MLE element. The function needs fewer
-// multiplies (evaluation form, identical products once): chip_smoke.py's
-// bound counts those.
+// Design, one launch a round: a grid of 128-thread blocks, as many as the
+// card holds at once (the occupancy of the instantiation times the SMs),
+// grid-stride over the lanes. Products of the same MLEs are summed once
+// (sumcheck.cuh: same_product). For each other product, every thread adds its lanes'
+// values at X = 0..L (sumcheck.cuh: evaluation form, Huffman-ordered
+// merges, 7 multiplies a lane for 3 factors) into L + 1 accumulators in
+// registers; the block sums them by warp shuffles and one shared-memory
+// stage and writes one partial per (product, point). The last block to
+// finish (an atomic ticket in a word the wrapper keeps, reset by that
+// block) sums the partials, applies each product's multiplier once, carries
+// the sums to the round's D + 1 points and interpolates to the
+// coefficients, with constants from the wrapper; a round of one block
+// skips the partials and the ticket. Every multiply of the lanes calls one
+// non-inlined Montgomery body (mf_mul_call: inlined, the degree-5 kernel
+// took 1.9x as long). Sums mod m are exact, so the result is the
+// coefficient form's limb for limb. Bound: bytes (64 bytes read per MLE
+// element) or the multiplies, whichever is larger.
 #include <cuda_runtime.h>
 
 #include "sumcheck.cuh"
@@ -28,73 +33,186 @@ using namespace btt;
 
 namespace {
 
-constexpr int kThreads = 256;
+// threads a block: at the degree-3 instantiation's ~150 registers, three
+// blocks an SM (two of 256 would not fit); PERF.md §6 has 256 against 128
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 
-// The sum of v over the block's threads, stored by thread 0 at out (limb
-// stride ``stride``). v comes by value and the function is inlined, so the
-// callers' accumulators stay in registers.
+// The sum of v over the warp, in lane 0.
 template <class F>
-__device__ __forceinline__ void block_sum_store(mfe<F>* sh, mfe<F> v, int32_t* out, int64_t stride) {
-  const int tid = threadIdx.x;
-  sh[tid] = v;
+__device__ __forceinline__ mfe<F> warp_sum(mfe<F> v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    mfe<F> o;
+#pragma unroll
+    for (int w = 0; w < F::K; ++w) o.v[w] = __shfl_down_sync(0xffffffffu, v.v[w], d);
+    v = mf_add<F>(v, o);
+  }
+  return v;
+}
+
+// partials: (column, block) elements of K words
+template <class F>
+__device__ __forceinline__ uint32_t* partial_at(uint32_t* partials, int col, int64_t block) {
+  return partials + ((int64_t)col * gridDim.x + block) * F::K;
+}
+
+// The block's sums of acc[0..N-1] to columns col..col+N-1: of the partials,
+// or, when the block is the whole grid, straight to the column sums.
+template <class F, int N>
+__device__ __forceinline__ void block_sums(const mfe<F>* acc, mfe<F>* sh, uint32_t* partials, mfe<F>* colsums,
+                                           int col) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const mfe<F> s = warp_sum<F>(acc[k]);
+    if (lane == 0) sh[warp * N + k] = s;
+  }
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) sh[tid] = mf_add<F>(sh[tid], sh[tid + s]);
+  if (threadIdx.x < N) {
+    mfe<F> s = sh[threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) s = mf_add<F>(s, sh[w * N + threadIdx.x]);
+    if (gridDim.x == 1) {
+      colsums[col + threadIdx.x] = s;
+    } else {
+      uint32_t* dst = partial_at<F>(partials, col + threadIdx.x, blockIdx.x);
+#pragma unroll
+      for (int w = 0; w < F::K; ++w) dst[w] = s.v[w];
+      __threadfence();
+    }
+  }
+  __syncthreads();
+}
+
+// One product of L factors (its MLEs at terms) over the thread's lanes,
+// summed to columns col..col+L.
+template <class F, int L>
+__device__ __forceinline__ void sum_product(const mle_ptrs& mles, int64_t mid, const int32_t* terms, mfe<F>* sh,
+                                            uint32_t* partials, mfe<F>* colsums, int col) {
+  mfe<F> acc[L + 1];
+#pragma unroll
+  for (int k = 0; k <= L; ++k) acc[k] = mf_zero<F>();
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < mid; i += stride) {
+    add_product_points<F, L, mf_mul_call_op<F>>(mles, mid, i, terms, acc);
+  }
+  block_sums<F, L + 1>(acc, sh, partials, colsums, col);
+}
+
+// Product p's sums at its points 0..L are columns p (D + 1) + 0..L of the
+// partials and of the column sums. dyn: P ints (same_product of each
+// product), padded to 16 bytes, then the column sums.
+template <class F, int D>
+__global__ void __launch_bounds__(kThreads)
+mont_sum_round_kernel(mle_ptrs mles, int64_t mid, product_ptrs prods, const int32_t* interp, uint32_t* partials,
+                      unsigned* ticket, int32_t* out) {
+  constexpr int kTerms = (D + 1) * (D + 1);
+  extern __shared__ uint4 dyn[];
+  __shared__ mfe<F> sh[kWarps * (D + 1) > kTerms ? kWarps * (D + 1) : kTerms];
+  __shared__ mfe<F> values[D + 1];
+  __shared__ bool last;
+  const int num = prods.num_products;
+  int* rep = reinterpret_cast<int*>(dyn);
+  mfe<F>* colsums = reinterpret_cast<mfe<F>*>(dyn + (num + 3) / 4);
+  for (int p = threadIdx.x; p < num; p += kThreads) {
+    int first = 0;
+    for (int q = 0; q < p; ++q) first += prods.lengths[q];
+    rep[p] = same_product(prods, p, first);
+  }
+  __syncthreads();
+
+  int first = 0;
+  for (int p = 0; p < num; first += prods.lengths[p], ++p) {
+    if (rep[p] != p) continue;
+    const int32_t* terms = prods.terms + first;
+    const int col = p * (D + 1);
+    switch (prods.lengths[p]) {
+      case 1: sum_product<F, 1>(mles, mid, terms, sh, partials, colsums, col); break;
+      case 2: if constexpr (D >= 2) sum_product<F, 2>(mles, mid, terms, sh, partials, colsums, col); break;
+      case 3: if constexpr (D >= 3) sum_product<F, 3>(mles, mid, terms, sh, partials, colsums, col); break;
+      case 4: if constexpr (D >= 4) sum_product<F, 4>(mles, mid, terms, sh, partials, colsums, col); break;
+      case 5: if constexpr (D >= 5) sum_product<F, 5>(mles, mid, terms, sh, partials, colsums, col); break;
+      default: break;
+    }
+  }
+
+  if (gridDim.x > 1) {
+    // the last block to finish sums the partials
+    if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int p = 0; p < num; ++p) {
+      if (rep[p] != p) continue;
+      const int col = p * (D + 1);
+      for (int c = col + warp; c <= col + prods.lengths[p]; c += kWarps) {
+        mfe<F> s = mf_zero<F>();
+        for (int64_t b = lane; b < gridDim.x; b += 32) {
+          const uint32_t* src = partial_at<F>(partials, c, b);
+          mfe<F> v;
+#pragma unroll
+          for (int w = 0; w < F::K; ++w) v.v[w] = __ldcg(src + w);
+          s = mf_add<F>(s, v);
+        }
+        s = warp_sum<F>(s);
+        if (lane == 0) colsums[c] = s;
+      }
+    }
+    if (threadIdx.x == 0) *ticket = 0;
     __syncthreads();
   }
-  if (tid == 0) mf_store<F>(out, stride, sh[0]);
+  // the round's values at 0..D, then its coefficients, a term a thread
+  if (threadIdx.x <= D) values[threadIdx.x] = round_point<F, D>(prods, rep, colsums, threadIdx.x);
   __syncthreads();
+  if (threadIdx.x < kTerms) {
+    sh[threadIdx.x] = interp_term<F, D>(interp, values, threadIdx.x / (D + 1), threadIdx.x % (D + 1));
+  }
+  __syncthreads();
+  if (threadIdx.x <= D) {
+    mfe<F> c = sh[threadIdx.x * (D + 1)];
+    for (int k = 1; k <= D; ++k) c = mf_add<F>(c, sh[threadIdx.x * (D + 1) + k]);
+    mf_store<F>(out + threadIdx.x, D + 1, c);
+  }
 }
 
-// partials: (2K, D + 1, gridDim.x) int32 limbs
+// Dynamic shared memory: the product table's same_product indices and the
+// last block's column sums, at most D + 1 columns a product.
 template <class F, int D>
-__global__ void __launch_bounds__(kThreads)
-mont_sum_round_kernel(mle_ptrs mles, int64_t mid, product_ptrs prods, int32_t* partials) {
-  __shared__ mfe<F> sh[kThreads];
-  mfe<F> acc[D + 1];
-#pragma unroll
-  for (int k = 0; k <= D; ++k) acc[k] = mf_zero<F>();
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < mid; i += (int64_t)gridDim.x * kThreads) {
-    sum_lane<F, D>(mles, mid, i, prods, acc);
-  }
-  const int64_t nblocks = gridDim.x;
-#pragma unroll
-  for (int k = 0; k <= D; ++k) {
-    block_sum_store<F>(sh, acc[k], partials + k * nblocks + blockIdx.x, (D + 1) * nblocks);
-  }
-}
-
-// one block: out (2K, ncoeffs) = the sums over nblocks of partials
-// (2K, ncoeffs, nblocks)
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-mont_sum_partials_kernel(const int32_t* partials, int ncoeffs, int64_t nblocks, int32_t* out) {
-  __shared__ mfe<F> sh[kThreads];
-  for (int k = 0; k < ncoeffs; ++k) {
-    mfe<F> acc = mf_zero<F>();
-    for (int64_t j = threadIdx.x; j < nblocks; j += kThreads) {
-      acc = mf_add<F>(acc, mf_load<F>(partials + k * nblocks + j, ncoeffs * nblocks));
-    }
-    block_sum_store<F>(sh, acc, out + k, ncoeffs);
-  }
+size_t dyn_bytes(int num_products) {
+  return (size_t)(num_products + 3) / 4 * 16 + (size_t)num_products * (D + 1) * sizeof(mfe<F>);
 }
 
 template <class F, int D>
-void launch(mle_ptrs mles, int64_t mid, product_ptrs prods, int64_t nblocks, int32_t* partials, int32_t* out,
-            cudaStream_t stream) {
-  mont_sum_round_kernel<F, D><<<(unsigned)nblocks, kThreads, 0, stream>>>(mles, mid, prods, partials);
-  mont_sum_partials_kernel<F><<<1, kThreads, 0, stream>>>(partials, D + 1, nblocks, out);
+void launch(mle_ptrs mles, int64_t mid, product_ptrs prods, const int32_t* interp, int64_t max_blocks,
+            uint32_t* partials, unsigned* ticket, int32_t* out, cudaStream_t stream) {
+  // the blocks the card holds at once, by the instantiation's occupancy
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mont_sum_round_kernel<F, D>, kThreads,
+                                                  dyn_bytes<F, D>(1));
+    resident = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  }
+  int64_t blocks = (mid + kThreads - 1) / kThreads;
+  if (blocks > resident) blocks = resident;
+  if (blocks > max_blocks) blocks = max_blocks;
+  if (blocks < 1) blocks = 1;
+  mont_sum_round_kernel<F, D><<<(unsigned)blocks, kThreads, dyn_bytes<F, D>(prods.num_products), stream>>>(
+      mles, mid, prods, interp, partials, ticket, out);
 }
 
 template <class F>
-int launch_degree(int degree, mle_ptrs mles, int64_t mid, product_ptrs prods, int64_t nblocks, int32_t* partials,
-                  int32_t* out, cudaStream_t stream) {
+int launch_degree(int degree, mle_ptrs mles, int64_t mid, product_ptrs prods, const int32_t* interp,
+                  int64_t max_blocks, uint32_t* partials, unsigned* ticket, int32_t* out, cudaStream_t s) {
   switch (degree) {
-    case 1: launch<F, 1>(mles, mid, prods, nblocks, partials, out, stream); return 0;
-    case 2: launch<F, 2>(mles, mid, prods, nblocks, partials, out, stream); return 0;
-    case 3: launch<F, 3>(mles, mid, prods, nblocks, partials, out, stream); return 0;
-    case 4: launch<F, 4>(mles, mid, prods, nblocks, partials, out, stream); return 0;
-    case 5: launch<F, 5>(mles, mid, prods, nblocks, partials, out, stream); return 0;
+    case 1: launch<F, 1>(mles, mid, prods, interp, max_blocks, partials, ticket, out, s); return 0;
+    case 2: launch<F, 2>(mles, mid, prods, interp, max_blocks, partials, ticket, out, s); return 0;
+    case 3: launch<F, 3>(mles, mid, prods, interp, max_blocks, partials, ticket, out, s); return 0;
+    case 4: launch<F, 4>(mles, mid, prods, interp, max_blocks, partials, ticket, out, s); return 0;
+    case 5: launch<F, 5>(mles, mid, prods, interp, max_blocks, partials, ticket, out, s); return 0;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -103,23 +221,30 @@ int launch_degree(int degree, mle_ptrs mles, int64_t mid, product_ptrs prods, in
 
 // field: 0 SXT_FIELD_SCALAR255, 1 SXT_FIELD_GRUMPKIN. mles: (2K, m, 2 mid)
 // int32 limbs at (limb_stride, row_stride, 1); mults: (2K, num_products)
-// contiguous; lengths (num_products,) and terms (sum of lengths,) int32;
-// nblocks: pass 1's blocks, at least 1 (the wrapper takes one per 256 lanes,
-// at most 1024); partials: (2K, degree + 1, nblocks) scratch; out:
-// (2K, degree + 1) contiguous.
+// contiguous; lengths (num_products,) and terms (sum of lengths,) int32,
+// every length in 1..degree; interp: (2K, (degree + 1)^2) the inverse
+// Vandermonde matrix of the points 0..degree; max_blocks: the blocks
+// partials holds, at least 1; partials: (num_products (degree + 1),
+// max_blocks, K) words of scratch; ticket: one word, 0 between launches
+// (each launch leaves it 0); out: (2K, degree + 1) contiguous.
 extern "C" int btt_mont_sum_round(int field, int degree, const void* mles, int64_t limb_stride, int64_t row_stride,
                                   int64_t mid, const void* mults, int num_products, const void* lengths,
-                                  const void* terms, int64_t nblocks, void* partials, void* out, void* stream) {
+                                  const void* terms, const void* interp, int64_t max_blocks, void* partials,
+                                  void* ticket, void* out, void* stream) {
+  if (num_products < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
   mle_ptrs m = {(const int32_t*)mles, limb_stride, row_stride};
   product_ptrs p = {(const int32_t*)mults, (const int32_t*)lengths, (const int32_t*)terms, num_products};
   cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* c = (const int32_t*)interp;
+  uint32_t* part = (uint32_t*)partials;
+  unsigned* t = (unsigned*)ticket;
   int rc;
   switch (field) {
     case kFieldScalar255:
-      rc = launch_degree<Scalar25519>(degree, m, mid, p, nblocks, (int32_t*)partials, (int32_t*)out, s);
+      rc = launch_degree<Scalar25519>(degree, m, mid, p, c, max_blocks, part, t, (int32_t*)out, s);
       break;
     case kFieldGrumpkin:
-      rc = launch_degree<Bn254Fr>(degree, m, mid, p, nblocks, (int32_t*)partials, (int32_t*)out, s);
+      rc = launch_degree<Bn254Fr>(degree, m, mid, p, c, max_blocks, part, t, (int32_t*)out, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -223,9 +223,9 @@ class MontField:
         blitzar_tpu/msm/interop.py:59-78, whose zeros are a Weierstrass
         table's identity entries. Zeros stand as one in the scans and are
         masked after. ``mul`` (default :meth:`mul`) runs the 3 (V - 1) scan
-        multiplies, each over (nlimbs, rows) (on the card the ``mont_mul_ew``
-        kernel); each row's total is inverted by :meth:`inv`, in plain
-        PyTorch."""
+        multiplies, each over (nlimbs, rows); each row's total is inverted
+        by :meth:`inv`. The plain version of ``ops/cuda_wpoint.py``'s
+        ``w_affine``, whose kernel does all of it in one launch."""
         nonzero = ~self.is_zero(z)
         z_safe = torch.where(nonzero.unsqueeze(0), z, self.one((1,) * (z.dim() - 1), z.device))
         inv = batch_invert.batch_invert_lanes(z_safe, mul or self.mul, self.inv)

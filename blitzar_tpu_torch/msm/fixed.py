@@ -504,15 +504,18 @@ def _packed_query(handle: MultiexpHandle, output_bit_table, n: int, scalars, out
     each output's rows are picked from those and padded with identities to
     max(bit_table) bits (zero rows at high bits add nothing), so one ladder
     combines every output. With ``output_lengths``, the bits of output o at
-    generators >= lengths[o] are zeroed first."""
+    generators >= lengths[o] are zeroed first. An output of width 0 has no
+    bit rows: all its picks are the identity, and so is the output
+    (blitzar_tpu/msm/fixed.py:902-945); when every width is 0, every output
+    is the identity (blitzar_tpu divides by zero there)."""
     curve = handle.curve
     bit_table = [int(b) for b in output_bit_table]
-    if not bit_table:
-        return curve.identity((0,), handle.device)
-    if min(bit_table) < 1:
-        raise ValueError(f"output bit widths must be at least 1, got {bit_table}")
+    if min(bit_table, default=0) < 0:
+        raise ValueError(f"output bit widths must be non-negative, got {bit_table}")
+    maxb = max(bit_table, default=0)
+    if maxb == 0:
+        return curve.identity((len(bit_table),), handle.device)
     num_bytes = -(-sum(bit_table) // 8)
-    maxb = max(bit_table)
     packed = np.asarray(scalars, np.uint8).reshape(n, num_bytes)
     dev_scalars = _scalars_tensor(handle, packed[None])  # (1, n_pad, num_bytes)
     if output_lengths is not None:

@@ -15,10 +15,11 @@ little-endian u64 words:
 Both directions run chunk by chunk (``fixed.TABLE_CHUNK_ENTRIES`` entries),
 the field work and the word conversions on the table's device: ristretto255
 niels entries to affine x, y and x*y by ``fmul`` (``ops/cuda_field.py``) and
-back; a Weierstrass table's projective points to affine ones by a batch
-inversion of z over rows of at most 256 entries, its scans on ``mont_mul_ew``
-(``ops/cuda_mont.py``), its row totals inverted in plain PyTorch. The file
-goes through the host once, a chunk at a time. A file with w a multiple of 8
+back; a Weierstrass table's projective points to the file's affine rows by
+one ``w_affine`` launch a chunk (``ops/cuda_wpoint.py``: a batch inversion
+of z and x / z, y / z on the card), read back by ``mont_mul_ew``
+(``ops/cuda_mont.py``). The file goes through the host once, a chunk at a
+time. A file with w a multiple of 8
 above 8 (the reference's default is 16) is re-windowed to w = 8 as it is
 read: a w table already holds every w = 8 entry (the subset u of sub-slot
 s's generators sits at index u << 8 s), so this is indexing, no group
@@ -50,36 +51,11 @@ def entry_words(curve) -> int:
     return 3 * F51_WORDS if curve is ed else curve.nlimbs // 2
 
 
-def _one_words(field, device) -> torch.Tensor:
-    """The Montgomery one as (1, nlimbs / 4) u64 words."""
-    return limb_util.limbs16_to_u64(field.one((1,), device))
-
-
 def _ed_rows(words: torch.Tensor) -> torch.Tensor:
     """(g, V, 3, 8) niels words -> (g V, 15) int64 rows {X, Y, X*Y}."""
     x, y = ed.niels_to_affine(cuda_point.unpack_niels(words), cuda_field.fmul)
     xy = cuda_field.fmul(x, y)
     return torch.cat([limb_util.limbs16_to_f51_u64(c.reshape(c.shape[0], -1)) for c in (x, y, xy)], dim=1)
-
-
-def _w_rows(curve, words: torch.Tensor) -> torch.Tensor:
-    """(g, V, 3, K) projective words -> (g V, 2 nlimbs / 4) int64 rows {x, y}
-    (blitzar_tpu/msm/interop.py:59-78, 100-113)."""
-    f = curve.field
-    p = cuda_wpoint.unpack_points(words)
-
-    def mul(a, b):
-        return cuda_mont.mont_mul_ew(f, a, b)
-
-    zinv = f.batch_invert_lanes(fixed.lane_rows(p.z), mul).reshape(f.nlimbs, -1)
-    x = cuda_mont.mont_mul_ew(f, p.x.reshape(f.nlimbs, -1), zinv)
-    y = cuda_mont.mont_mul_ew(f, p.y.reshape(f.nlimbs, -1), zinv)
-    xw, yw = limb_util.limbs16_to_u64(x), limb_util.limbs16_to_u64(y)
-    inf = f.is_zero(p.z.reshape(f.nlimbs, -1))
-    xw[inf] = 0
-    xw[inf, -1] = -1  # 2^64 - 1
-    yw[inf] = _one_words(f, words.device)
-    return torch.cat([xw, yw], dim=1)
 
 
 def write_reference_file(handle: "fixed.MultiexpHandle", path: str) -> None:
@@ -89,7 +65,7 @@ def write_reference_file(handle: "fixed.MultiexpHandle", path: str) -> None:
     with open(path, "wb") as out:
         out.write(HEADER.pack(handle.window_width))
         for sl in fixed.table_chunks(table.shape[0], table.shape[1]):
-            rows = _ed_rows(table[sl]) if handle.curve is ed else _w_rows(handle.curve, table[sl])
+            rows = _ed_rows(table[sl]) if handle.curve is ed else cuda_wpoint.w_affine(handle.curve, table[sl])
             rows.cpu().numpy().tofile(out)
 
 

@@ -57,10 +57,11 @@ SIGNATURES = {
     "btt_wadd": [_I, _P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "btt_wdouble": [_I, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "btt_w_doubling_combine": [_I, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
+    "btt_w_affine": [_I, _P, _I64, _P, _P],
     # the proof kernels take the field's C ABI id first
     "btt_mont_mul_ew": [_I, _P, _I64, _P, _I64, _I64, _I64, _P, _P],
     "btt_mont_fold_round": [_I, _P, _I64, _I64, _I64, _I64, _P, _I64, _P, _P],
-    "btt_mont_sum_round": [_I, _I, _P, _I64, _I64, _I64, _P, _I, _P, _P, _I64, _P, _P, _P],
+    "btt_mont_sum_round": [_I, _I, _P, _I64, _I64, _I64, _P, _I, _P, _P, _P, _I64, _P, _P, _P, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -30,6 +30,8 @@ reduce raw 256-bit rows in one launch.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..fields import params
@@ -44,10 +46,12 @@ SXT_FIELD_GRUMPKIN = 1
 FIELDS = {SXT_FIELD_SCALAR255: params.SCALAR25519, SXT_FIELD_GRUMPKIN: params.BN254_FR}
 
 MAX_DEGREE = 5  # reference proof/sumcheck/constant.h:25
-# mont_sum_round's pass 1: threads a block (csrc/mont_sum_round.cu) and at
-# most this many blocks (one partial each)
-SUM_THREADS = 256
+# mont_sum_round: the blocks its partials hold at most (the kernel takes as
+# many as the card holds at once, fewer for a short round) and the products
+# a round takes at most (the kernel keeps D + 1 sums a product, 196 bytes at
+# degree 5, in the 48 KB of shared memory a launch gets without asking)
 SUM_MAX_BLOCKS = 1024
+SUM_MAX_PRODUCTS = 200
 
 
 # mont_mul_ew's fields by the id its launcher takes: the proof fields, and
@@ -196,23 +200,71 @@ def mont_sum_round_plain(field: MontField, mles, mults, lengths, terms, degree: 
     return total
 
 
+@functools.lru_cache(maxsize=None)
+def _interpolation_ints(modulus: int, degree: int) -> tuple:
+    """The inverse Vandermonde matrix of the points 0..degree mod m, row j
+    the coefficients of X^j: entry (j, k) of Lagrange basis polynomial k."""
+    n = degree + 1
+    rows = [[0] * n for _ in range(n)]
+    for k in range(n):
+        poly, denom = [1], 1
+        for i in range(n):
+            if i != k:
+                poly = [(a - i * b) % modulus for a, b in zip([0] + poly, poly + [0])]  # times (X - i)
+                denom = denom * (k - i) % modulus
+        scale = pow(denom, -1, modulus)
+        for j in range(n):
+            rows[j][k] = poly[j] * scale % modulus
+    return tuple(v for row in rows for v in row)
+
+
+_INTERPOLATION: dict = {}
+
+
+def interpolation(field: MontField, degree: int, device) -> torch.Tensor:
+    """(nlimbs, (degree + 1)^2) Montgomery constants: the inverse Vandermonde
+    matrix of the points 0..degree, row-major (csrc/sumcheck.cuh:
+    interp_term), made once a field, degree and device."""
+    key = (field.name, degree, str(device))
+    if key not in _INTERPOLATION:
+        _INTERPOLATION[key] = field.from_ints(_interpolation_ints(field.modulus, degree), device)
+    return _INTERPOLATION[key]
+
+
+# one word a device: mont_sum_round's ticket, 0 between launches (each
+# launch's last block resets it); launches on one device run in stream order
+_TICKETS: dict = {}
+
+
+def _ticket(device) -> torch.Tensor:
+    key = str(device)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
 def mont_sum_round(field: MontField, mles: torch.Tensor, mults: torch.Tensor, lengths: torch.Tensor,
                    terms: torch.Tensor, degree: int) -> torch.Tensor:
     """One sumcheck round polynomial of an (nlimbs, m, 2 mid) MLE table:
     (nlimbs, degree + 1) Montgomery coefficients of
     sum_i sum_p mults[p] prod_{t in product p} (lo_t[i] + (hi_t[i] - lo_t[i]) X).
-    Product p has lengths[p] (<= degree) MLE indices, in order in ``terms``;
-    ``mults`` is (nlimbs, P), ``lengths`` (P,) and ``terms`` int32, all on
-    the table's device.
+    Product p has lengths[p] (1..degree) MLE indices, in order in
+    ``terms``; ``mults`` is (nlimbs, P), ``lengths`` (P,) and ``terms``
+    int32, all on the table's device; P <= ``SUM_MAX_PRODUCTS``.
 
-    Kernel csrc/mont_sum_round.cu, thread per lane, a block sum of the
-    accumulators in shared memory, one partial per block, then one block
-    summing the partials. Bound: bytes or integer multiplies, by the
-    product table (chip_smoke.py ``sum_round_muls``)."""
+    Kernel csrc/mont_sum_round.cu, one launch: each product's values at
+    0..L summed over the lanes in evaluation form, once for products of the
+    same MLEs; the last block applies the multipliers and interpolates.
+    Launches on one device run in stream order (they share a ticket word).
+    Bound: bytes or integer multiplies, by the product table (chip_smoke.py
+    ``sum_round_muls``)."""
     mid = _check_table(field, mles)
     if not _on_card(mles):
         return mont_sum_round_plain(field, mles, mults, lengths, terms, degree)
     _check_products(field, mults, lengths, terms, degree)
+    num_products = lengths.shape[0]
+    if not 1 <= num_products <= SUM_MAX_PRODUCTS:
+        raise ValueError(f"{num_products} products: mont_sum_round takes 1..{SUM_MAX_PRODUCTS}")
     fid = _field_id(field)
     dev = mles.device
     for t in (mults, lengths, terms):
@@ -221,12 +273,14 @@ def mont_sum_round(field: MontField, mles: torch.Tensor, mults: torch.Tensor, le
     if mles.stride(2) != 1:
         mles = mles.contiguous()
     mults, lengths, terms = mults.contiguous(), lengths.contiguous(), terms.contiguous()
-    nblocks = max(1, min(SUM_MAX_BLOCKS, -(-mid // SUM_THREADS)))
-    partials = torch.empty((field.nlimbs, degree + 1, nblocks), dtype=torch.int32, device=dev)
+    interp = interpolation(field, degree, dev)
+    words = field.nlimbs // 2
+    partials = torch.empty((num_products * (degree + 1), SUM_MAX_BLOCKS, words), dtype=torch.int32, device=dev)
     out = torch.empty((field.nlimbs, degree + 1), dtype=torch.int32, device=dev)
     _launch(
         "mont_sum_round", build.library().btt_mont_sum_round,
-        fid, degree, mles.data_ptr(), mles.stride(0), mles.stride(1), mid, mults.data_ptr(), lengths.shape[0],
-        lengths.data_ptr(), terms.data_ptr(), nblocks, partials.data_ptr(), out.data_ptr(), _stream(dev),
+        fid, degree, mles.data_ptr(), mles.stride(0), mles.stride(1), mid, mults.data_ptr(), num_products,
+        lengths.data_ptr(), terms.data_ptr(), interp.data_ptr(), SUM_MAX_BLOCKS, partials.data_ptr(),
+        _ticket(dev).data_ptr(), out.data_ptr(), _stream(dev),
     )
     return out

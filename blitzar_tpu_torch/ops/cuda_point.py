@@ -32,7 +32,7 @@ wrapper                 replaces                                 source
 
 ``ed_lookup_msm`` counts its launches on a cached table (a streamed chunk's)
 as ``ed_lookup_msm_cached``. The Weierstrass kernels (``w_build_table``,
-``w_lookup_msm``, ``wadd``, ``wdouble``, ``w_doubling_combine`` and
+``w_lookup_msm``, ``wadd``, ``wdouble``, ``w_doubling_combine``, ``w_affine`` and
 ``tree_reduce_lanes``'s Weierstrass instantiations) have their wrappers in
 ``ops/cuda_wpoint.py``,
 the proof kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``)
@@ -74,6 +74,7 @@ KERNELS = (
     "wadd",
     "wdouble",
     "w_doubling_combine",
+    "w_affine",
     "mont_mul_ew",
     "mont_fold_round",
     "mont_sum_round",

@@ -25,11 +25,15 @@ wrapper                  replaces                                           sour
 ``w_tree_reduce_lanes``  ``_tree_tiled`` :344 (Weierstrass)                 tree_reduce_lanes.cu
 ``w_doubling_combine``   ``_wdouble_tiled`` :907 + ``_wadd_tiled`` :891 in   w_doubling_combine.cu
                          blitzar_tpu/msm/fixed.py:596-623's ladder
+``w_affine``             the files path's batch inversion on ``mont_mul_ew``   w_affine.cu
+                         :1139 (blitzar_tpu/msm/interop.py:_w_affine_xy)
 =======================  =================================================  ======================
 
 ``w_doubling_combine`` is the double-and-add ladder of a query as one
 launch over all its outputs, where blitzar_tpu launches ``wdouble`` and
-``wadd`` once each per bit.
+``wadd`` once each per bit. ``w_affine`` puts a chunk of a table in the
+affine form of the reference's raw file in one launch, where the files
+path ran a batch inversion of 3 x 255 ``mont_mul_ew`` launches a chunk.
 
 Launches count under the kernel's name in ``cuda_point.LAUNCHES`` and per
 curve in ``cuda_point.INSTANCE_LAUNCHES`` (``w_tree_reduce_lanes`` as
@@ -47,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from ..curves.weierstrass import PointP2, WCurve
+from ..utils.limbs import limbs16_to_u64
 from . import build
 from .cuda_point import (
     _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, ladder_plain, ladder_segment_bits,
@@ -280,3 +285,63 @@ def w_doubling_combine(curve: WCurve, products: PointP2, seg_bits: int | None = 
         *_ptrs(out), _stream(device), instance=curve.name,
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# w_affine  (the files path's batch inversion, which ran on
+# pallas_point.py:mont_mul_ew :1139; blitzar_tpu/msm/interop.py:_w_affine_xy)
+# ---------------------------------------------------------------------------
+
+# entries a row of the plain version's batch inversion holds at most (any
+# split of the entries gives the same inverses)
+AFFINE_PLAIN_ROW = 256
+
+
+def _check_entries(curve: WCurve, entries: torch.Tensor) -> None:
+    k = curve.nlimbs // 2
+    if entries.dim() != 4 or tuple(entries.shape[2:]) != (3, k) or entries.dtype != torch.int32:
+        raise ValueError(f"table chunk {tuple(entries.shape)} {entries.dtype}: expected (g, V, 3, {k}) int32")
+
+
+def w_affine_plain(curve: WCurve, entries: torch.Tensor) -> torch.Tensor:
+    """:func:`w_affine` in plain PyTorch: Montgomery's trick over rows of at
+    most ``AFFINE_PLAIN_ROW`` entries of a group (``MontField``'s
+    ``batch_invert_lanes``: zeros stand as one, each row's total inverted by
+    exponentiation), then x / z and y / z and the file's words."""
+    _check_entries(curve, entries)
+    f = curve.field
+    p = unpack_points(entries)
+    z = p.z.reshape(f.nlimbs, -1, min(entries.shape[1], AFFINE_PLAIN_ROW))
+    zinv = f.batch_invert_lanes(z).reshape(f.nlimbs, -1)
+    x = f.mul(p.x.reshape(f.nlimbs, -1), zinv)
+    y = f.mul(p.y.reshape(f.nlimbs, -1), zinv)
+    xw, yw = limbs16_to_u64(x), limbs16_to_u64(y)
+    inf = f.is_zero(p.z.reshape(f.nlimbs, -1))
+    xw[inf] = 0
+    xw[inf, -1] = -1  # 2^64 - 1
+    yw[inf] = limbs16_to_u64(f.one((1,), entries.device))
+    return torch.cat([xw, yw], dim=1)
+
+
+def w_affine(curve: WCurve, entries: torch.Tensor) -> torch.Tensor:
+    """A (g, V, 3, K) chunk of a table -> (g V, nlimbs / 2) int64 rows of the
+    reference's raw file: affine {x, y} as canonical Montgomery u64 words,
+    an identity entry (z = 0) as x = 0 with its last word 2^64 - 1 and y the
+    Montgomery one (blitzar_tpu/msm/interop.py:_w_affine_xy and :100-113).
+
+    Kernel csrc/w_affine.cu, one launch: each thread runs Montgomery's
+    trick over 64 entries of the chunk (5 field multiplies an entry) and
+    inverts their product on the card. Bound: integer multiplies."""
+    _check_entries(curve, entries)
+    if not _on_card(entries):
+        return w_affine_plain(curve, entries)
+    if not entries.is_contiguous():
+        entries = entries.contiguous()
+    count = entries.shape[0] * entries.shape[1]
+    rows = torch.empty((count, curve.nlimbs // 2), dtype=torch.int64, device=entries.device)
+    _launch(
+        "w_affine", build.library().btt_w_affine,
+        curve.kernel_id, entries.data_ptr(), count, rows.data_ptr(), _stream(entries.device),
+        instance=curve.name,
+    )
+    return rows

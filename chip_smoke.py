@@ -7,7 +7,7 @@ one GPU.
 
 Phases, each fatal on failure:
 
-1. build the kernels of the twenty CUDA sources in ``blitzar_tpu_torch/csrc``
+1. build the kernels of the twenty-one CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
    registers and spills and the card's name and power limit;
 2. run each kernel at the shapes its path gives it at full width
@@ -24,7 +24,9 @@ Phases, each fatal on failure:
    launch, see ``device_ms``); where the plain version is too large to run
    whole, on a sample spread over the whole output, its last element
    included; the two table builds' ptxas registers and spills (none
-   allowed) go to their own record of ``chiprun_out/chip_smoke.json``;
+   allowed) go to their own record of ``chiprun_out/chip_smoke.json``, as
+   do ``w_affine``'s (no spill) and ``mont_sum_round``'s (no spill, no stack
+   frame at any degree in either field);
 3. the upstream end-to-end vectors through ``api.compute_curve25519_commitments``
    on the card, and a signed multi-output case against the plain CPU run;
 4. the bn254 G1, Grumpkin and bls12-381 G1 commitment entries at n = 100
@@ -87,16 +89,21 @@ Phases, each fatal on failure:
    re-windowed to 8, on all four curves; (iii) packed and vlen queries at
    2^20 with Proof-of-SQL's widths [1, 8, 16, 32, 64, 128, 256] on the
    handles read back in (i): each output equals the fixed MSM of its own
-   scalars (bn254 G1: and the oracle); (iv) 2^20 generators derived and
+   scalars (bn254 G1: and the oracle); every Weierstrass raw write makes one
+   ``w_affine`` launch a chunk, no ``mont_mul_ew`` launch and no plain
+   field inversion; (iv) 2^20 generators derived and
    saved, then loaded with the in-memory cache cleared (the same points),
    and a cold 2^20 commitment over them (the pinned digest). Every file is
    deleted once read, the directory at exit;
 15. ``fmul``, ``finvert`` and ``mont_mul_ew`` in the two Weierstrass base
    fields against their plain versions at every element count phase 14
    launched them at, ``fmul`` and ``fsq`` (on no path) also at a table
-   conversion's chunk of 2^22 entries, ``finvert`` at 2^20; ``fmul``,
-   ``finvert`` and both base-field instantiations must have launched in
-   phase 14;
+   conversion's chunk of 2^22 entries, ``finvert`` at 2^20; ``w_affine`` at
+   every (curve, entries) phase 14 launched it at and at a 2^22-entry chunk
+   of each Weierstrass curve, against its plain version on every row
+   (tolerance 0 on the file's words); ``fmul``, ``finvert``, ``w_affine``
+   in each curve and both base-field instantiations of ``mont_mul_ew``
+   must have launched in phase 14;
 16. the bucket engine (``BLITZAR_TPU_TORCH_MSM_ENGINE=bucket`` set for this
    phase alone; counts from 0, empty handle caches): the pinned ristretto255
    digests at 2^16, 2^20 (cold, warm, split into sort, gather, slab reduce,
@@ -483,6 +490,26 @@ def table_build_ptxas(log_text: str, built_here: bool) -> dict:
         check(any(f["entry"] for f in funcs) and all(
                   f.get("spill_stores") == 0 and f.get("spill_loads") == 0 for f in funcs),
               f"{name}: no spills in the kernel or its device functions")
+    return out
+
+
+def affine_sum_ptxas(log_text: str, built_here: bool) -> dict:
+    """w_affine's and mont_sum_round's registers, stack frames and spills:
+    no spill in either, and no stack frame in mont_sum_round (each degree
+    1-5 in both fields), from the ptxas log as :func:`table_build_ptxas`
+    reads it."""
+    out = {"built_in_this_run": built_here}
+    for name, source in (("w_affine", "w_affine.cu"), ("mont_sum_round", "mont_sum_round.cu")):
+        funcs = out[name] = ptxas_report(log_text, source)
+        for f in funcs:
+            print(f"    {source} {f['function']}: {f.get('registers', '-')} registers, {f.get('stack_frame')} bytes "
+                  f"stack frame, {f.get('spill_stores')} bytes spill stores, {f.get('spill_loads')} bytes spill loads")
+        entries = [f for f in funcs if f["entry"]]
+        check(entries and all(f.get("spill_stores") == 0 and f.get("spill_loads") == 0 for f in funcs),
+              f"{name}: no spills in the kernel or its device functions")
+        if name == "mont_sum_round":
+            check(len(entries) >= 10 and all(f.get("stack_frame") == 0 for f in entries),
+                  f"mont_sum_round: every instantiation (degrees 1-5, two fields), no stack frame in any")
     return out
 
 
@@ -1733,13 +1760,14 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
 # handle files, packed and vlen queries, the generator disk cache
 # ---------------------------------------------------------------------------
 
-# the field kernels of these paths, which must launch there, and
-# mont_mul_ew's instantiations in the Weierstrass base fields (the batch
-# inversion of a raw file's affine form); fsq is held against plain beside
-# fmul but runs on no path
-FILE_KERNELS = ("fmul", "fsq", "finvert")
-FILE_PATH_KERNELS = ("fmul", "finvert")
-FILE_INSTANCES = ("mont_mul_ew/bn254_fp", "mont_mul_ew/bls12381_fp")
+# the field kernels of these paths and w_affine (a Weierstrass raw file's
+# affine rows), which must launch there, and mont_mul_ew's instantiations
+# in the Weierstrass base fields (a raw file read back); fsq is held
+# against plain beside fmul but runs on no path
+FILE_KERNELS = ("fmul", "fsq", "finvert", "w_affine")
+FILE_PATH_KERNELS = ("fmul", "finvert", "w_affine")
+FILE_INSTANCES = ("mont_mul_ew/bn254_fp", "mont_mul_ew/bls12381_fp", "w_affine/bls12_381_g1", "w_affine/bn254_g1",
+                  "w_affine/grumpkin")
 # Proof-of-SQL's column widths (505 bits, 64 bytes a generator) and lengths
 POSQL_BITS = [1, 8, 16, 32, 64, 128, 256]
 POSQL_LENGTHS = [1 << 10, 1 << 16, 1 << 18, (1 << 19) + 7, (1 << 20) - 3, 1 << 20, 1 << 20]
@@ -1801,7 +1829,15 @@ def phase_files(torch, timings: dict, work: str) -> None:
 
     def raw_round_trip(curve, handle, key):
         path = os.path.join(work, f"{key}.raw")
-        _, timings[f"raw_{key}_write_ms"] = timed(torch, lambda: interop.write_reference_file(handle, path))
+        before = dict(cp.LAUNCHES)
+        with counting_plain_inversions() as inversions:
+            _, timings[f"raw_{key}_write_ms"] = timed(torch, lambda: interop.write_reference_file(handle, path))
+        if curve is not ed:
+            chunks = len(fixed.table_chunks(handle.table.shape[0], handle.table.shape[1]))
+            made = {k: cp.LAUNCHES[k] - before[k] for k in ("w_affine", "mont_mul_ew")}
+            check(made == {"w_affine": chunks, "mont_mul_ew": 0} and inversions["calls"] == 0,
+                  f"(i)/(ii) the {key} write: one w_affine launch a chunk ({chunks}), no mont_mul_ew launch and no "
+                  f"plain inversion ({made}, {inversions['calls']} plain inversions)")
         timings[f"raw_{key}_bytes"] = size = os.path.getsize(path)
         back, timings[f"raw_{key}_read_ms"] = timed(
             torch, lambda: api.multiexp_handle_new_from_file(api.CURVE_IDS[curve], path))
@@ -1931,6 +1967,67 @@ def phase_files(torch, timings: dict, work: str) -> None:
 
 
 @contextlib.contextmanager
+def counting_plain_inversions():
+    """Counts the calls of the plain Montgomery inversion (``MontField.inv``)
+    on a card's tensors while the block runs."""
+    from blitzar_tpu_torch.fields import mont
+
+    inv = mont.MontField.inv
+    seen = {"calls": 0}
+
+    def counting(self, a):
+        seen["calls"] += a.device.type == "cuda"
+        return inv(self, a)
+
+    mont.MontField.inv = counting
+    try:
+        yield seen
+    finally:
+        mont.MontField.inv = inv
+
+
+def affine_chunk(torch, curve, groups: int, entries: int, dev, seed: int):
+    """A (groups, entries, 3, K) table chunk of random canonical projective
+    coordinates; entry 0 of every group is the identity (0, 1, 0), as in a
+    partition table."""
+    from blitzar_tpu_torch.curves.weierstrass import PointP2
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    f = curve.field
+    x, y, z = (random_canonical(torch, f, (groups, entries), dev, seed + k) for k in range(3))
+    x[:, :, 0], z[:, :, 0] = 0, 0
+    y[:, :, 0] = f.one((groups,), dev)
+    return cw.pack_points(PointP2(x, y, z))
+
+
+def w_affine_shape(torch, dev, curve, groups: int, entries: int, launches: int) -> dict:
+    """w_affine on a chunk of groups x entries: its device time, its bound
+    (5 field multiplies an entry and one inversion; 3K words read, 2K
+    written an entry), and every row against the plain version, run on
+    slices of at most 2^20 entries (the plain version's time: their sum)."""
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    chunk = affine_chunk(torch, curve, groups, entries, dev, 47)
+    count, words = groups * entries, curve.nlimbs // 2
+    ms = device_ms(torch, lambda: cw.w_affine(curve, chunk), reps=5)
+    rows = cw.w_affine(curve, chunk)
+    step = max(1, (1 << 20) // entries)
+    err, plain_ms = 0, 0.0
+    for g0 in range(0, groups, step):
+        want, t = timed(torch, lambda: cw.w_affine_plain(curve, chunk[g0 : g0 + step]))
+        plain_ms += t
+        err = max(err, int((rows[g0 * entries : (g0 + step) * entries] != want).sum()))
+    m2 = curve.field.modulus - 2
+    inversion = m2.bit_length() - 1 + bin(m2).count("1") - 1
+    b_ms, b_by = bound(count * 5 * words * 4, (5 * count + inversion) * IMAD_PER_MONT_MUL[words])
+    check(err == 0, f"w_affine {curve.name} at {groups} x {entries} entries, {launches} launches on the files path: "
+                    f"equal to plain on every row, tolerance 0 on the file's words ({ms:.4f} ms, bound {b_ms:.4f})")
+    return {"instance": curve.name, "groups": groups, "entries": count, "launches": launches, "ms": ms,
+            "plain_ms": plain_ms, "plain_fraction": 1.0, "max_abs_err": float(err), "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": count * 5 * words * 4, "imads": (5 * count + inversion) * IMAD_PER_MONT_MUL[words]}
+
+
+@contextlib.contextmanager
 def launch_shapes(counts: dict):
     """Counts, beside the wrappers' own counts, the launches of the field
     kernels and of mont_mul_ew by kernel (and instantiation) and element
@@ -1971,7 +2068,7 @@ def field_shape(torch, dev, kernel, plain, operands, count: int, bytes_moved: fl
             "max_abs_err": float(err), "bound_ms": b_ms, "bound_by": b_by}
 
 
-def phase_field_kernels(torch, dev, path_shapes: dict) -> dict:
+def phase_field_kernels(torch, dev, path_shapes: dict, affine_shapes: dict) -> dict:
     """The field kernels and the base-field mont_mul_ew against their plain
     versions, timed at every element count the files path launched them at
     (``path_shapes``, from :func:`launch_shapes`) and at a headline shape:
@@ -1980,8 +2077,9 @@ def phase_field_kernels(torch, dev, path_shapes: dict) -> dict:
     same chunk, ``finvert`` at the 2^20 generators of a cache save,
     ``mont_mul_ew`` at the largest count its field launched. Per count:
     launches, device time and bound, and the path's device time, the sum of
-    launches x time. The scans of a batch inversion launch on strided lane
-    slices; they are timed here on contiguous operands of the same count."""
+    launches x time. ``w_affine`` at every (curve, entries) of
+    ``affine_shapes`` (PATH_SHAPES' files-path counts) and at a 2^22-entry
+    chunk of each curve (2^14 groups of 256), its headline bn254 G1's."""
     from blitzar_tpu_torch.fields import fp25519 as F
     from blitzar_tpu_torch.fields import params
     from blitzar_tpu_torch.msm import fixed
@@ -2053,6 +2151,26 @@ def phase_field_kernels(torch, dev, path_shapes: dict) -> dict:
         base[field.name] = {"by_elements": {str(c): r for c, r in by.items()},
                             "files_path_device_ms": sum(r["launches"] * r["ms"] for r in by.values())}
     results["mont_mul_ew_base_fields"] = base
+
+    from blitzar_tpu_torch.curves import weierstrass as wc
+
+    launched = shape_paths(affine_shapes)
+    chunk = fixed.TABLE_CHUNK_ENTRIES
+    by = {}
+    for curve in wc.CURVES:
+        shapes = {count for (name, count) in launched if name == curve.name} | {chunk}
+        for count in sorted(shapes):
+            entries = 1 << 16 if count < chunk else 256  # the w16_64 files' groups, else w = 8's
+            n = sum(launched.get((curve.name, count), {}).values())
+            by[f"{curve.name}/{count}"] = w_affine_shape(torch, dev, curve, count // entries, entries, n)
+        torch.cuda.empty_cache()
+    top = by[f"bn254_g1/{chunk}"]
+    kernel_record(results, "w_affine", "blitzar_tpu/ops/pallas_point.py:1139",
+                  "blitzar_tpu_torch/csrc/w_affine.cu", top["ms"], top["plain_ms"], top["max_abs_err"], top["bytes"],
+                  top["imads"])
+    results["w_affine"]["elements"] = chunk
+    results["w_affine"]["by_elements"] = by
+    results["w_affine"]["files_path_device_ms"] = sum(r["launches"] * r["ms"] for r in by.values())
     return results
 
 
@@ -2398,12 +2516,13 @@ class PathShapes:
 # groups, w); doubling_combine (4 coordinates, stride, outputs, nbits, ...)
 # by (outputs, nbits); mont_sum_round (field, degree, table, stride(0),
 # stride(1), mid, mults, products, ...) by (field id, mid, degree, MLEs,
-# products)
+# products); w_affine (curve, chunk, entries, ...) by (instance, entries)
 SHAPE_KEYS = {
     "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
     "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
     "doubling_combine": lambda instance, a: (int(a[5]), int(a[6])),
     "mont_sum_round": lambda instance, a: (int(a[0]), int(a[5]), int(a[1]), int(a[3]) // int(a[4]), int(a[7])),
+    "w_affine": lambda instance, a: (instance, int(a[2])),
 }
 PATH_SHAPES = PathShapes()
 TREE_SAMPLE_COLS = 64
@@ -2652,6 +2771,7 @@ def main() -> int:
         report["ptxas_lookup_and_reduce"] = lookup_reduce_ptxas(log, built_here)
         report["ptxas_weierstrass_query"] = w_query_ptxas(log, built_here)
         report["ptxas_ladders"] = ladder_ptxas(log, built_here)
+        report["ptxas_affine_and_sum_round"] = affine_sum_ptxas(log, built_here)
         PATH_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
@@ -2704,7 +2824,8 @@ def main() -> int:
             phase_files(torch, report["timings"], work)
         file_launches = dict(cp.LAUNCHES)
         file_instances = dict(cp.INSTANCE_LAUNCHES)
-        results.update(phase_field_kernels(torch, torch.device("cuda"), file_shapes))
+        results.update(phase_field_kernels(torch, torch.device("cuda"), file_shapes,
+                                           PATH_SHAPES.counts.get("w_affine", {})))
         results["mont_mul_ew"]["base_fields"] = results.pop("mont_mul_ew_base_fields")
         # the bucket engine, then the few-row query, from empty handle
         # caches: each path's launches are those of its main-path calls

@@ -35,8 +35,16 @@ script's, so both trees run the same work. Cases:
   ``w_tree_reduce_lanes`` on its partials and the ladder of the 256 bit-row
   products they sum to;
 - the proof kernels (section ``mont``): ``mont_mul_ew``, ``mont_fold_round``
-  and ``mont_sum_round`` (degree 3) at chip_smoke.py's 2^20 shapes, in both
-  proof fields, ``mont_mul_ew`` also in the two Weierstrass base fields;
+  and ``mont_sum_round`` (degree 3, the sumcheck benchmark's table, and
+  degree 5) at chip_smoke.py's 2^20 shapes, in both proof fields, and
+  ``mont_sum_round`` at the benchmark's mid = 2^10, 8 and 1 and summed over
+  a 2^20 proof's 20 rounds; ``mont_mul_ew`` also in the two Weierstrass
+  base fields; a Weierstrass raw file's chunk put in affine form
+  (``msm/interop.py``: the tree's ``w_affine`` kernel, or its batch
+  inversion over ``mont_mul_ew`` launches), a 2^22-entry chunk of each
+  curve and the w = 16 file of 64 generators' chunk (4 x 2^16), its rows
+  against the plain version on a slice of the chunk, device time of the
+  kernel and back to back (``cuda_ms``, host issue included) for both;
 - ``tree_reduce_lanes`` at every (curve, size, cols) that chip_smoke.py's
   paths launched it at (its phase 19), on the same tiled points as there
   (section ``trees``);
@@ -131,12 +139,15 @@ def main() -> int:
     report = {"root": root, "card": cs.card_line(), "build_s": time.perf_counter() - t0,
               "ptxas": {src: cs.ptxas_report((build.BUILD_ROOT / build.digest() / "ptxas.log").read_text(), src)
                         for src in ("w_lookup_msm.cu", "w_doubling_combine.cu", "wadd.cu", "wdouble.cu",
-                                    "w_build_table.cu", "build_cached_table.cu", "doubling_combine.cu")},
+                                    "w_build_table.cu", "build_cached_table.cu", "doubling_combine.cu",
+                                    "w_affine.cu", "mont_sum_round.cu")},
               "cases": {}}
     cases = report["cases"]
 
-    def case(name, fn, ok, reps=5, **extra):
-        ms = cs.device_ms(torch, fn, reps=reps)
+    def case(name, fn, ok, reps=5, ms=None, **extra):
+        """ms: fn's device time, unless given (a time taken otherwise)."""
+        if ms is None:
+            ms = cs.device_ms(torch, fn, reps=reps)
         cases[name] = {"ms": ms, "ok": bool(ok), **extra}
         print(f"{'ok ' if ok else 'BAD'} {name}: {ms:.4f} ms", flush=True)
 
@@ -319,7 +330,10 @@ def section_weierstrass(torch, cs, dev, case) -> None:
 
 
 def section_mont(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import interop
     from blitzar_tpu_torch.ops import cuda_mont as cm
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
 
     n, m = 1 << 20, 3
     for fid, field in cm.MUL_FIELDS.items():
@@ -333,14 +347,53 @@ def section_mont(torch, cs, dev, case) -> None:
         r = cs.random_canonical(torch, field, (1,), dev, 4)
         case(f"mont_fold_round/{field.name}/3x2^20", lambda: cm.mont_fold_round(field, table, r),
              torch.equal(cm.mont_fold_round(field, table, r), cm.mont_fold_round_plain(field, table, r)), reps=10)
-        ptable, pterms = cs.SUMCHECK_BENCH
-        mults = field.from_ints([mu for mu, _ in ptable], dev)
-        lengths = torch.tensor([k for _, k in ptable], dtype=torch.int32, device=dev)
-        terms = torch.tensor(pterms, dtype=torch.int32, device=dev)
-        run = functools.partial(cm.mont_sum_round, field, table, mults, lengths, terms, 3)
-        case(f"mont_sum_round/{field.name}/degree3", run,
-             torch.equal(run(), cm.mont_sum_round_plain(field, table, mults, lengths, terms, 3)), reps=10)
-        del a, b, table
+        wide = cs.random_canonical(torch, field, (7, n), dev, 5)
+        for key, mles, (ptable, pterms) in (("degree3", table, cs.SUMCHECK_BENCH), ("degree5", wide, cs.SUMCHECK_DEG5)):
+            degree = max(k for _, k in ptable)
+            mults = field.from_ints([mu for mu, _ in ptable], dev)
+            lengths = torch.tensor([k for _, k in ptable], dtype=torch.int32, device=dev)
+            terms = torch.tensor(pterms, dtype=torch.int32, device=dev)
+            run = functools.partial(cm.mont_sum_round, field, mles, mults, lengths, terms, degree)
+            case(f"mont_sum_round/{field.name}/{key}", run,
+                 torch.equal(run(), cm.mont_sum_round_plain(field, mles, mults, lengths, terms, degree)), reps=10)
+            if key != "degree3":
+                continue
+            # the benchmark's rounds: mid = 2^19 .. 1 (the 2^20 row above
+            # is mid 2^19), each on the first 2 mid lanes of a fresh table
+            rounds = []
+            for bits in range(19, -1, -1):
+                mid = 1 << bits
+                t = cs.random_canonical(torch, field, (m, 2 * mid), dev, 6 + bits)
+                run = functools.partial(cm.mont_sum_round, field, t, mults, lengths, terms, degree)
+                ok = torch.equal(run(), cm.mont_sum_round_plain(field, t, mults, lengths, terms, degree))
+                ms = cs.device_ms(torch, run, reps=10)
+                rounds.append(ms)
+                if mid in (1 << 10, 8, 1):
+                    case(f"mont_sum_round/{field.name}/degree3/mid{mid}", run, ok, reps=10)
+                elif not ok:
+                    case(f"mont_sum_round/{field.name}/degree3/mid{mid}", run, ok, reps=10)
+            case(f"mont_sum_round/{field.name}/degree3/20_rounds", None, True, ms=sum(rounds), rounds_ms=rounds)
+        del a, b, table, wide
+    torch.cuda.empty_cache()
+
+    # a raw file's chunk in affine form: the tree's w_affine, or its batch
+    # inversion over mont_mul_ew (interop._w_rows)
+    kernel = getattr(cw, "w_affine", None)
+    affine = (lambda c, chunk: kernel(c, chunk)) if kernel else (lambda c, chunk: interop._w_rows(c, chunk))
+    for curve in wc.CURVES:
+        for groups, entries in ((1 << 14, 256), (4, 1 << 16)):
+            chunk = cs.affine_chunk(torch, curve, groups, entries, dev, 47)
+            rows = affine(curve, chunk)
+            g = max(1, 4096 // entries)
+            ok = torch.equal(rows[: g * entries].cpu(), affine(curve, chunk[:g].cpu()))  # the tree's plain path
+            back_to_back = cs.cuda_ms(torch, lambda: affine(curve, chunk), reps=3)
+            name = f"files_affine/{curve.name}/{groups}x{entries}"
+            # the parent's many launches and host steps cannot queue behind
+            # device_ms's sleep: its ms is the back-to-back time
+            case(name, lambda: affine(curve, chunk), ok, reps=3, ms=None if kernel else back_to_back,
+                 back_to_back_ms=back_to_back, one_launch=bool(kernel))
+            del chunk, rows
+        torch.cuda.empty_cache()
 
 
 def section_tables(torch, cs, dev, case) -> None:

@@ -797,3 +797,43 @@ def test_doubling_combine_kernel(dev, outputs, nbits):
     want = cp.doubling_combine_plain(products)
     assert _same(cp.doubling_combine(_on(products, dev), seg_bits=nbits), want)
     assert bool(ed.points_equal(_on(got, "cpu"), want).all())
+
+
+@pytest.mark.parametrize("curve", list(wc.CURVES), ids=lambda c: c.name)
+def test_w_affine_kernel(dev, curve):
+    """A table chunk's affine rows on the card equal the plain version's,
+    word for word: groups of 8, 256 and 4096 entries (tiles of 32 x 32
+    entries a warp, the last short; 40 x 4096 takes 64 a thread), entry 0
+    of each group and some others identities."""
+    from blitzar_tpu_torch.curves.weierstrass import PointP2
+
+    for groups, entries in ((5, 8), (3, 256), (3, 4096), (40, 4096)):
+        x, y, z = (_field_batch(curve.field, (groups, entries), 60 + k) for k in range(3))
+        z[:, :, 0] = 0
+        z[:, -1, 3::7] = 0
+        chunk = cw.pack_points(PointP2(x, y, z))
+        before = cp.LAUNCHES["w_affine"]
+        got = cw.w_affine(curve, chunk.to(dev))
+        assert cp.LAUNCHES["w_affine"] == before + 1
+        assert torch.equal(got.cpu(), cw.w_affine_plain(curve, chunk)), (groups, entries)
+
+
+@pytest.mark.parametrize("field", PROOF_FIELDS, ids=lambda f: f.name)
+def test_mont_sum_round_kernel_shapes(dev, field):
+    """One launch a round at mid = 1, 2, 5, 300 and 70000 (one block to many),
+    degrees 1-5 with repeated MLEs, short products and a product of the same
+    MLEs as an earlier one; the ticket is back to 0 after each launch."""
+    tables = {1: ((0,), (2,), (0,)), 2: ((1, 2), (0,), (2, 1)), 3: ((0, 1, 2), (2, 0), (2, 1, 0)),
+              4: ((2, 0, 1, 1), (1,), (1, 2, 1, 0)), 5: ((0, 1, 2, 0, 1), (2, 1, 0), (1, 0, 1, 0, 2), (3, 3))}
+    for mid in (1, 2, 5, 300, 70000):
+        mles = _field_batch(field, (4, 2 * mid), mid)
+        for degree, struct in tables.items():
+            lengths = torch.tensor([len(t) for t in struct], dtype=torch.int32)
+            terms = torch.tensor([t for ts in struct for t in ts], dtype=torch.int32)
+            mults = _field_batch(field, (len(struct),), 30 + degree)
+            before = cp.LAUNCHES["mont_sum_round"]
+            got = cm.mont_sum_round(field, mles.to(dev), mults.to(dev), lengths.to(dev), terms.to(dev), degree)
+            assert cp.LAUNCHES["mont_sum_round"] == before + 1
+            want = cm.mont_sum_round_plain(field, mles, mults, lengths, terms, degree)
+            assert torch.equal(got.cpu(), want), (mid, degree)
+            assert int(cm._ticket(dev).item()) == 0

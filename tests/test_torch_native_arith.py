@@ -359,9 +359,9 @@ def _i32(t) -> ctypes.c_void_p:
 @pytest.mark.parametrize("field_id,field", PROOF_FIELDS, ids=["scalar25519", "bn254_fr"])
 @pytest.mark.parametrize("degree", [1, 2, 3, 4, 5])
 def test_sum_and_fold_lanes_match_plain(harness, field_id, field, degree):
-    """sumcheck.cuh's sum_lane (every product length up to the degree, a
-    repeated MLE) and fold_lane, lane after lane, against the plain
-    versions of ops/cuda_mont.py."""
+    """sumcheck.cuh's round in evaluation form (every product length up to
+    the degree, a repeated MLE; a grid of 2 x 2 threads) and fold_lane,
+    lane after lane, against the plain versions of ops/cuda_mont.py."""
     m, mid = 3, 5
     rng = np.random.default_rng(degree)
     mles = field.from_ints([int.from_bytes(rng.bytes(32), "little") for _ in range(m * 2 * mid)], "cpu")
@@ -371,9 +371,10 @@ def test_sum_and_fold_lanes_match_plain(harness, field_id, field, degree):
     mults = field.from_ints([int(v) for v in rng.integers(1, 2**62, size=degree)], "cpu")
     lt, tt = torch.tensor(lengths, dtype=torch.int32), torch.tensor(terms, dtype=torch.int32)
     out = torch.zeros((field.nlimbs, degree + 1), dtype=torch.int32)
+    interp = cuda_mont.interpolation(field, degree, "cpu")
     rc = harness.btt_host_sum_round(ctypes.c_int(field_id), ctypes.c_int(degree), _i32(mles), ctypes.c_int64(m),
                                     ctypes.c_int64(mid), _i32(mults), ctypes.c_int(degree), _i32(lt), _i32(tt),
-                                    _i32(out))
+                                    _i32(interp), ctypes.c_int64(2), ctypes.c_int64(2), _i32(out))
     assert rc == 0
     assert torch.equal(out, cuda_mont.mont_sum_round_plain(field, mles, mults, lt, tt, degree))
     r = field.from_ints([int.from_bytes(rng.bytes(32), "little")], "cpu")

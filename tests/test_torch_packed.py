@@ -18,7 +18,7 @@ from blitzar_tpu_torch.curves import weierstrass as twc
 from blitzar_tpu_torch.msm import fixed as tfixed
 from blitzar_tpu_torch.utils.limbs import from_jax_points
 from torch_packed_cases import (
-    BIT_TABLE, LENGTHS, N, W, canonical, check_curve, jax_handle, output_scalars, packed_scalars,
+    BIT_TABLE, LENGTHS, N, W, canonical, check_curve, from_jax, jax_handle, output_scalars, packed_scalars,
 )
 
 JGENS = jgen.ristretto_generators(N)
@@ -87,6 +87,43 @@ def test_empty_table_and_bad_lengths(ed_handle):
         tfixed.fixed_vlen_multiexponentiation(ed_handle, BIT_TABLE, LENGTHS[::-1], packed_scalars(37))
     with pytest.raises(ValueError, match="exceeds"):
         tfixed.fixed_packed_multiexponentiation(ed_handle, BIT_TABLE, N + 1, packed_scalars(37, n=N + 1))
+
+
+@pytest.mark.parametrize("kind", ["packed", "vlen"])
+def test_zero_width_output_is_the_identity(ed_handle, kind):
+    """An output of width 0 has no bit rows: blitzar_tpu gives the identity
+    there and leaves the other outputs as they are; so does the port."""
+    from blitzar_tpu.curves import edwards25519 as jed
+
+    bit_table, lengths = [0, 8, 13], [5, 9, N]
+    packed = packed_scalars(39, bits=sum(bit_table))
+    jh = jax_handle(jed, ed_handle)
+    if kind == "packed":
+        got = tfixed.fixed_packed_multiexponentiation(ed_handle, bit_table, N, packed)
+        want = jfixed.fixed_packed_multiexponentiation(jh, bit_table, N, packed)
+        lengths = None
+    else:
+        got = tfixed.fixed_vlen_multiexponentiation(ed_handle, bit_table, lengths, packed)
+        want = jfixed.fixed_vlen_multiexponentiation(jh, bit_table, lengths, packed)
+    got = canonical(ted, got)
+    assert got == from_jax(ted, want)
+    assert got[0] == canonical(ted, ted.identity((1,)))[0]
+    each = [canonical(ted, tfixed.fixed_multiexponentiation(ed_handle, s))[0]
+            for s in output_scalars(packed, bit_table, lengths)[1:]]
+    assert got[1:] == each
+
+
+def test_all_zero_widths_give_identities(ed_handle):
+    """Every width 0: no bytes a generator, every output the identity
+    (blitzar_tpu itself divides by zero there)."""
+    empty = np.zeros((N, 0), np.uint8)
+    identity = canonical(ted, ted.identity((1,)))[0]
+    got = tfixed.fixed_packed_multiexponentiation(ed_handle, [0, 0, 0], N, empty)
+    assert canonical(ted, got) == [identity] * 3
+    got = tfixed.fixed_vlen_multiexponentiation(ed_handle, [0, 0], [3, N], empty)
+    assert canonical(ted, got) == [identity] * 2
+    with pytest.raises(ValueError, match="non-negative"):
+        tfixed.fixed_packed_multiexponentiation(ed_handle, [-1, 8], N, packed_scalars(40, bits=8))
 
 
 def test_api_entries(ed_handle):
