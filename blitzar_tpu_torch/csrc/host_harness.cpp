@@ -105,12 +105,9 @@ void host_sum_round(const int32_t* mles, int64_t m, int64_t mid, const int32_t* 
                     int64_t threads, int32_t* out) {
   mle_ptrs t = {mles, m * 2 * mid, 2 * mid};
   product_ptrs p = {mults, lengths, terms, num_products};
-  std::vector<int> rep(num_products);
   std::vector<mfe<F>> colsums(num_products * (D + 1));
   int first = 0;
   for (int q = 0; q < num_products; first += lengths[q], ++q) {
-    rep[q] = same_product(p, q, first);
-    if (rep[q] != q) continue;
     const int col = q * (D + 1);
     switch (lengths[q]) {
       case 1: host_sum_product<F, 1>(t, mid, terms + first, nblocks, threads, colsums, col); break;
@@ -121,7 +118,7 @@ void host_sum_round(const int32_t* mles, int64_t m, int64_t mid, const int32_t* 
     }
   }
   mfe<F> values[D + 1];
-  for (int k = 0; k <= D; ++k) values[k] = round_point<F, D>(p, rep.data(), colsums.data(), k);
+  for (int k = 0; k <= D; ++k) values[k] = round_point<F, D>(p, colsums.data(), k);
   for (int j = 0; j <= D; ++j) {
     mfe<F> c = mf_zero<F>();
     for (int k = 0; k <= D; ++k) c = mf_add<F>(c, interp_term<F, D>(interp, values, j, k));
@@ -590,7 +587,8 @@ int btt_host_w_build_table(int curve, const int32_t* points, int64_t n, int w, i
 
 // entries (count, 3, K) words of a Weierstrass table chunk -> rows (count,
 // 2K) words, w_affine.cu's tiles of 32 x per entries (the kernel's per is
-// 64) one lane after another; returns -1 for another curve.
+// 32, 64 or 128, by the chunk's size) one lane after another; returns -1
+// for another curve.
 int btt_host_w_affine(int curve, const int32_t* entries, int64_t count, int per, int32_t* rows) {
   if (per < 1) return -1;
   auto run = [&](auto field_tag) {

@@ -10,17 +10,20 @@
 //
 // Design, one launch a round: a grid of 128-thread blocks, as many as the
 // card holds at once (the occupancy of the instantiation times the SMs),
-// grid-stride over the lanes. Products of the same MLEs are summed once
-// (sumcheck.cuh: same_product). For each other product, every thread adds its lanes'
-// values at X = 0..L (sumcheck.cuh: evaluation form, Huffman-ordered
-// merges, 7 multiplies a lane for 3 factors) into L + 1 accumulators in
-// registers; the block sums them by warp shuffles and one shared-memory
-// stage and writes one partial per (product, point). The last block to
-// finish (an atomic ticket in a word the wrapper keeps, reset by that
-// block) sums the partials, applies each product's multiplier once, carries
-// the sums to the round's D + 1 points and interpolates to the
-// coefficients, with constants from the wrapper; a round of one block
-// skips the partials and the ticket. Every multiply of the lanes calls one
+// grid-stride over the lanes. For each product, every thread adds its
+// lanes' values at X = 0..L (sumcheck.cuh: evaluation form,
+// Huffman-ordered merges, 7 multiplies a lane for 3 factors) into L + 1
+// accumulators in registers; the block sums them by warp shuffles and one
+// shared-memory stage and writes one partial per (product, point). The
+// last block to finish (an atomic ticket in a word the wrapper keeps for
+// the stream, reset by that block) sums each column's partials into the
+// column sums, a global slice after the partials, applies each product's
+// multiplier once, carries the sums to the round's D + 1 points and
+// interpolates to the coefficients, with constants from the wrapper; a
+// round of one block writes the column sums straight and skips the ticket.
+// Nothing is sized by the number of products but the scratch. The prover
+// merges products of the same MLEs before the rounds
+// (proof/sumcheck.py:product_arrays). Every multiply of the lanes calls one
 // non-inlined Montgomery body (mf_mul_call: inlined, the degree-5 kernel
 // took 1.9x as long). Sums mod m are exact, so the result is the
 // coefficient form's limb for limb. Bound: bytes (64 bytes read per MLE
@@ -100,30 +103,19 @@ __device__ __forceinline__ void sum_product(const mle_ptrs& mles, int64_t mid, c
 }
 
 // Product p's sums at its points 0..L are columns p (D + 1) + 0..L of the
-// partials and of the column sums. dyn: P ints (same_product of each
-// product), padded to 16 bytes, then the column sums.
+// partials and of the column sums (global, written and read by one block).
 template <class F, int D>
 __global__ void __launch_bounds__(kThreads)
 mont_sum_round_kernel(mle_ptrs mles, int64_t mid, product_ptrs prods, const int32_t* interp, uint32_t* partials,
-                      unsigned* ticket, int32_t* out) {
+                      mfe<F>* colsums, unsigned* ticket, int32_t* out) {
   constexpr int kTerms = (D + 1) * (D + 1);
-  extern __shared__ uint4 dyn[];
   __shared__ mfe<F> sh[kWarps * (D + 1) > kTerms ? kWarps * (D + 1) : kTerms];
   __shared__ mfe<F> values[D + 1];
   __shared__ bool last;
   const int num = prods.num_products;
-  int* rep = reinterpret_cast<int*>(dyn);
-  mfe<F>* colsums = reinterpret_cast<mfe<F>*>(dyn + (num + 3) / 4);
-  for (int p = threadIdx.x; p < num; p += kThreads) {
-    int first = 0;
-    for (int q = 0; q < p; ++q) first += prods.lengths[q];
-    rep[p] = same_product(prods, p, first);
-  }
-  __syncthreads();
 
   int first = 0;
   for (int p = 0; p < num; first += prods.lengths[p], ++p) {
-    if (rep[p] != p) continue;
     const int32_t* terms = prods.terms + first;
     const int col = p * (D + 1);
     switch (prods.lengths[p]) {
@@ -144,7 +136,6 @@ mont_sum_round_kernel(mle_ptrs mles, int64_t mid, product_ptrs prods, const int3
     __threadfence();
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int p = 0; p < num; ++p) {
-      if (rep[p] != p) continue;
       const int col = p * (D + 1);
       for (int c = col + warp; c <= col + prods.lengths[p]; c += kWarps) {
         mfe<F> s = mf_zero<F>();
@@ -163,7 +154,7 @@ mont_sum_round_kernel(mle_ptrs mles, int64_t mid, product_ptrs prods, const int3
     __syncthreads();
   }
   // the round's values at 0..D, then its coefficients, a term a thread
-  if (threadIdx.x <= D) values[threadIdx.x] = round_point<F, D>(prods, rep, colsums, threadIdx.x);
+  if (threadIdx.x <= D) values[threadIdx.x] = round_point<F, D>(prods, colsums, threadIdx.x);
   __syncthreads();
   if (threadIdx.x < kTerms) {
     sh[threadIdx.x] = interp_term<F, D>(interp, values, threadIdx.x / (D + 1), threadIdx.x % (D + 1));
@@ -176,13 +167,6 @@ mont_sum_round_kernel(mle_ptrs mles, int64_t mid, product_ptrs prods, const int3
   }
 }
 
-// Dynamic shared memory: the product table's same_product indices and the
-// last block's column sums, at most D + 1 columns a product.
-template <class F, int D>
-size_t dyn_bytes(int num_products) {
-  return (size_t)(num_products + 3) / 4 * 16 + (size_t)num_products * (D + 1) * sizeof(mfe<F>);
-}
-
 template <class F, int D>
 void launch(mle_ptrs mles, int64_t mid, product_ptrs prods, const int32_t* interp, int64_t max_blocks,
             uint32_t* partials, unsigned* ticket, int32_t* out, cudaStream_t stream) {
@@ -192,16 +176,17 @@ void launch(mle_ptrs mles, int64_t mid, product_ptrs prods, const int32_t* inter
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mont_sum_round_kernel<F, D>, kThreads,
-                                                  dyn_bytes<F, D>(1));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mont_sum_round_kernel<F, D>, kThreads, 0);
     resident = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
   }
   int64_t blocks = (mid + kThreads - 1) / kThreads;
   if (blocks > resident) blocks = resident;
   if (blocks > max_blocks) blocks = max_blocks;
   if (blocks < 1) blocks = 1;
-  mont_sum_round_kernel<F, D><<<(unsigned)blocks, kThreads, dyn_bytes<F, D>(prods.num_products), stream>>>(
-      mles, mid, prods, interp, partials, ticket, out);
+  // the column sums follow the partials
+  mfe<F>* colsums = reinterpret_cast<mfe<F>*>(partials + (int64_t)prods.num_products * (D + 1) * max_blocks * F::K);
+  mont_sum_round_kernel<F, D><<<(unsigned)blocks, kThreads, 0, stream>>>(mles, mid, prods, interp, partials,
+                                                                          colsums, ticket, out);
 }
 
 template <class F>
@@ -224,9 +209,10 @@ int launch_degree(int degree, mle_ptrs mles, int64_t mid, product_ptrs prods, co
 // contiguous; lengths (num_products,) and terms (sum of lengths,) int32,
 // every length in 1..degree; interp: (2K, (degree + 1)^2) the inverse
 // Vandermonde matrix of the points 0..degree; max_blocks: the blocks
-// partials holds, at least 1; partials: (num_products (degree + 1),
-// max_blocks, K) words of scratch; ticket: one word, 0 between launches
-// (each launch leaves it 0); out: (2K, degree + 1) contiguous.
+// partials holds, at least 1; partials: num_products (degree + 1)
+// (max_blocks + 1) K words of scratch, the partials ((column, block) K
+// words each) then the column sums (a column K words); ticket: one word, 0 between launches on the stream (each launch
+// leaves it 0); out: (2K, degree + 1) contiguous.
 extern "C" int btt_mont_sum_round(int field, int degree, const void* mles, int64_t limb_stride, int64_t row_stride,
                                   int64_t mid, const void* mults, int num_products, const void* lengths,
                                   const void* terms, const void* interp, int64_t max_blocks, void* partials,

@@ -159,44 +159,16 @@ BTT_HD void add_product_points(const mle_ptrs& m, int64_t mid, int64_t i, const 
   }
 }
 
-// The first product q <= p with the same factors as product p (the same
-// MLEs, counted with multiplicity): its lane sums serve p too, whose
-// multiplier adds to q's. first_p is p's first index in terms.
-BTT_HD int same_product(const product_ptrs& prods, int p, int first_p) {
-  const int len = prods.lengths[p];
-  int first_q = 0;
-  for (int q = 0; q < p; first_q += prods.lengths[q], ++q) {
-    if (prods.lengths[q] != len) continue;
-    bool same = true;
-    for (int j = 0; j < len && same; ++j) {
-      const int t = prods.terms[first_p + j];
-      int in_p = 0, in_q = 0;
-      for (int k = 0; k < len; ++k) {
-        in_p += prods.terms[first_p + k] == t;
-        in_q += prods.terms[first_q + k] == t;
-      }
-      same = in_p == in_q;
-    }
-    if (same) return q;
-  }
-  return p;
-}
-
 // The round polynomial at X = k (0 <= k <= D): sum over the products of
-// multiplier times the product's lane sum at k. rep[p] is
-// same_product(p); sums holds, for each product p with rep[p] = p, its
-// lane sums at 0..L from column p (D + 1) on; a shorter product is carried
-// to k by its differences; a repeat's multiplier adds to its first's.
+// multiplier times the product's lane sum at k. sums holds, for each
+// product p, its lane sums at 0..L from column p (D + 1) on; a shorter
+// product is carried to k by its differences.
 template <class F, int D>
-BTT_HD mfe<F> round_point(const product_ptrs& prods, const int* rep, const mfe<F>* sums, int k) {
+BTT_HD mfe<F> round_point(const product_ptrs& prods, const mfe<F>* sums, int k) {
   mfe<F> total = mf_zero<F>();
   for (int p = 0; p < prods.num_products; ++p) {
-    if (rep[p] != p) continue;
     const int col = p * (D + 1);
-    mfe<F> mult = mf_load<F>(prods.mults + p, prods.num_products);
-    for (int q = p + 1; q < prods.num_products; ++q) {
-      if (rep[q] == p) mult = mf_add<F>(mult, mf_load<F>(prods.mults + q, prods.num_products));
-    }
+    const mfe<F> mult = mf_load<F>(prods.mults + p, prods.num_products);
     const int len = prods.lengths[p];
     mfe<F> v[D + 1];
 #pragma unroll

@@ -47,11 +47,8 @@ FIELDS = {SXT_FIELD_SCALAR255: params.SCALAR25519, SXT_FIELD_GRUMPKIN: params.BN
 
 MAX_DEGREE = 5  # reference proof/sumcheck/constant.h:25
 # mont_sum_round: the blocks its partials hold at most (the kernel takes as
-# many as the card holds at once, fewer for a short round) and the products
-# a round takes at most (the kernel keeps D + 1 sums a product, 196 bytes at
-# degree 5, in the 48 KB of shared memory a launch gets without asking)
+# many as the card holds at once, fewer for a short round)
 SUM_MAX_BLOCKS = 1024
-SUM_MAX_PRODUCTS = 200
 
 
 # mont_mul_ew's fields by the id its launcher takes: the proof fields, and
@@ -231,13 +228,14 @@ def interpolation(field: MontField, degree: int, device) -> torch.Tensor:
     return _INTERPOLATION[key]
 
 
-# one word a device: mont_sum_round's ticket, 0 between launches (each
-# launch's last block resets it); launches on one device run in stream order
+# one word a (device, stream): mont_sum_round's ticket, 0 between launches
+# (each launch's last block resets it); launches on one stream run in order,
+# so no two launches share a ticket at once
 _TICKETS: dict = {}
 
 
-def _ticket(device) -> torch.Tensor:
-    key = str(device)
+def _ticket(device, stream: int) -> torch.Tensor:
+    key = (str(device), stream)
     if key not in _TICKETS:
         _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return _TICKETS[key]
@@ -250,12 +248,13 @@ def mont_sum_round(field: MontField, mles: torch.Tensor, mults: torch.Tensor, le
     sum_i sum_p mults[p] prod_{t in product p} (lo_t[i] + (hi_t[i] - lo_t[i]) X).
     Product p has lengths[p] (1..degree) MLE indices, in order in
     ``terms``; ``mults`` is (nlimbs, P), ``lengths`` (P,) and ``terms``
-    int32, all on the table's device; P <= ``SUM_MAX_PRODUCTS``.
+    int32, all on the table's device. Products of the same MLEs are summed
+    each (``proof/sumcheck.py:product_arrays`` merges them first).
 
     Kernel csrc/mont_sum_round.cu, one launch: each product's values at
-    0..L summed over the lanes in evaluation form, once for products of the
-    same MLEs; the last block applies the multipliers and interpolates.
-    Launches on one device run in stream order (they share a ticket word).
+    0..L summed over the lanes in evaluation form; the last block applies
+    the multipliers and interpolates. Launches on one stream share a ticket
+    word and run in order.
     Bound: bytes or integer multiplies, by the product table (chip_smoke.py
     ``sum_round_muls``)."""
     mid = _check_table(field, mles)
@@ -263,8 +262,8 @@ def mont_sum_round(field: MontField, mles: torch.Tensor, mults: torch.Tensor, le
         return mont_sum_round_plain(field, mles, mults, lengths, terms, degree)
     _check_products(field, mults, lengths, terms, degree)
     num_products = lengths.shape[0]
-    if not 1 <= num_products <= SUM_MAX_PRODUCTS:
-        raise ValueError(f"{num_products} products: mont_sum_round takes 1..{SUM_MAX_PRODUCTS}")
+    if num_products < 1:
+        raise ValueError("mont_sum_round takes at least one product")
     fid = _field_id(field)
     dev = mles.device
     for t in (mults, lengths, terms):
@@ -275,12 +274,14 @@ def mont_sum_round(field: MontField, mles: torch.Tensor, mults: torch.Tensor, le
     mults, lengths, terms = mults.contiguous(), lengths.contiguous(), terms.contiguous()
     interp = interpolation(field, degree, dev)
     words = field.nlimbs // 2
-    partials = torch.empty((num_products * (degree + 1), SUM_MAX_BLOCKS, words), dtype=torch.int32, device=dev)
+    # the partials, then the column sums
+    partials = torch.empty((num_products * (degree + 1), SUM_MAX_BLOCKS + 1, words), dtype=torch.int32, device=dev)
     out = torch.empty((field.nlimbs, degree + 1), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
     _launch(
         "mont_sum_round", build.library().btt_mont_sum_round,
         fid, degree, mles.data_ptr(), mles.stride(0), mles.stride(1), mid, mults.data_ptr(), num_products,
         lengths.data_ptr(), terms.data_ptr(), interp.data_ptr(), SUM_MAX_BLOCKS, partials.data_ptr(),
-        _ticket(dev).data_ptr(), out.data_ptr(), _stream(dev),
+        _ticket(dev, stream).data_ptr(), out.data_ptr(), stream,
     )
     return out

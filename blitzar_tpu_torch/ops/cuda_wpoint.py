@@ -292,11 +292,6 @@ def w_doubling_combine(curve: WCurve, products: PointP2, seg_bits: int | None = 
 # pallas_point.py:mont_mul_ew :1139; blitzar_tpu/msm/interop.py:_w_affine_xy)
 # ---------------------------------------------------------------------------
 
-# entries a row of the plain version's batch inversion holds at most (any
-# split of the entries gives the same inverses)
-AFFINE_PLAIN_ROW = 256
-
-
 def _check_entries(curve: WCurve, entries: torch.Tensor) -> None:
     k = curve.nlimbs // 2
     if entries.dim() != 4 or tuple(entries.shape[2:]) != (3, k) or entries.dtype != torch.int32:
@@ -304,15 +299,16 @@ def _check_entries(curve: WCurve, entries: torch.Tensor) -> None:
 
 
 def w_affine_plain(curve: WCurve, entries: torch.Tensor) -> torch.Tensor:
-    """:func:`w_affine` in plain PyTorch: Montgomery's trick over rows of at
-    most ``AFFINE_PLAIN_ROW`` entries of a group (``MontField``'s
+    """:func:`w_affine` in plain PyTorch: Montgomery's trick over a table's
+    inversion rows (``msm/fixed.py:lane_rows``; ``MontField``'s
     ``batch_invert_lanes``: zeros stand as one, each row's total inverted by
     exponentiation), then x / z and y / z and the file's words."""
+    from ..msm.fixed import lane_rows  # msm.fixed imports this module
+
     _check_entries(curve, entries)
     f = curve.field
     p = unpack_points(entries)
-    z = p.z.reshape(f.nlimbs, -1, min(entries.shape[1], AFFINE_PLAIN_ROW))
-    zinv = f.batch_invert_lanes(z).reshape(f.nlimbs, -1)
+    zinv = f.batch_invert_lanes(lane_rows(p.z)).reshape(f.nlimbs, -1)
     x = f.mul(p.x.reshape(f.nlimbs, -1), zinv)
     y = f.mul(p.y.reshape(f.nlimbs, -1), zinv)
     xw, yw = limbs16_to_u64(x), limbs16_to_u64(y)
@@ -330,8 +326,9 @@ def w_affine(curve: WCurve, entries: torch.Tensor) -> torch.Tensor:
     Montgomery one (blitzar_tpu/msm/interop.py:_w_affine_xy and :100-113).
 
     Kernel csrc/w_affine.cu, one launch: each thread runs Montgomery's
-    trick over 64 entries of the chunk (5 field multiplies an entry) and
-    inverts their product on the card. Bound: integer multiplies."""
+    trick over 32, 64 or 128 entries of the chunk (a power of two, the
+    chunk over 2^15 threads; 5 field multiplies an entry) and inverts their
+    product on the card. Bound: integer multiplies."""
     _check_entries(curve, entries)
     if not _on_card(entries):
         return w_affine_plain(curve, entries)

@@ -164,7 +164,10 @@ class CallbackSumcheckTranscript(SumcheckTranscript):
 def product_arrays(field: MontField, product_table, product_terms, num_mles: int, device):
     """The product table as the round kernel takes it: (mults (nlimbs, P)
     Montgomery, lengths (P,) int32, terms int32, degree), all on
-    ``device``; raises on a malformed table."""
+    ``device``; raises on a malformed table. Products of the same MLEs
+    (counted with multiplicity, in any order) become one, at the first's
+    place, whose multiplier is their sum: the same round polynomials, each
+    product's lanes summed once."""
     lengths = [int(num_terms) for _, num_terms in product_table]
     terms = [int(t) for t in product_terms]
     if not lengths or min(lengths) < 1 or sum(lengths) != len(terms):
@@ -174,9 +177,17 @@ def product_arrays(field: MontField, product_table, product_terms, num_mles: int
         raise ValueError(f"product of {degree} terms: at most {MAX_DEGREE}")
     if any(not 0 <= t < num_mles for t in terms):
         raise ValueError(f"product terms {terms} index outside {num_mles} MLEs")
-    mults = field.from_ints([int(m) for m, _ in product_table], device)
+    merged: dict = {}  # sorted MLEs -> [multiplier, MLEs in the first's order]
+    first = 0
+    for (mult, _), length in zip(product_table, lengths):
+        ts = terms[first : first + length]
+        first += length
+        entry = merged.setdefault(tuple(sorted(ts)), [0, ts])
+        entry[0] = (entry[0] + int(mult)) % field.modulus
+    mults = field.from_ints([m for m, _ in merged.values()], device)
     as_tensor = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
-    return mults, as_tensor(lengths), as_tensor(terms), degree
+    return (mults, as_tensor([len(ts) for _, ts in merged.values()]),
+            as_tensor([t for _, ts in merged.values() for t in ts]), degree)
 
 
 def mles_to_table(codec: FieldCodec, mles, n: int, n_pad: int, device) -> torch.Tensor:

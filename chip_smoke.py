@@ -1140,6 +1140,9 @@ def phase_w_full_width(torch, timings: dict) -> dict:
 # three MLEs, two products of degree 3; and a degree-5 table for the kernel
 # over seven MLEs, no factor shared, so that no product reuses another's
 SUMCHECK_BENCH = ([(1, 3), (1, 3)], [0, 1, 2, 1, 2, 0])
+# SUMCHECK_BENCH as the prover gives it to each round (proof/sumcheck.py:
+# product_arrays merges products of the same MLEs)
+SUMCHECK_BENCH_ROUND = ([(2, 3)], [0, 1, 2])
 SUMCHECK_DEG5 = ([(7, 5), (11, 2)], [0, 1, 2, 3, 4, 5, 6])
 PROOF_KERNELS = ("mont_mul_ew", "mont_fold_round", "mont_sum_round")
 # the kernels every proof path launches (the IPA's generators G and Q, its
@@ -1230,7 +1233,8 @@ def phase_mont_kernels(torch, dev) -> dict:
                ms, plain_ms, err, (m * n + m * n // 2 + 1) * elem, m * (n // 2) * imad)
 
         wide = random_canonical(torch, field, (7, n), dev, 5)
-        for key, mles, (ptable, pterms) in (("degree3", table, SUMCHECK_BENCH), ("degree5", wide, SUMCHECK_DEG5)):
+        for key, mles, (ptable, pterms) in (("degree3", table, SUMCHECK_BENCH_ROUND),
+                                            ("degree5", wide, SUMCHECK_DEG5)):
             degree = max(k for _, k in ptable)
             mults = field.from_ints([mu for mu, _ in ptable], dev)
             lengths = torch.tensor([k for _, k in ptable], dtype=torch.int32, device=dev)
@@ -2606,11 +2610,9 @@ def shape_paths(counts: dict) -> dict:
 
 
 def sum_round_table(m: int, products: int, degree: int):
-    """A product table for a mont_sum_round shape: the sumcheck benchmark's
-    where the shape is its own (3 MLEs, 2 products of degree 3), else
-    ``products`` products of ``degree`` factors over the m MLEs in turn."""
-    if (m, products, degree) == (3, len(SUMCHECK_BENCH[0]), 3):
-        return SUMCHECK_BENCH
+    """A product table for a mont_sum_round shape: ``products`` products of
+    ``degree`` factors over the m MLEs in turn (the sumcheck benchmark's
+    round, SUMCHECK_BENCH_ROUND, at its shape)."""
     terms = [(p + j) % m for p in range(products) for j in range(degree)]
     return [(1, degree)] * products, terms
 
@@ -2624,9 +2626,8 @@ def phase_ranked_shapes(torch, dev, counts: dict) -> dict:
     up to 64 groups, the ladder in the kernel's segments and the round in
     full, limb for limb), and the sum over the shapes. The inputs are the
     oracle's 521 points tiled (w_build_table), the first 2^16 generators
-    tiled (doubling_combine) and random canonical tables (mont_sum_round);
-    a round's product table is the benchmark's where the shape is its own
-    (``sum_round_table``)."""
+    tiled (doubling_combine) and random canonical tables (mont_sum_round,
+    product tables by ``sum_round_table``)."""
     from blitzar_tpu_torch import generators
     from blitzar_tpu_torch.curves import edwards25519 as ed
     from blitzar_tpu_torch.curves import weierstrass as wc

@@ -35,7 +35,7 @@ script's, so both trees run the same work. Cases:
   ``w_tree_reduce_lanes`` on its partials and the ladder of the 256 bit-row
   products they sum to;
 - the proof kernels (section ``mont``): ``mont_mul_ew``, ``mont_fold_round``
-  and ``mont_sum_round`` (degree 3, the sumcheck benchmark's table, and
+  and ``mont_sum_round`` (degree 3, the sumcheck benchmark's round table, and
   degree 5) at chip_smoke.py's 2^20 shapes, in both proof fields, and
   ``mont_sum_round`` at the benchmark's mid = 2^10, 8 and 1 and summed over
   a 2^20 proof's 20 rounds; ``mont_mul_ew`` also in the two Weierstrass
@@ -348,7 +348,8 @@ def section_mont(torch, cs, dev, case) -> None:
         case(f"mont_fold_round/{field.name}/3x2^20", lambda: cm.mont_fold_round(field, table, r),
              torch.equal(cm.mont_fold_round(field, table, r), cm.mont_fold_round_plain(field, table, r)), reps=10)
         wide = cs.random_canonical(torch, field, (7, n), dev, 5)
-        for key, mles, (ptable, pterms) in (("degree3", table, cs.SUMCHECK_BENCH), ("degree5", wide, cs.SUMCHECK_DEG5)):
+        for key, mles, (ptable, pterms) in (("degree3", table, cs.SUMCHECK_BENCH_ROUND),
+                                            ("degree5", wide, cs.SUMCHECK_DEG5)):
             degree = max(k for _, k in ptable)
             mults = field.from_ints([mu for mu, _ in ptable], dev)
             lengths = torch.tensor([k for _, k in ptable], dtype=torch.int32, device=dev)

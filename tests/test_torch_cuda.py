@@ -373,10 +373,6 @@ def test_field_kernels(dev):
 def test_mont_mul_ew_base_fields(dev, field):
     a, b = _field_batch(field, (1000,), 24), _field_batch(field, (1000,), 25)
     assert torch.equal(cm.mont_mul_ew(field, a.to(dev), b.to(dev)).cpu(), cm.mont_mul_ew_plain(field, a, b))
-    z = _field_batch(field, (4, 256), 26)
-    z[:, 1, 7] = 0
-    mul = lambda x, y: cm.mont_mul_ew(field, x, y)  # noqa: E731
-    assert torch.equal(field.batch_invert_lanes(z.to(dev), mul).cpu(), field.batch_invert_lanes(z))
 
 
 @pytest.mark.parametrize("curve", [ed] + list(wc.CURVES), ids=lambda c: getattr(c, "name", "ristretto255"))
@@ -822,7 +818,8 @@ def test_w_affine_kernel(dev, curve):
 def test_mont_sum_round_kernel_shapes(dev, field):
     """One launch a round at mid = 1, 2, 5, 300 and 70000 (one block to many),
     degrees 1-5 with repeated MLEs, short products and a product of the same
-    MLEs as an earlier one; the ticket is back to 0 after each launch."""
+    MLEs as an earlier one; the stream's ticket is back to 0 after each
+    launch."""
     tables = {1: ((0,), (2,), (0,)), 2: ((1, 2), (0,), (2, 1)), 3: ((0, 1, 2), (2, 0), (2, 1, 0)),
               4: ((2, 0, 1, 1), (1,), (1, 2, 1, 0)), 5: ((0, 1, 2, 0, 1), (2, 1, 0), (1, 0, 1, 0, 2), (3, 3))}
     for mid in (1, 2, 5, 300, 70000):
@@ -836,4 +833,41 @@ def test_mont_sum_round_kernel_shapes(dev, field):
             assert cp.LAUNCHES["mont_sum_round"] == before + 1
             want = cm.mont_sum_round_plain(field, mles, mults, lengths, terms, degree)
             assert torch.equal(got.cpu(), want), (mid, degree)
-            assert int(cm._ticket(dev).item()) == 0
+            assert int(cm._ticket(dev, cp._stream(dev)).item()) == 0
+
+
+@pytest.mark.parametrize("field", PROOF_FIELDS, ids=lambda f: f.name)
+def test_mont_sum_round_many_products(dev, field):
+    """300 products (more than a block's shared memory would hold D + 1 sums
+    of) at degrees 2 and 5, over one block and five."""
+    for mid, degree in ((3, 2), (600, 5)):
+        mles = _field_batch(field, (6, 2 * mid), 40 + degree)
+        struct = [tuple((p + j) % 6 for j in range(1 + p % degree)) for p in range(300)]
+        lengths = torch.tensor([len(t) for t in struct], dtype=torch.int32)
+        terms = torch.tensor([t for ts in struct for t in ts], dtype=torch.int32)
+        mults = _field_batch(field, (len(struct),), 50 + degree)
+        got = cm.mont_sum_round(field, mles.to(dev), mults.to(dev), lengths.to(dev), terms.to(dev), degree)
+        assert torch.equal(got.cpu(), cm.mont_sum_round_plain(field, mles, mults, lengths, terms, degree)), mid
+
+
+@pytest.mark.parametrize("field", PROOF_FIELDS, ids=lambda f: f.name)
+def test_mont_sum_round_two_streams(dev, field):
+    """Rounds of two tables launched in turns on two streams of one card, in
+    flight together, each equal to plain: each stream has its own ticket."""
+    struct = ((0, 1, 2), (2, 0), (3,))
+    lengths = torch.tensor([len(t) for t in struct], dtype=torch.int32)
+    terms = torch.tensor([t for ts in struct for t in ts], dtype=torch.int32)
+    mults = _field_batch(field, (len(struct),), 70)
+    tables = [_field_batch(field, (4, 2 * 70000), 71 + k) for k in range(2)]
+    args = [(t.to(dev), mults.to(dev), lengths.to(dev), terms.to(dev)) for t in tables]
+    streams = [torch.cuda.Stream(dev) for _ in tables]
+    torch.cuda.synchronize(dev)
+    outs: list = [[], []]
+    for _ in range(8):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[k].append(cm.mont_sum_round(field, *args[k], 3))
+    torch.cuda.synchronize(dev)
+    for k, table in enumerate(tables):
+        want = cm.mont_sum_round_plain(field, table, mults, lengths, terms, 3)
+        assert all(torch.equal(o.cpu(), want) for o in outs[k]), k

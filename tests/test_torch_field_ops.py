@@ -97,14 +97,13 @@ def test_batch_invert_lanes_any_rows(shape):
                          ids=lambda f: f.name)
 def test_mont_batch_invert_masks_zeros(field):
     """Weierstrass z: zeros (identity entries) give 0, the rest 1/z, by the
-    scans on mont_mul_ew (plain on the CPU) and one plain inversion a row."""
+    scans and one plain inversion a row."""
     rng = np.random.default_rng(14)
     vals = [int.from_bytes(rng.bytes(field.nbytes), "little") % field.modulus for _ in range(24)]
     vals[0] = vals[9] = vals[10] = 0
     z = field.from_ints(vals, "cpu").reshape(field.nlimbs, 3, 8)
-    got = field.batch_invert_lanes(z, lambda a, b: cuda_mont.mont_mul_ew(field, a, b))
+    got = field.batch_invert_lanes(z)
     assert field.to_ints(got) == [pow(v, -1, field.modulus) if v else 0 for v in vals]
-    assert field.to_ints(field.batch_invert_lanes(z)) == field.to_ints(got)
 
 
 def test_mont_mul_ew_takes_the_base_fields():
