@@ -1,17 +1,17 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
 // fp25519.cuh, edwards25519.cuh, niels_tree.cuh, table_build.cuh, lookup.cuh,
-// mont.cuh, weierstrass.cuh, ladder.cuh, sumcheck.cuh, tree_reduce.cuh and
-// w_affine.cuh are
-// compiled here by a
-// host C++ compiler (BTT_HD is plain inline then), so
+// mont.cuh, weierstrass.cuh, ladder.cuh, sumcheck.cuh, tree_reduce.cuh,
+// w_affine.cuh and ed_convert.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
 // (nlimbs, n) int32 array, an Edwards point batch (4, 16, n), a niels batch
 // (3, 16, n), a cached batch (4, 16, n), a Weierstrass point batch (3,
 // nlimbs, n), a sumcheck MLE table (16, m, 2 mid), a Weierstrass table
-// chunk (count, 3, K) words.
+// chunk (count, 3, K) words, a ristretto255 one (count, 3, 8) words, a raw
+// file's rows (count, 15) u64 words.
+#include "ed_convert.cuh"
 #include "edwards25519.cuh"
 #include "ladder.cuh"
 #include "lookup.cuh"
@@ -192,16 +192,40 @@ void host_w_lookup(const lookup_query& q, int64_t rows, int64_t nchunks, const w
   }
 }
 
-// ladder.cuh's ladder_kernel (doubling_combine.cu, w_doubling_combine.cu):
-// each output's lanes one after another, then lane 0's fold
+// ladder.cuh's ladder_kernel (doubling_combine.cu, w_doubling_combine.cu;
+// ed_horner.cu, w_horner.cu with step_bits = 8): each output's lanes one
+// after another, then lane 0's fold
 template <class G>
 void host_ladder(const typename G::In& products, int64_t num_outputs, int nbits, int seg_bits,
-                 const typename G::Out& out) {
+                 const typename G::Out& out, int step_bits) {
   const int nseg = ladder_segments(nbits, seg_bits);
   std::vector<typename G::P> seg(nseg);
   for (int64_t o = 0; o < num_outputs; ++o) {
-    for (int j = 0; j < nseg; ++j) seg[j] = ladder_segment<G>(products, o * nbits, nbits, seg_bits, j);
-    G::store(out, o, ladder_fold<G>(seg.data(), nseg, seg_bits));
+    for (int j = 0; j < nseg; ++j) seg[j] = ladder_segment<G>(products, o * nbits, nbits, seg_bits, j, step_bits);
+    G::store(out, o, ladder_fold<G>(seg.data(), nseg, seg_bits, step_bits));
+  }
+}
+
+int host_ladder_steps(int curve, const int32_t* products, int64_t num_outputs, int nbits, int seg_bits,
+                      int step_bits, int32_t* out) {
+  if (!ladder_args_ok(nbits, seg_bits) || step_bits < 1) return -1;
+  const int64_t m = num_outputs * nbits;
+  if (curve == 0) {
+    host_ladder<EdLadder>(in_points(products, m), num_outputs, nbits, seg_bits, out_points(out, num_outputs),
+                          step_bits);
+    return 0;
+  }
+  auto run = [&](auto curve_tag, int64_t nl) {
+    using C = decltype(curve_tag);
+    const wpoint_ptrs pp = {{products, products + nl * m, products + 2 * nl * m}, m};
+    const wpoint_out_ptrs oo = {{out, out + nl * num_outputs, out + 2 * nl * num_outputs}, num_outputs};
+    host_ladder<WLadder<C>>(pp, num_outputs, nbits, seg_bits, oo, step_bits);
+  };
+  switch (curve) {
+    case Bls12381G1::id: run(Bls12381G1(), 24); return 0;
+    case Bn254G1::id: run(Bn254G1(), 16); return 0;
+    case Grumpkin::id: run(Grumpkin(), 16); return 0;
+    default: return -1;
   }
 }
 
@@ -394,24 +418,15 @@ int btt_host_w_lookup(int curve, const int32_t* table, const uint8_t* scalars, c
 // -1 for another curve id or arguments the launchers reject.
 int btt_host_ladder(int curve, const int32_t* products, int64_t num_outputs, int nbits, int seg_bits,
                     int32_t* out) {
-  if (!ladder_args_ok(nbits, seg_bits)) return -1;
-  const int64_t m = num_outputs * nbits;
-  if (curve == 0) {
-    host_ladder<EdLadder>(in_points(products, m), num_outputs, nbits, seg_bits, out_points(out, num_outputs));
-    return 0;
-  }
-  auto run = [&](auto curve_tag, int64_t nl) {
-    using C = decltype(curve_tag);
-    const wpoint_ptrs pp = {{products, products + nl * m, products + 2 * nl * m}, m};
-    const wpoint_out_ptrs oo = {{out, out + nl * num_outputs, out + 2 * nl * num_outputs}, num_outputs};
-    host_ladder<WLadder<C>>(pp, num_outputs, nbits, seg_bits, oo);
-  };
-  switch (curve) {
-    case Bls12381G1::id: run(Bls12381G1(), 24); return 0;
-    case Bn254G1::id: run(Bn254G1(), 16); return 0;
-    case Grumpkin::id: run(Grumpkin(), 16); return 0;
-    default: return -1;
-  }
+  return host_ladder_steps(curve, products, num_outputs, nbits, seg_bits, 1, out);
+}
+
+// ed_horner.cu and w_horner.cu on the host: the ladder over (O, W) window
+// sums with step_bits doublings a step (8 on the card); curves and layouts
+// as btt_host_ladder's, nbits = W.
+int btt_host_horner(int curve, const int32_t* windows, int64_t num_outputs, int num_windows, int seg_bits,
+                    int step_bits, int32_t* out) {
+  return host_ladder_steps(curve, windows, num_outputs, num_windows, seg_bits, step_bits, out);
 }
 
 // op: 0 mul, 1 sq, 2 invert, 3 add, 4 sub, 5 pow22523
@@ -624,6 +639,41 @@ void btt_host_elligator_form(const int32_t* r0, const int32_t* r1, int32_t* out,
   point_out_ptrs oo = out_points(out, n);
   for (int64_t i = 0; i < n; ++i) {
     ge_store(oo, i, ge_add(elligator(fe_load(r1 + i, n)), elligator(fe_load(r0 + i, n))));
+  }
+}
+
+// points (3, 16, count): a chunk's X, Y, Z -> (count, 3, 8) niels words
+// of ed_convert.cu's ed_to_niels, its tiles of 32 x per entries (the
+// kernel's per is 32, 64 or 128, by the chunk's size) one lane after
+// another; returns -1 for per < 1.
+int btt_host_ed_to_niels(const int32_t* points, int64_t count, int per, int32_t* out) {
+  if (per < 1) return -1;
+  const point_ptrs p = {{points, points + 16 * count, points + 32 * count, nullptr}, count};
+  uint32_t* o = reinterpret_cast<uint32_t*>(out);
+  for (int64_t tile = 0; tile < count; tile += 32LL * per) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const int64_t left = count - tile - lane;
+      const int n = left <= 0 ? 0 : (int)(left < 32LL * per ? (left + 31) / 32 : per);
+      niels_entries<fe_mul_op>(p, o, tile + lane, 32, n);
+    }
+  }
+  return 0;
+}
+
+// (count, 3, 8) niels words -> (count, 15) file rows, ed_convert.cu's
+// ed_file_rows.
+void btt_host_ed_file_rows(const int32_t* words, int64_t count, int64_t* rows) {
+  for (int64_t e = 0; e < count; ++e) {
+    niels_file_row(reinterpret_cast<const uint32_t*>(words) + kNielsWords * e,
+                   reinterpret_cast<uint64_t*>(rows) + kFileWords * e, fe_mul_op());
+  }
+}
+
+// (count, 15) file rows -> (count, 3, 8) niels words, ed_file_entries.
+void btt_host_ed_file_entries(const int64_t* rows, int64_t count, int32_t* words) {
+  for (int64_t e = 0; e < count; ++e) {
+    file_row_niels(reinterpret_cast<const uint64_t*>(rows) + kFileWords * e,
+                   reinterpret_cast<uint32_t*>(words) + kNielsWords * e, fe_mul_op());
   }
 }
 

@@ -7,19 +7,27 @@
 // after another, so the CPU tests (tests/test_torch_wladder.py) hold the
 // kernels' order and arithmetic against the plain versions limb for limb.
 //
+// The same ladder with step_bits doublings a step is the bucket engine's
+// Horner over its windows, out[o] = sum_w 2^(step_bits w) windows[o, w]
+// (ed_horner.cu, w_horner.cu: step_bits = 8, one 8-bit window a step;
+// tests/test_torch_horner.py). The query ladders take step_bits = 1.
+//
 // Order: lane j folds its segment [j L, j L + len) by Horner from its top
-// bit, h = 2 h + P[b] (blitzar_tpu/msm/fixed.py:611-623 on the segment);
-// then lane 0 folds the segments from the top one down, acc = 2^L acc +
+// bit, h = 2^step_bits h + P[b] (blitzar_tpu/msm/fixed.py:611-623 on the
+// segment; blitzar_tpu/msm/engine.py:118-140 for the windows); then lane 0
+// folds the segments from the top one down, acc = 2^(L step_bits) acc +
 // h_j. With one segment (seg_bits = nbits) that is blitzar_tpu's ladder
 // and its coordinates (blitzar_tpu/ops/pallas_point.py:_combine_tiled :982
-// for ristretto255).
+// for ristretto255), and the engine's Horner loop.
 //
 // Why segments: each output is a serial chain, and one thread runs it alone
 // on the card. The doublings of the top bit are a chain no split shortens
-// (nbits - 1 doublings), but the adds can be shared: with S segments of L
-// bits the lanes' Horner runs take L - 1 steps at once, and the fold
-// L (S - 1) doublings and S - 1 adds, in place of nbits - 1 of each. At 256
-// bits (16 segments of 16) the critical path is 255 doublings and 30 adds.
+// ((nbits - 1) step_bits doublings), but the adds can be shared: with S
+// segments of L bits the lanes' Horner runs take L - 1 steps at once, and
+// the fold L (S - 1) steps of doublings and S - 1 adds, in place of nbits -
+// 1 of each. At 256 bits (16 segments of 16) the critical path is 255
+// doublings and 30 adds; a 32-window Horner (6 segments of 6) 248
+// doublings and 6 adds where one segment takes 248 and 31.
 //
 // The double and the add are one non-inlined body each, shared by the two
 // phases. Weierstrass: each multiply calls one non-inlined Montgomery body
@@ -85,46 +93,54 @@ BTT_HD bool ladder_args_ok(int nbits, int seg_bits) {
   return nbits >= 1 && seg_bits >= 1 && ladder_segments(nbits, seg_bits) <= kLadderMaxSegments;
 }
 
-// Lane j's Horner sum of products [base + lo, base + lo + len), lo = j L.
+// 2^k p: k doublings.
 template <class G>
-BTT_HD typename G::P ladder_segment(const typename G::In& products, int64_t base, int nbits, int seg_bits, int j) {
+BTT_HD typename G::P ladder_doubles(typename G::P p, int k) {
+  for (int i = 0; i < k; ++i) p = ladder_double<G>(p);
+  return p;
+}
+
+// Lane j's Horner sum of products [base + lo, base + lo + len), lo = j L,
+// step_bits doublings a step.
+template <class G>
+BTT_HD typename G::P ladder_segment(const typename G::In& products, int64_t base, int nbits, int seg_bits, int j,
+                                    int step_bits = 1) {
   const int lo = j * seg_bits;
   const int hi = lo + seg_bits < nbits ? lo + seg_bits : nbits;
   typename G::P h = G::load(products, base + hi - 1);
-  for (int b = hi - 2; b >= lo; --b) h = ladder_add<G>(ladder_double<G>(h), G::load(products, base + b));
+  for (int b = hi - 2; b >= lo; --b) h = ladder_add<G>(ladder_doubles<G>(h, step_bits), G::load(products, base + b));
   return h;
 }
 
-// sum_j 2^(j L) seg[j] over nseg segments, from the top one down.
+// sum_j 2^(j L step_bits) seg[j] over nseg segments, from the top one down.
 template <class G>
-BTT_HD typename G::P ladder_fold(const typename G::P* seg, int nseg, int seg_bits) {
+BTT_HD typename G::P ladder_fold(const typename G::P* seg, int nseg, int seg_bits, int step_bits = 1) {
   typename G::P acc = seg[nseg - 1];
-  for (int j = nseg - 2; j >= 0; --j) {
-    for (int i = 0; i < seg_bits; ++i) acc = ladder_double<G>(acc);
-    acc = ladder_add<G>(acc, seg[j]);
-  }
+  for (int j = nseg - 2; j >= 0; --j) acc = ladder_add<G>(ladder_doubles<G>(acc, seg_bits * step_bits), seg[j]);
   return acc;
 }
 
 #if defined(__CUDACC__)
 // One warp an output (block o): lane j < S runs segment j, lane 0 folds.
-// The products are read in place, (nlimbs, O, nbits) limb-major.
-template <class G>
+// The products are read in place, (nlimbs, O, nbits) limb-major. The step
+// a template argument: the query ladders' kernels (1) and the Horner
+// kernels (8) are separate instantiations.
+template <class G, int kStepBits>
 __global__ void __launch_bounds__(32)
 ladder_kernel(typename G::In products, int nbits, int seg_bits, typename G::Out out) {
   __shared__ typename G::P seg[kLadderMaxSegments];
   const int64_t o = blockIdx.x;
   const int lane = threadIdx.x;
   const int nseg = ladder_segments(nbits, seg_bits);
-  if (lane < nseg) seg[lane] = ladder_segment<G>(products, o * nbits, nbits, seg_bits, lane);
+  if (lane < nseg) seg[lane] = ladder_segment<G>(products, o * nbits, nbits, seg_bits, lane, kStepBits);
   __syncwarp();
-  if (lane == 0) G::store(out, o, ladder_fold<G>(seg, nseg, seg_bits));
+  if (lane == 0) G::store(out, o, ladder_fold<G>(seg, nseg, seg_bits, kStepBits));
 }
 
-template <class G>
+template <class G, int kStepBits = 1>
 void launch_ladder(const typename G::In& products, int64_t num_outputs, int nbits, int seg_bits,
                    const typename G::Out& out, cudaStream_t stream) {
-  ladder_kernel<G><<<(unsigned)num_outputs, 32, 0, stream>>>(products, nbits, seg_bits, out);
+  ladder_kernel<G, kStepBits><<<(unsigned)num_outputs, 32, 0, stream>>>(products, nbits, seg_bits, out);
 }
 #endif
 

@@ -136,23 +136,24 @@ def _const(value: int, like: torch.Tensor) -> torch.Tensor:
     return F.from_int(value, (1,) * (like.dim() - 1), like.device)
 
 
-# The table conversions below take the field's elementwise multiply (and
-# inversion) as arguments, the plain ones by default: over a table on the
-# card ``msm/fixed.py`` passes the ``fmul`` kernel and the batch inversion on
-# the ``fmul`` / ``finvert`` kernels (``ops/cuda_field.py``).
+# The table conversions below are the plain versions of the card's
+# (``ops/cuda_point.py``: ``ed_to_niels``, ``ed_file_rows``,
+# ``ed_file_entries``). ``to_niels`` takes the inversion as an argument, and
+# the niels-to-point direction the multiply: ``msm/fixed.py`` passes the
+# ``fmul`` kernel there for a table on the card.
 
 
-def affine_to_niels(x, y, mul=F.mul) -> Niels:
+def affine_to_niels(x, y) -> Niels:
     """Affine (x, y) -> niels (y + x, y - x, 2d*x*y)."""
-    return Niels(F.add(y, x), F.sub(y, x), mul(mul(x, y), _const(D2_INT, x)))
+    return Niels(F.add(y, x), F.sub(y, x), F.mul(F.mul(x, y), _const(D2_INT, x)))
 
 
-def to_niels(p: PointP3, mul=F.mul, invert=F.invert) -> Niels:
+def to_niels(p: PointP3, invert=F.invert) -> Niels:
     """Extended -> affine niels: z^-1 by ``invert`` (plain: one inversion per
     element; a batch inversion along the last axis gives the same values),
     then x/z, y/z and :func:`affine_to_niels`."""
     zinv = invert(p.z)
-    return affine_to_niels(mul(p.x, zinv), mul(p.y, zinv), mul)
+    return affine_to_niels(F.mul(p.x, zinv), F.mul(p.y, zinv))
 
 
 def niels_to_affine(n: Niels, mul=F.mul):

@@ -24,9 +24,11 @@ into (C, rows, 255) slabs (identities in the unused slots, points negated
 where a sign is set) and sums each slab on ``tree_reduce_lanes``, a round
 more while a bucket holds more than C points; then a reverse scan over the
 buckets (``ed_add`` / ``wadd``) and their sum give each window's
-sum_b b S_b, and Horner combines the windows with 8 doublings a step
-(``ed_double`` / ``wdouble``). The sort, the search and the gathers are
-plain torch, as blitzar_tpu leaves them to XLA.
+sum_b b S_b, and Horner combines the windows with 8 doublings a step, one
+``ed_horner`` / ``w_horner`` launch for all outputs (the ladder of the
+queries, where blitzar_tpu launches its double and add kernels once each a
+step). The sort, the search and the gathers are plain torch, as
+blitzar_tpu leaves them to XLA.
 
 The point that comes out is the same on every path.
 """
@@ -41,6 +43,7 @@ import torch
 
 from ..curves import edwards25519 as ed
 from ..fields import fp25519 as F
+from ..ops import cuda_point, cuda_wpoint
 from . import fixed
 
 
@@ -239,16 +242,27 @@ def window_sums(bucket_sums, curve=ed):
     return fixed.sum_leading(type(suffix)(*(c.transpose(1, 2) for c in suffix)), curve)
 
 
-def horner(windows, curve=ed):
+def horner_plain(windows, curve=ed):
     """(O, W) window sums -> (O,): from the top window down, 8 doublings
-    (``curve.double``) and an add a step."""
+    and an add a step, on the plain group law (blitzar_tpu/msm/engine.py:
+    118-140's loop)."""
     num_windows = windows.x.shape[2]
     acc = curve.index_batch(windows, (slice(None), num_windows - 1))
     for idx in range(num_windows - 2, -1, -1):
         for _ in range(8):
-            acc = curve.double(acc)
-        acc = curve.add(acc, curve.index_batch(windows, (slice(None), idx)))
+            acc = curve._double_impl(acc)
+        acc = curve._add_impl(acc, curve.index_batch(windows, (slice(None), idx)))
     return acc
+
+
+def horner(windows, curve=ed):
+    """(O, W) window sums -> (O,): sum_w 2^(8 w) windows[:, w], one
+    ``ed_horner`` / ``w_horner`` launch (in the kernel's segments: the
+    points of :func:`horner_plain`); on the CPU their plain versions, in
+    :func:`horner_plain`'s order."""
+    if curve is ed:
+        return cuda_point.ed_horner(windows)
+    return cuda_wpoint.w_horner(curve, windows)
 
 
 def combine_buckets(bucket_sums, num_outputs: int, num_windows: int, curve=ed):

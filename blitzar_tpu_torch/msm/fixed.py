@@ -39,9 +39,10 @@ pad a table to whole groups: they select entry 0.
 A handle goes to and comes from files (:meth:`MultiexpHandle.write_to_file`,
 :meth:`MultiexpHandle.new_from_file`): blitzar_tpu's npz of the point table,
 or the reference's raw format (``msm/interop.py``). A ristretto255 point
-table becomes niels entries by a batch inversion of z along each group's
-entries, on the ``fmul`` and ``finvert`` kernels (``ops/cuda_field.py``),
-``TABLE_CHUNK_ENTRIES`` entries at a time. Packed and vlen queries
+table becomes niels entries by one ``ed_to_niels`` launch a chunk of
+``TABLE_CHUNK_ENTRIES`` entries (a batch inversion of z on the card,
+``ops/cuda_point.py``); niels entries go back to points on the ``fmul``
+kernel (``ops/cuda_field.py``). Packed and vlen queries
 (:func:`fixed_packed_multiexponentiation`,
 :func:`fixed_vlen_multiexponentiation`) run as one query of the packed
 bytes, whose bit-row products are then picked per output.
@@ -85,28 +86,22 @@ def table_chunks(groups: int, entries: int):
 
 def lane_rows(t: torch.Tensor) -> torch.Tensor:
     """A (nlimbs, g, V) table coordinate as (nlimbs, rows, L) rows of L =
-    min(V, ``INVERT_LANES``) entries, the rows of a batch inversion: any
-    split of the entries gives the same inverses, and rows of 256 keep its
-    scans at 3 x 255 launches however large V (2^16 in the reference's
-    default files) and its row totals few."""
+    min(V, ``INVERT_LANES``) entries, the rows of a plain batch inversion
+    (``cuda_wpoint.w_affine_plain``): any split of the entries gives the same
+    inverses, and rows of 256 keep its row totals few however large V (2^16
+    in the reference's default files)."""
     return t.reshape(t.shape[0], -1, min(t.shape[-1], INVERT_LANES))
-
-
-def _invert_z(z: torch.Tensor) -> torch.Tensor:
-    return cuda_field.batch_invert_lanes(lane_rows(z)).reshape(z.shape)
 
 
 def niels_table(table: ed.PointP3) -> torch.Tensor:
     """(16, G, V) extended points -> (G, V, 3, 8) niels words
-    (blitzar_tpu/msm/fixed.py:197-220), chunk by chunk: z inverted by a batch
-    inversion over :func:`lane_rows` (``cuda_field``: the ``fmul`` and
-    ``finvert`` kernels on the card, plain on the CPU), then x/z, y/z and
-    (y + x, y - x, 2d*x*y)."""
+    (blitzar_tpu/msm/fixed.py:197-220), one ``ed_to_niels`` launch a chunk
+    (a batch inversion of z, then x/z, y/z and (y + x, y - x, 2d*x*y); its
+    plain version on the CPU)."""
     groups, entries = table.x.shape[1], table.x.shape[2]
     out = torch.empty((groups, entries, 3, 8), dtype=torch.int32, device=table.x.device)
     for sl in table_chunks(groups, entries):
-        part = ed.index_batch(table, sl)
-        out[sl] = cuda_point.pack_niels(ed.to_niels(part, cuda_field.fmul, _invert_z))
+        out[sl] = cuda_point.ed_to_niels(ed.index_batch(table, sl))
     return out
 
 

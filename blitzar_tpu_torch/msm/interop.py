@@ -14,10 +14,11 @@ little-endian u64 words:
 
 Both directions run chunk by chunk (``fixed.TABLE_CHUNK_ENTRIES`` entries),
 the field work and the word conversions on the table's device: ristretto255
-niels entries to affine x, y and x*y by ``fmul`` (``ops/cuda_field.py``) and
-back; a Weierstrass table's projective points to the file's affine rows by
-one ``w_affine`` launch a chunk (``ops/cuda_wpoint.py``: a batch inversion
-of z and x / z, y / z on the card), read back by ``mont_mul_ew``
+niels entries to the file's rows by one ``ed_file_rows`` launch a chunk and
+back by one ``ed_file_entries`` launch (``ops/cuda_point.py``); a
+Weierstrass table's projective points to the file's affine rows by one
+``w_affine`` launch a chunk (``ops/cuda_wpoint.py``: a batch inversion of z
+and x / z, y / z on the card), read back by ``mont_mul_ew``
 (``ops/cuda_mont.py``). The file goes through the host once, a chunk at a
 time. A file with w a multiple of 8
 above 8 (the reference's default is 16) is re-windowed to w = 8 as it is
@@ -36,7 +37,7 @@ import torch
 
 from ..curves import edwards25519 as ed
 from ..curves.weierstrass import PointP2
-from ..ops import cuda_field, cuda_mont, cuda_point, cuda_wpoint
+from ..ops import cuda_mont, cuda_point, cuda_wpoint
 from ..utils import limbs as limb_util
 from . import fixed
 
@@ -51,13 +52,6 @@ def entry_words(curve) -> int:
     return 3 * F51_WORDS if curve is ed else curve.nlimbs // 2
 
 
-def _ed_rows(words: torch.Tensor) -> torch.Tensor:
-    """(g, V, 3, 8) niels words -> (g V, 15) int64 rows {X, Y, X*Y}."""
-    x, y = ed.niels_to_affine(cuda_point.unpack_niels(words), cuda_field.fmul)
-    xy = cuda_field.fmul(x, y)
-    return torch.cat([limb_util.limbs16_to_f51_u64(c.reshape(c.shape[0], -1)) for c in (x, y, xy)], dim=1)
-
-
 def write_reference_file(handle: "fixed.MultiexpHandle", path: str) -> None:
     """Write ``handle`` in the reference's raw format, byte for byte what
     blitzar_tpu's ``write_reference_file`` writes for the same table."""
@@ -65,16 +59,9 @@ def write_reference_file(handle: "fixed.MultiexpHandle", path: str) -> None:
     with open(path, "wb") as out:
         out.write(HEADER.pack(handle.window_width))
         for sl in fixed.table_chunks(table.shape[0], table.shape[1]):
-            rows = _ed_rows(table[sl]) if handle.curve is ed else cuda_wpoint.w_affine(handle.curve, table[sl])
+            part = table[sl]
+            rows = cuda_point.ed_file_rows(part) if handle.curve is ed else cuda_wpoint.w_affine(handle.curve, part)
             rows.cpu().numpy().tofile(out)
-
-
-def _ed_entries(rows: torch.Tensor) -> torch.Tensor:
-    """(E, 15) int64 rows -> (E, 3, 8) niels words: x and y from the file,
-    2d*x*y recomputed (the file's X*Y is not read)."""
-    x = limb_util.f51_u64_to_limbs16(rows[:, 0:F51_WORDS])
-    y = limb_util.f51_u64_to_limbs16(rows[:, F51_WORDS : 2 * F51_WORDS])
-    return cuda_point.pack_niels(ed.affine_to_niels(x, y, cuda_field.fmul))
 
 
 def _w_entries(curve, rows: torch.Tensor) -> torch.Tensor:
@@ -121,7 +108,7 @@ def read_reference_file(path: str, curve=ed, device="cuda") -> "fixed.MultiexpHa
     for sl in fixed.table_chunks(groups, split * entries):
         part = np.array(body[sl] if cols is None else body[sl][:, cols])  # read from the file
         rows = torch.from_numpy(part.view(np.int64).reshape(-1, words)).to(device)
-        got = _ed_entries(rows) if curve is ed else _w_entries(curve, rows)
+        got = cuda_point.ed_file_entries(rows) if curve is ed else _w_entries(curve, rows)
         table[sl.start * split : sl.stop * split] = got.reshape(-1, entries, coords, nwords)
     del body
     return fixed.MultiexpHandle.from_table(table, curve)

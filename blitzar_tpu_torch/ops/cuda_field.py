@@ -1,11 +1,12 @@
 """The CUDA kernels of GF(2^255 - 19) arithmetic on whole batches: wrappers,
 plain versions, counts.
 
-They carry the table conversions of handle files (extended or affine points
-to niels entries and back, ``msm/fixed.py``, ``msm/interop.py``) and the
-generator disk cache (``generators.py``), where a plain PyTorch multiply over
-a 2^20-point table's 2^25 entries would need tens of GiB for its int64
-partial products. Each wrapper takes (16, *batch) int32 limbs (the public
+They carry the generator disk cache (``generators.py``) and a ristretto255
+handle's npz write (niels entries back to points, ``msm/fixed.py``), where a
+plain PyTorch multiply over a 2^20-point table's 2^25 entries would need
+tens of GiB for its int64 partial products; the table conversions of the
+other file paths are one launch a chunk each (``ops/cuda_point.py``:
+``ed_to_niels``, ``ed_file_rows``, ``ed_file_entries``). Each wrapper takes (16, *batch) int32 limbs (the public
 layout, limbs below 2^17, ``fields/fp25519.py``). On a tensor that lies on
 the CPU it runs the plain version beside it; on a CUDA tensor it checks
 device, dtype and shape, allocates the output, launches its kernel from
@@ -22,9 +23,6 @@ wrapper        replaces                         source
 ``fsq``        ``_fsq_tiled`` :144 / :162       fmul.cu
 ``finvert``    ``_finvert_tiled`` :172 / :185   finvert.cu
 =============  ===============================  ==========
-
-:func:`batch_invert_lanes` is Montgomery's trick (``fields/batch_invert.py``)
-run on these kernels.
 """
 
 from __future__ import annotations
@@ -115,8 +113,8 @@ def finvert(a: torch.Tensor) -> torch.Tensor:
 
     Kernel csrc/finvert.cu, one thread per element, the 265-multiply chain in
     registers. Bound: operations; the least work that inverts a batch is a
-    batch inversion (three multiplies an element), which
-    :func:`batch_invert_lanes` does where the elements form rows."""
+    batch inversion (three multiplies an element), which ``ed_to_niels``
+    (``ops/cuda_point.py``) runs for a table's z."""
     if a.dim() < 2 or a.shape[0] != F.NLIMBS:
         raise ValueError(f"finvert: shape {tuple(a.shape)}: expected (16, *batch)")
     if not _on_card(a):
@@ -129,10 +127,3 @@ def finvert(a: torch.Tensor) -> torch.Tensor:
                 _stream(a.device))
     return out
 
-
-def batch_invert_lanes(z: torch.Tensor) -> torch.Tensor:
-    """1/z of a (16, *rows, V) batch of nonzero elements by Montgomery's
-    trick along the last axis (``fields/batch_invert.py``), on the ``fmul`` and
-    ``finvert`` kernels on the card: 3 (V - 1) ``fmul`` launches over the
-    rows and one ``finvert`` of the row totals."""
-    return F.batch_invert_lanes(z, fmul, finvert)

@@ -28,12 +28,27 @@ wrapper                 replaces                                 source
 ``niels_tree_reduce_lanes``  ``_niels_tree_tiled`` :426          niels_tree_reduce_lanes.cu
 ``elligator_form``      ``_elligator_form_tiled`` :212           elligator_form.cu
 ``tree_reduce_lanes``   ``_tree_tiled`` :344                     tree_reduce_lanes.cu
+``ed_to_niels``         ``_fmul_tiled`` :130 + ``_finvert_tiled``  ed_convert.cu
+                        :172 (a table's batch inversion)
+``ed_file_rows``        ``_fmul_tiled`` :130 (the raw write)     ed_convert.cu
+``ed_file_entries``     ``_fmul_tiled`` :130 (the raw read)      ed_convert.cu
+``ed_horner``           ``_double_tiled`` :254 + ``_add_tiled``  ed_horner.cu
+                        :237 (the bucket engine's Horner)
 ======================  ======================================  =====================
+
+``ed_to_niels``, ``ed_file_rows`` and ``ed_file_entries`` convert a chunk
+of a table between extended points, niels words and the reference's raw
+file rows in one launch, where the files paths ran chains of ``fmul``
+launches (3 x 255 scan steps and a ``finvert`` for a batch inversion).
+``ed_horner`` is the bucket engine's Horner over a commitment's 8-bit
+windows as one launch, the ladder of ``doubling_combine`` with 8 doublings
+a step, where the engine launched ``ed_double`` 8 times and ``ed_add``
+once a window.
 
 ``ed_lookup_msm`` counts its launches on a cached table (a streamed chunk's)
 as ``ed_lookup_msm_cached``. The Weierstrass kernels (``w_build_table``,
-``w_lookup_msm``, ``wadd``, ``wdouble``, ``w_doubling_combine``, ``w_affine`` and
-``tree_reduce_lanes``'s Weierstrass instantiations) have their wrappers in
+``w_lookup_msm``, ``wadd``, ``wdouble``, ``w_doubling_combine``, ``w_affine``,
+``w_horner`` and ``tree_reduce_lanes``'s Weierstrass instantiations) have their wrappers in
 ``ops/cuda_wpoint.py``,
 the proof kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``)
 in ``ops/cuda_mont.py``, the field kernels (``fmul``, ``fsq``, ``finvert``)
@@ -52,6 +67,7 @@ import torch
 from ..curves import edwards25519 as ed
 from ..curves import ristretto as rst
 from ..fields import fp25519 as F
+from ..utils import limbs as limb_util
 from . import build
 
 KERNELS = (
@@ -66,6 +82,10 @@ KERNELS = (
     "niels_add",
     "niels_tree_reduce_lanes",
     "elligator_form",
+    "ed_to_niels",
+    "ed_file_rows",
+    "ed_file_entries",
+    "ed_horner",
     "fmul",
     "fsq",
     "finvert",
@@ -75,6 +95,7 @@ KERNELS = (
     "wdouble",
     "w_doubling_combine",
     "w_affine",
+    "w_horner",
     "mont_mul_ew",
     "mont_fold_round",
     "mont_sum_round",
@@ -209,6 +230,116 @@ def pack_cached(c: ed.Cached) -> torch.Tensor:
 def unpack_cached(entries: torch.Tensor) -> ed.Cached:
     """(*batch, 4, 8) table entries -> Cached (16, *batch)."""
     return ed.Cached(*(words_to_limbs(entries[..., k, :]) for k in range(4)))
+
+
+# ---------------------------------------------------------------------------
+# a table's conversions: ed_to_niels, ed_file_rows, ed_file_entries (replace
+# chains of pallas_point.py:_fmul_tiled :130, and _finvert_tiled :172)
+# ---------------------------------------------------------------------------
+
+FILE_ROW_WORDS = 15  # a raw file's ristretto255 entry: {X, Y, X*Y}, five u64 field51 limbs each
+
+
+def ed_to_niels_plain(points: ed.PointP3) -> torch.Tensor:
+    """:func:`ed_to_niels` by the plain adds: z inverted by a batch
+    inversion along runs of up to 256 entries (``F.batch_invert_lanes``;
+    exact inverses, so the words do not depend on the batching), then x/z,
+    y/z and (y + x, y - x, 2d*x*y)."""
+    return pack_niels(ed.to_niels(points, invert=_invert_runs))
+
+
+def ed_to_niels(points: ed.PointP3) -> torch.Tensor:
+    """(16, *batch) extended points (a chunk of a point table) -> (*batch, 3,
+    8) niels words, canonical: the handle's entries (blitzar_tpu/msm/fixed.py:
+    197-220). t is not read; no z may be 0.
+
+    Kernel csrc/ed_convert.cu, one launch: each thread runs Montgomery's
+    trick over 32, 64 or 128 entries of the chunk (a power of two, the
+    chunk over 2^15 threads; its prefixes parked in the words it writes),
+    one inversion a thread, 7 field multiplies an entry. Bound: bytes (x,
+    y and z read, 96 bytes written an entry); a thread's own inversion adds
+    about 4 multiplies an entry at 64 entries a thread."""
+    if not _on_card(points.x):
+        return ed_to_niels_plain(points)
+    batch = tuple(points.x.shape[1:])
+    coords, stride = _point_arg(points[:3], points.x.device, batch)
+    out = torch.empty(batch + (3, 8), dtype=torch.int32, device=points.x.device)
+    _launch(
+        "ed_to_niels", build.library().btt_ed_to_niels,
+        *_ptrs(coords), stride, points.x[0].numel(), out.data_ptr(), _stream(points.x.device),
+    )
+    return out
+
+
+def _check_words(words: torch.Tensor) -> None:
+    if words.dim() < 2 or tuple(words.shape[-2:]) != (3, 8) or words.dtype != torch.int32:
+        raise ValueError(f"niels words {tuple(words.shape)} {words.dtype}: expected (*batch, 3, 8) int32")
+
+
+def ed_file_rows_plain(words: torch.Tensor) -> torch.Tensor:
+    """:func:`ed_file_rows` by the plain multiplies: x = (a - b)/2, y = (a +
+    b)/2, x*y, each as canonical field51 limbs."""
+    _check_words(words)
+    x, y = ed.niels_to_affine(unpack_niels(words.reshape(-1, 3, 8)))
+    return torch.cat([limb_util.limbs16_to_f51_u64(c) for c in (x, y, F.mul(x, y))], dim=1)
+
+
+def ed_file_rows(words: torch.Tensor) -> torch.Tensor:
+    """(*batch, 3, 8) niels words (a chunk of a handle's table) -> (E, 15)
+    int64 rows of the reference's raw file, E the batch's size: affine {X,
+    Y, X*Y}, canonical radix-2^51 limbs as u64 bit patterns.
+
+    Kernel csrc/ed_convert.cu, one launch, one thread an entry: 3 field
+    multiplies, t not read, a block's rows written out from shared memory.
+    Bound: bytes (64 read, 120 written an entry)."""
+    _check_words(words)
+    if not _on_card(words):
+        return ed_file_rows_plain(words)
+    words = words.contiguous()
+    count = words.numel() // 24
+    rows = torch.empty((count, FILE_ROW_WORDS), dtype=torch.int64, device=words.device)
+    _launch(
+        "ed_file_rows", build.library().btt_ed_file_rows,
+        words.data_ptr(), count, rows.data_ptr(), _stream(words.device),
+    )
+    return rows
+
+
+def _check_rows(rows: torch.Tensor) -> None:
+    if rows.dim() != 2 or rows.shape[1] != FILE_ROW_WORDS or rows.dtype != torch.int64:
+        raise ValueError(f"file rows {tuple(rows.shape)} {rows.dtype}: expected (E, {FILE_ROW_WORDS}) int64")
+
+
+def ed_file_entries_plain(rows: torch.Tensor) -> torch.Tensor:
+    """:func:`ed_file_entries` by the plain multiplies: x and y reduced from
+    any field51 limbs (``utils.limbs.f51_u64_to_limbs16``), then (y + x, y -
+    x, 2d*x*y)."""
+    _check_rows(rows)
+    x = limb_util.f51_u64_to_limbs16(rows[:, 0:5])
+    y = limb_util.f51_u64_to_limbs16(rows[:, 5:10])
+    return pack_niels(ed.affine_to_niels(x, y))
+
+
+def ed_file_entries(rows: torch.Tensor) -> torch.Tensor:
+    """(E, 15) int64 rows of the reference's raw file -> (E, 3, 8) niels
+    words: x and y from any field51 representation (u64 limbs of any
+    magnitude, values below 2^269, reduced mod p), 2d*x*y recomputed (the
+    row's X*Y is not read).
+
+    Kernel csrc/ed_convert.cu, one launch, one thread an entry: 2 field
+    multiplies, a block's rows read in and its words written out through
+    shared memory. Bound: bytes (80 read, 96 written an entry)."""
+    _check_rows(rows)
+    if not _on_card(rows):
+        return ed_file_entries_plain(rows)
+    rows = rows.contiguous()
+    count = rows.shape[0]
+    words = torch.empty((count, 3, 8), dtype=torch.int32, device=rows.device)
+    _launch(
+        "ed_file_entries", build.library().btt_ed_file_entries,
+        rows.data_ptr(), count, words.data_ptr(), _stream(rows.device),
+    )
+    return words
 
 
 # ---------------------------------------------------------------------------
@@ -403,10 +534,12 @@ NIELS_RUN_ENTRIES = 256  # entries a batch inversion covers, the kernel's run
 
 
 def _invert_runs(z: torch.Tensor) -> torch.Tensor:
-    """1/z for (16, G, V) by a batch inversion along each run of up to 256
-    consecutive entries, as the kernel inverts."""
-    run = min(z.shape[-1], NIELS_RUN_ENTRIES)
-    return F.batch_invert_lanes(z.reshape(z.shape[:-1] + (-1, run))).reshape(z.shape)
+    """1/z for (16, *batch) by a batch inversion along runs of up to 256
+    consecutive entries (the largest power of two up to 256 that divides the
+    batch's size: a group's runs, as the kernels invert, for a table)."""
+    flat = z.reshape(F.NLIMBS, -1)
+    run = math.gcd(flat.shape[1], NIELS_RUN_ENTRIES)
+    return F.batch_invert_lanes(flat.reshape(F.NLIMBS, -1, run)).reshape(z.shape)
 
 
 def build_niels_table_plain(points: ed.PointP3, w: int) -> torch.Tensor:
@@ -706,13 +839,20 @@ def ladder_segment_bits(nbits: int) -> int:
     return max(math.isqrt(nbits - 1) + 1 if nbits > 1 else 1, -(-nbits // 32))
 
 
-def ladder_plain(group, products, seg: int):
+def ladder_plain(group, products, seg: int, step_bits: int = 1):
     """The ladder of csrc/ladder.cuh on a group's plain adds, in the
     kernels' order: every segment's Horner run at once over an (O, S) batch
     (the short top segment joins when its bits begin), then the fold from
-    the top segment down. ``group``: ``curves.edwards25519`` or a
-    ``WCurve`` (``_add_impl``, ``_double_impl``, ``index_batch``,
+    the top segment down; ``step_bits`` doublings a step (8: the bucket
+    engine's Horner over its windows). ``group``: ``curves.edwards25519`` or
+    a ``WCurve`` (``_add_impl``, ``_double_impl``, ``index_batch``,
     ``select``). ``seg = nbits`` (one segment) is blitzar_tpu's ladder."""
+
+    def doubles(p, k):
+        for _ in range(k):
+            p = group._double_impl(p)
+        return p
+
     nbits = products.x.shape[2]
     nseg = -(-nbits // seg)
     dev = products.x.device
@@ -721,12 +861,10 @@ def ladder_plain(group, products, seg: int):
     h = group.index_batch(products, (slice(None), lo + length - 1))  # (nlimbs, O, S)
     for s in range(1, seg):
         below = group.index_batch(products, (slice(None), torch.clamp(lo + length - 1 - s, min=0)))
-        h = group.select(h, group._add_impl(group._double_impl(h), below), (length > s)[None])
+        h = group.select(h, group._add_impl(doubles(h, step_bits), below), (length > s)[None])
     acc = group.index_batch(h, (slice(None), nseg - 1))
     for j in range(nseg - 2, -1, -1):
-        for _ in range(seg):
-            acc = group._double_impl(acc)
-        acc = group._add_impl(acc, group.index_batch(h, (slice(None), j)))
+        acc = group._add_impl(doubles(acc, seg * step_bits), group.index_batch(h, (slice(None), j)))
     return acc
 
 
@@ -760,5 +898,48 @@ def doubling_combine(products: ed.PointP3, seg_bits: int | None = None) -> ed.Po
         "doubling_combine", build.library().btt_doubling_combine,
         *_ptrs(coords), stride, num_outputs, nbits, seg_bits or ladder_segment_bits(nbits), *_ptrs(out),
         _stream(products.x.device),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ed_horner  (replaces the bucket engine's Horner on pallas_point.py:
+# _double_tiled :254 and _add_tiled :237)
+# ---------------------------------------------------------------------------
+
+HORNER_STEP_BITS = 8  # the bucket engine's windows: 8 doublings a Horner step
+
+
+def ed_horner_plain(windows: ed.PointP3, seg_bits: int | None = None) -> ed.PointP3:
+    """:func:`ed_horner` on the plain adds, in the kernel's order
+    (:func:`ladder_plain` with 8 doublings a step). By default in one
+    segment: the engine's loop (``msm/engine.py:horner_plain``), limb for
+    limb; ``seg_bits`` gives the kernel's order in segments of that many
+    windows (the same points)."""
+    return ladder_plain(ed, windows, seg_bits or windows.x.shape[2], HORNER_STEP_BITS)
+
+
+def ed_horner(windows: ed.PointP3, seg_bits: int | None = None) -> ed.PointP3:
+    """(16, O, W) window sums -> (16, O): sum_w 2^(8 w) windows[:, o, w], by
+    Horner from the top window (8 doublings and an add a window), the
+    bucket engine's combine of its 8-bit windows.
+
+    Kernel csrc/ed_horner.cu, one launch for all outputs: csrc/ladder.cuh's
+    ladder with 8 doublings a step, one warp an output, lanes on segments
+    of ``seg_bits`` windows (default ``ladder_segment_bits``), lane 0 folds
+    them. The outputs are the points of :func:`ed_horner_plain`, its
+    coordinates with the same ``seg_bits`` (which a CPU tensor gets: one
+    segment by default). Bound: latency (8 (W - 1) dependent doublings)."""
+    num_outputs, num_windows = windows.x.shape[1], windows.x.shape[2]
+    if num_windows < 1:
+        raise ValueError("a Horner sum needs at least one window")
+    if not _on_card(windows.x):
+        return ed_horner_plain(windows, seg_bits)
+    coords, stride = _point_arg(windows, windows.x.device, (num_outputs, num_windows))
+    out = _empty_point((num_outputs,), windows.x.device)
+    _launch(
+        "ed_horner", build.library().btt_ed_horner,
+        *_ptrs(coords), stride, num_outputs, num_windows, seg_bits or ladder_segment_bits(num_windows),
+        *_ptrs(out), _stream(windows.x.device),
     )
     return out

@@ -27,6 +27,8 @@ wrapper                  replaces                                           sour
                          blitzar_tpu/msm/fixed.py:596-623's ladder
 ``w_affine``             the files path's batch inversion on ``mont_mul_ew``   w_affine.cu
                          :1139 (blitzar_tpu/msm/interop.py:_w_affine_xy)
+``w_horner``             ``_wdouble_tiled`` :907 + ``_wadd_tiled`` :891 in   w_horner.cu
+                         the bucket engine's Horner
 =======================  =================================================  ======================
 
 ``w_doubling_combine`` is the double-and-add ladder of a query as one
@@ -34,6 +36,9 @@ launch over all its outputs, where blitzar_tpu launches ``wdouble`` and
 ``wadd`` once each per bit. ``w_affine`` puts a chunk of a table in the
 affine form of the reference's raw file in one launch, where the files
 path ran a batch inversion of 3 x 255 ``mont_mul_ew`` launches a chunk.
+``w_horner`` is the bucket engine's Horner over a commitment's 8-bit
+windows as one launch (the ladder with 8 doublings a step), where the
+engine launched ``wdouble`` 8 times and ``wadd`` once a window.
 
 Launches count under the kernel's name in ``cuda_point.LAUNCHES`` and per
 curve in ``cuda_point.INSTANCE_LAUNCHES`` (``w_tree_reduce_lanes`` as
@@ -54,8 +59,8 @@ from ..curves.weierstrass import PointP2, WCurve
 from ..utils.limbs import limbs16_to_u64
 from . import build
 from .cuda_point import (
-    _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, ladder_plain, ladder_segment_bits,
-    limbs_to_words, lookup_chunks, lookup_walk, query_args, tree_launch, words_to_limbs,
+    HORNER_STEP_BITS, _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, ladder_plain,
+    ladder_segment_bits, limbs_to_words, lookup_chunks, lookup_walk, query_args, tree_launch, words_to_limbs,
 )
 
 # ---------------------------------------------------------------------------
@@ -342,3 +347,44 @@ def w_affine(curve: WCurve, entries: torch.Tensor) -> torch.Tensor:
         instance=curve.name,
     )
     return rows
+
+
+# ---------------------------------------------------------------------------
+# w_horner  (replaces the bucket engine's Horner on pallas_point.py:
+# _wdouble_tiled :907 and _wadd_tiled :891)
+# ---------------------------------------------------------------------------
+
+
+def w_horner_plain(curve: WCurve, windows: PointP2, seg_bits: int | None = None) -> PointP2:
+    """:func:`w_horner` by ``wdouble_plain`` and ``wadd_plain`` in the
+    kernel's order (``cuda_point.ladder_plain``, 8 doublings a step). By
+    default in one segment: the engine's loop
+    (``msm/engine.py:horner_plain``), limb for limb."""
+    return ladder_plain(curve, windows, seg_bits or windows.x.shape[2], HORNER_STEP_BITS)
+
+
+def w_horner(curve: WCurve, windows: PointP2, seg_bits: int | None = None) -> PointP2:
+    """(nlimbs, O, W) window sums -> (nlimbs, O) outputs: sum_w 2^(8 w)
+    windows[:, o, w], the bucket engine's Horner (8 doublings and an add a
+    window), read in place (limb-major).
+
+    Kernel csrc/w_horner.cu, one launch for all outputs: csrc/ladder.cuh's
+    ladder with 8 doublings a step (that of ``w_doubling_combine``), one warp
+    an output, lanes on segments of ``seg_bits`` windows (default
+    ``ladder_segment_bits``). Its coordinates equal :func:`w_horner_plain`'s
+    with the same ``seg_bits``, which a CPU tensor gets (one segment by
+    default). Bound: latency (8 (W - 1) dependent doublings)."""
+    num_outputs, num_windows = windows.x.shape[1], windows.x.shape[2]
+    if num_windows < 1:
+        raise ValueError("a Horner sum needs at least one window")
+    if not _on_card(windows.x):
+        return w_horner_plain(curve, windows, seg_bits)
+    device = windows.x.device
+    coords, stride = _point_arg(windows, device, (num_outputs, num_windows), curve.nlimbs)
+    out = _empty_point((num_outputs,), device, PointP2, curve.nlimbs)
+    _launch(
+        "w_horner", build.library().btt_w_horner,
+        curve.kernel_id, *_ptrs(coords), stride, num_outputs, num_windows,
+        seg_bits or ladder_segment_bits(num_windows), *_ptrs(out), _stream(device), instance=curve.name,
+    )
+    return out

@@ -7,9 +7,10 @@ one GPU.
 
 Phases, each fatal on failure:
 
-1. build the kernels of the twenty-one CUDA sources in ``blitzar_tpu_torch/csrc``
+1. build the kernels of the twenty-four CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
-   registers and spills and the card's name and power limit;
+   registers and spills (none allowed in ``ed_convert.cu``, ``ed_horner.cu``
+   and ``w_horner.cu``) and the card's name and power limit;
 2. run each kernel at the shapes its path gives it at full width
    (ristretto255 2^20 commitment for the five Edwards kernels of the handle
    path, bn254 G1 for the five Weierstrass ones (the ladder
@@ -91,7 +92,10 @@ Phases, each fatal on failure:
    handles read back in (i): each output equals the fixed MSM of its own
    scalars (bn254 G1: and the oracle); every Weierstrass raw write makes one
    ``w_affine`` launch a chunk, no ``mont_mul_ew`` launch and no plain
-   field inversion; (iv) 2^20 generators derived and
+   field inversion; every ristretto255 raw write one ``ed_file_rows``
+   launch a chunk, every raw read one ``ed_file_entries`` launch, the npz
+   read one ``ed_to_niels`` launch, none of them an ``fmul`` or ``finvert``
+   launch; (iv) 2^20 generators derived and
    saved, then loaded with the in-memory cache cleared (the same points),
    and a cold 2^20 commitment over them (the pinned digest). Every file is
    deleted once read, the directory at exit;
@@ -101,17 +105,21 @@ Phases, each fatal on failure:
    conversion's chunk of 2^22 entries, ``finvert`` at 2^20; ``w_affine`` at
    every (curve, entries) phase 14 launched it at and at a 2^22-entry chunk
    of each Weierstrass curve, against its plain version on every row
-   (tolerance 0 on the file's words); ``fmul``, ``finvert``, ``w_affine``
-   in each curve and both base-field instantiations of ``mont_mul_ew``
-   must have launched in phase 14;
+   (tolerance 0 on the file's words); ``ed_to_niels``, ``ed_file_rows`` and
+   ``ed_file_entries`` at every element count phase 14 launched them at,
+   against their plain versions on every entry (tolerance 0 on the words);
+   ``fmul``, ``finvert``, ``w_affine`` in each curve, the three
+   conversions and both base-field instantiations of ``mont_mul_ew`` must
+   have launched in phase 14;
 16. the bucket engine (``BLITZAR_TPU_TORCH_MSM_ENGINE=bucket`` set for this
    phase alone; counts from 0, empty handle caches): the pinned ristretto255
    digests at 2^16, 2^20 (cold, warm, split into sort, gather, slab reduce,
    scan and Horner) and 100000 x 10; a signed 8-byte 2^20 column and a
    skewed 2^16 column (one scalar everywhere: many rounds) against the
    default engine; bn254 G1 at 2^16 against the oracle's collapsed sum;
-   ``ed_double``, ``wdouble`` (its Horner steps), ``tree_reduce_lanes`` and
-   ``ed_add`` must launch there;
+   each commitment's Horner must be one ``ed_horner`` or ``w_horner`` launch
+   and nothing else, ``ed_double`` and ``wdouble`` must not launch there,
+   and ``tree_reduce_lanes`` and ``ed_add`` must;
 17. the few-row partition query (counts from 0, empty handle caches): 1-byte
    and 8-byte counter columns over 2^20 canonical generators through the
    default commitment entry equal the same commitment through
@@ -119,9 +127,12 @@ Phases, each fatal on failure:
    query gives the pinned digest both ways; n = 2^10 with a 1-byte column;
    each few-row query and its ``ed_lookup_msm`` counterpart timed (median
    of 5); ``niels_tree_reduce_lanes`` and ``niels_add`` must launch there;
-18. ``ed_double`` (one output and ten), ``niels_add`` and
-   ``niels_tree_reduce_lanes`` against their plain versions at the shapes
-   of phases 16 and 17;
+18. ``ed_double`` (one output and ten; on no path since the Horner is one
+   launch), ``niels_add`` and ``niels_tree_reduce_lanes`` against their
+   plain versions at the shapes of phases 16 and 17; ``ed_horner`` and
+   ``w_horner`` at every (outputs, windows) phase 16 launched them at,
+   limb for limb their plain versions in the kernel's segments, timed and
+   bounded;
 19. ``tree_reduce_lanes`` at every (curve, size, cols) the paths of phases
    3-17 launched it at (counted by path as those phases ran, the bucket and
    few-row paths inside their main-path calls alone): timed, bounded and
@@ -148,7 +159,7 @@ Phases, each fatal on failure:
    held against their plain versions, and launches x (time - bound)
    summed over the shapes (``kernels_by_shape``); then every kernel's
    launches x (time - bound) on its paths, largest first (``ranking``:
-   per shape where phases 15, 19 and 20 time them, else at the headline
+   per shape where phases 15, 18, 19 and 20 time them, else at the headline
    shape).
 
 The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
@@ -510,6 +521,28 @@ def affine_sum_ptxas(log_text: str, built_here: bool) -> dict:
         if name == "mont_sum_round":
             check(len(entries) >= 10 and all(f.get("stack_frame") == 0 for f in entries),
                   f"mont_sum_round: every instantiation (degrees 1-5, two fields), no stack frame in any")
+    return out
+
+
+# the kernels of the table conversions and the bucket engine's Horner: no
+# spill allowed
+CONVERSION_HORNER_SOURCES = {"ed_to_niels/ed_file_rows/ed_file_entries": "ed_convert.cu",
+                             "ed_horner": "ed_horner.cu", "w_horner": "w_horner.cu"}
+
+
+def conversion_horner_ptxas(log_text: str, built_here: bool) -> dict:
+    """The conversions' and the Horner kernels' registers, stack frames and
+    spills (none allowed), from the ptxas log as :func:`table_build_ptxas`
+    reads it."""
+    out = {"built_in_this_run": built_here}
+    for name, source in CONVERSION_HORNER_SOURCES.items():
+        funcs = out[name] = ptxas_report(log_text, source)
+        for f in funcs:
+            print(f"    {source} {f['function']}: {f.get('registers', '-')} registers, {f.get('stack_frame')} bytes "
+                  f"stack frame, {f.get('spill_stores')} bytes spill stores, {f.get('spill_loads')} bytes spill loads")
+        check(any(f["entry"] for f in funcs) and all(
+                  f.get("spill_stores") == 0 and f.get("spill_loads") == 0 for f in funcs),
+              f"{name}: no spills in the kernels or their device functions")
     return out
 
 
@@ -1764,12 +1797,17 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
 # handle files, packed and vlen queries, the generator disk cache
 # ---------------------------------------------------------------------------
 
-# the field kernels of these paths and w_affine (a Weierstrass raw file's
-# affine rows), which must launch there, and mont_mul_ew's instantiations
-# in the Weierstrass base fields (a raw file read back); fsq is held
-# against plain beside fmul but runs on no path
-FILE_KERNELS = ("fmul", "fsq", "finvert", "w_affine")
-FILE_PATH_KERNELS = ("fmul", "finvert", "w_affine")
+# the field kernels of these paths, w_affine (a Weierstrass raw file's
+# affine rows) and the ristretto255 table conversions, which must launch
+# there, and mont_mul_ew's instantiations in the Weierstrass base fields (a
+# raw file read back); fsq is held against plain beside fmul but runs on no
+# path
+ED_FILE_KERNELS = ("ed_to_niels", "ed_file_rows", "ed_file_entries")
+FILE_KERNELS = ("fmul", "fsq", "finvert", "w_affine") + ED_FILE_KERNELS
+FILE_PATH_KERNELS = ("fmul", "finvert", "w_affine") + ED_FILE_KERNELS
+# the kernels a ristretto255 table's conversion (a raw write or read, an npz
+# read) ran on before they took one launch a chunk
+ED_FILE_CHAINS = ("fmul", "finvert")
 FILE_INSTANCES = ("mont_mul_ew/bn254_fp", "mont_mul_ew/bls12381_fp", "w_affine/bls12_381_g1", "w_affine/bn254_g1",
                   "w_affine/grumpkin")
 # Proof-of-SQL's column widths (505 bits, 64 bytes a generator) and lengths
@@ -1831,20 +1869,35 @@ def phase_files(torch, timings: dict, work: str) -> None:
     n, m = FILES_N, FILES_NPZ_N
     rows20 = counter_scalars(n, 32)
 
+    def one_a_chunk(before, kernel, chunks, what):
+        made = {k: cp.LAUNCHES[k] - before[k] for k in (kernel,) + ED_FILE_CHAINS}
+        check(made == {kernel: chunks, **dict.fromkeys(ED_FILE_CHAINS, 0)},
+              f"{what}: one {kernel} launch a chunk ({chunks}), no fmul or finvert launch ({made})")
+
     def raw_round_trip(curve, handle, key):
         path = os.path.join(work, f"{key}.raw")
+        chunks = len(fixed.table_chunks(handle.table.shape[0], handle.table.shape[1]))
         before = dict(cp.LAUNCHES)
         with counting_plain_inversions() as inversions:
             _, timings[f"raw_{key}_write_ms"] = timed(torch, lambda: interop.write_reference_file(handle, path))
-        if curve is not ed:
-            chunks = len(fixed.table_chunks(handle.table.shape[0], handle.table.shape[1]))
+        if curve is ed:
+            one_a_chunk(before, "ed_file_rows", chunks, f"(i)/(ii) the {key} write")
+        else:
             made = {k: cp.LAUNCHES[k] - before[k] for k in ("w_affine", "mont_mul_ew")}
             check(made == {"w_affine": chunks, "mont_mul_ew": 0} and inversions["calls"] == 0,
                   f"(i)/(ii) the {key} write: one w_affine launch a chunk ({chunks}), no mont_mul_ew launch and no "
                   f"plain inversion ({made}, {inversions['calls']} plain inversions)")
         timings[f"raw_{key}_bytes"] = size = os.path.getsize(path)
+        before = dict(cp.LAUNCHES)
         back, timings[f"raw_{key}_read_ms"] = timed(
             torch, lambda: api.multiexp_handle_new_from_file(api.CURVE_IDS[curve], path))
+        if curve is ed:
+            # the read's chunks are whole groups of the file, each its entries or, re-windowed, its w / 8
+            # x 256 picked ones (interop.read_reference_file)
+            w, rw = handle.window_width, interop.REWINDOW
+            per_group = (w // rw) << rw if w > rw and w % rw == 0 else 1 << w
+            read_chunks = len(fixed.table_chunks(handle.num_groups, per_group))
+            one_a_chunk(before, "ed_file_entries", read_chunks, f"(i)/(ii) the {key} read")
         os.remove(path)
         entries = handle.num_groups << handle.window_width
         check(size == 4 + entries * interop.entry_words(curve) * 8 and back.device.type == dev.type,
@@ -1891,7 +1944,11 @@ def phase_files(torch, timings: dict, work: str) -> None:
         path = os.path.join(work, f"{name}.npz")
         _, w_ms = timed(torch, lambda: api.multiexp_handle_write_to_file(handle, path))
         size = os.path.getsize(path)
+        before = dict(cp.LAUNCHES)
         back, r_ms = timed(torch, lambda: api.multiexp_handle_new_from_file(cid, path))
+        if curve is ed:
+            one_a_chunk(before, "ed_to_niels", len(fixed.table_chunks(handle.num_groups, 256)),
+                        f"(ii) the {name} 2^16 npz read")
         os.remove(path)
         timings[f"npz_{name}_2^16"] = {"write_ms": w_ms, "read_ms": r_ms, "bytes": size}
         check(torch.equal(back.table, handle.table) and answer(api.fixed_multiexponentiation(back, rows16[None])) == want,
@@ -2034,24 +2091,27 @@ def w_affine_shape(torch, dev, curve, groups: int, entries: int, launches: int) 
 @contextlib.contextmanager
 def launch_shapes(counts: dict):
     """Counts, beside the wrappers' own counts, the launches of the field
-    kernels and of mont_mul_ew by kernel (and instantiation) and element
-    count into ``counts``: {"fmul": {elements: launches}, ...}. The element
-    count is the launcher's third argument from the end."""
+    kernels, the ristretto255 conversions and mont_mul_ew by kernel (and
+    instantiation) and element count into ``counts``: {"fmul": {elements:
+    launches}, ...}. The element count is the launcher's third argument
+    from the end."""
     from blitzar_tpu_torch.ops import cuda_field as cf
     from blitzar_tpu_torch.ops import cuda_mont as cm
     from blitzar_tpu_torch.ops import cuda_point as cp
 
+    inner = cp._launch
+
     def launch(name, fn, *args, instance=None):
-        cp._launch(name, fn, *args, instance=instance)
+        inner(name, fn, *args, instance=instance)
         if name in FILE_KERNELS or name == "mont_mul_ew":
             by = counts.setdefault(f"{name}/{instance}" if instance else name, {})
             by[int(args[-3])] = by.get(int(args[-3]), 0) + 1
 
-    cf._launch = cm._launch = launch
+    cf._launch = cm._launch = cp._launch = launch
     try:
         yield counts
     finally:
-        cf._launch = cm._launch = cp._launch
+        cf._launch = cm._launch = cp._launch = inner
 
 
 def field_shape(torch, dev, kernel, plain, operands, count: int, bytes_moved: float, imads: float,
@@ -2178,12 +2238,103 @@ def phase_field_kernels(torch, dev, path_shapes: dict, affine_shapes: dict) -> d
     return results
 
 
+# field multiplies a ristretto255 table conversion needs an entry at its
+# least, and the bytes it moves an entry (each input it needs read once, its
+# output written once): ed_to_niels a batch inversion's 3, x/z, y/z, x*y and
+# 2d*x*y (and one inversion a chunk), reading x, y and z (16 int32 limbs
+# each) and writing 96 bytes of words; ed_file_rows (a - b)/2, (a + b)/2 and
+# x*y, reading a and b and writing a 120-byte row; ed_file_entries x*y and
+# 2d*x*y, reading the row's X and Y and writing the words
+CONVERSIONS = {"ed_to_niels": (7, 3 * 64 + 96), "ed_file_rows": (3, 64 + 120), "ed_file_entries": (2, 80 + 96)}
+
+
+def ed_conversion_chunk(torch, dev, count: int, seed: int):
+    """(16, count / 256, 256) extended points on the card (a table chunk's
+    groups of 256 entries; one group of ``count`` below 256): elligator
+    points each scaled by a random factor, so z != 1."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    r0, r1 = generators._xorshift_limbs(torch.arange(seed, seed + count, device=dev))
+    pts = cp.elligator_form(r0, r1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randint(1, 1 << 16, (16, count), generator=gen, device=dev, dtype=torch.int32)
+    entries = 256 if count % 256 == 0 else count
+    return ed.reshape_batch(ed.PointP3(*(F.mul(c, k) for c in pts)), (count // entries, entries))
+
+
+def phase_conversion_kernels(torch, dev, path_shapes: dict) -> dict:
+    """ed_to_niels, ed_file_rows and ed_file_entries at every element count
+    the files path launched them at (``path_shapes``, from
+    :func:`launch_shapes`) and at a table conversion's chunk of 2^22
+    entries, their headline: device time, bound, launches, and every entry
+    against the plain version, tolerance 0 on the words (the plain
+    version's time: its sum over slices of 2^20 entries). The inputs chain:
+    a chunk of extended points, its niels words, their file rows."""
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    head = fixed.TABLE_CHUNK_ENTRIES
+    counts = sorted(set().union(*(path_shapes.get(k, {}) for k in ED_FILE_KERNELS)) | {head})
+    by: dict = {name: {} for name in ED_FILE_KERNELS}
+    step = 1 << 20
+
+    def part(name, x, lo, hi):
+        if name == "ed_to_niels":
+            v = x.x.shape[2]
+            return ed.index_batch(x, slice(lo // v, hi // v))
+        return x.reshape(-1, 3, 8)[lo:hi] if name == "ed_file_rows" else x[lo:hi]
+
+    for count in counts:
+        chunk = ed_conversion_chunk(torch, dev, count, 48)
+        words = cp.ed_to_niels(chunk)
+        inputs = {"ed_to_niels": chunk, "ed_file_rows": words, "ed_file_entries": cp.ed_file_rows(words)}
+        for name in ED_FILE_KERNELS:
+            launched = path_shapes.get(name, {})
+            if count != head and count not in launched:
+                continue
+            kernel, plain, x = getattr(cp, name), getattr(cp, f"{name}_plain"), inputs[name]
+            ms = device_ms(torch, lambda: kernel(x), reps=5)
+            got = kernel(x).reshape(count, -1)
+            err, plain_ms = 0, 0.0
+            for lo in range(0, count, step):
+                want, t = timed(torch, lambda: plain(part(name, x, lo, lo + step)))
+                plain_ms += t
+                err = max(err, int((got[lo : lo + step] != want.reshape(-1, got.shape[1])).sum()))
+            muls, per_bytes = CONVERSIONS[name]
+            imads = (count * muls + (MULS_INVERT if name == "ed_to_niels" else 0)) * IMAD_PER_FIELD_MUL
+            b_ms, b_by = bound(count * per_bytes, imads)
+            check(err == 0, f"{name} at {count} entries, {launched.get(count, 0)} launches on the files path: equal "
+                            f"to plain on every entry, tolerance 0 on the words ({ms:.4f} ms, bound {b_ms:.4f})")
+            by[name][count] = {"elements": count, "launches": launched.get(count, 0), "ms": ms, "plain_ms": plain_ms,
+                               "plain_fraction": 1.0, "max_abs_err": float(err), "bound_ms": b_ms, "bound_by": b_by,
+                               "bytes": count * per_bytes, "imads": imads}
+        del chunk, words, inputs
+        torch.cuda.empty_cache()
+    results: dict = {}
+    for name in ED_FILE_KERNELS:
+        top = by[name][head]
+        kernel_record(results, name, "blitzar_tpu/ops/pallas_point.py:130", "blitzar_tpu_torch/csrc/ed_convert.cu",
+                      top["ms"], top["plain_ms"], top["max_abs_err"], top["bytes"], top["imads"], compared="words")
+        results[name]["elements"] = head
+        results[name]["by_elements"] = {str(c): r for c, r in by[name].items()}
+        results[name]["files_path_device_ms"] = sum(r["launches"] * r["ms"] for r in by[name].values())
+    return results
+
+
 # ---------------------------------------------------------------------------
 # the bucket engine and the few-row partition query
 # ---------------------------------------------------------------------------
 
 # the kernels that only these paths launch, each required on its own path
-BUCKET_KERNELS = ("ed_double", "wdouble")
+# (the bucket path's Horner: ed_horner, w_horner), and the one-point
+# doublings its Horner ran on before, which must not launch there
+HORNER_KERNELS = ("ed_horner", "w_horner")
+HORNER_STEP_KERNELS = ("ed_double", "wdouble")
+BUCKET_KERNELS = HORNER_KERNELS + HORNER_STEP_KERNELS
 FEWROW_KERNELS = ("niels_add", "niels_tree_reduce_lanes")
 MULS_NIELS_ADD = 8
 QUERY_REPS = 5
@@ -2217,6 +2368,31 @@ def counted(*totals):
     for total in totals:
         for k, v in cp.LAUNCHES.items():
             total[k] = total.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def horner_calls():
+    """Records each call of the bucket engine's Horner (``engine.horner``)
+    while the block runs: its curve, (outputs, windows) and the launches the
+    call made."""
+    from blitzar_tpu_torch.msm import engine
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    inner, calls = engine.horner, []
+
+    def recording(windows, curve=engine.ed):
+        before = dict(cp.LAUNCHES)
+        out = inner(windows, curve)
+        calls.append({"curve": "ristretto255" if curve is engine.ed else curve.name,
+                      "shape": list(windows.x.shape[1:]),
+                      "launches": {k: v - before[k] for k, v in cp.LAUNCHES.items() if v != before[k]}})
+        return out
+
+    engine.horner = recording
+    try:
+        yield calls
+    finally:
+        engine.horner = inner
 
 
 @contextlib.contextmanager
@@ -2475,6 +2651,68 @@ def phase_fewrow_kernels(torch, dev, inputs: dict) -> dict:
     return results
 
 
+def phase_horner_kernels(torch, dev, counts: dict) -> dict:
+    """(d) ed_horner and w_horner at every (curve, outputs, windows) the
+    bucket path launched them at (``PATH_SHAPES``, its main-path calls): the
+    device time, the bound, the launches, and limb for limb the plain
+    version in the kernel's segments; window sums from the first 2^16
+    generators (ristretto255) or the oracle's 521 points, tiled. Each
+    record also gives the output's critical path, 8 (W - 1) dependent
+    doublings. The headline is one 32-byte column's (1, 32), ristretto255
+    and bn254 G1."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    curves = {c.name: c for c in wc.CURVES}
+    ed_base = generators.get_precomputed_generators(1 << 16, 0, dev)
+    results: dict = {}
+    for name, head, replaces, source in (
+            ("ed_horner", ("ristretto255", 1, 32), 254, "ed_horner.cu"),
+            ("w_horner", ("bn254_g1", 1, 32), 907, "w_horner.cu")):
+        records = []
+        for (instance, outputs, windows), paths in sorted(shape_paths(counts.get(name, {})).items()):
+            curve = curves.get(instance)
+            idx = torch.arange(outputs * windows, device=dev)
+            if curve is None:
+                sums = ed.reshape_batch(ed.index_batch(ed_base, idx % (1 << 16)), (outputs, windows))
+                kernel, plain = cp.ed_horner, cp.ed_horner_plain
+                err_of = functools.partial(point_err, canonical=F.canonicalize)
+                muls, point_bytes, imad = 8 * MULS_DOUBLE + MULS_ADD, 256, IMAD_PER_FIELD_MUL
+            else:
+                gens, _ = tiled_generators(curve, outputs * windows, dev)
+                sums = curve.reshape_batch(gens, (outputs, windows))
+                kernel = functools.partial(cw.w_horner, curve)
+                plain = functools.partial(cw.w_horner_plain, curve)
+                err_of, point_bytes = point_err, 3 * curve.nlimbs * 4
+                muls, imad = 8 * MULS_WDOUBLE + MULS_WADD, IMAD_PER_MONT_MUL[curve.nlimbs // 2]
+            seg_bits = cp.ladder_segment_bits(windows)  # the wrappers' default on the card
+            ms = device_ms(torch, lambda: kernel(sums, seg_bits), reps=10)
+            plain_ms = cuda_ms(torch, lambda: plain(sums, seg_bits), reps=1)
+            err = err_of(kernel(sums, seg_bits), plain(sums, seg_bits))
+            nbytes, imads = outputs * (windows + 1) * point_bytes, outputs * (windows - 1) * muls * imad
+            b_ms, b_by = bound(nbytes, imads)
+            launches = sum(paths.values())
+            check(err == 0, f"{name}/{instance} at ({outputs}, {windows}), {launches} launches {paths}: equal to "
+                            f"plain in the kernel's segments, tolerance 0 on the limbs ({ms:.4f} ms)")
+            records.append({"instance": instance, "outputs": outputs, "windows": windows, "launches": launches,
+                            "launches_by_path": paths, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "plain_ms": plain_ms, "max_abs_err": float(err),
+                            "critical_path_doublings": 8 * (windows - 1), "bytes": nbytes, "imads": imads,
+                            "launches_x_gap_ms": launches * (ms - b_ms)})
+        top = next(r for r in records if (r["instance"], r["outputs"], r["windows"]) == head)
+        kernel_record(results, name, f"blitzar_tpu/ops/pallas_point.py:{replaces}",
+                      f"blitzar_tpu_torch/csrc/{source}", top["ms"], top["plain_ms"], top["max_abs_err"],
+                      top["bytes"], top["imads"])
+        results[name].update(shape=[head[1], head[2]], instance=head[0], by_shape=records,
+                             critical_path_doublings=top["critical_path_doublings"],
+                             launches_x_gap_ms_all_shapes=sum(r["launches_x_gap_ms"] for r in records))
+    return results
+
+
 # ---------------------------------------------------------------------------
 # tree_reduce_lanes at every shape the paths launch it at
 # ---------------------------------------------------------------------------
@@ -2520,13 +2758,18 @@ class PathShapes:
 # groups, w); doubling_combine (4 coordinates, stride, outputs, nbits, ...)
 # by (outputs, nbits); mont_sum_round (field, degree, table, stride(0),
 # stride(1), mid, mults, products, ...) by (field id, mid, degree, MLEs,
-# products); w_affine (curve, chunk, entries, ...) by (instance, entries)
+# products); w_affine (curve, chunk, entries, ...) by (instance, entries);
+# ed_horner (4 coordinates, stride, outputs, windows, ...) and w_horner
+# (curve, 3 coordinates, stride, outputs, windows, ...) by (instance,
+# outputs, windows)
 SHAPE_KEYS = {
     "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
     "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
     "doubling_combine": lambda instance, a: (int(a[5]), int(a[6])),
     "mont_sum_round": lambda instance, a: (int(a[0]), int(a[5]), int(a[1]), int(a[3]) // int(a[4]), int(a[7])),
     "w_affine": lambda instance, a: (instance, int(a[2])),
+    "ed_horner": lambda instance, a: ("ristretto255", int(a[5]), int(a[6])),
+    "w_horner": lambda instance, a: (instance, int(a[5]), int(a[6])),
 }
 PATH_SHAPES = PathShapes()
 TREE_SAMPLE_COLS = 64
@@ -2708,8 +2951,9 @@ def phase_ranked_shapes(torch, dev, counts: dict) -> dict:
 def ranking(kernels: list, shapes: dict, tree_shapes: dict) -> list:
     """Every kernel's launches x (ms - bound), largest first: over every
     path and every shape a path launched it at for the kernels timed by
-    shape (phases 19 and 20), over phase 15's element counts for the field
-    kernels, else its path's launches at its headline shape."""
+    shape (phases 18, 19 and 20), over phase 15's element counts for the
+    field kernels and the conversions, else its path's launches at its
+    headline shape."""
     rows = []
     for rec in kernels:
         name, launches = rec["name"], rec["launches"]
@@ -2722,6 +2966,10 @@ def ranking(kernels: list, shapes: dict, tree_shapes: dict) -> list:
         elif "by_elements" in rec:
             gap = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rec["by_elements"].values())
             how = "every element count of the files path"
+        elif "by_shape" in rec:
+            gap = sum(r["launches_x_gap_ms"] for r in rec["by_shape"])
+            launches = sum(r["launches"] for r in rec["by_shape"])
+            how = "every shape"
         else:
             gap, how = launches * (rec["ms"] - rec["bound_ms"]), "headline shape"
         # mont_mul_ew's base-field instantiations on the files path, by count
@@ -2773,6 +3021,7 @@ def main() -> int:
         report["ptxas_weierstrass_query"] = w_query_ptxas(log, built_here)
         report["ptxas_ladders"] = ladder_ptxas(log, built_here)
         report["ptxas_affine_and_sum_round"] = affine_sum_ptxas(log, built_here)
+        report["ptxas_conversions_and_horner"] = conversion_horner_ptxas(log, built_here)
         PATH_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
@@ -2827,17 +3076,24 @@ def main() -> int:
         file_instances = dict(cp.INSTANCE_LAUNCHES)
         results.update(phase_field_kernels(torch, torch.device("cuda"), file_shapes,
                                            PATH_SHAPES.counts.get("w_affine", {})))
+        results.update(phase_conversion_kernels(torch, torch.device("cuda"), file_shapes))
         results["mont_mul_ew"]["base_fields"] = results.pop("mont_mul_ew_base_fields")
         # the bucket engine, then the few-row query, from empty handle
         # caches: each path's launches are those of its main-path calls
         # alone, counted from 0 around each; then their kernels against plain
         clear_handles(torch)
-        with PATH_SHAPES.phase("bucket", on=False):
+        with horner_calls() as horner, PATH_SHAPES.phase("bucket", on=False):
             bucket_launches = phase_bucket(torch, report["timings"])
+        report["bucket_horner_calls"] = horner
+        check(horner and all(c["launches"] == {"ed_horner" if c["curve"] == "ristretto255" else "w_horner": 1}
+                             for c in horner),
+              f"(a) each bucket-engine commitment's Horner: one ed_horner or w_horner launch and no other "
+              f"({len(horner)} calls: {sorted({(c['curve'], tuple(c['shape'])) for c in horner})})")
         clear_handles(torch)
         with PATH_SHAPES.phase("fewrow", on=False):
             fewrow_inputs, fewrow_launches = phase_fewrow(torch, report["timings"])
         results.update(phase_fewrow_kernels(torch, torch.device("cuda"), fewrow_inputs))
+        results.update(phase_horner_kernels(torch, torch.device("cuda"), PATH_SHAPES.counts))
         del fewrow_inputs
         clear_handles(torch)
         # tree_reduce_lanes at every shape the paths above launched it at
@@ -2879,11 +3135,12 @@ def main() -> int:
               f"every streamed-path kernel and instantiation launched on the large-n path: {large_instances}")
         check(all(file_launches[k] > 0 for k in FILE_PATH_KERNELS) and all(file_instances.get(k, 0) > 0
                                                                             for k in FILE_INSTANCES),
-              f"fmul, finvert, and mont_mul_ew in both base fields, launched on the files and cache path: "
-              f"{ {k: file_launches[k] for k in FILE_KERNELS} } {file_instances}")
-        check(all(bucket_launches[k] > 0 for k in BUCKET_KERNELS + ("tree_reduce_lanes", "ed_add")),
-              f"ed_double, wdouble, tree_reduce_lanes and ed_add launched on the bucket engine's path: "
-              f"{bucket_launches}")
+              f"fmul, finvert, the ristretto255 conversions, and mont_mul_ew in both base fields, launched on the "
+              f"files and cache path: { {k: file_launches[k] for k in FILE_KERNELS} } {file_instances}")
+        check(all(bucket_launches[k] > 0 for k in HORNER_KERNELS + ("tree_reduce_lanes", "ed_add"))
+              and all(bucket_launches[k] == 0 for k in HORNER_STEP_KERNELS),
+              f"ed_horner, w_horner, tree_reduce_lanes and ed_add launched on the bucket engine's path, ed_double "
+              f"and wdouble not: {bucket_launches}")
         check(all(fewrow_launches[k] > 0 for k in FEWROW_KERNELS),
               f"niels_add and niels_tree_reduce_lanes launched on the few-row query's path: "
               f"{ {k: fewrow_launches[k] for k in FEWROW_KERNELS} }")

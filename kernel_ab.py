@@ -54,14 +54,28 @@ script's, so both trees run the same work. Cases:
 - the ladders of csrc/ladder.cuh (section ``ladders``):
   ``doubling_combine`` at 1, 2, 7 and 10 outputs, also in one segment
   where the tree takes ``seg_bits``, and bn254 G1's ladder of one and seven
-  outputs.
+  outputs;
+- the ristretto255 table conversions (section ``convert``): a point
+  table's chunk to niels words (``fixed.niels_table``: the tree's
+  ``ed_to_niels``, or its batch inversion over ``fmul`` and ``finvert``
+  launches) at the 2^16 npz read's 2^21 entries, and niels words to the raw
+  file's rows and back (the tree's ``ed_file_rows`` and ``ed_file_entries``,
+  or its ``fmul`` chains in ``msm/interop.py``) at a 2^20 handle's 2^22-entry
+  chunk; each against the tree's plain path on 4096 entries of it, device
+  time where the tree has the one-launch kernel, and back to back
+  (``cuda_ms``, host issue included) for both;
+- the bucket engine's Horner (section ``horner``): ``engine.horner`` (the
+  tree's ``ed_horner`` / ``w_horner``, or its 8 one-point doublings and an
+  add a window) over ristretto255 window sums of 1 and 10 outputs and
+  bn254 G1 ones of one output, 32 windows each, the same points as the
+  engine's loop on the CPU, timed as the conversions.
 
 Each case's result is held against its plain version (canonical limbs, or
 points for the tree reduces and the ladders; on a spread sample where the
 plain version is large); the JSON holds each case's ``ms`` and whether it
-matched. ``--sections`` runs some of the six sections (``edwards``,
-``weierstrass``, ``mont``, ``trees``, ``tables``, ``ladders``). Needs one
-CUDA card.
+matched. ``--sections`` runs some of the eight sections (``edwards``,
+``weierstrass``, ``mont``, ``trees``, ``tables``, ``ladders``, ``convert``,
+``horner``). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -102,7 +116,7 @@ TREE_SHAPES = (
 TREE_CHECK_COLS = 8
 
 
-SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders")
+SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders", "convert", "horner")
 # the Weierstrass lookups' partials at the shapes their chunk rules give a
 # 256-row query: K = 1024 (the rule before w_lookup_msm took lookup_chunks),
 # 527 at 2^20 and 521 at a 2^18-point chunk since
@@ -140,7 +154,8 @@ def main() -> int:
               "ptxas": {src: cs.ptxas_report((build.BUILD_ROOT / build.digest() / "ptxas.log").read_text(), src)
                         for src in ("w_lookup_msm.cu", "w_doubling_combine.cu", "wadd.cu", "wdouble.cu",
                                     "w_build_table.cu", "build_cached_table.cu", "doubling_combine.cu",
-                                    "w_affine.cu", "mont_sum_round.cu")},
+                                    "w_affine.cu", "mont_sum_round.cu", "ed_convert.cu", "ed_horner.cu",
+                                    "w_horner.cu")},
               "cases": {}}
     cases = report["cases"]
 
@@ -496,6 +511,75 @@ def section_trees(torch, cs, dev, case) -> None:
         ok = bool(equal(pick(kernel(batch), cols_ix), plain(pick(batch, (slice(None), cols_ix)))).all())
         case(f"tree_reduce_lanes/{instance}/{size}x{cols}", lambda: kernel(batch), ok)
         del batch
+
+
+
+def one_launch_case(torch, cs, case, name, fn, ok, kernel: bool, **extra) -> None:
+    """A path step timed back to back (``cuda_ms``, host issue included) and,
+    where the tree runs it as one launch, by its device time; the parent's
+    many launches and host steps cannot queue behind device_ms's sleep."""
+    back_to_back = cs.cuda_ms(torch, fn, reps=3)
+    case(name, fn, ok, reps=5, ms=None if kernel else back_to_back, back_to_back_ms=back_to_back,
+         one_launch=kernel, **extra)
+
+
+# the npz read's chunk at 2^16 points, and a 2^20 handle's raw-file chunk
+CONVERT_ENTRIES = (1 << 21, 1 << 22)
+
+
+def section_convert(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.msm import fixed, interop
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    kernel = hasattr(cp, "ed_to_niels")
+    rows_of = cp.ed_file_rows if kernel else interop._ed_rows
+    entries_of = cp.ed_file_entries if kernel else interop._ed_entries
+    check = 16  # groups of 256 held against the tree's plain path on the CPU
+    for count in CONVERT_ENTRIES:
+        chunk = cs.ed_conversion_chunk(torch, dev, count, 48)
+        words = fixed.niels_table(chunk)
+        part = ed.PointP3(*(c[:, :check].cpu() for c in chunk))
+        log = count.bit_length() - 1
+        if count == CONVERT_ENTRIES[0]:
+            one_launch_case(torch, cs, case, f"convert/to_niels/2^{log}", lambda: fixed.niels_table(chunk),
+                            torch.equal(words[:check].cpu(), fixed.niels_table(part)), kernel)
+            continue
+        rows = rows_of(words)
+        one_launch_case(torch, cs, case, f"convert/file_rows/2^{log}", lambda: rows_of(words),
+                        torch.equal(rows[: check * 256].cpu(), rows_of(words[:check].cpu())), kernel)
+        back = entries_of(rows)
+        one_launch_case(torch, cs, case, f"convert/file_entries/2^{log}", lambda: entries_of(rows),
+                        torch.equal(back.reshape(words.shape), words), kernel)
+        del rows, back
+    del chunk, words
+
+
+def section_horner(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import engine
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    kernel = "ed_horner" in cp.KERNELS
+    windows = 32
+    base = generators.get_precomputed_generators(1 << 16, 0, dev)
+    bn = wc.BN254_G1
+    for curve, outputs in ((ed, 1), (ed, 10), (bn, 1)):
+        idx = torch.arange(outputs * windows, device=dev)
+        if curve is ed:
+            sums = ed.reshape_batch(ed.index_batch(base, idx * 37 % (1 << 16)), (outputs, windows))
+        else:
+            gens, _ = cs.tiled_generators(bn, outputs * windows, dev)
+            sums = bn.reshape_batch(gens, (outputs, windows))
+        got = engine.horner(sums, curve)
+        cpu = type(sums)(*(c.cpu() for c in sums))
+        want = engine.horner(cpu, curve)  # the tree's CPU path: the engine's loop
+        ok = bool(curve.points_equal(type(got)(*(c.cpu() for c in got)), want).all())
+        name = "ristretto255" if curve is ed else curve.name
+        one_launch_case(torch, cs, case, f"horner/{name}/{outputs}x{windows}", lambda: engine.horner(sums, curve), ok,
+                        kernel)
 
 
 if __name__ == "__main__":

@@ -364,7 +364,7 @@ def test_field_kernels(dev):
     assert _canon_equal(cf.finvert(a.to(dev)), cf.finvert_plain(a))
     assert {k: cp.LAUNCHES[k] - before[k] for k in before} == {"fmul": 3, "fsq": 1, "finvert": 1}
     z = _fe((5, 256), 23)
-    assert _canon_equal(cf.batch_invert_lanes(z.to(dev)), F.batch_invert_lanes(z))
+    assert _canon_equal(F.batch_invert_lanes(z.to(dev), cf.fmul, cf.finvert), F.batch_invert_lanes(z))
     with pytest.raises(ValueError):
         cf.fmul(a.to(dev), b[:, :2].to(dev))
 
@@ -499,10 +499,11 @@ def test_bucket_engine_on_cuda_matches_cpu(dev, monkeypatch):
     args = (data, [8, 2, 1], [True, False, False])
     want = rst.encode(engine.msm(generators.ristretto_generators(n, 0, "cpu"), *args)).numpy()
     monkeypatch.setenv(engine.ENGINE_VAR, "bucket")
-    before = cp.LAUNCHES["ed_double"]
+    before = dict(cp.LAUNCHES)
     got = engine.msm(generators.ristretto_generators(n, 0, dev), *args)
     assert np.array_equal(rst.encode(got).cpu().numpy(), want)
-    assert cp.LAUNCHES["ed_double"] - before == 7 * 8
+    # the Horner over the 8 windows: one launch, no one-point doublings
+    assert (cp.LAUNCHES["ed_horner"] - before["ed_horner"], cp.LAUNCHES["ed_double"] - before["ed_double"]) == (1, 0)
 
 
 @pytest.mark.parametrize("n, w", [(1000, 8), (1024, 8), (2048, 8), (1024, 4)])
@@ -871,3 +872,120 @@ def test_mont_sum_round_two_streams(dev, field):
     for k, table in enumerate(tables):
         want = cm.mont_sum_round_plain(field, table, mults, lengths, terms, 3)
         assert all(torch.equal(o.cpu(), want) for o in outs[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the ristretto255 table conversions (ed_to_niels, ed_file_rows,
+# ed_file_entries) and the bucket engine's Horner (ed_horner, w_horner)
+# ---------------------------------------------------------------------------
+
+
+def _ed_chunk(dev, groups: int, entries: int, seed: int) -> ed.PointP3:
+    """(16, groups, entries) extended points on the card, each scaled by a
+    random factor (z != 1)."""
+    count = groups * entries
+    r0, r1 = _r(count, seed)
+    pts = cp.elligator_form(r0.to(dev), r1.to(dev))
+    k = np.random.default_rng(seed).integers(1, 1 << 16, size=(16, count)).astype(np.int32)
+    k = torch.from_numpy(k).to(dev)
+    return ed.reshape_batch(ed.PointP3(*(F.mul(c, k) for c in pts)), (groups, entries))
+
+
+@pytest.mark.parametrize("groups, entries", [(5, 8), (3, 256), (4096, 256), (5000, 256)])
+def test_ed_to_niels_kernel(dev, groups, entries):
+    """One launch a chunk, word for word the plain version: tiles of 32 x 32
+    entries (the first two shapes: one short tile), 32 a thread at 2^20
+    entries and 64 at 5000 x 256; and on a view of the chunk (another limb
+    stride)."""
+    chunk = _ed_chunk(dev, groups, entries, groups)
+    before = cp.LAUNCHES["ed_to_niels"]
+    got = cp.ed_to_niels(chunk)
+    assert cp.LAUNCHES["ed_to_niels"] == before + 1
+    assert torch.equal(got, cp.ed_to_niels_plain(chunk))
+    view = ed.index_batch(chunk, slice(1, None))
+    assert torch.equal(cp.ed_to_niels(view), got[1:])
+
+
+def test_ed_file_rows_and_entries_kernels(dev):
+    """Rows of niels words (random words: any 256-bit values) and entries of
+    rows (random u64 field51 limbs of any magnitude, and the rows written),
+    one launch each, word for word the plain versions; 2^20 + 3 entries
+    take the grid-stride loop past one pass."""
+    rng = np.random.default_rng(33)
+    count = (1 << 20) + 3
+    words = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(count, 3, 8), dtype=np.int64).astype(np.int32))
+    words = words.to(dev)
+    before = dict(cp.LAUNCHES)
+    rows = cp.ed_file_rows(words)
+    assert torch.equal(rows, cp.ed_file_rows_plain(words))
+    niels = cp.ed_to_niels_plain(ed.reshape_batch(_ed_chunk(dev, 3, 256, 34), (768,)))
+    assert torch.equal(cp.ed_file_entries(cp.ed_file_rows(niels)), niels)
+    odd = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, size=(count, 15), dtype=np.int64)).to(dev)
+    assert torch.equal(cp.ed_file_entries(odd), cp.ed_file_entries_plain(odd))
+    assert {k: cp.LAUNCHES[k] - before[k] for k in ("ed_file_rows", "ed_file_entries", "fmul")} == \
+        {"ed_file_rows": 2, "ed_file_entries": 2, "fmul": 0}
+
+
+def test_ristretto_files_paths_launch_one_conversion_a_chunk(dev, tmp_path):
+    """A 40-point handle's raw write, raw read and npz read on the card: one
+    ed_file_rows, ed_file_entries and ed_to_niels launch each, and no fmul
+    or finvert."""
+    card = tfixed.MultiexpHandle(_on(cp.elligator_form_plain(*_r(40, 35)), dev))
+    card.write_to_file(str(tmp_path / "h.npz"))
+    cp.reset_launches()
+    tinterop.write_reference_file(card, tmp_path / "h.raw")
+    raw = tfixed.MultiexpHandle.new_from_file(str(tmp_path / "h.raw"), ed, dev)
+    npz = tfixed.MultiexpHandle.new_from_file(str(tmp_path / "h.npz"), ed, dev)
+    made = {k: cp.LAUNCHES[k] for k in ("ed_file_rows", "ed_file_entries", "ed_to_niels", "fmul", "finvert")}
+    assert made == {"ed_file_rows": 1, "ed_file_entries": 1, "ed_to_niels": 1, "fmul": 0, "finvert": 0}
+    assert torch.equal(raw.table, card.table) and torch.equal(npz.table, card.table)
+
+
+HORNER_SHAPES = [(1, 1), (3, 4), (2, 9), (1, 32), (10, 32)]
+
+
+@pytest.mark.parametrize("outputs, windows", HORNER_SHAPES)
+def test_ed_horner_kernel(dev, outputs, windows):
+    """One launch; in the kernel's segments limb for limb the plain version
+    in the same segments, in one segment limb for limb the engine's loop
+    (horner_plain); the two the same points."""
+    pts = ed.reshape_batch(_ed_ladder_products(1, outputs * windows), (outputs, windows))
+    card = _on(pts, dev)
+    before = cp.LAUNCHES["ed_horner"]
+    got = engine.horner(card)
+    assert cp.LAUNCHES["ed_horner"] == before + 1
+    assert _same(got, cp.ed_horner_plain(pts, cp.ladder_segment_bits(windows)))
+    loop = engine.horner_plain(pts)
+    assert _same(cp.ed_horner(card, seg_bits=windows), loop)
+    assert bool(ed.points_equal(_on(got, "cpu"), loop).all())
+
+
+@pytest.mark.parametrize("outputs, windows", HORNER_SHAPES)
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_w_horner_kernel(dev, curve, outputs, windows):
+    """As test_ed_horner_kernel on the three Weierstrass curves."""
+    pts = curve.reshape_batch(_ladder_products(curve, 1, outputs * windows), (outputs, windows))
+    card = _on(pts, dev)
+    before = cp.LAUNCHES["w_horner"]
+    got = engine.horner(card, curve)
+    assert cp.LAUNCHES["w_horner"] == before + 1
+    assert _w_same(got, cw.w_horner_plain(curve, pts, cp.ladder_segment_bits(windows)))
+    loop = engine.horner_plain(pts, curve)
+    assert _w_same(cw.w_horner(curve, card, seg_bits=windows), loop)
+    assert bool(curve.points_equal(_on(got, "cpu"), loop).all())
+
+
+def test_w_bucket_engine_horner_is_one_launch(dev, monkeypatch):
+    """The bucket engine on bn254 G1 (two 3-byte outputs, one signed) equals
+    the oracle, with one w_horner launch and no wdouble."""
+    curve, n = wc.BN254_G1, 40
+    pts = curve.oracle.random_points(n, seed=36)
+    rng = np.random.default_rng(37)
+    data = [rng.integers(0, 256, size=(n, 3), dtype=np.uint8), rng.integers(0, 256, size=(n, 3), dtype=np.uint8)]
+    monkeypatch.setenv(engine.ENGINE_VAR, "bucket")
+    before = dict(cp.LAUNCHES)
+    got = engine.msm(curve.from_affine_ints(pts, dev), data, [3, 3], [False, True], curve)
+    assert (cp.LAUNCHES["w_horner"] - before["w_horner"], cp.LAUNCHES["wdouble"] - before["wdouble"]) == (1, 0)
+    vals = [[int.from_bytes(bytes(r), "little") for r in data[0]],
+            [int.from_bytes(bytes(r), "little") - (1 << 24) * (r[2] >= 0x80) for r in data[1]]]
+    assert curve.to_affine_ints(_on(got, "cpu")) == [curve.oracle.msm(v, pts) for v in vals]
