@@ -19,16 +19,14 @@
 // file row is 15 little-endian u64 words, X, Y, X Y, five 51-bit limbs each.
 //
 // ed_to_niels inverts the z of a thread's own entries first + j * step,
-// j < n, by Montgomery's trick, as w_affine.cuh does for the Weierstrass
-// curves: the forward sweep parks the product of the earlier z in word
-// slot a of each entry it will write and returns the product of all; given
-// that product's inverse, the backward sweep peels one entry off at a time,
-// zinv = inv * parked, inv = inv * z, and writes the entry. Inverses are
-// unique, so any split of the entries gives the same words. An extended z
-// is never 0.
+// j < n, by Montgomery's trick (field_batch.cuh, shared with finvert.cu), as
+// w_affine.cuh does for the Weierstrass curves: the forward sweep parks the
+// product of the earlier z in word slot a of each entry it will write; the
+// backward sweep peels one entry off at a time and writes the entry.
 #pragma once
 
 #include "edwards25519.cuh"
+#include "field_batch.cuh"
 
 namespace btt {
 
@@ -71,49 +69,37 @@ BTT_HD void affine_niels_store(uint32_t* entry, const fe& x, const fe& y, Mul mu
 // ed_to_niels
 // ---------------------------------------------------------------------------
 
-// The forward sweep over entries first + j * step, j < n: entry e's slot a
-// gets the product of the earlier entries' z; returns the product of all
-// (one for n = 0).
+// A thread's entries first + j * step as field_batch.cuh's batch of z: each
+// prefix parked in slot a of the entry's words, x = X zinv and y = Y zinv
+// then its niels words; 6 multiplies an entry with the sweep's 3. Only x,
+// y and the sweep's inverse live across the multiplies of put.
 template <class Mul>
-BTT_HD fe niels_forward(const point_ptrs& p, uint32_t* out, int64_t first, int64_t step, int n) {
-  Mul mul;
-  fe acc = fe_one();
-  for (int j = 0; j < n; ++j) {
-    const int64_t e = first + j * step;
-    fe_store_words(out + kNielsWords * e, acc);
-    const fe z = fe_load(p.c[2] + e, p.limb_stride);
-    acc = j == 0 ? z : mul(acc, z);
-  }
-  return acc;
-}
+struct NielsBatch {
+  point_ptrs p;
+  uint32_t* out;
+  int64_t first, step;
 
-// The backward sweep, inv the inverse of niels_forward's product: each
-// entry's x = X zinv and y = Y zinv, then its niels words, from the last
-// entry to the first. 6 multiplies an entry.
-template <class Mul>
-BTT_HD void niels_backward(const point_ptrs& p, uint32_t* out, int64_t first, int64_t step, int n, fe inv) {
-  Mul mul;
-  for (int j = n - 1; j >= 0; --j) {
-    const int64_t e = first + j * step;
-    uint32_t* entry = out + kNielsWords * e;
-    fe zinv = inv;
-    if (j > 0) {
-      zinv = mul(inv, fe_load_words(entry));
-      inv = mul(inv, fe_load(p.c[2] + e, p.limb_stride));
-    }
+  BTT_HD int64_t at(int j) const { return first + j * step; }
+  BTT_HD bool counts(int) const { return true; }  // an extended z is never 0
+  BTT_HD fe value(int j) const { return fe_load(p.c[2] + at(j), p.limb_stride); }
+  BTT_HD void park(int j, const fe& prefix) { fe_store_words(out + kNielsWords * at(j), prefix); }
+  BTT_HD fe parked(int j) const { return fe_load_words(out + kNielsWords * at(j)); }
+  BTT_HD void put(int j, const fe& zinv) {
+    Mul mul;
+    const int64_t e = at(j);
     const fe x = mul(fe_load(p.c[0] + e, p.limb_stride), zinv);
     const fe y = mul(fe_load(p.c[1] + e, p.limb_stride), zinv);
-    affine_niels_store(entry, x, y, mul);
+    affine_niels_store(out + kNielsWords * e, x, y, mul);
   }
-}
+  BTT_HD void skip(int) {}
+};
 
-// One thread's entries with its own inversion (fe_invert: the
-// fe_pow_chain_250 chain, ~265 multiplies): the kernel's body, and the
+// One thread's entries with its own inversion: the kernel's body, and the
 // harness's lane.
 template <class Mul>
 BTT_HD void niels_entries(const point_ptrs& p, uint32_t* out, int64_t first, int64_t step, int n) {
-  const fe total = niels_forward<Mul>(p, out, first, step, n);
-  niels_backward<Mul>(p, out, first, step, n, fe_invert(total, Mul()));
+  NielsBatch<Mul> b = {p, out, first, step};
+  batch_invert_sweep<Mul>(b, n);
 }
 
 // ---------------------------------------------------------------------------

@@ -110,22 +110,15 @@ BTT_HD fe fe_inv_d2() {
 
 // Addition of two niels entries (z1 = z2 = 1), extended result: the unified
 // law with C = t1*t2/(2d) (both stored t carry 2d) and D = 2, 7 multiplies
-// and one by 1/(2d) (blitzar_tpu/curves/edwards25519.py:_niels_add_impl).
-BTT_HD ge_p3 ge_niels_add(const ge_niels& p, const ge_niels& q) {
-  fe a = fe_mul(p.b, q.b);
-  fe b = fe_mul(p.a, q.a);
-  fe c = fe_mul(fe_mul(p.t, q.t), fe_inv_d2());
-  fe two = fe_small(2);
-  fe e = fe_sub(b, a);
-  fe f = fe_sub(two, c);
-  fe g = fe_add(c, two);
-  fe h = fe_add(b, a);
-  ge_p3 r;
-  r.X = fe_mul(e, f);
-  r.Y = fe_mul(g, h);
-  r.Z = fe_mul(f, g);
-  r.T = fe_mul(e, h);
-  return r;
+// and one by 1/(2d) (blitzar_tpu/curves/edwards25519.py:_niels_add_impl),
+// in stages as the adds above; inlined by default (niels_add.cu).
+template <class Mul = fe_mul_op>
+BTT_HD ge_p3 ge_niels_add(const ge_niels& p, const ge_niels& q, Mul mul = Mul()) {
+  const fes<3> s = mul.template n<3>({{p.b, p.a, p.t}}, {{q.b, q.a, q.t}});
+  const fe a = s.v[0], b = s.v[1];
+  const fe c = mul(s.v[2], fe_inv_d2());
+  const fe two = fe_small(2);
+  return ge_from_efgh(fe_sub(b, a), fe_sub(two, c), fe_add(c, two), fe_add(b, a), mul);
 }
 
 // Addition of an extended point and a cached entry: 8 multiplies.

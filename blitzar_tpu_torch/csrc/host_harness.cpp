@@ -1,8 +1,8 @@
 // Host build of the kernels' arithmetic, for the CPU tests.
 //
-// fp25519.cuh, edwards25519.cuh, niels_tree.cuh, table_build.cuh, lookup.cuh,
-// mont.cuh, weierstrass.cuh, ladder.cuh, sumcheck.cuh, tree_reduce.cuh,
-// w_affine.cuh and ed_convert.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
+// fp25519.cuh, field_batch.cuh, edwards25519.cuh, niels_tree.cuh,
+// table_build.cuh, lookup.cuh, mont.cuh, weierstrass.cuh, ladder.cuh,
+// sumcheck.cuh, tree_reduce.cuh, w_affine.cuh and ed_convert.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
@@ -13,6 +13,7 @@
 // file's rows (count, 15) u64 words.
 #include "ed_convert.cuh"
 #include "edwards25519.cuh"
+#include "field_batch.cuh"
 #include "ladder.cuh"
 #include "lookup.cuh"
 #include "niels_tree.cuh"
@@ -41,6 +42,13 @@ point_out_ptrs out_points(int32_t* base, int64_t n) {
   p.limb_stride = n;
   return p;
 }
+
+// fewrow_lane_sum's stack of waiting sums (shared memory on the card)
+struct HostStack {
+  ge_p3 p[16];
+  void push(int level, const ge_p3& q) { p[level] = q; }
+  ge_p3 pop(int level) const { return p[level]; }
+};
 
 ge_niels load_niels(const int32_t* base, int64_t n, int64_t i) {
   ge_niels r;
@@ -471,28 +479,54 @@ void btt_host_niels_add(const int32_t* p, const int32_t* q, int32_t* out, int64_
   for (int64_t i = 0; i < n; ++i) ge_store(oo, i, ge_niels_add(load_niels(p, n, i), load_niels(q, n, i)));
 }
 
-// The blocks of niels_tree_reduce_lanes.cu, one column after another:
-// entries (size, cols, 24) words, out (4, 16, cols). Returns -1 for a size
-// no block takes.
-int btt_host_niels_tree(const int32_t* entries, int64_t size, int64_t cols, int32_t* out) {
-  const uint32_t* e = (const uint32_t*)entries;
-  point_out_ptrs oo = out_points(out, cols);
-  const int leaves = niels_tree_leaves(size);
-  if (leaves == 0) return -1;
-  ge_p3 sums[kNielsTreeLanes];
+// fewrow_niels.cu's launcher on the host, its blocks one column after
+// another: the table (groups, 2^w, 3, 8) words, scalars (num_outputs,
+// n_pad, nbytes) at row stride n_pad, signs (num_outputs, n_pad) or null,
+// lanes 32, 64 or 128; out (4, 16, cols), cols = groups / chunk_groups *
+// rows, column k * rows + r. Returns -1 for a shape no launch takes.
+int btt_host_fewrow_niels(const int32_t* table, const uint8_t* scalars, const uint8_t* signs, int64_t num_outputs,
+                          int64_t n_pad, int nbytes, int w, int64_t chunk_groups, int lanes, int32_t* out) {
+  const int64_t groups = n_pad / w;
+  if ((lanes != 32 && lanes != 64 && lanes != 128) || !niels_tree_size_ok(chunk_groups) ||
+      chunk_groups < 2 * lanes || n_pad % w || groups % chunk_groups) {
+    return -1;
+  }
+  lookup_query q;
+  q.table = reinterpret_cast<const word4*>(table);
+  q.scalars = scalars;
+  q.signs = signs;
+  q.row_stride = n_pad;
+  q.nbytes = nbytes;
+  q.w = w;
+  q.groups = groups;
+  q.halves = signs ? 2 : 1;
+  q.rows_per_half = num_outputs * 8 * nbytes;
+  q.chunk_groups = chunk_groups;
+  const int64_t rows = q.rows_per_half * q.halves, cols = groups / chunk_groups * rows;
+  const point_out_ptrs oo = out_points(out, cols);
+  HostStack stack;
+  std::vector<ge_p3> sums(lanes);
   for (int64_t c = 0; c < cols; ++c) {
-    for (int t = 0; t < kNielsTreeLanes; ++t) {
-      switch (leaves) {
-        case 1: sums[t] = niels_lane_sum<1>(e, cols, c, t); break;
-        case 2: sums[t] = niels_lane_sum<2>(e, cols, c, t); break;
-        case 4: sums[t] = niels_lane_sum<4>(e, cols, c, t); break;
-        default: sums[t] = niels_lane_sum<8>(e, cols, c, t); break;
-      }
-    }
-    for (int h = kNielsTreeLanes >> 1; h > 0; h >>= 1) {
+    const lookup_row row = lookup_row_of(q, c % rows);
+    for (int t = 0; t < lanes; ++t) sums[t] = fewrow_lane_sum(q, row, c / rows, t, lanes, stack);
+    for (int h = lanes / 2; h > 0; h >>= 1) {
       for (int t = 0; t < h; ++t) sums[t] = ge_add(sums[t], sums[t + h]);
     }
     ge_store(oo, c, sums[0]);
+  }
+  return 0;
+}
+
+// finvert.cu on the host: a (16, count) at limb stride count -> out (16,
+// count), the kernel's tiles of 32 x per elements one lane after another.
+int btt_host_finvert(const int32_t* a, int64_t count, int per, int32_t* out) {
+  if (per < 1) return -1;
+  for (int64_t tile = 0; tile < count; tile += 32LL * per) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const int64_t left = count - tile - lane;
+      const int n = left <= 0 ? 0 : (int)(left < 32LL * per ? (left + 31) / 32 : per);
+      invert_elements<fe_mul_op>(a, count, out, count, tile + lane, 32, n);
+    }
   }
   return 0;
 }

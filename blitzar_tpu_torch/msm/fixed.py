@@ -24,8 +24,10 @@ launch, and sums a streamed query's (chunks, R) products once more. A query
 the lookups do not take as blitzar_tpu routes it (fewer than 128 bit rows,
 as one column of 1 to 15 bytes has; another window than 8; a group count
 off the lookup's tile) goes to the few-row query (:func:`fewrow_products`):
-the selected entries are gathered per table chunk and summed by
-``niels_tree_reduce_lanes`` (or ``niels_add`` and ``tree_reduce_lanes``). The
+on a niels table one ``fewrow_niels`` launch sums each row's entries of
+each table chunk straight from the table (where the chunk size fits it;
+else the entries are gathered per chunk and summed by ``niels_add`` and
+``tree_reduce_lanes``, as on cached and Weierstrass tables). The
 ladder is one launch over all outputs of a query: ``doubling_combine`` for
 ristretto255, ``w_doubling_combine`` for a Weierstrass curve (where
 blitzar_tpu/msm/fixed.py:611-623 launches ``wdouble`` and ``wadd`` once
@@ -257,7 +259,8 @@ LOOKUP_GT = 16
 W_LOOKUP_GT = 8
 # groups of a table chunk of the few-row query (blitzar_tpu/msm/fixed.py:93-97)
 TABLE_CHUNK_GROUPS = 1 << 10
-# bytes of selected entries a row block of the few-row query gathers at most
+# bytes of selected entries a row block of a gathered few-row query (cached
+# and Weierstrass tables, niels chunks fewrow_niels does not take) holds at most
 FEWROW_BUDGET_BYTES = 256 << 20
 
 
@@ -292,17 +295,14 @@ def table_chunk_groups(groups: int) -> int:
 def _chunk_sums(sel: torch.Tensor, curve):
     """(size, cols, coords, words) selected table entries -> (cols,) sums
     over the leading axis, by the table's entry form: niels entries by
-    ``niels_tree_reduce_lanes`` where the size fits it, else ``niels_add``
-    on the two halves (even size) or the extended form (odd), then
-    ``tree_reduce_lanes``; cached entries and Weierstrass points in their
-    coordinates, then ``tree_reduce_lanes``."""
+    ``niels_add`` on the two halves (even size) or the extended form (odd),
+    then ``tree_reduce_lanes``; cached entries and Weierstrass points in
+    their coordinates, then ``tree_reduce_lanes``."""
     size = sel.shape[0]
     if curve is not ed:
         return sum_leading(cuda_wpoint.unpack_points(sel), curve)
     if sel.shape[2] == 4:
         return sum_leading(ed.cached_to_p3(cuda_point.unpack_cached(sel)))
-    if cuda_point.niels_tree_fits(size):
-        return cuda_point.niels_tree_reduce_lanes(sel)
     niels = cuda_point.unpack_niels(sel)
     if size % 2:
         return sum_leading(ed.niels_to_p3(niels))
@@ -314,15 +314,21 @@ def _chunk_sums(sel: torch.Tensor, curve):
 
 def fewrow_products(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, curve=ed):
     """(R,) bit-row products of a query that no lookup kernel takes
-    (:func:`lookup_msm_fits`): blitzar_tpu's one-hot einsum branch. For each
-    block of rows (its selected entries under ``FEWROW_BUDGET_BYTES``) the
-    entry each (row, group) selects is gathered from the table as (gc,
-    chunks x rows) entries, chunks of gc = :func:`table_chunk_groups`
-    groups; each chunk's column is summed (:func:`_chunk_sums`), then the
-    chunks of each row (``tree_reduce_lanes``). The gathers are plain torch,
-    as the einsum is XLA in blitzar_tpu."""
+    (:func:`lookup_msm_fits`): blitzar_tpu's one-hot einsum branch, over
+    table chunks of gc = :func:`table_chunk_groups` groups. On a niels table
+    whose gc fits ``fewrow_niels`` (a power of two in (128, 2048]) one launch
+    forms the (chunks, R) column sums from the table and the scalar bytes.
+    Otherwise, for each block of rows (its selected entries under
+    ``FEWROW_BUDGET_BYTES``), the entry each (row, group) selects is
+    gathered from the table as (gc, chunks x rows) entries and each chunk's
+    column summed (:func:`_chunk_sums`); the gathers are plain torch, as the
+    einsum is XLA in blitzar_tpu. Then one ``tree_reduce_lanes`` sums the
+    chunks of each row."""
+    gc = table_chunk_groups(table.shape[0])
+    nc = table.shape[0] // gc
+    if curve is ed and table.shape[2] == 3 and cuda_point.niels_tree_fits(gc):
+        return sum_leading(cuda_point.fewrow_niels(table, scalars, signs, w))
     idx = cuda_point.query_index(scalars, signs, w)  # (R, G)
-    nc = table.shape[0] // table_chunk_groups(table.shape[0])
     out = []
     for rows in fewrow_blocks(table, idx.shape[0]):
         sums = curve.reshape_batch(_chunk_sums(chunk_entries(table, idx[rows], w), curve), (nc, -1))
@@ -331,8 +337,8 @@ def fewrow_products(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, c
 
 
 def fewrow_blocks(table: torch.Tensor, r_rows: int) -> list:
-    """The row blocks of a few-row query: slices whose selected entries
-    stay under ``FEWROW_BUDGET_BYTES``."""
+    """The row blocks of a gathered few-row query: slices whose selected
+    entries stay under ``FEWROW_BUDGET_BYTES``."""
     groups, entry_bytes = table.shape[0], table.shape[2] * table.shape[3] * 4
     rb = max(1, min(r_rows, FEWROW_BUDGET_BYTES // (groups * entry_bytes)))
     return [slice(lo, min(lo + rb, r_rows)) for lo in range(0, r_rows, rb)]

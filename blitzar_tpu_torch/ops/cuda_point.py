@@ -25,7 +25,8 @@ wrapper                 replaces                                 source
 ``ed_add``              ``_add_tiled`` :237                      ed_add.cu
 ``ed_double``           ``_double_tiled`` :254                   ed_double.cu
 ``niels_add``           ``_niels_add_tiled`` :79                 niels_add.cu
-``niels_tree_reduce_lanes``  ``_niels_tree_tiled`` :426          niels_tree_reduce_lanes.cu
+``fewrow_niels``        ``_niels_tree_tiled`` :426 (with the     fewrow_niels.cu
+                        few-row query's gather)
 ``elligator_form``      ``_elligator_form_tiled`` :212           elligator_form.cu
 ``tree_reduce_lanes``   ``_tree_tiled`` :344                     tree_reduce_lanes.cu
 ``ed_to_niels``         ``_fmul_tiled`` :130 + ``_finvert_tiled``  ed_convert.cu
@@ -80,7 +81,7 @@ KERNELS = (
     "ed_add",
     "ed_double",
     "niels_add",
-    "niels_tree_reduce_lanes",
+    "fewrow_niels",
     "elligator_form",
     "ed_to_niels",
     "ed_file_rows",
@@ -426,26 +427,39 @@ def niels_add(n1: ed.Niels, n2: ed.Niels) -> ed.PointP3:
 
 
 # ---------------------------------------------------------------------------
-# niels_tree_reduce_lanes  (replaces pallas_point.py:_niels_tree_tiled :426 /
-# niels_tree_reduce_lanes :447)
+# fewrow_niels  (replaces pallas_point.py:_niels_tree_tiled :426 /
+# niels_tree_reduce_lanes :447, and the few-row query's gather before it)
 # ---------------------------------------------------------------------------
 
-# the sizes a block of the kernel takes: powers of two above its 128 lanes,
-# up to 8 first-level sums a lane
+# the chunk sizes a column of the kernel takes: powers of two above the TPU
+# kernel's 128 lanes, up to 2048 (its largest table chunk)
 NIELS_TREE_LANES = 128
 NIELS_TREE_MAX = 2048
+# the lanes a column may take (csrc/fewrow_niels.cu); the wrapper picks
+# the fewest that leave each lane at most 16 first-level sums (32 lanes
+# beat 64 and 128 at every 2^20 query's shape on the H100, PERF.md)
+FEWROW_LANES = (32, 64, 128)
+FEWROW_LEAVES = 16
 
 
 def niels_tree_fits(size: int) -> bool:
-    """Whether :func:`niels_tree_reduce_lanes` takes columns of ``size``
-    entries (blitzar_tpu's tree_fits, pallas_point.py:391-393: a power of
-    two above 128)."""
+    """Whether :func:`fewrow_niels` takes table chunks of ``size`` groups
+    (blitzar_tpu's tree_fits, pallas_point.py:391-393: a power of two above
+    128)."""
     return size & (size - 1) == 0 and NIELS_TREE_LANES < size <= NIELS_TREE_MAX
 
 
-def niels_tree_reduce_lanes_plain(entries: torch.Tensor) -> ed.PointP3:
-    """The kernel's sums in its order of additions: entries s and s +
-    size/2 by the niels add, then halving extended adds."""
+def fewrow_lanes(size: int) -> int:
+    """The lanes of a column of ``size`` entries: at most ``FEWROW_LEAVES``
+    first-level sums a lane (a lane's stack of waiting sums, in shared
+    memory, stays at four points), 32 at least."""
+    return max(FEWROW_LANES[0], size // (2 * FEWROW_LEAVES))
+
+
+def niels_tree_plain(entries: torch.Tensor) -> ed.PointP3:
+    """(size, cols, 3, 8) niels entries -> (16, cols) column sums in the
+    kernel's order of additions: entries s and s + size/2 by the niels add,
+    then halving extended adds."""
     size = entries.shape[0]
     n = unpack_niels(entries)
     half = size // 2
@@ -454,32 +468,65 @@ def niels_tree_reduce_lanes_plain(entries: torch.Tensor) -> ed.PointP3:
     return ed.tree_reduce(ed._niels_add_impl(lo, hi), half)
 
 
-def niels_tree_reduce_lanes(entries: torch.Tensor) -> ed.PointP3:
-    """(size, cols, 3, 8) niels table entries (as a table stores them) ->
-    (16, cols) extended points: each column's sum. size is a power of two
-    above 128 (:func:`niels_tree_fits`).
+def fewrow_niels_plain(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, chunks=None) -> ed.PointP3:
+    """:func:`fewrow_niels` in plain ops: the entry each (row, group) picks
+    gathered into (gc, chunks x rows) columns, then :func:`niels_tree_plain`.
+    ``chunks`` (a 1-D index tensor) computes only those table chunks, (16,
+    len(chunks), R): the comparison of a full-size run on a sample."""
+    from ..msm import fixed
 
-    Kernel csrc/niels_tree_reduce_lanes.cu, one block of 128 threads per
-    column: lane t adds the entries t + 128 j (first level niels + niels,
-    then extended adds) in registers, then the block halves its 128 lanes
-    in shared memory. The same order as the plain version, so the same
-    coordinates. Bound: integer multiplies (size/2 niels adds and size/2 - 1
-    extended adds per column)."""
-    size = entries.shape[0]
-    if not niels_tree_fits(size):
-        raise ValueError(f"column size {size} is no power of two in ({NIELS_TREE_LANES}, {NIELS_TREE_MAX}]")
-    if entries.dim() != 4 or tuple(entries.shape[2:]) != (3, 8) or entries.dtype != torch.int32:
-        raise ValueError(f"entries {tuple(entries.shape)} {entries.dtype}: expected (size, cols, 3, 8) int32")
-    if not _on_card(entries):
-        return niels_tree_reduce_lanes_plain(entries)
-    cols = entries.shape[1]
-    entries = entries.contiguous()
-    out = _empty_point((cols,), entries.device)
+    groups = table.shape[0]
+    gc = fixed.table_chunk_groups(groups)
+    idx = query_index(scalars, signs, w)  # (R, G)
+    rows = idx.shape[0]
+    dev = table.device
+    ids = torch.arange(groups // gc, device=dev) if chunks is None else chunks.to(dev)
+    g = ids[None, :] * gc + torch.arange(gc, device=dev)[:, None]  # (gc, K): group s of chunk k
+    flat = table.reshape((groups << w,) + tuple(table.shape[2:]))
+    sel = flat[(g[:, :, None] << w) + idx[:, g].permute(1, 2, 0)]  # (gc, K, R, 3, 8)
+    sums = niels_tree_plain(sel.reshape((gc, -1) + tuple(table.shape[2:])))
+    return ed.reshape_batch(sums, (len(ids), rows))
+
+
+def fewrow_niels(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, lanes: int = 0) -> ed.PointP3:
+    """A few-row query's column sums on a niels table: (16, chunks, R), each
+    row r's sum over the gc = ``fixed.table_chunk_groups`` groups of each
+    table chunk of table[g, idx[r, g]] (:func:`query_index`; entry 0, the
+    identity, counts like any other); their sum over the chunks is row r's
+    product. table: (G, 2^w, 3, 8) niels words, gc in (128, 2048]
+    (:func:`niels_tree_fits`); scalars, signs as :func:`ed_lookup_msm`'s.
+
+    Kernel csrc/fewrow_niels.cu, one launch: a column's ``lanes`` threads
+    (32, 64 or 128; 0 picks :func:`fewrow_lanes`) form their indices from
+    the scalar bytes and read their entries straight from the table, each
+    lane summing its share in the plain version's halving order
+    (csrc/niels_tree.cuh), then the lanes halved; nothing is gathered
+    first. Bound: integer multiplies (gc/2 niels adds and gc/2 - 1 extended
+    adds a column)."""
+    from ..msm import fixed
+
+    groups = _check_query(table, scalars, signs, w, {(3, 8)})
+    gc = fixed.table_chunk_groups(groups)
+    if not niels_tree_fits(gc):
+        raise ValueError(f"table chunks of {gc} groups: no power of two in ({NIELS_TREE_LANES}, {NIELS_TREE_MAX}]")
+    if lanes == 0:
+        lanes = fewrow_lanes(gc)
+    if lanes not in FEWROW_LANES or gc < 2 * lanes:
+        raise ValueError(f"{lanes} lanes a column of {gc} entries: expected one of {FEWROW_LANES}, at most {gc // 2}")
+    if not _on_card(table):
+        return fewrow_niels_plain(table, scalars, signs, w)
+    device = table.device
+    table, scalars, signs, row = query_args(table, scalars, signs)
+    num_outputs, n_pad, nbytes = scalars.shape
+    rows = (2 if signs is not None else 1) * num_outputs * 8 * nbytes
+    nc = groups // gc
+    out = _empty_point((nc * rows,), device)
     _launch(
-        "niels_tree_reduce_lanes", build.library().btt_niels_tree_reduce_lanes,
-        entries.data_ptr(), size, cols, *_ptrs(out), _stream(entries.device),
+        "fewrow_niels", build.library().btt_fewrow_niels,
+        table.data_ptr(), scalars.data_ptr(), None if signs is None else signs.data_ptr(),
+        num_outputs, n_pad, row, nbytes, w, gc, lanes, *_ptrs(out), _stream(device),
     )
-    return out
+    return ed.reshape_batch(out, (nc, rows))
 
 
 # ---------------------------------------------------------------------------

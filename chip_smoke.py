@@ -9,8 +9,9 @@ Phases, each fatal on failure:
 
 1. build the kernels of the twenty-four CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
-   registers and spills (none allowed in ``ed_convert.cu``, ``ed_horner.cu``
-   and ``w_horner.cu``) and the card's name and power limit;
+   registers and spills (none allowed in ``ed_convert.cu``, ``ed_horner.cu``,
+   ``w_horner.cu``, ``fewrow_niels.cu`` and ``finvert.cu``) and the card's
+   name and power limit;
 2. run each kernel at the shapes its path gives it at full width
    (ristretto255 2^20 commitment for the five Edwards kernels of the handle
    path, bn254 G1 for the five Weierstrass ones (the ladder
@@ -97,12 +98,16 @@ Phases, each fatal on failure:
    read one ``ed_to_niels`` launch, none of them an ``fmul`` or ``finvert``
    launch; (iv) 2^20 generators derived and
    saved, then loaded with the in-memory cache cleared (the same points),
-   and a cold 2^20 commitment over them (the pinned digest). Every file is
+   and a cold 2^20 commitment over them (the pinned digest); a legacy
+   extended file of 2^16 of them loaded (one ``finvert`` launch). Every file is
    deleted once read, the directory at exit;
 15. ``fmul``, ``finvert`` and ``mont_mul_ew`` in the two Weierstrass base
    fields against their plain versions at every element count phase 14
    launched them at, ``fmul`` and ``fsq`` (on no path) also at a table
-   conversion's chunk of 2^22 entries, ``finvert`` at 2^20; ``w_affine`` at
+   conversion's chunk of 2^22 entries, ``finvert`` (a batch inversion) at
+   ``FINVERT_COUNTS`` (a legacy extended file's 2^16, a cache save's 2^20)
+   on every element, zeros, p, 2p and non-canonical limbs among them
+   (``finvert_operands``); ``w_affine`` at
    every (curve, entries) phase 14 launched it at and at a 2^22-entry chunk
    of each Weierstrass curve, against its plain version on every row
    (tolerance 0 on the file's words); ``ed_to_niels``, ``ed_file_rows`` and
@@ -126,10 +131,15 @@ Phases, each fatal on failure:
    ``ed_lookup_msm`` on the same handle; a w = 4 2^20 handle's 32-byte
    query gives the pinned digest both ways; n = 2^10 with a 1-byte column;
    each few-row query and its ``ed_lookup_msm`` counterpart timed (median
-   of 5); ``niels_tree_reduce_lanes`` and ``niels_add`` must launch there;
+   of 5); each 2^20 query (1- and 8-byte, w = 4) must be one
+   ``fewrow_niels`` launch and gather no entry (``entry_gathers``), the
+   2^10 one gathers its 128-group chunk and launches ``niels_add``;
 18. ``ed_double`` (one output and ten; on no path since the Horner is one
-   launch), ``niels_add`` and ``niels_tree_reduce_lanes`` against their
-   plain versions at the shapes of phases 16 and 17; ``ed_horner`` and
+   launch) and ``niels_add`` against their plain versions at the shapes of
+   phases 16 and 17, ``fewrow_niels`` at every (outputs, n, bytes, w,
+   signs, chunk groups, lanes) the few-row and files paths launched it at
+   (tolerance 0 on table chunks spread over each query), timed, bounded,
+   launches x (time - bound) summed over the shapes; ``ed_horner`` and
    ``w_horner`` at every (outputs, windows) phase 16 launched them at,
    limb for limb their plain versions in the kernel's segments, timed and
    bounded;
@@ -530,12 +540,16 @@ CONVERSION_HORNER_SOURCES = {"ed_to_niels/ed_file_rows/ed_file_entries": "ed_con
                              "ed_horner": "ed_horner.cu", "w_horner": "w_horner.cu"}
 
 
-def conversion_horner_ptxas(log_text: str, built_here: bool) -> dict:
-    """The conversions' and the Horner kernels' registers, stack frames and
-    spills (none allowed), from the ptxas log as :func:`table_build_ptxas`
-    reads it."""
+# the few-row query's column sums and the batch finvert: no spill allowed
+FEWROW_FINVERT_SOURCES = {"fewrow_niels": "fewrow_niels.cu", "finvert": "finvert.cu"}
+
+
+def conversion_horner_ptxas(log_text: str, built_here: bool, sources: dict = CONVERSION_HORNER_SOURCES) -> dict:
+    """The registers, stack frames and spills (none allowed) of the kernels
+    of ``sources`` (the conversions and the Horner kernels by default),
+    from the ptxas log as :func:`table_build_ptxas` reads it."""
     out = {"built_in_this_run": built_here}
-    for name, source in CONVERSION_HORNER_SOURCES.items():
+    for name, source in sources.items():
         funcs = out[name] = ptxas_report(log_text, source)
         for f in funcs:
             print(f"    {source} {f['function']}: {f.get('registers', '-')} registers, {f.get('stack_frame')} bytes "
@@ -1820,6 +1834,31 @@ FILES_NPZ_N = 1 << 16
 # the plain versions of the field kernels run on at most this many elements
 # of a shape, spread over all of them (2^20 at a kernel's headline shape)
 FIELD_SAMPLE = 1 << 16
+# finvert's counts beside the files path's: a cache save's 2^20 generators
+# and a legacy extended file's load of the smallest prefix a save writes
+FINVERT_COUNTS = (1 << 16, 1 << 20)
+# 16-bit limbs of p = 2^255 - 19, of 2p, and of p with its lowest limb
+# carried from the next (limbs below 2^17): three forms of 0
+P_LIMBS = [0xFFED] + [0xFFFF] * 14 + [0x7FFF]
+ZERO_FORMS = ([0] * 16, P_LIMBS, [0xFFDA] + [0xFFFF] * 15, [0x1FFED, 0xFFFE] + [0xFFFF] * 13 + [0x7FFF])
+
+
+def finvert_operands(torch, dev, count: int, seed: int):
+    """(16, count) int32 limbs for finvert: random 16-bit limbs (values up to
+    2^256, many above p); every 7th element one of the three forms of 0
+    (``ZERO_FORMS``, p and 2p among them) in turn, every 11th above 2^255
+    with limbs up to 2^17; the last 4096 elements 0 (a batch inversion's
+    whole runs of zeros)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randint(0, 1 << 16, (16, count), generator=gen, device=dev, dtype=torch.int32)
+    wide = torch.arange(0, count, 11, device=dev)
+    a[:, wide] = torch.randint(0, 1 << 17, (16, len(wide)), generator=gen, device=dev, dtype=torch.int32)
+    a[15, wide] |= 0x8000
+    forms = torch.tensor(ZERO_FORMS, dtype=torch.int32, device=dev).T  # (16, 4)
+    zeros = torch.arange(0, count, 7, device=dev)
+    a[:, zeros] = forms[:, torch.arange(len(zeros), device=dev) % forms.shape[1]]
+    a[:, max(0, count - 4096):] = 0
+    return a
 
 
 def comparable(curve, points):
@@ -1861,6 +1900,7 @@ def phase_files(torch, timings: dict, work: str) -> None:
     from blitzar_tpu_torch import api, generators
     from blitzar_tpu_torch.curves import edwards25519 as ed
     from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.fields import fp25519 as F
     from blitzar_tpu_torch.msm import engine, fixed, interop
     from blitzar_tpu_torch.ops import cuda_point as cp
 
@@ -2022,6 +2062,19 @@ def phase_files(torch, timings: dict, work: str) -> None:
     check(cp.LAUNCHES["elligator_form"] == derived and digest(got) == PINNED_RISTRETTO_MSM[20],
           f"(iv) a cold 2^20 commitment over cache-loaded generators equals the pinned digest ({ms:.1f} ms)")
     timings["commit_2^20_cold_from_disk_cache_ms"] = ms
+    # a legacy extended file (blitzar_tpu's (4, 16, n) uint32 limbs) of the
+    # first 2^16 generators, z as derived: its load normalises z by finvert
+    legacy_n = FINVERT_COUNTS[0]
+    np.save(os.path.join(cache_dir, f"ristretto_gen_{legacy_n}.npy"),
+            np.stack([F.canonicalize(c[:, :legacy_n]).cpu().numpy().astype(np.uint32) for c in ref]))
+    generators.CACHE.reset()
+    inverted = cp.LAUNCHES["finvert"]
+    legacy, timings["generators_2^16_legacy_load_ms"] = timed(
+        torch, lambda: generators.get_precomputed_generators(legacy_n, 0, dev))
+    check(cp.LAUNCHES["elligator_form"] == derived and cp.LAUNCHES["finvert"] == inverted + 1
+          and bool(ed.points_equal(legacy, ed.index_batch(ref, slice(0, legacy_n))).all()),
+          f"(iv) a legacy extended file of 2^16 generators loads with one finvert launch: the same points "
+          f"({timings['generators_2^16_legacy_load_ms']:.1f} ms)")
     generators.DISK_DIR = ""
     generators.CACHE.reset()
     clear_handles(torch)
@@ -2156,18 +2209,13 @@ def phase_field_kernels(torch, dev, path_shapes: dict, affine_shapes: dict) -> d
     def limbs(count):
         return torch.randint(0, 1 << 16, (16, count), generator=gen, device=dev, dtype=torch.int32)
 
-    def zero_first(count):  # 0 inverts to 0
-        a = limbs(count)
-        a[:, 0] = 0
-        return a
-
     chunk = fixed.TABLE_CHUNK_ENTRIES
     kinds = {  # kernel, plain, operands, bytes and int32 multiplies an element, headline count
         "fmul": (cf.fmul, cf.fmul_plain, lambda c: (limbs(c), limbs(c)), 96, IMAD_PER_FIELD_MUL, chunk),
         "fsq": (cf.fsq, cf.fsq_plain, lambda c: (limbs(c),), 64, IMAD_PER_FIELD_MUL, chunk),
         # the least work that inverts a batch is a batch inversion: three
         # multiplies an element and one inversion
-        "finvert": (cf.finvert, cf.finvert_plain, lambda c: (zero_first(c),), 64,
+        "finvert": (cf.finvert, cf.finvert_plain, lambda c: (finvert_operands(torch, dev, c, 44),), 64,
                     MULS_BATCH_INVERT_PER_ELEMENT * IMAD_PER_FIELD_MUL, FILES_N),
     }
     replaces = {"fmul": 130, "fsq": 144, "finvert": 172}
@@ -2176,10 +2224,12 @@ def phase_field_kernels(torch, dev, path_shapes: dict, affine_shapes: dict) -> d
         launched = path_shapes.get(name, {})
         extra = MULS_INVERT * IMAD_PER_FIELD_MUL if name == "finvert" else 0
         by = {}
-        for count in sorted(set(launched) | {head}):
+        counts = set(launched) | {head} | (set(FINVERT_COUNTS) if name == "finvert" else set())
+        for count in sorted(counts):
+            # finvert on every element: its zeros and non-canonical forms among them
             by[count] = field_shape(torch, dev, kernel, plain, operands, count, count * per_bytes,
                                     count * per_imads + extra, F.canonicalize,
-                                    1 << 20 if count == head else FIELD_SAMPLE)
+                                    1 << 20 if count == head or name == "finvert" else FIELD_SAMPLE)
             by[count]["launches"] = launched.get(count, 0)
             check(by[count]["max_abs_err"] == 0, f"{name} at {count} elements: kernel equals plain, tolerance 0 "
                                                  f"on canonical limbs ({by[count]['ms']:.4f} ms)")
@@ -2335,7 +2385,7 @@ def phase_conversion_kernels(torch, dev, path_shapes: dict) -> dict:
 HORNER_KERNELS = ("ed_horner", "w_horner")
 HORNER_STEP_KERNELS = ("ed_double", "wdouble")
 BUCKET_KERNELS = HORNER_KERNELS + HORNER_STEP_KERNELS
-FEWROW_KERNELS = ("niels_add", "niels_tree_reduce_lanes")
+FEWROW_KERNELS = ("niels_add", "fewrow_niels")
 MULS_NIELS_ADD = 8
 QUERY_REPS = 5
 
@@ -2407,6 +2457,20 @@ def lookup_routing():
         yield
     finally:
         fixed.lookup_msm_fits, fixed.w_lookup_msm_fits = saved
+
+
+@contextlib.contextmanager
+def entry_gathers():
+    """Records each call of ``fixed.chunk_entries`` (the few-row query's
+    gather of selected entries) while the block runs."""
+    from blitzar_tpu_torch.msm import fixed
+
+    inner, calls = fixed.chunk_entries, []
+    fixed.chunk_entries = lambda *a, **k: calls.append(1) or inner(*a, **k)
+    try:
+        yield calls
+    finally:
+        fixed.chunk_entries = inner
 
 
 def median_ms(torch, fn, reps: int = QUERY_REPS) -> tuple:
@@ -2526,7 +2590,7 @@ def phase_fewrow(torch, timings: dict) -> tuple:
         desc = api.SequenceDescriptor(nbytes, n, rows)
         key = f"2^{n.bit_length() - 1}_{nbytes}B"
         launched: dict = {}
-        with counted(launches, launched):
+        with counted(launches, launched), entry_gathers() as gathered:
             got, timings[f"fewrow_commit_{key}_ms"] = timed(torch, lambda: api.compute_curve25519_commitments([desc]))
         launched = {k: launched[k] for k in FEWROW_KERNELS + ("ed_lookup_msm",)}
         handle = engine.cached_handle(gens, n)
@@ -2540,11 +2604,16 @@ def phase_fewrow(torch, timings: dict) -> tuple:
             return fixed.doubling_combine(fixed.fewrow_products(handle.table, scalars, None, 8), 1, nbits)
 
         want = api.compress_ristretto255(via_lookup())
-        reduce = "niels_tree_reduce_lanes" if n == 1 << 20 else "niels_add"
-        check(not fixed.lookup_msm_fits(handle.num_groups, 256, nbits) and launched[reduce] > 0
+        # 2^20: 1024-group table chunks, one fewrow_niels launch and no
+        # gathered entry; 2^10: one 128-group chunk, gathered, niels_add
+        one_launch = n == 1 << 20
+        path = ({"fewrow_niels": 1, "niels_add": 0} if one_launch else {"fewrow_niels": 0, "niels_add": 1})
+        check(not fixed.lookup_msm_fits(handle.num_groups, 256, nbits)
+              and {k: launched[k] for k in path} == path and bool(gathered) != one_launch
               and launched["ed_lookup_msm"] == 0 and np.array_equal(got, want),
-              f"(b) {key} column: the default commitment takes the few-row query ({launched}) and equals "
-              f"ed_lookup_msm's ({timings[f'fewrow_commit_{key}_ms']:.1f} ms)")
+              f"(b) {key} column: the default commitment takes the few-row query ({launched}, "
+              f"{len(gathered)} entry gathers) and equals ed_lookup_msm's "
+              f"({timings[f'fewrow_commit_{key}_ms']:.1f} ms)")
         _, timings[f"fewrow_query_{key}_ms_median"] = median_ms(torch, via_fewrow)
         _, timings[f"lookup_query_{key}_ms_median"] = median_ms(torch, via_lookup)
         if n == 1 << 20:
@@ -2554,9 +2623,6 @@ def phase_fewrow(torch, timings: dict) -> tuple:
                 routed, timings[f"lookup_routed_commit_{key}_warm_ms_median"] = median_ms(
                     torch, lambda: api.compute_curve25519_commitments([desc]))
             check(np.array_equal(routed, got), f"(b) {key} column: routed to ed_lookup_msm, the same commitment")
-        if n == 1 << 20 and nbytes == 1:
-            idx = cp.query_index(scalars, None, 8)
-            out["tree_entries"] = fixed.chunk_entries(handle.table, idx[fixed.fewrow_blocks(handle.table, 8)[0]], 8)
         if n == 1 << 10:
             idx = cp.query_index(scalars, None, 8)
             sel = fixed.chunk_entries(handle.table, idx, 8)
@@ -2570,12 +2636,12 @@ def phase_fewrow(torch, timings: dict) -> tuple:
     handle = fixed.MultiexpHandle(gens, window_width=4)
     rows = counter_scalars(n, 32)[None]
     launched = {}
-    with counted(launches, launched):
+    with counted(launches, launched), entry_gathers() as gathered:
         res, timings["fewrow_w4_query_2^20_ms"] = timed(torch, lambda: api.fixed_multiexponentiation(handle, rows))
     check(digest(api.compress_ristretto255(res)) == PINNED_RISTRETTO_MSM[20]
-          and launched["niels_tree_reduce_lanes"] > 0,
-          f"(b) a w = 4 handle: the 2^20 query takes the few-row query and equals the pinned digest "
-          f"({timings['fewrow_w4_query_2^20_ms']:.1f} ms)")
+          and launched["fewrow_niels"] == 1 and launched["niels_add"] == 0 and not gathered,
+          f"(b) a w = 4 handle: the 2^20 query takes the few-row query, one fewrow_niels launch and no entry "
+          f"gathered, and equals the pinned digest ({timings['fewrow_w4_query_2^20_ms']:.1f} ms)")
     scalars = fixed._scalars_tensor(handle, rows)
     _, timings["fewrow_query_w4_2^20_32B_ms_median"] = median_ms(
         torch, lambda: fixed.fewrow_products(handle.table, scalars, None, 4))
@@ -2600,12 +2666,14 @@ def phase_fewrow(torch, timings: dict) -> tuple:
     return out, launches
 
 
-def phase_fewrow_kernels(torch, dev, inputs: dict) -> dict:
-    """(c) ed_double, niels_add and niels_tree_reduce_lanes against their
-    plain versions at their paths' shapes: ed_double at a Horner step of one
+def phase_fewrow_kernels(torch, dev, inputs: dict, shapes: dict) -> dict:
+    """(c) ed_double, niels_add and fewrow_niels against their plain
+    versions at their paths' shapes: ed_double at a Horner step of one
     output and of the ten of 100000 x 10; niels_add at the halves of n =
-    2^10's one-byte query (64 x 8); niels_tree_reduce_lanes at the first
-    row block of the 2^20 one-byte query (1024 entries x 1024 columns)."""
+    2^10's one-byte query (64 x 8); fewrow_niels at every shape
+    (``fewrow_niels_record``) the few-row and files paths launched it at
+    (``shapes``, PATH_SHAPES' counts), its headline the 2^20 one-byte
+    query's (1024 entries x 1024 columns)."""
     from blitzar_tpu_torch import generators
     from blitzar_tpu_torch.curves import edwards25519 as ed
     from blitzar_tpu_torch.fields import fp25519 as F
@@ -2638,17 +2706,71 @@ def phase_fewrow_kernels(torch, dev, inputs: dict) -> dict:
                   ms, plain_ms, err, count * (2 * 192 + 256), count * MULS_NIELS_ADD * IMAD_PER_FIELD_MUL)
     results["niels_add"]["shape"] = list(n1.a.shape[1:])
 
-    entries = inputs["tree_entries"]
-    size, cols = entries.shape[0], entries.shape[1]
-    ms = device_ms(torch, lambda: cp.niels_tree_reduce_lanes(entries), reps=10)
-    plain_ms = cuda_ms(torch, lambda: cp.niels_tree_reduce_lanes_plain(entries), reps=1)
-    err = ed_err(cp.niels_tree_reduce_lanes(entries), cp.niels_tree_reduce_lanes_plain(entries))
-    muls = size // 2 * MULS_NIELS_ADD + (size // 2 - 1) * MULS_ADD
-    kernel_record(results, "niels_tree_reduce_lanes", "blitzar_tpu/ops/pallas_point.py:426",
-                  "blitzar_tpu_torch/csrc/niels_tree_reduce_lanes.cu", ms, plain_ms, err,
-                  cols * (size * 96 + 256), cols * muls * IMAD_PER_FIELD_MUL)
-    results["niels_tree_reduce_lanes"]["shape"] = [size, cols]
+    records = [fewrow_niels_record(torch, dev, key, paths) for key, paths in sorted(shape_paths(shapes).items())]
+    check(bool(records), "fewrow_niels: the paths launched it")
+    headline = FEWROW_HEADLINE + (cp.fewrow_lanes(FEWROW_HEADLINE[-1]),)
+    top = next((r for r in records if r["key"] == headline), records[0])
+    kernel_record(results, "fewrow_niels", "blitzar_tpu/ops/pallas_point.py:426",
+                  "blitzar_tpu_torch/csrc/fewrow_niels.cu", top["ms"], top["plain_ms"], top["max_abs_err"],
+                  top["bytes"], top["imads"], top["plain_fraction"])
+    results["fewrow_niels"].update(shape=[top["chunk_groups"], top["cols"]], lanes=top["lanes"], by_shape=records,
+                                   launches_x_gap_ms_all_shapes=sum(r["launches_x_gap_ms"] for r in records))
     return results
+
+
+# the few-row query's column sums: the key (outputs, n_pad, nbytes, w,
+# signed, chunk groups; then the wrapper's lanes) of the 2^20 one-byte
+# query, the headline; the plain version gathers at most this many entries
+# a shape (table chunks spread over the query, the last included)
+FEWROW_HEADLINE = (1, 1 << 20, 1, 8, False, 1024)
+FEWROW_SAMPLE_ENTRIES = 1 << 20
+
+
+def fewrow_niels_record(torch, dev, key: tuple, paths: dict) -> dict:
+    """fewrow_niels at one launch shape (``SHAPE_KEYS``) on a table of
+    random words and random scalar bytes and signs (its work does not
+    depend on them: every entry a row picks is added, entry 0 too): the
+    device time, the bound (the entries read, 96 bytes each, against gc/2
+    niels adds of 8 multiplies and gc/2 - 1 extended adds of 9 a column),
+    launches by path and launches x (ms - bound), and limb for limb the
+    plain version on table chunks spread over the query."""
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    outputs, n_pad, nbytes, w, signed, gc, lanes = key
+    groups = n_pad // w
+    gen = torch.Generator(device=dev).manual_seed(n_pad + nbytes + w)
+    table = torch.randint(-(1 << 31), (1 << 31) - 1, (groups, 1 << w, 3, 8), generator=gen, device=dev,
+                          dtype=torch.int32)
+    scalars = torch.randint(0, 256, (outputs, n_pad, nbytes), generator=gen, device=dev, dtype=torch.uint8)
+    signs = torch.randint(0, 2, (outputs, n_pad), generator=gen, device=dev, dtype=torch.uint8) if signed else None
+    rows = (2 if signed else 1) * outputs * 8 * nbytes
+    nc = groups // gc
+
+    def run():
+        return cp.fewrow_niels(table, scalars, signs, w, lanes)
+
+    ms = device_ms(torch, run, reps=5)
+    chunks = spread_indices(torch, dev, max(1, min(nc, FEWROW_SAMPLE_ENTRIES // (gc * rows))), nc)
+    plain_ms = cuda_ms(torch, lambda: cp.fewrow_niels_plain(table, scalars, signs, w, chunks), reps=1)
+    err = point_err(ed.index_batch(run(), chunks), cp.fewrow_niels_plain(table, scalars, signs, w, chunks),
+                    F.canonicalize)
+    cols = nc * rows
+    nbytes_moved = cols * (gc * 96 + 256) + outputs * n_pad * (nbytes + (1 if signed else 0))
+    imads = cols * (gc // 2 * MULS_NIELS_ADD + (gc // 2 - 1) * MULS_ADD) * IMAD_PER_FIELD_MUL
+    b_ms, b_by = bound(nbytes_moved, imads)
+    launches = sum(paths.values())
+    check(err == 0, f"fewrow_niels at {gc} x {cols} ({outputs} x {n_pad} x {nbytes} bytes, w = {w}, "
+                    f"{'signed' if signed else 'unsigned'}, {lanes} lanes), {launches} launches {paths}: equal to plain "
+                    f"on {len(chunks)} of {nc} chunks, tolerance 0 on canonical limbs ({ms:.4f} ms, bound {b_ms:.4f})")
+    del table, scalars, signs
+    torch.cuda.empty_cache()
+    return {"key": key, "chunk_groups": gc, "cols": cols, "lanes": lanes, "outputs": outputs, "n_pad": n_pad,
+            "nbytes": nbytes, "w": w, "signed": signed, "launches": launches, "launches_by_path": paths, "ms": ms,
+            "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms, "plain_fraction": len(chunks) / nc,
+            "max_abs_err": float(err), "bytes": nbytes_moved, "imads": imads,
+            "launches_x_gap_ms": launches * (ms - b_ms)}
 
 
 def phase_horner_kernels(torch, dev, counts: dict) -> dict:
@@ -2761,7 +2883,9 @@ class PathShapes:
 # products); w_affine (curve, chunk, entries, ...) by (instance, entries);
 # ed_horner (4 coordinates, stride, outputs, windows, ...) and w_horner
 # (curve, 3 coordinates, stride, outputs, windows, ...) by (instance,
-# outputs, windows)
+# outputs, windows); fewrow_niels (table, scalars, signs, outputs, n_pad,
+# row stride, nbytes, w, chunk groups, lanes, ...) by (outputs, n_pad,
+# nbytes, w, signed, chunk groups, lanes)
 SHAPE_KEYS = {
     "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
     "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
@@ -2770,6 +2894,8 @@ SHAPE_KEYS = {
     "w_affine": lambda instance, a: (instance, int(a[2])),
     "ed_horner": lambda instance, a: ("ristretto255", int(a[5]), int(a[6])),
     "w_horner": lambda instance, a: (instance, int(a[5]), int(a[6])),
+    "fewrow_niels": lambda instance, a: (int(a[3]), int(a[4]), int(a[6]), int(a[7]), a[2] is not None, int(a[8]),
+                                         int(a[9])),
 }
 PATH_SHAPES = PathShapes()
 TREE_SAMPLE_COLS = 64
@@ -3022,6 +3148,7 @@ def main() -> int:
         report["ptxas_ladders"] = ladder_ptxas(log, built_here)
         report["ptxas_affine_and_sum_round"] = affine_sum_ptxas(log, built_here)
         report["ptxas_conversions_and_horner"] = conversion_horner_ptxas(log, built_here)
+        report["ptxas_fewrow_and_finvert"] = conversion_horner_ptxas(log, built_here, FEWROW_FINVERT_SOURCES)
         PATH_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
@@ -3092,7 +3219,8 @@ def main() -> int:
         clear_handles(torch)
         with PATH_SHAPES.phase("fewrow", on=False):
             fewrow_inputs, fewrow_launches = phase_fewrow(torch, report["timings"])
-        results.update(phase_fewrow_kernels(torch, torch.device("cuda"), fewrow_inputs))
+        results.update(phase_fewrow_kernels(torch, torch.device("cuda"), fewrow_inputs,
+                                            PATH_SHAPES.counts.get("fewrow_niels", {})))
         results.update(phase_horner_kernels(torch, torch.device("cuda"), PATH_SHAPES.counts))
         del fewrow_inputs
         clear_handles(torch)
@@ -3142,7 +3270,7 @@ def main() -> int:
               f"ed_horner, w_horner, tree_reduce_lanes and ed_add launched on the bucket engine's path, ed_double "
               f"and wdouble not: {bucket_launches}")
         check(all(fewrow_launches[k] > 0 for k in FEWROW_KERNELS),
-              f"niels_add and niels_tree_reduce_lanes launched on the few-row query's path: "
+              f"niels_add and fewrow_niels launched on the few-row query's path: "
               f"{ {k: fewrow_launches[k] for k in FEWROW_KERNELS} }")
         report["kernels"] = [results[k] for k in cp.KERNELS]
         report["ranking"] = ranking(report["kernels"], ranked, tree_shapes)

@@ -19,9 +19,10 @@ script's, so both trees run the same work. Cases:
 - ``elligator_form`` (2^20 generators), ``build_niels_table`` (2^20, w = 8),
   ``ed_lookup_msm`` (one 32-byte counter column over that table, as the
   pinned 2^20 commitment), ``ed_add`` (512 pairs, the IPA query's shape),
-  ``doubling_combine`` (one output's 256 bit-row products),
-  ``niels_tree_reduce_lanes`` (the few-row query's first row block at
-  2^20, one-byte column), ``build_cached_table`` and the cached
+  ``doubling_combine`` (one output's 256 bit-row products), the few-row
+  query's column sums at 2^20, one-byte column (the tree's ``fewrow_niels``,
+  or its ``niels_tree_reduce_lanes`` on the first gathered row block),
+  ``build_cached_table`` and the cached
   ``ed_lookup_msm`` on a 2^18-point chunk (w = 8, random 32-byte scalars);
 - the Weierstrass query (section ``weierstrass``): ``w_build_table`` and
   ``w_lookup_msm`` at bn254 G1 2^20 (one 32-byte counter column over the
@@ -68,14 +69,22 @@ script's, so both trees run the same work. Cases:
   tree's ``ed_horner`` / ``w_horner``, or its 8 one-point doublings and an
   add a window) over ristretto255 window sums of 1 and 10 outputs and
   bn254 G1 ones of one output, 32 windows each, the same points as the
-  engine's loop on the CPU, timed as the conversions.
+  engine's loop on the CPU, timed as the conversions;
+- the few-row query (section ``fewrow``): ``fixed.fewrow_products`` of one
+  counter column at chip_smoke.py phase 17's shapes (1- and 8-byte columns
+  and a w = 4 handle's 32-byte one at 2^20, a 1-byte column at 2^10), timed
+  whole back to back beside the lookup's products, split by stage on the
+  host clock, and its niels column sums' device time by (size, cols);
+- ``finvert`` (section ``finvert``) at chip_smoke.py's ``FINVERT_COUNTS``
+  on operands with zeros and non-canonical limbs, and at 16, 32 and 64
+  elements a thread where the tree's wrapper takes ``per``.
 
 Each case's result is held against its plain version (canonical limbs, or
 points for the tree reduces and the ladders; on a spread sample where the
 plain version is large); the JSON holds each case's ``ms`` and whether it
-matched. ``--sections`` runs some of the eight sections (``edwards``,
+matched. ``--sections`` runs some of the ten sections (``edwards``,
 ``weierstrass``, ``mont``, ``trees``, ``tables``, ``ladders``, ``convert``,
-``horner``). Needs one CUDA card.
+``horner``, ``fewrow``, ``finvert``). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -116,7 +125,9 @@ TREE_SHAPES = (
 TREE_CHECK_COLS = 8
 
 
-SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders", "convert", "horner")
+SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders", "convert", "horner", "fewrow", "finvert")
+# the few-row queries of chip_smoke.py phase 17: (n, bytes of the column, w)
+FEWROW_QUERIES = ((1 << 20, 1, 8), (1 << 20, 8, 8), (1 << 20, 32, 4), (1 << 10, 1, 8))
 # the Weierstrass lookups' partials at the shapes their chunk rules give a
 # 256-row query: K = 1024 (the rule before w_lookup_msm took lookup_chunks),
 # 527 at 2^20 and 521 at a 2^18-point chunk since
@@ -155,7 +166,7 @@ def main() -> int:
                         for src in ("w_lookup_msm.cu", "w_doubling_combine.cu", "wadd.cu", "wdouble.cu",
                                     "w_build_table.cu", "build_cached_table.cu", "doubling_combine.cu",
                                     "w_affine.cu", "mont_sum_round.cu", "ed_convert.cu", "ed_horner.cu",
-                                    "w_horner.cu")},
+                                    "w_horner.cu", "fewrow_niels.cu", "niels_tree_reduce_lanes.cu", "finvert.cu")},
               "cases": {}}
     cases = report["cases"]
 
@@ -218,12 +229,22 @@ def section_edwards(torch, cs, dev, case) -> None:
     case("doubling_combine", lambda: cp.doubling_combine(products),
          bool(ed.points_equal(cp.doubling_combine(products), cp.doubling_combine_plain(products)).all()), reps=20)
 
-    idx = cp.query_index(torch.from_numpy(cs.counter_scalars(n, 1)[None]).to(dev), None, w)
-    entries = fixed.chunk_entries(table, idx[fixed.fewrow_blocks(table, 8)[0]], w)
-    case("niels_tree_reduce_lanes", lambda: cp.niels_tree_reduce_lanes(entries),
-         ed_err(cp.niels_tree_reduce_lanes(entries), cp.niels_tree_reduce_lanes_plain(entries)) == 0,
-         shape=list(entries.shape[:2]))
-    del table, partials, entries, idx
+    column = torch.from_numpy(cs.counter_scalars(n, 1)[None]).to(dev)
+    if hasattr(cp, "fewrow_niels"):  # the one-byte query's column sums, one launch
+        chunks = spread(4, groups // fixed.table_chunk_groups(groups))
+        sums = cp.fewrow_niels(table, column, None, w)
+        case("fewrow_niels", lambda: cp.fewrow_niels(table, column, None, w),
+             ed_err(ed.index_batch(sums, chunks), cp.fewrow_niels_plain(table, column, None, w, chunks)) == 0,
+             shape=[fixed.table_chunk_groups(groups), sums.x.shape[1] * sums.x.shape[2]])
+        del sums
+    else:
+        idx = cp.query_index(column, None, w)
+        entries = fixed.chunk_entries(table, idx[fixed.fewrow_blocks(table, 8)[0]], w)
+        case("niels_tree_reduce_lanes", lambda: cp.niels_tree_reduce_lanes(entries),
+             ed_err(cp.niels_tree_reduce_lanes(entries), cp.niels_tree_reduce_lanes_plain(entries)) == 0,
+             shape=list(entries.shape[:2]))
+        del entries, idx
+    del table, partials
 
     chunk = cs.CHUNK
     cgroups = chunk // w
@@ -580,6 +601,93 @@ def section_horner(torch, cs, dev, case) -> None:
         name = "ristretto255" if curve is ed else curve.name
         one_launch_case(torch, cs, case, f"horner/{name}/{outputs}x{windows}", lambda: engine.horner(sums, curve), ok,
                         kernel)
+
+
+
+def section_fewrow(torch, cs, dev, case) -> None:
+    """The few-row query (``fixed.fewrow_products``) of one counter column
+    at chip_smoke.py phase 17's shapes over the canonical generators: timed
+    whole, back to back (``cuda_ms``), its products held against the
+    lookup's as points; then split, each stage of one call synchronised on
+    the host clock (the (R, G) index tensor, the entry gathers, the niels
+    column sums, ``niels_add``, the tree reduces; "host_and_rest" is the
+    call's host time and plain steps), and the niels column sums' device
+    time at each (size, cols) the call launched them at: the tree's
+    ``fewrow_niels``, or its ``niels_tree_reduce_lanes`` on each gathered
+    row block."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    one_launch = hasattr(cp, "fewrow_niels")
+    niels = "fewrow_niels" if one_launch else "niels_tree_reduce_lanes"
+    stages = {"query_index": [(cp, "query_index")], "gather": [(fixed, "chunk_entries")],
+              niels: [(cp, niels)], "niels_add": [(cp, "niels_add")], "tree_reduce_lanes": [(cp, "tree_reduce_lanes")]}
+    handle = None
+    for n, nbytes, w in FEWROW_QUERIES:
+        if handle is None or (handle.n, handle.window_width) != (n, w):
+            handle = None
+            torch.cuda.empty_cache()
+            handle = fixed.MultiexpHandle(generators.get_precomputed_generators(n, 0, dev), window_width=w)
+        table = handle.table
+        scalars = torch.from_numpy(cs.counter_scalars(n, nbytes)[None]).to(dev)
+        query = functools.partial(fixed.fewrow_products, table, scalars, None, w)
+
+        def lookup():
+            return fixed.sum_leading(cp.ed_lookup_msm(table, scalars, None, w))
+
+        ok = bool(ed.points_equal(query(), lookup()).all())
+        with cs.StageTimer(torch, stages) as st:
+            _, total = cs.timed(torch, query)
+        split = {"total": total, **st.ms, "host_and_rest": total - sum(st.ms.values())}
+        groups = table.shape[0]
+        gc = fixed.table_chunk_groups(groups)
+        kernel_ms = {}
+        if one_launch and cp.niels_tree_fits(gc):
+            cols = groups // gc * 8 * nbytes
+            kernel_ms[f"{gc}x{cols}"] = {"ms": cs.device_ms(torch, lambda: cp.fewrow_niels(table, scalars, None, w),
+                                                            reps=5), "launches": 1, "lanes": cp.fewrow_lanes(gc)}
+            for lanes in (k for k in cp.FEWROW_LANES if 2 * k <= gc):  # each count of lanes a column
+                kernel_ms[f"{gc}x{cols}/lanes{lanes}"] = {"ms": cs.device_ms(
+                    torch, lambda: cp.fewrow_niels(table, scalars, None, w, lanes), reps=5)}
+        elif not one_launch and cp.niels_tree_fits(gc):
+            idx = cp.query_index(scalars, None, w)
+            for rows in fixed.fewrow_blocks(table, idx.shape[0]):
+                sel = fixed.chunk_entries(table, idx[rows], w)
+                key = f"{sel.shape[0]}x{sel.shape[1]}"
+                if key not in kernel_ms:
+                    kernel_ms[key] = {"ms": cs.device_ms(torch, lambda: cp.niels_tree_reduce_lanes(sel), reps=5),
+                                      "launches": 0}
+                kernel_ms[key]["launches"] += 1
+                del sel
+            del idx
+        case(f"fewrow/2^{n.bit_length() - 1}_{nbytes}B_w{w}", query, ok, ms=cs.cuda_ms(torch, query, reps=5),
+             lookup_ms=cs.cuda_ms(torch, lookup, reps=5), split=split, niels_kernel=niels, niels_kernel_ms=kernel_ms)
+        del scalars
+    del handle
+
+
+def section_finvert(torch, cs, dev, case) -> None:
+    """``finvert`` at chip_smoke.py's counts (``FINVERT_COUNTS``: a legacy
+    extended file's load, a cache save's 2^20) on its operands with zeros,
+    p, 2p, non-canonical limbs and values above 2^255
+    (``finvert_operands``), against the plain version on every element;
+    where the tree's wrapper takes ``per``, at 16, 32 and 64 elements a
+    thread too."""
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_field as cf
+
+    per_of = "per" in inspect.signature(cf.finvert).parameters
+    for count in cs.FINVERT_COUNTS:
+        a = cs.finvert_operands(torch, dev, count, 49)
+        want = F.canonicalize(cf.finvert_plain(a))
+        # the kernel's own choice, then each count of elements a thread
+        for per in (0, 16, 32, 64) if per_of else (None,):
+            run = functools.partial(cf.finvert, a) if per is None else functools.partial(cf.finvert, a, per=per)
+            name = f"finvert/2^{count.bit_length() - 1}" + (f"/per{per}" if per else "")
+            case(name, run, torch.equal(F.canonicalize(run()), want), reps=10)
+        del a, want
 
 
 if __name__ == "__main__":

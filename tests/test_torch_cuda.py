@@ -369,6 +369,27 @@ def test_field_kernels(dev):
         cf.fmul(a.to(dev), b[:, :2].to(dev))
 
 
+@pytest.mark.parametrize("count", [5, 1000, 3 * 2**15 + 7, 2**20])
+def test_finvert_batch_kernel(dev, count):
+    """The batch inversion at each count of elements a thread and the
+    kernel's own choice, on a strided view: 0, p, 2p and limbs that reduce
+    to 0 give 0, values above 2^255 and limbs up to 2^17 their inverse; a
+    whole run of zeros at the end; one launch a call."""
+    P_LIMBS = [0xFFED] + [0xFFFF] * 14 + [0x7FFF]
+    forms = torch.tensor([[0] * 16, P_LIMBS, [0xFFDA] + [0xFFFF] * 15, [0x1FFED, 0xFFFE] + [0xFFFF] * 13 + [0x7FFF]],
+                         dtype=torch.int32).T
+    a = _fe((2, count), 24)
+    zeros = torch.arange(0, count, 7)
+    a[:, 0, zeros] = forms[:, torch.arange(len(zeros)) % 4]
+    a[:, 0, -min(count, 4096):] = 0
+    a = a.to(dev)
+    want = F.canonicalize(cf.finvert_plain(a[:, 0])).cpu()  # the plain version on the card
+    for per in cf.FINVERT_PER:
+        before = cp.LAUNCHES["finvert"]
+        assert _canon_equal(cf.finvert(a[:, 0], per=per), want)
+        assert cp.LAUNCHES["finvert"] - before == 1
+
+
 @pytest.mark.parametrize("field", [tparams.BN254_FP, tparams.BLS12381_FP], ids=lambda f: f.name)
 def test_mont_mul_ew_base_fields(dev, field):
     a, b = _field_batch(field, (1000,), 24), _field_batch(field, (1000,), 25)
@@ -444,7 +465,7 @@ def test_generator_cache_on_cuda(dev, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# ed_double, niels_add, niels_tree_reduce_lanes; the bucket engine and the
+# ed_double, niels_add, fewrow_niels; the bucket engine and the
 # few-row partition query on the card
 # ---------------------------------------------------------------------------
 
@@ -478,15 +499,26 @@ def test_niels_add_kernel(dev):
     assert _same(got, cp.niels_add_plain(n1, n2))
 
 
-@pytest.mark.parametrize("size", [256, 1024, 2048])
-def test_niels_tree_reduce_lanes_kernel(dev, size):
-    """Limb for limb: the kernel adds in the plain version's order."""
-    cols = 3
-    entries = _niels_entries(size * cols, 5).reshape(size, cols, 3, 8)
-    got = cp.niels_tree_reduce_lanes(entries.to(dev))
-    assert _same(got, cp.niels_tree_reduce_lanes_plain(entries))
-    with pytest.raises(ValueError):
-        cp.niels_tree_reduce_lanes(entries[:200].to(dev))
+@pytest.mark.parametrize("groups, w, nbytes, signed", [(256, 8, 1, False), (512, 4, 3, True), (1024, 8, 2, False),
+                                                      (3072, 4, 1, True)])
+def test_fewrow_niels_kernel(dev, groups, w, nbytes, signed):
+    """Limb for limb the plain version, at every lane count a column of
+    the table's chunks takes and the wrapper's own choice, one launch a
+    call; chunks of 256, 512 and 1024 groups (three of them at 3072)."""
+    from blitzar_tpu_torch.msm import fixed
+
+    n = groups * w
+    table = cp.build_niels_table(generators.ristretto_generators(n, 0, dev), w)
+    rng = np.random.default_rng(groups + nbytes)
+    scalars = torch.from_numpy(rng.integers(0, 256, size=(2, n, nbytes), dtype=np.uint8)).to(dev)
+    signs = torch.from_numpy(rng.integers(0, 2, size=(2, n), dtype=np.uint8)).to(dev) if signed else None
+    want = cp.fewrow_niels_plain(table, scalars, signs, w)  # the plain version on the card
+    gc = fixed.table_chunk_groups(groups)
+    for lanes in (0,) + tuple(k for k in cp.FEWROW_LANES if 2 * k <= gc):
+        before = cp.LAUNCHES["fewrow_niels"]
+        got = cp.fewrow_niels(table, scalars, signs, w, lanes)
+        assert cp.LAUNCHES["fewrow_niels"] - before == 1
+        assert _same(got, want)
 
 
 def test_bucket_engine_on_cuda_matches_cpu(dev, monkeypatch):
@@ -510,14 +542,24 @@ def test_bucket_engine_on_cuda_matches_cpu(dev, monkeypatch):
 def test_fewrow_query_on_cuda_matches_lookup(dev, n, w):
     """The few-row query on the card equals ed_lookup_msm's products on
     the same handle: an odd chunk of 125 groups (n = 1000), niels_add on
-    the halves of a 128-group chunk (1024), niels_tree_reduce_lanes on
-    256-group chunks (2048, and w = 4 at 1024)."""
+    the halves of a 128-group chunk (1024), one fewrow_niels launch on
+    256-group chunks (2048, and w = 4 at 1024) and no entry gathered."""
     from blitzar_tpu_torch.msm import fixed
 
     handle = fixed.MultiexpHandle(generators.ristretto_generators(n, 0, dev), window_width=w)
     scalars = torch.from_numpy(np.random.default_rng(n).integers(0, 256, size=(1, n, 2), dtype=np.uint8)).to(dev)
     scalars = torch.nn.functional.pad(scalars, (0, 0, 0, handle.num_groups * w - n))
-    got = fixed.fewrow_products(handle.table, scalars, None, w)
+    gathers = []
+    inner = fixed.chunk_entries
+    fixed.chunk_entries = lambda *a: gathers.append(1) or inner(*a)
+    try:
+        before = cp.LAUNCHES["fewrow_niels"]
+        got = fixed.fewrow_products(handle.table, scalars, None, w)
+        launched = cp.LAUNCHES["fewrow_niels"] - before
+    finally:
+        fixed.chunk_entries = inner
+    fits = cp.niels_tree_fits(fixed.table_chunk_groups(handle.num_groups))
+    assert (launched, bool(gathers)) == ((1, False) if fits else (0, True))
     want = fixed.sum_leading(cp.ed_lookup_msm(handle.table, scalars, None, w))
     assert bool(ed.points_equal(got, want).all())
 

@@ -93,10 +93,11 @@ def test_plain_niels_tree_is_the_column_sum(gens):
     """The plain niels tree over (256, 2) entries (the first level is
     _niels_add_impl, held against blitzar_tpu above; blitzar_tpu's own
     ed.tree_reduce of the 128 sums runs eagerly here for a minute) gives
-    each column's sum: the reference oracle's sum of its 256 generators."""
+    each column's sum: the reference oracle's sum of its 256 generators.
+    fewrow_niels takes no table chunk of 128 groups."""
     cols, size = 2, 256
     entries = cuda_point.pack_niels(ted.to_niels(ted.index_batch(gens, slice(0, size * cols))))
-    got = cuda_point.niels_tree_reduce_lanes_plain(entries.reshape(size, cols, 3, 8))
+    got = cuda_point.niels_tree_plain(entries.reshape(size, cols, 3, 8))
     want = []
     for c in range(cols):
         acc = R.IDENTITY
@@ -105,13 +106,13 @@ def test_plain_niels_tree_is_the_column_sum(gens):
         want.append(R.ristretto_encode(acc))
     assert [bytes(e) for e in _enc(got)] == want
     with pytest.raises(ValueError):
-        cuda_point.niels_tree_reduce_lanes(entries.reshape(size, cols, 3, 8)[:128])
+        cuda_point.fewrow_niels(entries.reshape(-1, 4, 3, 8)[:128], _scalars(256, 1, 1), None, 2)
 
 
 @pytest.mark.parametrize("n, w, nbytes, reduce", [
     (1000, 8, 1, "odd chunk"), (1024, 8, 1, "niels_add"), (1024, 8, 8, "niels_add"),
-    (2048, 8, 1, "niels_tree_reduce_lanes"), (2048, 8, 8, "niels_tree_reduce_lanes"),
-    (1024, 4, 2, "niels_tree_reduce_lanes"),
+    (2048, 8, 1, "fewrow_niels"), (2048, 8, 8, "fewrow_niels"),
+    (1024, 4, 2, "fewrow_niels"),
 ])
 def test_fewrow_query_matches_lookup(handles, monkeypatch, n, w, nbytes, reduce):
     """partition_products routes the query to the few-row path (fewer than
@@ -121,7 +122,7 @@ def test_fewrow_query_matches_lookup(handles, monkeypatch, n, w, nbytes, reduce)
     groups = handle.num_groups
     scalars = _scalars(groups * w, nbytes, n + nbytes)
     calls = []
-    for name in ("niels_tree_reduce_lanes", "niels_add", "ed_lookup_msm"):
+    for name in ("fewrow_niels", "niels_add", "ed_lookup_msm"):
         _spy(monkeypatch, cuda_point, name, calls)
     got = tfixed.partition_products(handle, scalars)
     want = tfixed.sum_leading(cuda_point.ed_lookup_msm(handle.table, scalars, None, w))

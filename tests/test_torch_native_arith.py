@@ -159,23 +159,32 @@ def test_niels_add_matches_jax(harness):
 
 @pytest.mark.parametrize("size", [256, 512])
 def test_niels_tree_body_matches_plain(harness, size):
-    """niels_tree_reduce_lanes.cu's block, run by the harness column by
-    column (each lane's leaves and halving levels, then the 128 lanes in
-    shared memory): the plain version's coordinates, limb for limb, with the
-    identity among the entries; a size no block takes returns -1."""
-    cols = 2
-    pts, _ = _points(13, count=size * cols)
+    """fewrow_niels.cu's blocks (csrc/niels_tree.cuh: each lane's leaves
+    depth first over its stack, then the lanes halved), run by the harness
+    column by column on a table of ``size`` groups of 4 entries (w = 2, one
+    chunk; the identity among the entries), at 32 and 128 lanes: the plain
+    version's coordinates, limb for limb; a chunk size no launch takes
+    (384 groups: chunks of 128) returns -1."""
+    w, nbytes = 2, 2
+    pts, _ = _points(13, count=size << w)
     pts[:, :, 5] = to_jax_points(ted.identity((1,)))[:, :, 0]
     entries = cuda_point.pack_niels(ted.to_niels(ted.PointP3(*(to_tensor(c) for c in pts))))
-    entries = entries.reshape(size, cols, 3, 8).contiguous()
-    out = np.zeros((4, 16, cols), np.int32)
-    call = functools.partial(harness.btt_host_niels_tree, ctypes.c_void_p(entries.numpy().ctypes.data))
-    assert call(ctypes.c_int64(size), ctypes.c_int64(cols), ctypes.c_void_p(out.ctypes.data)) == 0
-    want = cuda_point.niels_tree_reduce_lanes_plain(entries)
-    assert np.array_equal(out, np.stack([TF.canonicalize(c).numpy() for c in want]))
-    assert call(ctypes.c_int64(384), ctypes.c_int64(cols), ctypes.c_void_p(out.ctypes.data)) == -1
+    table = entries.reshape(size, 1 << w, 3, 8).contiguous()
+    scalars = torch.from_numpy(np.random.default_rng(size).integers(0, 256, size=(1, size * w, nbytes), dtype=np.uint8))
+    rows = 8 * nbytes
+    out = np.zeros((4, 16, rows), np.int32)
 
+    def call(groups, lanes):
+        return harness.btt_host_fewrow_niels(
+            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(scalars.data_ptr()), None, ctypes.c_int64(1),
+            ctypes.c_int64(groups * w), ctypes.c_int(nbytes), ctypes.c_int(w), ctypes.c_int64(groups),
+            ctypes.c_int(lanes), ctypes.c_void_p(out.ctypes.data))
 
+    want = cuda_point.fewrow_niels_plain(table, scalars, None, w)
+    for lanes in (32, 128):
+        assert call(size, lanes) == 0
+        assert np.array_equal(out.reshape(4, 16, 1, rows), np.stack([TF.canonicalize(c).numpy() for c in want]))
+    assert call(128, 32) == -1
 def _tree_input(curve, size: int, cols: int):
     """A (size, cols) batch of curve points (an identity among them) as the
     harness's (coords, nlimbs, size * cols) array, and the port's batch; a
