@@ -10,20 +10,18 @@
 // chunk k, forms its indices from the scalar bytes (lookup.cuh) and reads
 // its entries with 16-byte __ldg loads as its adds need them.
 //
-// Design. A column is `lanes` threads (32, 64 or 128, a template argument),
-// a block of 128 threads 128 / lanes neighbouring columns (rows of one
-// chunk, which read the same scalar bytes). Lane t sums its L = gc / (2
-// lanes) first-level sums depth first (niels_tree.cuh), its finished sums
-// parked on a stack in shared memory (log2(L) points a thread, word-major,
-// so a warp's accesses hit 32 banks), so that its registers hold one add's
-// operands; then the column's lanes are halved, across warps through
-// shared memory, inside a warp by shuffles of the point's 32 words. Every
-// multiply of an add is one stage of the non-inlined body (fe_mul_stage_op).
-// The order is the plain version's, so the sums equal it limb for limb.
-// The wrapper gives a column of up to 1024 entries 32 lanes (16 leaves a
-// lane, 64 KB of stack a block): on the H100 they beat 64 and 128 lanes at
-// each 2^20 query's shape, and capping the kernel at 128 registers (4
-// blocks an SM, 138 without) spilled and lost (PERF.md §6).
+// Design. A column is one warp of 32 lanes, a block of 128 threads four
+// neighbouring columns (rows of one chunk, which read the same scalar
+// bytes). Lane t sums its L = gc / 64 first-level sums depth first
+// (niels_tree.cuh), its finished sums parked on a stack in shared memory
+// (log2(L) points a thread, word-major, so a warp's accesses hit 32 banks),
+// so that its registers hold one add's operands; then the warp's lanes are
+// halved by shuffles of the point's 32 words. Every multiply of an add is
+// one stage of the non-inlined body (fe_mul_stage_op). The order is the
+// plain version's, so the sums equal it limb for limb. On the H100, 32
+// lanes a column beat 64 and 128 at each 2^20 query's shape, and capping
+// the kernel at 128 registers (4 blocks an SM; it takes 144) spilled and
+// lost (PERF.md §6). A 2048-group chunk takes 5 stack levels, 80 KB a block.
 // Bound: integer multiplies (gc/2 niels adds of 8 field multiplies and gc/2
 // - 1 extended adds of 9 a column); 96 bytes read an entry.
 #include <cuda_runtime.h>
@@ -82,44 +80,20 @@ __device__ ge_p3 shfl_down_point(const ge_p3& p, int h) {
   return r;
 }
 
-template <int kLanes>
 __global__ void __launch_bounds__(kThreads) fewrow_niels_kernel(lookup_query q, int64_t cols, point_out_ptrs out) {
   extern __shared__ uint32_t smem[];
   const int tid = threadIdx.x;
-  const int t = tid % kLanes;
-  const int64_t c = (int64_t)blockIdx.x * (kThreads / kLanes) + tid / kLanes;
-  const bool live = c < cols;  // dead threads still meet the block's barriers
+  const int t = tid % kFewrowLanes;
+  const int64_t c = (int64_t)blockIdx.x * (kThreads / kFewrowLanes) + tid / kFewrowLanes;
+  if (c >= cols) return;  // a whole warp: a column is one warp
   const int64_t rows = q.rows_per_half * q.halves;
   SharedStack stack = {smem + tid};
-  ge_p3 cur = ge_identity();
-  if (live) cur = fewrow_lane_sum(q, lookup_row_of(q, c % rows), c / rows, t, kLanes, stack);
-  // lanes t and t + h across warps: the upper half parks its sums at level 0
-  for (int h = kLanes / 2; h >= 32; h >>= 1) {
-    __syncthreads();
-    if (t >= h && t < 2 * h) stack.push(0, cur);
-    __syncthreads();
-    if (t < h) cur = ge_add(cur, SharedStack{smem + tid + h}.pop(0));
+  ge_p3 cur = fewrow_lane_sum(q, lookup_row_of(q, c % rows), c / rows, t, stack);
+  for (int h = kFewrowLanes / 2; h > 0; h >>= 1) {
+    const ge_p3 other = shfl_down_point(cur, h);
+    cur = ge_add(cur, other);
   }
-  if (t < 32) {
-    for (int h = 16; h > 0; h >>= 1) {
-      const ge_p3 other = shfl_down_point(cur, h);
-      cur = ge_add(cur, other);
-    }
-    if (t == 0 && live) ge_store(out, c, cur);
-  }
-}
-
-template <int kLanes>
-int launch(const lookup_query& q, int64_t cols, const point_out_ptrs& out, cudaStream_t stream) {
-  const int leaves = (int)(q.chunk_groups / (2 * kLanes));
-  const int levels = log2_exact(leaves);
-  const size_t smem = (size_t)(levels > 0 ? levels : 1) * 32 * kThreads * sizeof(uint32_t);
-  const cudaError_t rc =
-      cudaFuncSetAttribute(fewrow_niels_kernel<kLanes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc != cudaSuccess) return (int)rc;
-  const int64_t blocks = (cols + kThreads / kLanes - 1) / (kThreads / kLanes);
-  fewrow_niels_kernel<kLanes><<<(unsigned)blocks, kThreads, smem, stream>>>(q, cols, out);
-  return (int)cudaGetLastError();
+  if (t == 0) ge_store(out, c, cur);
 }
 
 }  // namespace
@@ -128,13 +102,12 @@ int launch(const lookup_query& q, int64_t cols, const point_out_ptrs& out, cudaS
 // (num_outputs, n_pad, nbytes) uint8, output o at o * row_stride * nbytes;
 // signs: (num_outputs, n_pad) uint8 at o * row_stride, or null;
 // chunk_groups: a power of two in [256, 2048] dividing the group count;
-// lanes: 32, 64 or 128; out: (16, chunks * rows) coordinate arrays, column
-// k * rows + r.
+// out: (16, chunks * rows) coordinate arrays, column k * rows + r.
 extern "C" int btt_fewrow_niels(const void* table, const void* scalars, const void* signs, int64_t num_outputs,
-                                int64_t n_pad, int64_t row_stride, int nbytes, int w, int64_t chunk_groups, int lanes,
-                                void* ox, void* oy, void* oz, void* ot, void* stream) {
+                                int64_t n_pad, int64_t row_stride, int nbytes, int w, int64_t chunk_groups, void* ox,
+                                void* oy, void* oz, void* ot, void* stream) {
   const int64_t groups = n_pad / w;
-  if (!niels_tree_size_ok(chunk_groups) || chunk_groups < 2 * lanes || groups % chunk_groups || n_pad % w) {
+  if (!niels_tree_size_ok(chunk_groups) || groups % chunk_groups || n_pad % w) {
     return (int)cudaErrorInvalidValue;
   }
   lookup_query q;
@@ -151,11 +124,12 @@ extern "C" int btt_fewrow_niels(const void* table, const void* scalars, const vo
   const int64_t cols = groups / chunk_groups * q.rows_per_half * q.halves;
   if (cols <= 0) return (int)cudaErrorInvalidValue;
   point_out_ptrs out = {{(int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot}, cols};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes) {
-    case 32: return launch<32>(q, cols, out, s);
-    case 64: return launch<64>(q, cols, out, s);
-    case 128: return launch<128>(q, cols, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int levels = log2_exact(chunk_groups / (2 * kFewrowLanes));
+  const size_t smem = (size_t)(levels > 0 ? levels : 1) * 32 * kThreads * sizeof(uint32_t);
+  const cudaError_t rc =
+      cudaFuncSetAttribute(fewrow_niels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const int64_t blocks = (cols + kThreads / kFewrowLanes - 1) / (kThreads / kFewrowLanes);
+  fewrow_niels_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(q, cols, out);
+  return (int)cudaGetLastError();
 }

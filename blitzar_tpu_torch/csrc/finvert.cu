@@ -13,10 +13,10 @@
 // multiplies an element, every multiply a call of the one non-inlined body
 // fe_mul_call. An element whose canonical value is 0 (p, 2p and any limbs
 // that reduce to 0) is left out of the product and written as 0. per is a
-// compile-time 16, 32 or 64 (a run-time count spilled in w_affine),
-// whichever keeps the card full: 16 up to 2^19 elements, 32 up to 2^20, 64
-// above. Bound: operations at the function's least work, three multiplies
-// an element and one inversion.
+// compile-time 16, 32 or 64 (a run-time count spilled in w_affine), picked
+// by the count to keep the card full: 16 up to 2^19 elements, 32 up to
+// 2^20, 64 above (PERF.md §6). Bound: operations at the function's least
+// work, three multiplies an element and one inversion.
 #include <cuda_runtime.h>
 
 #include "field_batch.cuh"
@@ -49,19 +49,18 @@ void launch(const int32_t* a, int64_t a_stride, int64_t count, int32_t* out, cud
 
 }  // namespace
 
-// a: (16, count) int32 limbs at a_stride; per: elements a thread, 16, 32 or
-// 64, or 0 for the rule above; out: (16, count) contiguous.
-extern "C" int btt_finvert(const void* a, int64_t a_stride, int per, int64_t count, void* out, void* stream) {
+// a: (16, count) int32 limbs at a_stride; out: (16, count) contiguous.
+extern "C" int btt_finvert(const void* a, int64_t a_stride, int64_t count, void* out, void* stream) {
   if (count > 0) {
-    if (per == 0) per = count <= 16 * kTargetThreads ? 16 : count <= 32 * kTargetThreads ? 32 : 64;
     const int32_t* in = (const int32_t*)a;
     int32_t* o = (int32_t*)out;
     cudaStream_t s = (cudaStream_t)stream;
-    switch (per) {
-      case 16: launch<16>(in, a_stride, count, o, s); break;
-      case 32: launch<32>(in, a_stride, count, o, s); break;
-      case 64: launch<64>(in, a_stride, count, o, s); break;
-      default: return (int)cudaErrorInvalidValue;
+    if (count <= 16 * kTargetThreads) {
+      launch<16>(in, a_stride, count, o, s);
+    } else if (count <= 32 * kTargetThreads) {
+      launch<32>(in, a_stride, count, o, s);
+    } else {
+      launch<64>(in, a_stride, count, o, s);
     }
   }
   return (int)cudaGetLastError();

@@ -479,18 +479,15 @@ void btt_host_niels_add(const int32_t* p, const int32_t* q, int32_t* out, int64_
   for (int64_t i = 0; i < n; ++i) ge_store(oo, i, ge_niels_add(load_niels(p, n, i), load_niels(q, n, i)));
 }
 
-// fewrow_niels.cu's launcher on the host, its blocks one column after
+// fewrow_niels.cu's launcher on the host, its warps one column after
 // another: the table (groups, 2^w, 3, 8) words, scalars (num_outputs,
-// n_pad, nbytes) at row stride n_pad, signs (num_outputs, n_pad) or null,
-// lanes 32, 64 or 128; out (4, 16, cols), cols = groups / chunk_groups *
-// rows, column k * rows + r. Returns -1 for a shape no launch takes.
+// n_pad, nbytes) at row stride n_pad, signs (num_outputs, n_pad) or null;
+// out (4, 16, cols), cols = groups / chunk_groups * rows, column
+// k * rows + r. Returns -1 for a shape no launch takes.
 int btt_host_fewrow_niels(const int32_t* table, const uint8_t* scalars, const uint8_t* signs, int64_t num_outputs,
-                          int64_t n_pad, int nbytes, int w, int64_t chunk_groups, int lanes, int32_t* out) {
+                          int64_t n_pad, int nbytes, int w, int64_t chunk_groups, int32_t* out) {
   const int64_t groups = n_pad / w;
-  if ((lanes != 32 && lanes != 64 && lanes != 128) || !niels_tree_size_ok(chunk_groups) ||
-      chunk_groups < 2 * lanes || n_pad % w || groups % chunk_groups) {
-    return -1;
-  }
+  if (!niels_tree_size_ok(chunk_groups) || n_pad % w || groups % chunk_groups) return -1;
   lookup_query q;
   q.table = reinterpret_cast<const word4*>(table);
   q.scalars = scalars;
@@ -505,11 +502,11 @@ int btt_host_fewrow_niels(const int32_t* table, const uint8_t* scalars, const ui
   const int64_t rows = q.rows_per_half * q.halves, cols = groups / chunk_groups * rows;
   const point_out_ptrs oo = out_points(out, cols);
   HostStack stack;
-  std::vector<ge_p3> sums(lanes);
+  ge_p3 sums[kFewrowLanes];
   for (int64_t c = 0; c < cols; ++c) {
     const lookup_row row = lookup_row_of(q, c % rows);
-    for (int t = 0; t < lanes; ++t) sums[t] = fewrow_lane_sum(q, row, c / rows, t, lanes, stack);
-    for (int h = lanes / 2; h > 0; h >>= 1) {
+    for (int t = 0; t < kFewrowLanes; ++t) sums[t] = fewrow_lane_sum(q, row, c / rows, t, stack);
+    for (int h = kFewrowLanes / 2; h > 0; h >>= 1) {
       for (int t = 0; t < h; ++t) sums[t] = ge_add(sums[t], sums[t + h]);
     }
     ge_store(oo, c, sums[0]);

@@ -10,14 +10,14 @@
 // the identity, is added like any other). Its plain order is the halving
 // tree of the TPU kernel: the first level adds entries s and s + gc/2 by
 // ge_niels_add, each later level the extended sums s and s + half, down to
-// one. Lane t of a column's `lanes` owns the s = t + lanes j: its leaves j
-// < L = gc / (2 lanes) are first-level sums, and the levels whose pairs
+// one. Lane t of a column's kFewrowLanes = 32 owns the s = t + 32 j: its
+// leaves j < L = gc / 64 are first-level sums, and the levels whose pairs
 // stay inside the lane pair leaf j with j + L/2. It forms them depth first,
 // leaves in bit-reversed order, a binary counter merging the sums: leaves
 // 0 and L/2 are siblings, then L/4 and 3L/4, whose sum joins theirs, and so
 // on. At most log2(L) finished sums wait on a stack (Stack: shared memory
-// on the card, an array in the harness). The last log2(lanes) levels pair
-// lanes t and t + h across the column's lanes.
+// on the card, an array in the harness). The last 5 levels pair lanes t
+// and t + h across the column's lanes (a warp's shuffles on the card).
 #pragma once
 
 #include "lookup.cuh"
@@ -28,6 +28,8 @@ namespace btt {
 // kernel's tree_fits (a power of two above its 128 lanes)
 constexpr int64_t kNielsTreeMinSize = 256;
 constexpr int64_t kNielsTreeMaxSize = 2048;
+// the lanes of a column: one warp
+constexpr int kFewrowLanes = 32;
 
 BTT_HD bool niels_tree_size_ok(int64_t size) {
   return size >= kNielsTreeMinSize && size <= kNielsTreeMaxSize && (size & (size - 1)) == 0;
@@ -58,15 +60,14 @@ BTT_HD ge_niels fewrow_entry(const lookup_query& q, const lookup_row& row, int64
 // Lane t's sum of column (k, r), row the lookup_row of r: its L leaves
 // over a stack of log2(L) points (push(level, p), pop(level) -> p).
 template <class Stack>
-BTT_HD ge_p3 fewrow_lane_sum(const lookup_query& q, const lookup_row& row, int64_t k, int t, int lanes,
-                             Stack& stack) {
+BTT_HD ge_p3 fewrow_lane_sum(const lookup_query& q, const lookup_row& row, int64_t k, int t, Stack& stack) {
   const int64_t half = q.chunk_groups >> 1;
-  const int leaves = (int)(half / lanes);
+  const int leaves = (int)(half / kFewrowLanes);
   const int bits = log2_exact(leaves);
   const int64_t g0 = k * q.chunk_groups + t;
   ge_p3 cur;
   for (int i = 0; i < leaves; ++i) {
-    const int64_t g = g0 + (int64_t)lanes * bit_reverse(i, bits);
+    const int64_t g = g0 + (int64_t)kFewrowLanes * bit_reverse(i, bits);
     cur = ge_niels_add(fewrow_entry(q, row, g), fewrow_entry(q, row, g + half), fe_mul_stage_op());
     int depth = 0;  // the sums waiting before this leaf: popcount(i)
     for (int m = i; m; m >>= 1) depth += m & 1;

@@ -259,9 +259,6 @@ LOOKUP_GT = 16
 W_LOOKUP_GT = 8
 # groups of a table chunk of the few-row query (blitzar_tpu/msm/fixed.py:93-97)
 TABLE_CHUNK_GROUPS = 1 << 10
-# bytes of selected entries a row block of a gathered few-row query (cached
-# and Weierstrass tables, niels chunks fewrow_niels does not take) holds at most
-FEWROW_BUDGET_BYTES = 256 << 20
 
 
 def lookup_msm_fits(groups: int, v_dim: int, r_rows: int) -> bool:
@@ -319,7 +316,7 @@ def fewrow_products(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, c
     whose gc fits ``fewrow_niels`` (a power of two in (128, 2048]) one launch
     forms the (chunks, R) column sums from the table and the scalar bytes.
     Otherwise, for each block of rows (its selected entries under
-    ``FEWROW_BUDGET_BYTES``), the entry each (row, group) selects is
+    ``cuda_point.FEWROW_BUDGET_BYTES``), the entry each (row, group) selects is
     gathered from the table as (gc, chunks x rows) entries and each chunk's
     column summed (:func:`_chunk_sums`); the gathers are plain torch, as the
     einsum is XLA in blitzar_tpu. Then one ``tree_reduce_lanes`` sums the
@@ -327,21 +324,13 @@ def fewrow_products(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, c
     gc = table_chunk_groups(table.shape[0])
     nc = table.shape[0] // gc
     if curve is ed and table.shape[2] == 3 and cuda_point.niels_tree_fits(gc):
-        return sum_leading(cuda_point.fewrow_niels(table, scalars, signs, w))
+        return sum_leading(cuda_point.fewrow_niels(table, scalars, signs, w, gc))
     idx = cuda_point.query_index(scalars, signs, w)  # (R, G)
     out = []
-    for rows in fewrow_blocks(table, idx.shape[0]):
+    for rows in cuda_point.fewrow_blocks(table, idx.shape[0]):
         sums = curve.reshape_batch(_chunk_sums(chunk_entries(table, idx[rows], w), curve), (nc, -1))
         out.append(sum_leading(sums, curve))
     return out[0] if len(out) == 1 else curve.cat(out)
-
-
-def fewrow_blocks(table: torch.Tensor, r_rows: int) -> list:
-    """The row blocks of a gathered few-row query: slices whose selected
-    entries stay under ``FEWROW_BUDGET_BYTES``."""
-    groups, entry_bytes = table.shape[0], table.shape[2] * table.shape[3] * 4
-    rb = max(1, min(r_rows, FEWROW_BUDGET_BYTES // (groups * entry_bytes)))
-    return [slice(lo, min(lo + rb, r_rows)) for lo in range(0, r_rows, rb)]
 
 
 def chunk_entries(table: torch.Tensor, idx: torch.Tensor, w: int) -> torch.Tensor:

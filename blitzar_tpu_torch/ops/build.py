@@ -43,11 +43,11 @@ SIGNATURES = {
     "btt_ed_add": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_ed_double": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_niels_add": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
-    "btt_fewrow_niels": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P, _P, _P],
+    "btt_fewrow_niels": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P, _P, _P],
     "btt_elligator_form": [_P, _I64, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_fmul": [_P, _I64, _P, _I64, _I64, _I64, _P, _P],
     "btt_fsq": [_P, _I64, _I64, _P, _P],
-    "btt_finvert": [_P, _I64, _I, _I64, _P, _P],
+    "btt_finvert": [_P, _I64, _I64, _P, _P],
     "btt_ed_to_niels": [_P, _P, _P, _I64, _I64, _P, _P],
     "btt_ed_file_rows": [_P, _I64, _P, _P],
     "btt_ed_file_entries": [_P, _I64, _P, _P],

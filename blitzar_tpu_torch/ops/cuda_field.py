@@ -104,33 +104,27 @@ def fsq(a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-# finvert's elements a thread (0: the kernel's rule by the count)
-FINVERT_PER = (0, 16, 32, 64)
-
-
 def finvert_plain(a: torch.Tensor) -> torch.Tensor:
     return F.invert(a)
 
 
-def finvert(a: torch.Tensor, per: int = 0) -> torch.Tensor:
+def finvert(a: torch.Tensor) -> torch.Tensor:
     """Elementwise a^(p - 2) of a (16, *batch) batch; 0 maps to 0 (any limbs
     whose canonical value is 0).
 
     Kernel csrc/finvert.cu: a batch inversion (csrc/field_batch.cuh, the
-    sweep of ``ed_to_niels``), each thread's ``per`` strided elements (16,
-    32 or 64; 0 picks by the count) by Montgomery's trick, the prefixes
+    sweep of ``ed_to_niels``), each thread's 16, 32 or 64 strided elements
+    (the kernel picks by the count) by Montgomery's trick, the prefixes
     parked in the output, one inversion chain a thread; zeros are left out
     of the product. Bound: operations, three multiplies an element."""
     if a.dim() < 2 or a.shape[0] != F.NLIMBS:
         raise ValueError(f"finvert: shape {tuple(a.shape)}: expected (16, *batch)")
-    if per not in FINVERT_PER:
-        raise ValueError(f"finvert: {per} elements a thread, expected one of {FINVERT_PER}")
     if not _on_card(a):
         return finvert_plain(a)
     a, a_stride = _field_arg(a, a.device, tuple(a.shape[1:]))
     out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
     count = a[0].numel()
     if count:
-        _launch("finvert", build.library().btt_finvert, a.data_ptr(), a_stride, per, count, out.data_ptr(),
+        _launch("finvert", build.library().btt_finvert, a.data_ptr(), a_stride, count, out.data_ptr(),
                 _stream(a.device))
     return out

@@ -435,11 +435,10 @@ def niels_add(n1: ed.Niels, n2: ed.Niels) -> ed.PointP3:
 # kernel's 128 lanes, up to 2048 (its largest table chunk)
 NIELS_TREE_LANES = 128
 NIELS_TREE_MAX = 2048
-# the lanes a column may take (csrc/fewrow_niels.cu); the wrapper picks
-# the fewest that leave each lane at most 16 first-level sums (32 lanes
-# beat 64 and 128 at every 2^20 query's shape on the H100, PERF.md)
-FEWROW_LANES = (32, 64, 128)
-FEWROW_LEAVES = 16
+# bytes of selected entries a row block of a gathered few-row query holds at
+# most: the plain version's, and the query's on tables fewrow_niels does not
+# take (msm/fixed.py)
+FEWROW_BUDGET_BYTES = 256 << 20
 
 
 def niels_tree_fits(size: int) -> bool:
@@ -449,11 +448,12 @@ def niels_tree_fits(size: int) -> bool:
     return size & (size - 1) == 0 and NIELS_TREE_LANES < size <= NIELS_TREE_MAX
 
 
-def fewrow_lanes(size: int) -> int:
-    """The lanes of a column of ``size`` entries: at most ``FEWROW_LEAVES``
-    first-level sums a lane (a lane's stack of waiting sums, in shared
-    memory, stays at four points), 32 at least."""
-    return max(FEWROW_LANES[0], size // (2 * FEWROW_LEAVES))
+def fewrow_blocks(table: torch.Tensor, r_rows: int) -> list:
+    """The row blocks of a gathered few-row query: slices whose selected
+    entries stay under ``FEWROW_BUDGET_BYTES``."""
+    groups, entry_bytes = table.shape[0], table.shape[2] * table.shape[3] * 4
+    rb = max(1, min(r_rows, FEWROW_BUDGET_BYTES // (groups * entry_bytes)))
+    return [slice(lo, min(lo + rb, r_rows)) for lo in range(0, r_rows, rb)]
 
 
 def niels_tree_plain(entries: torch.Tensor) -> ed.PointP3:
@@ -468,53 +468,47 @@ def niels_tree_plain(entries: torch.Tensor) -> ed.PointP3:
     return ed.tree_reduce(ed._niels_add_impl(lo, hi), half)
 
 
-def fewrow_niels_plain(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, chunks=None) -> ed.PointP3:
-    """:func:`fewrow_niels` in plain ops: the entry each (row, group) picks
-    gathered into (gc, chunks x rows) columns, then :func:`niels_tree_plain`.
-    ``chunks`` (a 1-D index tensor) computes only those table chunks, (16,
+def fewrow_niels_plain(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, gc: int,
+                       chunks=None) -> ed.PointP3:
+    """:func:`fewrow_niels` in plain ops: for each block of rows
+    (:func:`fewrow_blocks`), the entry each (row, group) picks gathered into
+    (gc, chunks x rows) columns, then :func:`niels_tree_plain`. ``chunks``
+    (a 1-D index tensor) computes only those table chunks, (16,
     len(chunks), R): the comparison of a full-size run on a sample."""
-    from ..msm import fixed
-
     groups = table.shape[0]
-    gc = fixed.table_chunk_groups(groups)
     idx = query_index(scalars, signs, w)  # (R, G)
-    rows = idx.shape[0]
     dev = table.device
     ids = torch.arange(groups // gc, device=dev) if chunks is None else chunks.to(dev)
     g = ids[None, :] * gc + torch.arange(gc, device=dev)[:, None]  # (gc, K): group s of chunk k
     flat = table.reshape((groups << w,) + tuple(table.shape[2:]))
-    sel = flat[(g[:, :, None] << w) + idx[:, g].permute(1, 2, 0)]  # (gc, K, R, 3, 8)
-    sums = niels_tree_plain(sel.reshape((gc, -1) + tuple(table.shape[2:])))
-    return ed.reshape_batch(sums, (len(ids), rows))
+    out = []
+    for rows in fewrow_blocks(table, idx.shape[0]):
+        sel = flat[(g[:, :, None] << w) + idx[rows][:, g].permute(1, 2, 0)]  # (gc, K, rows, 3, 8)
+        sums = niels_tree_plain(sel.reshape((gc, -1) + tuple(table.shape[2:])))
+        out.append(ed.reshape_batch(sums, (len(ids), -1)))
+    return out[0] if len(out) == 1 else ed.cat(out, dim=2)
 
 
-def fewrow_niels(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, lanes: int = 0) -> ed.PointP3:
+def fewrow_niels(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, gc: int) -> ed.PointP3:
     """A few-row query's column sums on a niels table: (16, chunks, R), each
-    row r's sum over the gc = ``fixed.table_chunk_groups`` groups of each
-    table chunk of table[g, idx[r, g]] (:func:`query_index`; entry 0, the
-    identity, counts like any other); their sum over the chunks is row r's
-    product. table: (G, 2^w, 3, 8) niels words, gc in (128, 2048]
-    (:func:`niels_tree_fits`); scalars, signs as :func:`ed_lookup_msm`'s.
+    row r's sum over the gc groups of each table chunk of table[g, idx[r,
+    g]] (:func:`query_index`; entry 0, the identity, counts like any
+    other); their sum over the chunks is row r's product. table: (G, 2^w, 3,
+    8) niels words, gc in (128, 2048] (:func:`niels_tree_fits`) dividing G;
+    scalars, signs as :func:`ed_lookup_msm`'s.
 
-    Kernel csrc/fewrow_niels.cu, one launch: a column's ``lanes`` threads
-    (32, 64 or 128; 0 picks :func:`fewrow_lanes`) form their indices from
-    the scalar bytes and read their entries straight from the table, each
-    lane summing its share in the plain version's halving order
-    (csrc/niels_tree.cuh), then the lanes halved; nothing is gathered
-    first. Bound: integer multiplies (gc/2 niels adds and gc/2 - 1 extended
-    adds a column)."""
-    from ..msm import fixed
-
+    Kernel csrc/fewrow_niels.cu, one launch: a column is a warp of 32
+    lanes, which form their indices from the scalar bytes and read their
+    entries straight from the table, each lane summing its share in the
+    plain version's halving order (csrc/niels_tree.cuh), then the lanes
+    halved; nothing is gathered first. Bound: integer multiplies (gc/2
+    niels adds and gc/2 - 1 extended adds a column)."""
     groups = _check_query(table, scalars, signs, w, {(3, 8)})
-    gc = fixed.table_chunk_groups(groups)
-    if not niels_tree_fits(gc):
-        raise ValueError(f"table chunks of {gc} groups: no power of two in ({NIELS_TREE_LANES}, {NIELS_TREE_MAX}]")
-    if lanes == 0:
-        lanes = fewrow_lanes(gc)
-    if lanes not in FEWROW_LANES or gc < 2 * lanes:
-        raise ValueError(f"{lanes} lanes a column of {gc} entries: expected one of {FEWROW_LANES}, at most {gc // 2}")
+    if not niels_tree_fits(gc) or groups % gc:
+        raise ValueError(f"table chunks of {gc} groups over {groups}: expected a power of two in "
+                         f"({NIELS_TREE_LANES}, {NIELS_TREE_MAX}] dividing the group count")
     if not _on_card(table):
-        return fewrow_niels_plain(table, scalars, signs, w)
+        return fewrow_niels_plain(table, scalars, signs, w, gc)
     device = table.device
     table, scalars, signs, row = query_args(table, scalars, signs)
     num_outputs, n_pad, nbytes = scalars.shape
@@ -524,7 +518,7 @@ def fewrow_niels(table: torch.Tensor, scalars: torch.Tensor, signs, w: int, lane
     _launch(
         "fewrow_niels", build.library().btt_fewrow_niels,
         table.data_ptr(), scalars.data_ptr(), None if signs is None else signs.data_ptr(),
-        num_outputs, n_pad, row, nbytes, w, gc, lanes, *_ptrs(out), _stream(device),
+        num_outputs, n_pad, row, nbytes, w, gc, *_ptrs(out), _stream(device),
     )
     return ed.reshape_batch(out, (nc, rows))
 

@@ -137,7 +137,7 @@ Phases, each fatal on failure:
 18. ``ed_double`` (one output and ten; on no path since the Horner is one
    launch) and ``niels_add`` against their plain versions at the shapes of
    phases 16 and 17, ``fewrow_niels`` at every (outputs, n, bytes, w,
-   signs, chunk groups, lanes) the few-row and files paths launched it at
+   signs, chunk groups) the few-row and files paths launched it at
    (tolerance 0 on table chunks spread over each query), timed, bounded,
    launches x (time - bound) summed over the shapes; ``ed_horner`` and
    ``w_horner`` at every (outputs, windows) phase 16 launched them at,
@@ -2708,18 +2708,17 @@ def phase_fewrow_kernels(torch, dev, inputs: dict, shapes: dict) -> dict:
 
     records = [fewrow_niels_record(torch, dev, key, paths) for key, paths in sorted(shape_paths(shapes).items())]
     check(bool(records), "fewrow_niels: the paths launched it")
-    headline = FEWROW_HEADLINE + (cp.fewrow_lanes(FEWROW_HEADLINE[-1]),)
-    top = next((r for r in records if r["key"] == headline), records[0])
+    top = next((r for r in records if r["key"] == FEWROW_HEADLINE), records[0])
     kernel_record(results, "fewrow_niels", "blitzar_tpu/ops/pallas_point.py:426",
                   "blitzar_tpu_torch/csrc/fewrow_niels.cu", top["ms"], top["plain_ms"], top["max_abs_err"],
                   top["bytes"], top["imads"], top["plain_fraction"])
-    results["fewrow_niels"].update(shape=[top["chunk_groups"], top["cols"]], lanes=top["lanes"], by_shape=records,
+    results["fewrow_niels"].update(shape=[top["chunk_groups"], top["cols"]], by_shape=records,
                                    launches_x_gap_ms_all_shapes=sum(r["launches_x_gap_ms"] for r in records))
     return results
 
 
 # the few-row query's column sums: the key (outputs, n_pad, nbytes, w,
-# signed, chunk groups; then the wrapper's lanes) of the 2^20 one-byte
+# signed, chunk groups) of the 2^20 one-byte
 # query, the headline; the plain version gathers at most this many entries
 # a shape (table chunks spread over the query, the last included)
 FEWROW_HEADLINE = (1, 1 << 20, 1, 8, False, 1024)
@@ -2738,7 +2737,7 @@ def fewrow_niels_record(torch, dev, key: tuple, paths: dict) -> dict:
     from blitzar_tpu_torch.fields import fp25519 as F
     from blitzar_tpu_torch.ops import cuda_point as cp
 
-    outputs, n_pad, nbytes, w, signed, gc, lanes = key
+    outputs, n_pad, nbytes, w, signed, gc = key
     groups = n_pad // w
     gen = torch.Generator(device=dev).manual_seed(n_pad + nbytes + w)
     table = torch.randint(-(1 << 31), (1 << 31) - 1, (groups, 1 << w, 3, 8), generator=gen, device=dev,
@@ -2749,12 +2748,12 @@ def fewrow_niels_record(torch, dev, key: tuple, paths: dict) -> dict:
     nc = groups // gc
 
     def run():
-        return cp.fewrow_niels(table, scalars, signs, w, lanes)
+        return cp.fewrow_niels(table, scalars, signs, w, gc)
 
     ms = device_ms(torch, run, reps=5)
     chunks = spread_indices(torch, dev, max(1, min(nc, FEWROW_SAMPLE_ENTRIES // (gc * rows))), nc)
-    plain_ms = cuda_ms(torch, lambda: cp.fewrow_niels_plain(table, scalars, signs, w, chunks), reps=1)
-    err = point_err(ed.index_batch(run(), chunks), cp.fewrow_niels_plain(table, scalars, signs, w, chunks),
+    plain_ms = cuda_ms(torch, lambda: cp.fewrow_niels_plain(table, scalars, signs, w, gc, chunks), reps=1)
+    err = point_err(ed.index_batch(run(), chunks), cp.fewrow_niels_plain(table, scalars, signs, w, gc, chunks),
                     F.canonicalize)
     cols = nc * rows
     nbytes_moved = cols * (gc * 96 + 256) + outputs * n_pad * (nbytes + (1 if signed else 0))
@@ -2762,11 +2761,11 @@ def fewrow_niels_record(torch, dev, key: tuple, paths: dict) -> dict:
     b_ms, b_by = bound(nbytes_moved, imads)
     launches = sum(paths.values())
     check(err == 0, f"fewrow_niels at {gc} x {cols} ({outputs} x {n_pad} x {nbytes} bytes, w = {w}, "
-                    f"{'signed' if signed else 'unsigned'}, {lanes} lanes), {launches} launches {paths}: equal to plain "
+                    f"{'signed' if signed else 'unsigned'}), {launches} launches {paths}: equal to plain "
                     f"on {len(chunks)} of {nc} chunks, tolerance 0 on canonical limbs ({ms:.4f} ms, bound {b_ms:.4f})")
     del table, scalars, signs
     torch.cuda.empty_cache()
-    return {"key": key, "chunk_groups": gc, "cols": cols, "lanes": lanes, "outputs": outputs, "n_pad": n_pad,
+    return {"key": key, "chunk_groups": gc, "cols": cols, "outputs": outputs, "n_pad": n_pad,
             "nbytes": nbytes, "w": w, "signed": signed, "launches": launches, "launches_by_path": paths, "ms": ms,
             "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms, "plain_fraction": len(chunks) / nc,
             "max_abs_err": float(err), "bytes": nbytes_moved, "imads": imads,
@@ -2884,8 +2883,8 @@ class PathShapes:
 # ed_horner (4 coordinates, stride, outputs, windows, ...) and w_horner
 # (curve, 3 coordinates, stride, outputs, windows, ...) by (instance,
 # outputs, windows); fewrow_niels (table, scalars, signs, outputs, n_pad,
-# row stride, nbytes, w, chunk groups, lanes, ...) by (outputs, n_pad,
-# nbytes, w, signed, chunk groups, lanes)
+# row stride, nbytes, w, chunk groups, ...) by (outputs, n_pad, nbytes, w,
+# signed, chunk groups)
 SHAPE_KEYS = {
     "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
     "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
@@ -2894,8 +2893,7 @@ SHAPE_KEYS = {
     "w_affine": lambda instance, a: (instance, int(a[2])),
     "ed_horner": lambda instance, a: ("ristretto255", int(a[5]), int(a[6])),
     "w_horner": lambda instance, a: (instance, int(a[5]), int(a[6])),
-    "fewrow_niels": lambda instance, a: (int(a[3]), int(a[4]), int(a[6]), int(a[7]), a[2] is not None, int(a[8]),
-                                         int(a[9])),
+    "fewrow_niels": lambda instance, a: (int(a[3]), int(a[4]), int(a[6]), int(a[7]), a[2] is not None, int(a[8])),
 }
 PATH_SHAPES = PathShapes()
 TREE_SAMPLE_COLS = 64

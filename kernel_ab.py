@@ -76,8 +76,7 @@ script's, so both trees run the same work. Cases:
   whole back to back beside the lookup's products, split by stage on the
   host clock, and its niels column sums' device time by (size, cols);
 - ``finvert`` (section ``finvert``) at chip_smoke.py's ``FINVERT_COUNTS``
-  on operands with zeros and non-canonical limbs, and at 16, 32 and 64
-  elements a thread where the tree's wrapper takes ``per``.
+  on operands with zeros and non-canonical limbs.
 
 Each case's result is held against its plain version (canonical limbs, or
 points for the tree reduces and the ladders; on a spread sample where the
@@ -231,11 +230,12 @@ def section_edwards(torch, cs, dev, case) -> None:
 
     column = torch.from_numpy(cs.counter_scalars(n, 1)[None]).to(dev)
     if hasattr(cp, "fewrow_niels"):  # the one-byte query's column sums, one launch
-        chunks = spread(4, groups // fixed.table_chunk_groups(groups))
-        sums = cp.fewrow_niels(table, column, None, w)
-        case("fewrow_niels", lambda: cp.fewrow_niels(table, column, None, w),
-             ed_err(ed.index_batch(sums, chunks), cp.fewrow_niels_plain(table, column, None, w, chunks)) == 0,
-             shape=[fixed.table_chunk_groups(groups), sums.x.shape[1] * sums.x.shape[2]])
+        gc = fixed.table_chunk_groups(groups)
+        chunks = spread(4, groups // gc)
+        sums = cp.fewrow_niels(table, column, None, w, gc)
+        case("fewrow_niels", lambda: cp.fewrow_niels(table, column, None, w, gc),
+             ed_err(ed.index_batch(sums, chunks), cp.fewrow_niels_plain(table, column, None, w, gc, chunks)) == 0,
+             shape=[gc, sums.x.shape[1] * sums.x.shape[2]])
         del sums
     else:
         idx = cp.query_index(column, None, w)
@@ -646,11 +646,8 @@ def section_fewrow(torch, cs, dev, case) -> None:
         kernel_ms = {}
         if one_launch and cp.niels_tree_fits(gc):
             cols = groups // gc * 8 * nbytes
-            kernel_ms[f"{gc}x{cols}"] = {"ms": cs.device_ms(torch, lambda: cp.fewrow_niels(table, scalars, None, w),
-                                                            reps=5), "launches": 1, "lanes": cp.fewrow_lanes(gc)}
-            for lanes in (k for k in cp.FEWROW_LANES if 2 * k <= gc):  # each count of lanes a column
-                kernel_ms[f"{gc}x{cols}/lanes{lanes}"] = {"ms": cs.device_ms(
-                    torch, lambda: cp.fewrow_niels(table, scalars, None, w, lanes), reps=5)}
+            kernel_ms[f"{gc}x{cols}"] = {"ms": cs.device_ms(torch, lambda: cp.fewrow_niels(table, scalars, None, w, gc),
+                                                            reps=5), "launches": 1}
         elif not one_launch and cp.niels_tree_fits(gc):
             idx = cp.query_index(scalars, None, w)
             for rows in fixed.fewrow_blocks(table, idx.shape[0]):
@@ -672,21 +669,15 @@ def section_finvert(torch, cs, dev, case) -> None:
     """``finvert`` at chip_smoke.py's counts (``FINVERT_COUNTS``: a legacy
     extended file's load, a cache save's 2^20) on its operands with zeros,
     p, 2p, non-canonical limbs and values above 2^255
-    (``finvert_operands``), against the plain version on every element;
-    where the tree's wrapper takes ``per``, at 16, 32 and 64 elements a
-    thread too."""
+    (``finvert_operands``), against the plain version on every element."""
     from blitzar_tpu_torch.fields import fp25519 as F
     from blitzar_tpu_torch.ops import cuda_field as cf
 
-    per_of = "per" in inspect.signature(cf.finvert).parameters
     for count in cs.FINVERT_COUNTS:
         a = cs.finvert_operands(torch, dev, count, 49)
         want = F.canonicalize(cf.finvert_plain(a))
-        # the kernel's own choice, then each count of elements a thread
-        for per in (0, 16, 32, 64) if per_of else (None,):
-            run = functools.partial(cf.finvert, a) if per is None else functools.partial(cf.finvert, a, per=per)
-            name = f"finvert/2^{count.bit_length() - 1}" + (f"/per{per}" if per else "")
-            case(name, run, torch.equal(F.canonicalize(run()), want), reps=10)
+        run = functools.partial(cf.finvert, a)
+        case(f"finvert/2^{count.bit_length() - 1}", run, torch.equal(F.canonicalize(run()), want), reps=10)
         del a, want
 
 

@@ -369,10 +369,10 @@ def test_field_kernels(dev):
         cf.fmul(a.to(dev), b[:, :2].to(dev))
 
 
-@pytest.mark.parametrize("count", [5, 1000, 3 * 2**15 + 7, 2**20])
+@pytest.mark.parametrize("count", [5, 1000, 3 * 2**15 + 7, 2**20, 2**20 + 33])
 def test_finvert_batch_kernel(dev, count):
-    """The batch inversion at each count of elements a thread and the
-    kernel's own choice, on a strided view: 0, p, 2p and limbs that reduce
+    """The batch inversion at counts that take each of the kernel's 16, 32
+    and 64 elements a thread (up to 2^19, 2^20, above), on a strided view: 0, p, 2p and limbs that reduce
     to 0 give 0, values above 2^255 and limbs up to 2^17 their inverse; a
     whole run of zeros at the end; one launch a call."""
     P_LIMBS = [0xFFED] + [0xFFFF] * 14 + [0x7FFF]
@@ -384,10 +384,9 @@ def test_finvert_batch_kernel(dev, count):
     a[:, 0, -min(count, 4096):] = 0
     a = a.to(dev)
     want = F.canonicalize(cf.finvert_plain(a[:, 0])).cpu()  # the plain version on the card
-    for per in cf.FINVERT_PER:
-        before = cp.LAUNCHES["finvert"]
-        assert _canon_equal(cf.finvert(a[:, 0], per=per), want)
-        assert cp.LAUNCHES["finvert"] - before == 1
+    before = cp.LAUNCHES["finvert"]
+    assert _canon_equal(cf.finvert(a[:, 0]), want)
+    assert cp.LAUNCHES["finvert"] - before == 1
 
 
 @pytest.mark.parametrize("field", [tparams.BN254_FP, tparams.BLS12381_FP], ids=lambda f: f.name)
@@ -502,9 +501,8 @@ def test_niels_add_kernel(dev):
 @pytest.mark.parametrize("groups, w, nbytes, signed", [(256, 8, 1, False), (512, 4, 3, True), (1024, 8, 2, False),
                                                       (3072, 4, 1, True)])
 def test_fewrow_niels_kernel(dev, groups, w, nbytes, signed):
-    """Limb for limb the plain version, at every lane count a column of
-    the table's chunks takes and the wrapper's own choice, one launch a
-    call; chunks of 256, 512 and 1024 groups (three of them at 3072)."""
+    """Limb for limb the plain version, one launch a call; chunks of 256,
+    512 and 1024 groups (three of them at 3072)."""
     from blitzar_tpu_torch.msm import fixed
 
     n = groups * w
@@ -512,13 +510,12 @@ def test_fewrow_niels_kernel(dev, groups, w, nbytes, signed):
     rng = np.random.default_rng(groups + nbytes)
     scalars = torch.from_numpy(rng.integers(0, 256, size=(2, n, nbytes), dtype=np.uint8)).to(dev)
     signs = torch.from_numpy(rng.integers(0, 2, size=(2, n), dtype=np.uint8)).to(dev) if signed else None
-    want = cp.fewrow_niels_plain(table, scalars, signs, w)  # the plain version on the card
     gc = fixed.table_chunk_groups(groups)
-    for lanes in (0,) + tuple(k for k in cp.FEWROW_LANES if 2 * k <= gc):
-        before = cp.LAUNCHES["fewrow_niels"]
-        got = cp.fewrow_niels(table, scalars, signs, w, lanes)
-        assert cp.LAUNCHES["fewrow_niels"] - before == 1
-        assert _same(got, want)
+    want = cp.fewrow_niels_plain(table, scalars, signs, w, gc)  # the plain version on the card
+    before = cp.LAUNCHES["fewrow_niels"]
+    got = cp.fewrow_niels(table, scalars, signs, w, gc)
+    assert cp.LAUNCHES["fewrow_niels"] - before == 1
+    assert _same(got, want)
 
 
 def test_bucket_engine_on_cuda_matches_cpu(dev, monkeypatch):

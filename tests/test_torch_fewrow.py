@@ -106,7 +106,7 @@ def test_plain_niels_tree_is_the_column_sum(gens):
         want.append(R.ristretto_encode(acc))
     assert [bytes(e) for e in _enc(got)] == want
     with pytest.raises(ValueError):
-        cuda_point.fewrow_niels(entries.reshape(-1, 4, 3, 8)[:128], _scalars(256, 1, 1), None, 2)
+        cuda_point.fewrow_niels(entries.reshape(-1, 4, 3, 8)[:128], _scalars(256, 1, 1), None, 2, 128)
 
 
 @pytest.mark.parametrize("n, w, nbytes, reduce", [

@@ -3,8 +3,7 @@ scalar bytes, entries read from the table, a lane's halving tree depth first
 over its stack, then the lanes halved), run by csrc/host_harness.cpp column
 by column as the kernel's blocks run them, limb for limb against the plain
 version (``cuda_point.fewrow_niels_plain``: the gather and the tree in plain
-ops) at 32, 64 and 128 lanes a column, and their sums over the table
-chunks against blitzar_tpu's ``_partition_products`` (its one-hot einsum
+ops, in row blocks), and their sums over the table chunks against blitzar_tpu's ``_partition_products`` (its one-hot einsum
 branch on the CPU) as points. Seeded numpy scalars; n = 1000, 1024 and 2048;
 1-, 3- and 8-byte columns; signed rows; w = 4 and 8. The handles come from
 one 2048-point derivation (module fixture)."""
@@ -70,7 +69,7 @@ def _query(handles, n, w, nbytes, outputs, signed, seed):
     return table, scalars, signs
 
 
-def _host(harness, table, scalars, signs, w, lanes):
+def _host(harness, table, scalars, signs, w):
     """The harness's launch: (rc, (16, chunks, R) extended points)."""
     num_outputs, n, nbytes = scalars.shape
     groups = table.shape[0]
@@ -83,7 +82,7 @@ def _host(harness, table, scalars, signs, w, lanes):
         ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(scalars.data_ptr()),
         None if signs is None else ctypes.c_void_p(signs.contiguous().data_ptr()),
         ctypes.c_int64(num_outputs), ctypes.c_int64(n), ctypes.c_int(nbytes), ctypes.c_int(w), ctypes.c_int64(gc),
-        ctypes.c_int(lanes), ctypes.c_void_p(out.ctypes.data))
+        ctypes.c_void_p(out.ctypes.data))
     return rc, ted.PointP3(*(torch.from_numpy(c).reshape(16, groups // gc, rows) for c in out))
 
 
@@ -115,25 +114,26 @@ def _jax_products(handle, table, scalars, signs, w):
     return jfixed._partition_products(t_split, jnp.asarray(bits.astype(np.uint8)), w)
 
 
-# (n, w, bytes, outputs, signed, lanes): one chunk of 256 groups (n = 1024
+# (n, w, bytes, outputs, signed, seed): one chunk of 256 groups (n = 1024
 # at w = 4, 2048 at w = 8) or 512 (2048 at w = 4); two of 1024 (8192 at w = 4)
 CASES = [
-    (1024, 4, 1, 1, False, 32), (1024, 4, 3, 1, True, 64), (2048, 8, 1, 1, False, 128),
-    (2048, 8, 3, 2, True, 32), (2048, 8, 8, 1, False, 64), (2048, 4, 8, 1, True, 128),
-    (2048, 4, 1, 3, False, 32), (8192, 4, 1, 1, True, 64), (8192, 4, 2, 1, False, 128),
+    (1024, 4, 1, 1, False, 0), (1024, 4, 3, 1, True, 1), (2048, 8, 1, 1, False, 2),
+    (2048, 8, 3, 2, True, 0), (2048, 8, 8, 1, False, 1), (2048, 4, 8, 1, True, 2),
+    (2048, 4, 1, 3, False, 0), (8192, 4, 1, 1, True, 1), (8192, 4, 2, 1, False, 2),
 ]
 
 
-@pytest.mark.parametrize("n, w, nbytes, outputs, signed, lanes", CASES)
-def test_fewrow_niels_body_matches_plain(harness, handles, n, w, nbytes, outputs, signed, lanes):
+@pytest.mark.parametrize("n, w, nbytes, outputs, signed, seed", CASES)
+def test_fewrow_niels_body_matches_plain(harness, handles, n, w, nbytes, outputs, signed, seed):
     """The harness's column sums equal the plain version's limb for limb,
-    and the wrapper's (its plain version on the CPU) at the same lanes."""
-    table, scalars, signs = _query(handles, n, w, nbytes, outputs, signed, n + 7 * nbytes + lanes)
-    rc, got = _host(harness, table, scalars, signs, w, lanes)
+    and the wrapper's (its plain version on the CPU)."""
+    table, scalars, signs = _query(handles, n, w, nbytes, outputs, signed, n + 7 * nbytes + seed)
+    gc = tfixed.table_chunk_groups(table.shape[0])
+    rc, got = _host(harness, table, scalars, signs, w)
     assert rc == 0
-    want = cuda_point.fewrow_niels_plain(table, scalars, signs, w)
+    want = cuda_point.fewrow_niels_plain(table, scalars, signs, w, gc)
     assert got.x.shape == want.x.shape and _same(got, want)
-    assert _same(cuda_point.fewrow_niels(table, scalars, signs, w, lanes), want)
+    assert _same(cuda_point.fewrow_niels(table, scalars, signs, w, gc), want)
 
 
 @pytest.mark.parametrize("n, w, nbytes, outputs, signed", [(2048, 8, 3, 1, False), (8192, 4, 1, 1, True)])
@@ -141,7 +141,7 @@ def test_fewrow_niels_sums_match_partition_products(harness, handles, n, w, nbyt
     """The column sums summed over the chunks are blitzar_tpu's bit-row
     products as points (encodings), and the query's own (fewrow_products)."""
     table, scalars, signs = _query(handles, n, w, nbytes, outputs, signed, 3 * n + nbytes)
-    rc, sums = _host(harness, table, scalars, signs, w, 64)
+    rc, sums = _host(harness, table, scalars, signs, w)
     assert rc == 0
     got = ted.tree_reduce(sums, sums.x.shape[1])
     want = from_jax_points(np.stack([np.asarray(c) for c in _jax_products(handles[w], table, scalars, signs, w)]),
@@ -153,8 +153,8 @@ def test_fewrow_niels_sums_match_partition_products(harness, handles, n, w, nbyt
 def test_fewrow_niels_plain_on_a_sample_of_chunks(handles):
     """``chunks`` picks table chunks: the same sums as the whole run's."""
     table, scalars, signs = _query(handles, 8192, 4, 2, 1, True, 5)  # two chunks of 1024 groups
-    whole = cuda_point.fewrow_niels_plain(table, scalars, signs, 4)
-    part = cuda_point.fewrow_niels_plain(table, scalars, signs, 4, torch.tensor([whole.x.shape[1] - 1]))
+    whole = cuda_point.fewrow_niels_plain(table, scalars, signs, 4, 1024)
+    part = cuda_point.fewrow_niels_plain(table, scalars, signs, 4, 1024, torch.tensor([whole.x.shape[1] - 1]))
     assert _same(part, ted.index_batch(whole, (slice(-1, None),)))
 
 
@@ -165,9 +165,9 @@ def test_chunks_the_kernel_does_not_take(harness, handles, monkeypatch, n, w):
     the query gathers its entries instead (no fewrow_niels call), equal to
     the lookup's products."""
     table, scalars, signs = _query(handles, n, w, 1, 1, False, n)
-    assert _host(harness, table, scalars, signs, w, 32)[0] == -1
+    assert _host(harness, table, scalars, signs, w)[0] == -1
     with pytest.raises(ValueError):
-        cuda_point.fewrow_niels(table, scalars, signs, w)
+        cuda_point.fewrow_niels(table, scalars, signs, w, tfixed.table_chunk_groups(table.shape[0]))
     calls = []
     inner = cuda_point.fewrow_niels
     monkeypatch.setattr(cuda_point, "fewrow_niels", lambda *a, **k: calls.append(1) or inner(*a, **k))
@@ -176,11 +176,14 @@ def test_chunks_the_kernel_does_not_take(harness, handles, monkeypatch, n, w):
     assert calls == [] and np.array_equal(_enc(got), _enc(want))
 
 
-def test_fewrow_niels_checks_its_lanes(handles):
-    """Lanes outside 32, 64, 128, or more than half a chunk's groups, raise;
-    0 picks at most 16 first-level sums a lane."""
-    table, scalars, _ = _query(handles, 1024, 4, 1, 1, False, 1)
-    for lanes in (16, 96, 256):
-        with pytest.raises(ValueError):
-            cuda_point.fewrow_niels(table, scalars, None, 4, lanes)
-    assert [cuda_point.fewrow_lanes(s) for s in (256, 512, 1024, 2048)] == [32, 32, 32, 64]
+def test_fewrow_niels_plain_in_row_blocks(handles, monkeypatch):
+    """With a budget that holds two rows' entries, the plain version gathers
+    in row blocks and gives the sums of one block; the wrapper raises on a
+    chunk size that does not divide the group count."""
+    table, scalars, signs = _query(handles, 8192, 4, 1, 1, True, 9)  # 16 rows, two chunks of 1024 groups
+    whole = cuda_point.fewrow_niels_plain(table, scalars, signs, 4, 1024)
+    monkeypatch.setattr(cuda_point, "FEWROW_BUDGET_BYTES", 2 * table.shape[0] * 96)
+    assert len(cuda_point.fewrow_blocks(table, 16)) == 8
+    assert _same(cuda_point.fewrow_niels_plain(table, scalars, signs, 4, 1024), whole)
+    with pytest.raises(ValueError):
+        cuda_point.fewrow_niels(table[:1536], scalars[:, :6144], signs[:, :6144], 4, 1024)

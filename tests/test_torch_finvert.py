@@ -112,13 +112,12 @@ def test_batch_finvert_all_zero_and_one_lane(harness):
 
 
 def test_finvert_wrapper_checks_and_plain():
-    """On the CPU the wrapper runs the plain version at any ``per``; a
-    count of elements a thread the kernel has no instantiation for raises."""
+    """On the CPU the wrapper runs the plain version, on a (16, count) batch
+    and on a strided (16, 2, count) one; a batch without 16 limbs raises."""
     a = to_tensor(_operands(70, 3, wide=True))
     want = [pow(v % P, P - 2, P) for v in _value(a.numpy().astype(np.int64))]
-    for per in cuda_field.FINVERT_PER:
-        assert limbs_to_ints(TF.canonicalize(cuda_field.finvert(a, per=per))) == want
-    with pytest.raises(ValueError):
-        cuda_field.finvert(a, per=8)
+    assert limbs_to_ints(TF.canonicalize(cuda_field.finvert(a))) == want
+    pair = torch.stack([a, a], dim=1)
+    assert limbs_to_ints(TF.canonicalize(cuda_field.finvert(pair)[:, 1])) == want
     with pytest.raises(ValueError):
         cuda_field.finvert(torch.zeros((8, 4), dtype=torch.int32))

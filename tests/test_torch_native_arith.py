@@ -162,9 +162,9 @@ def test_niels_tree_body_matches_plain(harness, size):
     """fewrow_niels.cu's blocks (csrc/niels_tree.cuh: each lane's leaves
     depth first over its stack, then the lanes halved), run by the harness
     column by column on a table of ``size`` groups of 4 entries (w = 2, one
-    chunk; the identity among the entries), at 32 and 128 lanes: the plain
-    version's coordinates, limb for limb; a chunk size no launch takes
-    (384 groups: chunks of 128) returns -1."""
+    chunk; the identity among the entries): the plain version's
+    coordinates, limb for limb; a chunk size no launch takes (128 groups)
+    returns -1."""
     w, nbytes = 2, 2
     pts, _ = _points(13, count=size << w)
     pts[:, :, 5] = to_jax_points(ted.identity((1,)))[:, :, 0]
@@ -174,17 +174,18 @@ def test_niels_tree_body_matches_plain(harness, size):
     rows = 8 * nbytes
     out = np.zeros((4, 16, rows), np.int32)
 
-    def call(groups, lanes):
+    def call(groups):
         return harness.btt_host_fewrow_niels(
             ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(scalars.data_ptr()), None, ctypes.c_int64(1),
             ctypes.c_int64(groups * w), ctypes.c_int(nbytes), ctypes.c_int(w), ctypes.c_int64(groups),
-            ctypes.c_int(lanes), ctypes.c_void_p(out.ctypes.data))
+            ctypes.c_void_p(out.ctypes.data))
 
-    want = cuda_point.fewrow_niels_plain(table, scalars, None, w)
-    for lanes in (32, 128):
-        assert call(size, lanes) == 0
-        assert np.array_equal(out.reshape(4, 16, 1, rows), np.stack([TF.canonicalize(c).numpy() for c in want]))
-    assert call(128, 32) == -1
+    want = cuda_point.fewrow_niels_plain(table, scalars, None, w, size)
+    assert call(size) == 0
+    assert np.array_equal(out.reshape(4, 16, 1, rows), np.stack([TF.canonicalize(c).numpy() for c in want]))
+    assert call(128) == -1
+
+
 def _tree_input(curve, size: int, cols: int):
     """A (size, cols) batch of curve points (an identity among them) as the
     harness's (coords, nlimbs, size * cols) array, and the port's batch; a
