@@ -1,6 +1,7 @@
-// ed_to_niels, ed_file_rows, ed_file_entries: a ristretto255 table's
-// conversions between extended points, niels words and the reference's raw
-// file rows, one launch a chunk each (ed_convert.cuh holds the bodies).
+// ed_to_niels, ed_file_rows, ed_file_entries, ed_niels_points, ed_affine:
+// a ristretto255 table's conversions between extended points, niels words
+// and the reference's raw file rows, and the generator disk cache's affine
+// form, one launch a chunk each (ed_convert.cuh holds the bodies).
 //
 // Replace, on the handle files' paths, the conversions that ran as chains
 // of blitzar_tpu/ops/pallas_point.py:_fmul_tiled (:130) launches:
@@ -10,7 +11,13 @@
 //   y / z and 2d x y (blitzar_tpu/msm/fixed.py:197-220, the npz read);
 // - ed_file_rows: 3 fmul a chunk around plain unpack and word passes
 //   (blitzar_tpu/msm/interop.py's raw write);
-// - ed_file_entries: 2 fmul a chunk (the raw read).
+// - ed_file_entries: 2 fmul a chunk (the raw read);
+// - ed_niels_points: 3 fmul a chunk around a plain unpack, F.sub / F.add
+//   and 4 plain canonicalize passes (blitzar_tpu/msm/fixed.py:397-414's
+//   ed.niels_to_p3, the npz write);
+// - ed_affine: _finvert_tiled (:172) of z and 2 fmul, then plain
+//   canonicalize passes (blitzar_tpu/generators.py:132-144, the disk
+//   cache's save), or 3 fmul (a legacy extended file's load).
 //
 // Design. ed_to_niels follows w_affine.cu: thread t of a warp inverts the z
 // of entries t + 32 j of the warp's tile of 32 x per entries by
@@ -32,6 +39,16 @@
 // 8-byte accesses at a 120-byte stride used a quarter of each 32-byte
 // sector (ed_file_rows then took 1.46 ms at a 2^22 chunk, 6.4x its bound;
 // PERF.md §6).
+// ed_niels_points: one thread an entry in a grid-stride loop, as
+// ed_file_rows, 3 multiplies inlined; it writes z = 1 too, so the caller
+// makes no pass of its own. Bound: bytes (64 of the entry's 96 read, four
+// coordinates of 16 int32 limbs written). ed_affine: ed_to_niels's batch
+// inversion, the prefixes parked in the output's t, 8, 16, 32 or 64 entries
+// a thread, the fewest that keep the launch within 2^15 threads (a thread's
+// inversion chain is its latency: 8 a thread took 0.211 ms at 2^16 where
+// 16 took 0.267, 32 took 0.478 at 2^20 where 16 took 0.515; PERF.md §6),
+// 6 multiplies an entry and a thread's inversion. Bound: bytes (x, y, z
+// read, four coordinates written) over operations.
 #include <cuda_runtime.h>
 
 #include "ed_convert.cuh"
@@ -111,6 +128,32 @@ ed_file_entries_kernel(const uint64_t* rows, int64_t count, uint32_t* words) {
   }
 }
 
+// One thread an entry; the output coordinates at their own limb stride (a
+// chunk's slice of a whole table's point coordinates).
+__global__ void __launch_bounds__(kThreads)
+ed_niels_points_kernel(const uint32_t* words, int64_t count, point_out_ptrs out) {
+  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < count; e += (int64_t)gridDim.x * kThreads) {
+    niels_point_store(words + kNielsWords * e, out, e, fe_mul_op());
+  }
+}
+
+template <int kPer>
+__global__ void __launch_bounds__(kThreads) ed_affine_kernel(point_ptrs p, int64_t count, point_out_ptrs out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t tile = (((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5) * 32 * kPer;
+  const int64_t left = count - tile - lane;
+  if (left <= 0) return;
+  const int n = (int)(left < 32LL * kPer ? (left + 31) / 32 : kPer);
+  ed_affine_entries<fe_mul_call_op>(p, out, tile + lane, 32, n);
+}
+
+template <int kPer>
+void launch_affine(const point_ptrs& p, int64_t count, const point_out_ptrs& out, cudaStream_t stream) {
+  const int64_t threads = (count + 32LL * kPer - 1) / (32LL * kPer) * 32;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  ed_affine_kernel<kPer><<<(unsigned)blocks, kThreads, 0, stream>>>(p, count, out);
+}
+
 }  // namespace
 
 // x, y, z: (16, count) int32 limbs at limb_stride (a point chunk's first
@@ -146,6 +189,39 @@ extern "C" int btt_ed_file_entries(const void* rows, int64_t count, void* words,
   if (count > 0) {
     ed_file_entries_kernel<<<blocks_for(count, kEntryThreads), kEntryThreads, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)rows, count, (uint32_t*)words);
+  }
+  return (int)cudaGetLastError();
+}
+
+// words: (count, 3, 8) niels words, 16-byte aligned; ox, oy, oz, ot:
+// (16, count) int32 coordinates at out_stride.
+extern "C" int btt_ed_niels_points(const void* words, int64_t count, void* ox, void* oy, void* oz, void* ot,
+                                   int64_t out_stride, void* stream) {
+  if (count > 0) {
+    const point_out_ptrs out = {{(int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot}, out_stride};
+    ed_niels_points_kernel<<<blocks_for(count, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, count, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, y, z: (16, count) int32 limbs at in_stride, no z 0; ox, oy, oz, ot:
+// (16, count) int32 coordinates at out_stride, apart from the input.
+extern "C" int btt_ed_affine(const void* x, const void* y, const void* z, int64_t in_stride, int64_t count, void* ox,
+                             void* oy, void* oz, void* ot, int64_t out_stride, void* stream) {
+  if (count > 0) {
+    const point_ptrs p = {{(const int32_t*)x, (const int32_t*)y, (const int32_t*)z, nullptr}, in_stride};
+    const point_out_ptrs out = {{(int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot}, out_stride};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (count <= 8 * kTargetThreads) {
+      launch_affine<8>(p, count, out, s);
+    } else if (count <= 16 * kTargetThreads) {
+      launch_affine<16>(p, count, out, s);
+    } else if (count <= 32 * kTargetThreads) {
+      launch_affine<32>(p, count, out, s);
+    } else {
+      launch_affine<64>(p, count, out, s);
+    }
   }
   return (int)cudaGetLastError();
 }

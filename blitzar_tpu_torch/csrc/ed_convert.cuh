@@ -8,7 +8,13 @@
 //   as canonical radix-2^51 field51 limbs (blitzar_tpu/msm/interop.py's
 //   writer);
 // - ed_file_entries: raw-file rows, any field51 representation, back to
-//   niels words; the file's X Y is not read, 2d x y is recomputed.
+//   niels words; the file's X Y is not read, 2d x y is recomputed;
+// - ed_niels_points: niels words back to canonical extended points (x, y,
+//   1, x y) in the public layout (blitzar_tpu/msm/fixed.py:397-414, the npz
+//   write's point table);
+// - ed_affine: extended points, z never 0, to canonical (x/z, y/z, 1,
+//   x y/z^2) (blitzar_tpu/generators.py:132-144, the disk cache's affine
+//   generators; a legacy extended file's z normalised to 1).
 //
 // BTT_HD like fp25519.cuh, so the host harness runs the very code of the
 // kernels on the CPU (tests/test_torch_edconvert.py).
@@ -18,11 +24,12 @@
 // 32-bit words, a | b | t, each canonical (edwards25519.cuh:niels_store); a
 // file row is 15 little-endian u64 words, X, Y, X Y, five 51-bit limbs each.
 //
-// ed_to_niels inverts the z of a thread's own entries first + j * step,
-// j < n, by Montgomery's trick (field_batch.cuh, shared with finvert.cu), as
-// w_affine.cuh does for the Weierstrass curves: the forward sweep parks the
-// product of the earlier z in word slot a of each entry it will write; the
-// backward sweep peels one entry off at a time and writes the entry.
+// ed_to_niels and ed_affine invert the z of a thread's own entries first +
+// j * step, j < n, by Montgomery's trick (field_batch.cuh, shared with
+// finvert.cu), as w_affine.cuh does for the Weierstrass curves: the forward
+// sweep parks the product of the earlier z in a slot of each entry's output
+// (ed_to_niels: word slot a; ed_affine: coordinate t); the backward sweep
+// peels one entry off at a time and writes the entry.
 #pragma once
 
 #include "edwards25519.cuh"
@@ -140,16 +147,23 @@ BTT_HD fe fe_from_limbs51(const uint64_t* l) {
   return r;
 }
 
-// Niels entry -> its file row: x = (a - b) / 2, y = (a + b) / 2 and x y,
-// three multiplies, canonical field51 limbs. t is not read. The kernel
-// writes the row to shared memory.
+// Niels entry -> its affine x = (a - b) / 2 and y = (a + b) / 2, canonical:
+// two multiplies. t is not read.
 template <class Mul>
-BTT_HD void niels_file_row(const uint32_t* entry, uint64_t* row, Mul mul) {
+BTT_HD void niels_affine(const uint32_t* entry, fe& x, fe& y, Mul mul) {
   const fe a = fe_load_words_ro(entry), b = fe_load_words_ro(entry + 8);
   const fe inv2 = fe_const(0xfffffff7u, 0xffffffffu, 0xffffffffu, 0xffffffffu,
                            0xffffffffu, 0xffffffffu, 0xffffffffu, 0x3fffffffu);
-  const fe x = fe_canonical(mul(fe_sub(a, b), inv2));
-  const fe y = fe_canonical(mul(fe_add(a, b), inv2));
+  x = fe_canonical(mul(fe_sub(a, b), inv2));
+  y = fe_canonical(mul(fe_add(a, b), inv2));
+}
+
+// Niels entry -> its file row: x, y and x y, three multiplies, canonical
+// field51 limbs. The kernel writes the row to shared memory.
+template <class Mul>
+BTT_HD void niels_file_row(const uint32_t* entry, uint64_t* row, Mul mul) {
+  fe x, y;
+  niels_affine(entry, x, y, mul);
   const fe xy = fe_canonical(mul(x, y));
 #pragma unroll
   for (int j = 0; j < 5; ++j) {
@@ -165,6 +179,62 @@ BTT_HD void niels_file_row(const uint32_t* entry, uint64_t* row, Mul mul) {
 template <class Mul>
 BTT_HD void file_row_niels(const uint64_t* row, uint32_t* entry, Mul mul) {
   affine_niels_store(entry, fe_from_limbs51(row), fe_from_limbs51(row + 5), mul);
+}
+
+// ---------------------------------------------------------------------------
+// back to extended points: ed_niels_points, ed_affine
+// ---------------------------------------------------------------------------
+
+// Niels entry -> entry e of the extended output, canonical (x, y, 1, x y):
+// three multiplies. x y has the canonical value of the entry's 2d t /
+// (2d), at one multiply where that takes two.
+template <class Mul>
+BTT_HD void niels_point_store(const uint32_t* entry, const point_out_ptrs& out, int64_t e, Mul mul) {
+  fe x, y;
+  niels_affine(entry, x, y, mul);
+  fe_store(out.c[0] + e, out.limb_stride, x);
+  fe_store(out.c[1] + e, out.limb_stride, y);
+  fe_store(out.c[2] + e, out.limb_stride, fe_one());
+  fe_store(out.c[3] + e, out.limb_stride, mul(x, y));
+}
+
+// A thread's entries first + j * step of ed_affine as field_batch.cuh's
+// batch of z: each prefix parked in the entry's output t, then x = X zinv,
+// y = Y zinv and x y; 6 multiplies an entry with the sweep's 3. x and y are
+// stored as soon as they are made and read back for x y, so that besides
+// the batch's pointers only the sweep's inverse and zinv live across a call
+// of the non-inlined multiply (with x and y live too, the kernel spilled
+// 24 bytes).
+template <class Mul>
+struct AffineBatch {
+  const int32_t *x, *y, *z;
+  int64_t in_stride;
+  point_out_ptrs out;
+  int64_t first, step;
+
+  BTT_HD int64_t at(int j) const { return first + j * step; }
+  BTT_HD bool counts(int) const { return true; }  // z is never 0
+  BTT_HD fe value(int j) const { return fe_load(z + at(j), in_stride); }
+  BTT_HD void park(int j, const fe& prefix) { fe_store(out.c[3] + at(j), out.limb_stride, prefix); }
+  BTT_HD fe parked(int j) const { return fe_load(out.c[3] + at(j), out.limb_stride); }
+  BTT_HD void put(int j, const fe& zinv) {
+    Mul mul;
+    const int64_t e = at(j);
+    fe_store(out.c[0] + e, out.limb_stride, mul(fe_load(x + e, in_stride), zinv));
+    fe_store(out.c[1] + e, out.limb_stride, mul(fe_load(y + e, in_stride), zinv));
+    fe_store(out.c[2] + e, out.limb_stride, fe_one());
+    const fe t = mul(fe_load(out.c[0] + e, out.limb_stride), fe_load(out.c[1] + e, out.limb_stride));
+    fe_store(out.c[3] + e, out.limb_stride, t);
+  }
+  BTT_HD void skip(int) {}
+};
+
+// One thread's entries of ed_affine with its own inversion: the kernel's
+// body, and the harness's lane. The output must not overlap the input.
+template <class Mul>
+BTT_HD void ed_affine_entries(const point_ptrs& p, const point_out_ptrs& out, int64_t first, int64_t step, int n) {
+  AffineBatch<Mul> b = {p.c[0], p.c[1], p.c[2], p.limb_stride, out, first, step};
+  batch_invert_sweep<Mul>(b, n);
 }
 
 }  // namespace btt

@@ -2,7 +2,8 @@
 //
 // fp25519.cuh, field_batch.cuh, edwards25519.cuh, niels_tree.cuh,
 // table_build.cuh, lookup.cuh, mont.cuh, weierstrass.cuh, ladder.cuh,
-// sumcheck.cuh, tree_reduce.cuh, w_affine.cuh and ed_convert.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
+// sumcheck.cuh, tree_reduce.cuh, w_affine.cuh, ed_convert.cuh and
+// window_sums.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
@@ -22,6 +23,7 @@
 #include "tree_reduce.cuh"
 #include "w_affine.cuh"
 #include "weierstrass.cuh"
+#include "window_sums.cuh"
 
 #include <vector>
 
@@ -316,6 +318,29 @@ void host_niels_runs(const point_ptrs& pts, int w, int64_t runs, word4* table) {
     for (int t = 0; t < width; ++t) {
       niels_lane_store(s.H, fe_mul(fe_mul(inv_total, S[t]), E[t]), niels_rows{table + (r << s.bits) * 6, s.L, t});
     }
+  }
+}
+
+// window_sums.cu's warp on the host: each row's 32 lanes one after
+// another at every step, each step reading the lanes' values from before it
+// (as the shuffles do); only lane 0's halving sums are kept (the kernel's
+// other lanes add sums no lane reads).
+template <class G>
+void host_window_sums(const typename G::In& buckets, int64_t rows, const typename G::Out& out) {
+  using P = typename G::P;
+  for (int64_t row = 0; row < rows; ++row) {
+    P s[kWindowLanes], u[kWindowLanes], next[kWindowLanes];
+    for (int t = 0; t < kWindowLanes; ++t) window_lane_run<G>(buckets, row, t, s[t], u[t]);
+    for (int d = 1; d < kWindowLanes; d <<= 1) {
+      for (int t = 0; t < kWindowLanes; ++t) next[t] = window_scan_step<G>(s[t], s[(t + d) % kWindowLanes], t, d);
+      for (int t = 0; t < kWindowLanes; ++t) s[t] = next[t];
+    }
+    P v[kWindowLanes];
+    for (int t = 0; t < kWindowLanes; ++t) v[t] = window_lane_share<G>(s[t], u[t]);
+    for (int d = kWindowLanes / 2; d > 0; d >>= 1) {
+      for (int t = 0; t < d; ++t) v[t] = ladder_add<G>(v[t], v[t + d]);
+    }
+    G::store(out, row, v[0]);
   }
 }
 
@@ -705,6 +730,56 @@ void btt_host_ed_file_entries(const int64_t* rows, int64_t count, int32_t* words
   for (int64_t e = 0; e < count; ++e) {
     file_row_niels(reinterpret_cast<const uint64_t*>(rows) + kFileWords * e,
                    reinterpret_cast<uint32_t*>(words) + kNielsWords * e, fe_mul_op());
+  }
+}
+
+// (count, 3, 8) niels words -> (4, 16, count) extended points,
+// ed_convert.cu's ed_niels_points.
+void btt_host_ed_niels_points(const int32_t* words, int64_t count, int32_t* out) {
+  const point_out_ptrs oo = out_points(out, count);
+  for (int64_t e = 0; e < count; ++e) {
+    niels_point_store(reinterpret_cast<const uint32_t*>(words) + kNielsWords * e, oo, e, fe_mul_op());
+  }
+}
+
+// points (3, 16, count): X, Y, Z -> (4, 16, count) (x, y, 1, x y),
+// ed_convert.cu's ed_affine, its tiles of 32 x per entries (the kernel's
+// per is 16, 32 or 64, by the count) one lane after another; returns -1 for
+// per < 1.
+int btt_host_ed_affine(const int32_t* points, int64_t count, int per, int32_t* out) {
+  if (per < 1) return -1;
+  const point_ptrs p = {{points, points + 16 * count, points + 32 * count, nullptr}, count};
+  const point_out_ptrs oo = out_points(out, count);
+  for (int64_t tile = 0; tile < count; tile += 32LL * per) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const int64_t left = count - tile - lane;
+      const int n = left <= 0 ? 0 : (int)(left < 32LL * per ? (left + 31) / 32 : per);
+      ed_affine_entries<fe_mul_op>(p, oo, tile + lane, 32, n);
+    }
+  }
+  return 0;
+}
+
+// window_sums.cu on the host: curve 0 ristretto255, buckets (4, 16, rows *
+// 255), out (4, 16, rows); 1-3 as btt_host_w, buckets (3, nlimbs, rows *
+// 255), out (3, nlimbs, rows). Returns -1 for another curve id.
+int btt_host_window_sums(int curve, const int32_t* buckets, int64_t rows, int32_t* out) {
+  const int64_t m = rows * kWindowBuckets;
+  if (curve == 0) {
+    host_window_sums<EdLadder>(in_points(buckets, m), rows, out_points(out, rows));
+    return 0;
+  }
+  auto run = [&](auto curve_tag, int64_t nl) {
+    using C = decltype(curve_tag);
+    const wpoint_ptrs pp = {{buckets, buckets + nl * m, buckets + 2 * nl * m}, m};
+    const wpoint_out_ptrs oo = {{out, out + nl * rows, out + 2 * nl * rows}, rows};
+    host_window_sums<WLadder<C>>(pp, rows, oo);
+  };
+  switch (curve) {
+    case Bls12381G1::id: run(Bls12381G1(), 24); return 0;
+    case Bn254G1::id: run(Bn254G1(), 16); return 0;
+    case Grumpkin::id: run(Grumpkin(), 16); return 0;
+    default: return -1;
   }
 }
 

@@ -20,6 +20,9 @@
 // and its coordinates (blitzar_tpu/ops/pallas_point.py:_combine_tiled :982
 // for ristretto255), and the engine's Horner loop.
 //
+// The point policies (EdLadder, WLadder) and the non-inlined double and add
+// also carry window_sums.cuh, the bucket engine's sums over its buckets.
+//
 // Why segments: each output is a serial chain, and one thread runs it alone
 // on the card. The doublings of the top bit are a chain no split shortens
 // ((nbits - 1) step_bits doublings), but the adds can be shared: with S
@@ -54,6 +57,7 @@ struct EdLadderT {
   using P = ge_p3;
   using In = point_ptrs;
   using Out = point_out_ptrs;
+  BTT_HD static P identity() { return ge_identity(); }
   BTT_HD static P load(const In& p, int64_t i) { return ge_load(p, i); }
   BTT_HD static void store(const Out& p, int64_t i, const P& q) { ge_store(p, i, q); }
   BTT_HD static P dbl(const P& p) { return ge_double(p, Mul()); }
@@ -67,6 +71,7 @@ struct WLadder {
   using P = wpoint<C>;
   using In = wpoint_ptrs;
   using Out = wpoint_out_ptrs;
+  BTT_HD static P identity() { return w_identity<C>(); }
   BTT_HD static P load(const In& p, int64_t i) { return w_load<C>(p, i); }
   BTT_HD static void store(const Out& p, int64_t i, const P& q) { w_store<C>(p, i, q); }
   BTT_HD static P dbl(const P& p) { return w_double<C>(p, mf_mul_call_op<typename C::F>()); }

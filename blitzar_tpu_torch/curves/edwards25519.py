@@ -138,9 +138,8 @@ def _const(value: int, like: torch.Tensor) -> torch.Tensor:
 
 # The table conversions below are the plain versions of the card's
 # (``ops/cuda_point.py``: ``ed_to_niels``, ``ed_file_rows``,
-# ``ed_file_entries``). ``to_niels`` takes the inversion as an argument, and
-# the niels-to-point direction the multiply: ``msm/fixed.py`` passes the
-# ``fmul`` kernel there for a table on the card.
+# ``ed_file_entries``, ``ed_niels_points``). ``to_niels`` takes the
+# inversion as an argument (a batch inversion along a table's runs).
 
 
 def affine_to_niels(x, y) -> Niels:
@@ -156,17 +155,17 @@ def to_niels(p: PointP3, invert=F.invert) -> Niels:
     return affine_to_niels(F.mul(p.x, zinv), F.mul(p.y, zinv))
 
 
-def niels_to_affine(n: Niels, mul=F.mul):
+def niels_to_affine(n: Niels):
     """(a, b, 2d*t) -> affine (x, y) with x = (a-b)/2, y = (a+b)/2."""
     inv2 = _const(INV2_INT, n.a)
-    return mul(F.sub(n.a, n.b), inv2), mul(F.add(n.a, n.b), inv2)
+    return F.mul(F.sub(n.a, n.b), inv2), F.mul(F.add(n.a, n.b), inv2)
 
 
-def niels_to_p3(n: Niels, mul=F.mul) -> PointP3:
+def niels_to_p3(n: Niels) -> PointP3:
     """(a, b, 2d*t) -> extended (x, y, 1, t)."""
-    x, y = niels_to_affine(n, mul)
+    x, y = niels_to_affine(n)
     one = F.from_int(1, x.shape[1:], x.device)
-    return PointP3(x, y, one, mul(n.t, _const(INV_D2_INT, n.t)))
+    return PointP3(x, y, one, F.mul(n.t, _const(INV_D2_INT, n.t)))
 
 
 def to_cached(p: PointP3) -> Cached:

@@ -15,11 +15,11 @@ Derived generators are constants, so a prefix of them can be kept on disk
 off, since on the H100 a derivation is faster than a load, PERF.md),
 ``ristretto_gen_a_<n>.npy`` holds the affine x and y of the first n
 generators as (2, 16, n) uint16 canonical limbs. A derivation from offset 0
-of a multiple of ``DISK_CHUNK`` generators saves one (``finvert`` of z, two
-``fmul``); one from offset 0 loads the smallest saved prefix that covers it
-(t = ``fmul`` of x and y, z = 1), or derives if none does. blitzar_tpu's
-legacy extended files (``ristretto_gen_<n>.npy``, (4, 16, n) uint32) are
-read too, their z normalised to 1 (``finvert``).
+of a multiple of ``DISK_CHUNK`` generators saves one (the affine form by one
+``ed_affine`` launch); one from offset 0 loads the smallest saved prefix
+that covers it (t = ``fmul`` of x and y, z = 1), or derives if none does.
+blitzar_tpu's legacy extended files (``ristretto_gen_<n>.npy``, (4, 16, n)
+uint32) are read too, their z normalised to 1 (one ``ed_affine`` launch).
 """
 
 from __future__ import annotations
@@ -120,24 +120,23 @@ def _disk_load(n: int, device) -> ed.PointP3 | None:
     if arr.shape != shape or arr.dtype != dtype:
         return None
     coords = [torch.from_numpy(arr[k, :, :n].astype(np.int32)).to(device) for k in range(shape[0])]
-    x, y = coords[:2]
     if not affine:  # a legacy extended file: normalise z to 1
-        zinv = cuda_field.finvert(coords[2])
-        x, y = cuda_field.fmul(x, zinv), cuda_field.fmul(y, zinv)
+        return cuda_point.ed_affine(ed.PointP3(*coords))
+    x, y = coords
     return ed.PointP3(x, y, F.from_int(1, (n,), device), cuda_field.fmul(x, y))
 
 
 def _disk_save(points: ed.PointP3, n: int) -> None:
     """Save the affine x, y of the first n generators (blitzar_tpu's
-    _disk_save, generators.py:162-174): ``finvert`` of z, two ``fmul``, a
+    _disk_save, generators.py:162-174): one ``ed_affine`` launch, a
     temporary file and ``os.replace``; an OSError skips the save."""
     if not DISK_DIR:
         return
     path = os.path.join(DISK_DIR, f"ristretto_gen_a_{n}.npy")
     if os.path.exists(path):
         return
-    zinv = cuda_field.finvert(points.z)
-    xy = [F.canonicalize(cuda_field.fmul(c, zinv)).cpu().numpy().astype(np.uint16) for c in (points.x, points.y)]
+    affine = cuda_point.ed_affine(points)
+    xy = [c.cpu().numpy().astype(np.uint16) for c in (affine.x, affine.y)]
     tmp = None
     try:
         os.makedirs(DISK_DIR, exist_ok=True)

@@ -22,9 +22,10 @@ into 8-bit windows; per (output, window) row it sorts the point indices by
 digit, finds each of the 255 buckets' runs by ``searchsorted``, gathers them
 into (C, rows, 255) slabs (identities in the unused slots, points negated
 where a sign is set) and sums each slab on ``tree_reduce_lanes``, a round
-more while a bucket holds more than C points; then a reverse scan over the
-buckets (``ed_add`` / ``wadd``) and their sum give each window's
-sum_b b S_b, and Horner combines the windows with 8 doublings a step, one
+more while a bucket holds more than C points; then each row's window sum
+sum_b b S_b is one ``ed_window_sums`` / ``w_window_sums`` launch for all
+rows (where blitzar_tpu runs a reverse scan over the buckets and their
+tree), and Horner combines the windows with 8 doublings a step, one
 ``ed_horner`` / ``w_horner`` launch for all outputs (the ladder of the
 queries, where blitzar_tpu launches its double and add kernels once each a
 step). The sort, the search and the gathers are plain torch, as
@@ -158,7 +159,7 @@ def clear_handle_cache() -> None:
 # ---------------------------------------------------------------------------
 
 ENGINE_VAR = "BLITZAR_TPU_TORCH_MSM_ENGINE"
-NUM_BUCKETS = 255  # digits 1..255; digit 0 contributes nothing
+NUM_BUCKETS = cuda_point.WINDOW_BUCKETS  # digits 1..255; digit 0 contributes nothing
 # the gathered slab of a row block stays under this many bytes (its
 # temporaries counted twice), as blitzar_tpu's GATHER_BUDGET_BYTES
 GATHER_BUDGET_BYTES = 1 << 30
@@ -229,17 +230,13 @@ def bucket_accumulate(points, digits: torch.Tensor, signs, capacity: int, curve=
 
 
 def window_sums(bucket_sums, curve=ed):
-    """(R, 255) bucket sums -> (R,) window sums sum_b b S_b: the sum of the
-    reverse (suffix) scan over the buckets (Hillis-Steele, 8 steps of
-    ``curve.add``), on ``tree_reduce_lanes``."""
-    suffix = bucket_sums
-    shift = 1
-    while shift < NUM_BUCKETS:  # bucket k += bucket k + shift
-        head = curve.add(curve.index_batch(suffix, (slice(None), slice(0, NUM_BUCKETS - shift))),
-                         curve.index_batch(suffix, (slice(None), slice(shift, NUM_BUCKETS))))
-        suffix = curve.cat([head, curve.index_batch(suffix, (slice(None), slice(NUM_BUCKETS - shift, None)))], dim=2)
-        shift *= 2
-    return fixed.sum_leading(type(suffix)(*(c.transpose(1, 2) for c in suffix)), curve)
+    """(R, 255) bucket sums -> (R,) window sums sum_b b S_b: one
+    ``ed_window_sums`` / ``w_window_sums`` launch for all rows (the points
+    of ``cuda_point.window_sums_plain``, blitzar_tpu's reverse scan and
+    tree, which a CPU tensor gets)."""
+    if curve is ed:
+        return cuda_point.ed_window_sums(bucket_sums)
+    return cuda_wpoint.w_window_sums(curve, bucket_sums)
 
 
 def horner_plain(windows, curve=ed):
@@ -267,7 +264,7 @@ def horner(windows, curve=ed):
 
 def combine_buckets(bucket_sums, num_outputs: int, num_windows: int, curve=ed):
     """(O * W, 255) bucket sums -> (O,) results: the window sums, then
-    Horner over the windows."""
+    Horner over the windows, one launch each."""
     return horner(curve.reshape_batch(window_sums(bucket_sums, curve), (num_outputs, num_windows)), curve)
 
 

@@ -43,8 +43,8 @@ A handle goes to and comes from files (:meth:`MultiexpHandle.write_to_file`,
 or the reference's raw format (``msm/interop.py``). A ristretto255 point
 table becomes niels entries by one ``ed_to_niels`` launch a chunk of
 ``TABLE_CHUNK_ENTRIES`` entries (a batch inversion of z on the card,
-``ops/cuda_point.py``); niels entries go back to points on the ``fmul``
-kernel (``ops/cuda_field.py``). Packed and vlen queries
+``ops/cuda_point.py``); niels entries go back to points by one
+``ed_niels_points`` launch a chunk. Packed and vlen queries
 (:func:`fixed_packed_multiexponentiation`,
 :func:`fixed_vlen_multiexponentiation`) run as one query of the packed
 bytes, whose bit-row products are then picked per output.
@@ -59,7 +59,7 @@ import torch
 
 from ..curves import edwards25519 as ed
 from ..fields import fp25519 as F
-from ..ops import cuda_field, cuda_point, cuda_wpoint
+from ..ops import cuda_point, cuda_wpoint
 
 # the default of blitzar_tpu/msm/fixed.py:51-54: 2^8 entries per group of 8
 DEFAULT_WINDOW_WIDTH = 8
@@ -109,14 +109,14 @@ def niels_table(table: ed.PointP3) -> torch.Tensor:
 
 def niels_point_table(words: torch.Tensor) -> ed.PointP3:
     """(G, V, 3, 8) niels words -> (16, G, V) canonical extended points
-    (x, y, 1, t), chunk by chunk, the multiplies on ``fmul``."""
+    (x, y, 1, t) (blitzar_tpu/msm/fixed.py:397-414), one ``ed_niels_points``
+    launch a chunk, each writing its slice of the table in place (its plain
+    version on the CPU)."""
     groups, entries = words.shape[0], words.shape[1]
     out = ed.PointP3(*(torch.empty((F.NLIMBS, groups, entries), dtype=torch.int32, device=words.device)
                        for _ in range(4)))
     for sl in table_chunks(groups, entries):
-        part = ed.niels_to_p3(cuda_point.unpack_niels(words[sl]), cuda_field.fmul)
-        for dst, src in zip(out, part):
-            dst[:, sl] = F.canonicalize(src)
+        cuda_point.ed_niels_points(words[sl], out=ed.index_batch(out, sl))
     return out
 
 

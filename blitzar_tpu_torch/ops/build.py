@@ -51,7 +51,10 @@ SIGNATURES = {
     "btt_ed_to_niels": [_P, _P, _P, _I64, _I64, _P, _P],
     "btt_ed_file_rows": [_P, _I64, _P, _P],
     "btt_ed_file_entries": [_P, _I64, _P, _P],
+    "btt_ed_niels_points": [_P, _I64, _P, _P, _P, _P, _I64, _P],
+    "btt_ed_affine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _P],
     "btt_ed_horner": [_P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P],
+    "btt_ed_window_sums": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     # the Weierstrass kernels take the curve's C ABI id first
     "btt_w_build_table": [_I, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "btt_w_lookup_msm": [_I, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _I64, _P, _P, _P, _P],
@@ -63,6 +66,7 @@ SIGNATURES = {
     "btt_w_doubling_combine": [_I, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
     "btt_w_affine": [_I, _P, _I64, _P, _P],
     "btt_w_horner": [_I, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
+    "btt_w_window_sums": [_I, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     # the proof kernels take the field's C ABI id first
     "btt_mont_mul_ew": [_I, _P, _I64, _P, _I64, _I64, _I64, _P, _P],
     "btt_mont_fold_round": [_I, _P, _I64, _I64, _I64, _I64, _P, _I64, _P, _P],

@@ -1,12 +1,12 @@
 """The CUDA kernels of GF(2^255 - 19) arithmetic on whole batches: wrappers,
 plain versions, counts.
 
-They carry the generator disk cache (``generators.py``) and a ristretto255
-handle's npz write (niels entries back to points, ``msm/fixed.py``), where a
-plain PyTorch multiply over a 2^20-point table's 2^25 entries would need
-tens of GiB for its int64 partial products; the table conversions of the
-other file paths are one launch a chunk each (``ops/cuda_point.py``:
-``ed_to_niels``, ``ed_file_rows``, ``ed_file_entries``). Each wrapper takes (16, *batch) int32 limbs (the public
+``fmul`` carries the load of the generator disk cache's affine file (t =
+x y, ``generators.py``); ``fsq`` and ``finvert`` run on no path. The
+table conversions of the file paths and the cache's save are one launch a
+chunk each (``ops/cuda_point.py``: ``ed_to_niels``, ``ed_file_rows``,
+``ed_file_entries``, ``ed_niels_points``, ``ed_affine``), where chains of
+these kernels ran. Each wrapper takes (16, *batch) int32 limbs (the public
 layout, limbs below 2^17, ``fields/fp25519.py``). On a tensor that lies on
 the CPU it runs the plain version beside it; on a CUDA tensor it checks
 device, dtype and shape, allocates the output, launches its kernel from

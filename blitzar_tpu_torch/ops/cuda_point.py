@@ -33,23 +33,35 @@ wrapper                 replaces                                 source
                         :172 (a table's batch inversion)
 ``ed_file_rows``        ``_fmul_tiled`` :130 (the raw write)     ed_convert.cu
 ``ed_file_entries``     ``_fmul_tiled`` :130 (the raw read)      ed_convert.cu
+``ed_niels_points``     ``_fmul_tiled`` :130 (the npz write)     ed_convert.cu
+``ed_affine``           ``_finvert_tiled`` :172 + ``_fmul_tiled``  ed_convert.cu
+                        :130 (the generator disk cache)
 ``ed_horner``           ``_double_tiled`` :254 + ``_add_tiled``  ed_horner.cu
                         :237 (the bucket engine's Horner)
+``ed_window_sums``      ``_add_tiled`` :237 (the bucket engine's  window_sums.cu
+                        scan) + ``_tree_tiled`` :344
 ======================  ======================================  =====================
 
 ``ed_to_niels``, ``ed_file_rows`` and ``ed_file_entries`` convert a chunk
 of a table between extended points, niels words and the reference's raw
 file rows in one launch, where the files paths ran chains of ``fmul``
-launches (3 x 255 scan steps and a ``finvert`` for a batch inversion).
+launches (3 x 255 scan steps and a ``finvert`` for a batch inversion);
+``ed_niels_points`` turns niels words back into extended points (the npz
+write) and ``ed_affine`` extended points into canonical affine ones (the
+generator disk cache), one launch a chunk each, where ``fmul`` and
+``finvert`` launches ran among plain passes.
 ``ed_horner`` is the bucket engine's Horner over a commitment's 8-bit
 windows as one launch, the ladder of ``doubling_combine`` with 8 doublings
 a step, where the engine launched ``ed_double`` 8 times and ``ed_add``
-once a window.
+once a window; ``ed_window_sums`` its sums over the buckets of every
+(output, window) row as one launch, where 8 ``ed_add`` scan launches, 8
+plain cats and a ``tree_reduce_lanes`` launch ran.
 
 ``ed_lookup_msm`` counts its launches on a cached table (a streamed chunk's)
 as ``ed_lookup_msm_cached``. The Weierstrass kernels (``w_build_table``,
 ``w_lookup_msm``, ``wadd``, ``wdouble``, ``w_doubling_combine``, ``w_affine``,
-``w_horner`` and ``tree_reduce_lanes``'s Weierstrass instantiations) have their wrappers in
+``w_horner``, ``w_window_sums`` and ``tree_reduce_lanes``'s Weierstrass
+instantiations) have their wrappers in
 ``ops/cuda_wpoint.py``,
 the proof kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``)
 in ``ops/cuda_mont.py``, the field kernels (``fmul``, ``fsq``, ``finvert``)
@@ -86,7 +98,10 @@ KERNELS = (
     "ed_to_niels",
     "ed_file_rows",
     "ed_file_entries",
+    "ed_niels_points",
+    "ed_affine",
     "ed_horner",
+    "ed_window_sums",
     "fmul",
     "fsq",
     "finvert",
@@ -97,6 +112,7 @@ KERNELS = (
     "w_doubling_combine",
     "w_affine",
     "w_horner",
+    "w_window_sums",
     "mont_mul_ew",
     "mont_fold_round",
     "mont_sum_round",
@@ -166,6 +182,20 @@ def _point_arg(p, device, batch, nlimbs: int = F.NLIMBS) -> tuple[list[torch.Ten
     if len({c.stride(0) for c in coords}) != 1:
         coords = [c.contiguous() for c in coords]
     return coords, coords[0].stride(0)
+
+
+def _out_point_arg(out, device, batch, nlimbs: int = F.NLIMBS) -> int:
+    """Check a point batch a kernel writes in place (views into a larger
+    output): on ``device``, int32, (nlimbs, *batch), limb-major, one limb
+    stride; returns the stride. Nothing is copied: a layout the kernel does
+    not take raises."""
+    for c in out:
+        if c.device != device or c.dtype != torch.int32 or tuple(c.shape) != (nlimbs,) + tuple(batch):
+            raise ValueError(f"output {tuple(c.shape)} {c.dtype} on {c.device}: expected "
+                             f"{(nlimbs,) + tuple(batch)} int32 on {device}")
+        if not _limb_major(c) or c.stride(0) != out[0].stride(0):
+            raise ValueError("output coordinates must be limb-major with one limb stride")
+    return out[0].stride(0)
 
 
 def _empty_point(batch, device, point=ed.PointP3, nlimbs: int = F.NLIMBS):
@@ -341,6 +371,82 @@ def ed_file_entries(rows: torch.Tensor) -> torch.Tensor:
         rows.data_ptr(), count, words.data_ptr(), _stream(rows.device),
     )
     return words
+
+
+def ed_niels_points_plain(words: torch.Tensor) -> ed.PointP3:
+    """:func:`ed_niels_points` by the plain multiplies: the unpacked
+    entries, ``ed.niels_to_p3`` (x = (a - b)/2, y = (a + b)/2, z = 1, t =
+    2d*t / (2d)) and canonical limbs."""
+    _check_words(words)
+    return ed.PointP3(*(F.canonicalize(c) for c in ed.niels_to_p3(unpack_niels(words))))
+
+
+def ed_niels_points(words: torch.Tensor, out: ed.PointP3 | None = None) -> ed.PointP3:
+    """(*batch, 3, 8) niels words (a chunk of a handle's table) -> (16,
+    *batch) canonical extended points (x, y, 1, x*y): the point table of the
+    npz write (blitzar_tpu/msm/fixed.py:397-414). ``out`` (four (16,
+    *batch) views with one limb stride, a chunk's slice of a whole table's
+    coordinates) takes the points in place and is returned.
+
+    Kernel csrc/ed_convert.cu, one launch, one thread an entry: x = (a -
+    b)/2, y = (a + b)/2 and x*y, 3 field multiplies, t not read, z = 1
+    written. Bound: bytes (64 read, four coordinates of 16 int32 limbs
+    written an entry)."""
+    _check_words(words)
+    batch = tuple(words.shape[:-2])
+    if not _on_card(words):
+        points = ed_niels_points_plain(words)
+        if out is None:
+            return points
+        for dst, src in zip(out, points):
+            dst.copy_(src)
+        return out
+    device = words.device
+    words = words.contiguous()
+    if words.data_ptr() % 16:  # the kernel reads an entry by 16-byte loads
+        words = words.clone()
+    if out is None:
+        out = _empty_point(batch, device)
+    stride = _out_point_arg(out, device, batch)
+    _launch(
+        "ed_niels_points", build.library().btt_ed_niels_points,
+        words.data_ptr(), words.numel() // 24, *_ptrs(out), stride, _stream(device),
+    )
+    return out
+
+
+def ed_affine_plain(points: ed.PointP3) -> ed.PointP3:
+    """:func:`ed_affine` by the plain field ops: z inverted, x/z, y/z and
+    their product, canonical limbs."""
+    zinv = F.invert(points.z)
+    x, y = F.mul(points.x, zinv), F.mul(points.y, zinv)
+    one = F.from_int(1, tuple(points.x.shape[1:]), points.x.device)
+    return ed.PointP3(F.canonicalize(x), F.canonicalize(y), one, F.canonicalize(F.mul(x, y)))
+
+
+def ed_affine(points: ed.PointP3) -> ed.PointP3:
+    """(16, *batch) extended points, no z 0 (generators) -> canonical (x/z,
+    y/z, 1, x*y/z^2): the generator disk cache's affine form
+    (blitzar_tpu/generators.py:132-144), and a legacy extended file's z
+    normalised to 1. t is not read.
+
+    Kernel csrc/ed_convert.cu, one launch: each thread runs Montgomery's
+    trick over 8, 16, 32 or 64 strided entries (by the count; its prefixes
+    parked in the output's t), one inversion a thread, 6 field multiplies
+    an entry. Bound: bytes (x, y, z read, four coordinates written) over
+    operations."""
+    if not _on_card(points.x):
+        return ed_affine_plain(points)
+    device = points.x.device
+    batch = tuple(points.x.shape[1:])
+    coords, stride = _point_arg(points[:3], device, batch)
+    out = _empty_point(batch, device)
+    count = points.x[0].numel()
+    _launch(
+        "ed_affine", build.library().btt_ed_affine,
+        *_ptrs(coords), stride, count, *_ptrs(out), count, _stream(device),
+    )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -983,4 +1089,65 @@ def ed_horner(windows: ed.PointP3, seg_bits: int | None = None) -> ed.PointP3:
         *_ptrs(coords), stride, num_outputs, num_windows, seg_bits or ladder_segment_bits(num_windows),
         *_ptrs(out), _stream(windows.x.device),
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ed_window_sums  (replaces the bucket engine's scan on pallas_point.py:
+# _add_tiled :237 and its sum on _tree_tiled :344)
+# ---------------------------------------------------------------------------
+
+WINDOW_BUCKETS = 255  # a row's bucket sums, digits 1..255
+
+
+def check_buckets(buckets) -> int:
+    """The row count R of an (R, 255) bucket-sum batch."""
+    if buckets.x.dim() != 3 or buckets.x.shape[2] != WINDOW_BUCKETS:
+        raise ValueError(f"bucket sums {tuple(buckets.x.shape)}: expected (nlimbs, R, {WINDOW_BUCKETS})")
+    return buckets.x.shape[1]
+
+
+def window_sums_plain(group, buckets):
+    """(R, 255) bucket sums -> (R,) window sums sum_k k S_k, on a group's
+    plain adds (``curves.edwards25519`` or a ``WCurve``) in blitzar_tpu's
+    order (blitzar_tpu/msm/engine.py:118-126): the reverse (suffix) scan
+    over the buckets by 8 Hillis-Steele steps, then the halving tree over
+    the 255 suffix sums of each row."""
+    check_buckets(buckets)
+    nb = WINDOW_BUCKETS
+    suffix, shift = buckets, 1
+    while shift < nb:  # bucket k += bucket k + shift
+        head = group._add_impl(group.index_batch(suffix, (slice(None), slice(0, nb - shift))),
+                               group.index_batch(suffix, (slice(None), slice(shift, nb))))
+        suffix = group.cat([head, group.index_batch(suffix, (slice(None), slice(nb - shift, None)))], dim=2)
+        shift *= 2
+    return group.tree_reduce(type(suffix)(*(c.transpose(1, 2) for c in suffix)), nb)
+
+
+def ed_window_sums_plain(buckets: ed.PointP3) -> ed.PointP3:
+    return window_sums_plain(ed, buckets)
+
+
+def ed_window_sums(buckets: ed.PointP3) -> ed.PointP3:
+    """(16, R, 255) bucket sums of the bucket engine's (output, window) rows
+    -> (16, R): each row's sum_k k S_k (bucket k - 1 holds digit k's sum),
+    the same points as :func:`ed_window_sums_plain` (which a CPU tensor
+    gets: blitzar_tpu's order and coordinates).
+
+    Kernel csrc/window_sums.cu, one launch for all rows: one warp a row,
+    lane t running buckets t + 32 j, a suffix scan of the lanes' sums and
+    a halving of their shares by shuffles (csrc/window_sums.cuh). Bound:
+    latency (29 dependent adds and doublings a row; the function's least
+    work, 508 adds a row, takes the card microseconds)."""
+    rows = check_buckets(buckets)
+    if not _on_card(buckets.x):
+        return ed_window_sums_plain(buckets)
+    device = buckets.x.device
+    coords, stride = _point_arg(buckets, device, (rows, WINDOW_BUCKETS))
+    out = _empty_point((rows,), device)
+    if rows:
+        _launch(
+            "ed_window_sums", build.library().btt_ed_window_sums,
+            *_ptrs(coords), stride, rows, *_ptrs(out), _stream(device),
+        )
     return out

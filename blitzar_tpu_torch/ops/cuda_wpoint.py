@@ -29,6 +29,8 @@ wrapper                  replaces                                           sour
                          :1139 (blitzar_tpu/msm/interop.py:_w_affine_xy)
 ``w_horner``             ``_wdouble_tiled`` :907 + ``_wadd_tiled`` :891 in   w_horner.cu
                          the bucket engine's Horner
+``w_window_sums``        ``_wadd_tiled`` :891 (the bucket engine's scan) +  window_sums.cu
+                         ``_tree_tiled`` :344
 =======================  =================================================  ======================
 
 ``w_doubling_combine`` is the double-and-add ladder of a query as one
@@ -59,8 +61,9 @@ from ..curves.weierstrass import PointP2, WCurve
 from ..utils.limbs import limbs16_to_u64
 from . import build
 from .cuda_point import (
-    HORNER_STEP_BITS, _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream, ladder_plain,
-    ladder_segment_bits, limbs_to_words, lookup_chunks, lookup_walk, query_args, tree_launch, words_to_limbs,
+    HORNER_STEP_BITS, WINDOW_BUCKETS, _check_query, _empty_point, _launch, _on_card, _point_arg, _ptrs, _stream,
+    check_buckets, ladder_plain, ladder_segment_bits, limbs_to_words, lookup_chunks, lookup_walk, query_args,
+    tree_launch, window_sums_plain, words_to_limbs,
 )
 
 # ---------------------------------------------------------------------------
@@ -387,4 +390,37 @@ def w_horner(curve: WCurve, windows: PointP2, seg_bits: int | None = None) -> Po
         curve.kernel_id, *_ptrs(coords), stride, num_outputs, num_windows,
         seg_bits or ladder_segment_bits(num_windows), *_ptrs(out), _stream(device), instance=curve.name,
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# w_window_sums  (replaces the bucket engine's scan on pallas_point.py:
+# _wadd_tiled :891 and its sum on _tree_tiled :344)
+# ---------------------------------------------------------------------------
+
+
+def w_window_sums_plain(curve: WCurve, buckets: PointP2) -> PointP2:
+    return window_sums_plain(curve, buckets)
+
+
+def w_window_sums(curve: WCurve, buckets: PointP2) -> PointP2:
+    """(nlimbs, R, 255) bucket sums -> (nlimbs, R): each row's sum_k k S_k,
+    the same points as :func:`w_window_sums_plain` (which a CPU tensor gets:
+    blitzar_tpu's order).
+
+    Kernel csrc/window_sums.cu (one template with ristretto255's), one
+    launch for all rows: one warp a row, lanes on strided runs of buckets, a
+    suffix scan and a halving by shuffles. Bound: latency (29 dependent
+    complete adds and doublings a row)."""
+    rows = check_buckets(buckets)
+    if not _on_card(buckets.x):
+        return w_window_sums_plain(curve, buckets)
+    device = buckets.x.device
+    coords, stride = _point_arg(buckets, device, (rows, WINDOW_BUCKETS), curve.nlimbs)
+    out = _empty_point((rows,), device, PointP2, curve.nlimbs)
+    if rows:
+        _launch(
+            "w_window_sums", build.library().btt_w_window_sums,
+            curve.kernel_id, *_ptrs(coords), stride, rows, *_ptrs(out), _stream(device), instance=curve.name,
+        )
     return out

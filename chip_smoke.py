@@ -7,11 +7,11 @@ one GPU.
 
 Phases, each fatal on failure:
 
-1. build the kernels of the twenty-four CUDA sources in ``blitzar_tpu_torch/csrc``
+1. build the kernels of the twenty-five CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
    registers and spills (none allowed in ``ed_convert.cu``, ``ed_horner.cu``,
-   ``w_horner.cu``, ``fewrow_niels.cu`` and ``finvert.cu``) and the card's
-   name and power limit;
+   ``w_horner.cu``, ``fewrow_niels.cu``, ``finvert.cu`` and
+   ``window_sums.cu``) and the card's name and power limit;
 2. run each kernel at the shapes its path gives it at full width
    (ristretto255 2^20 commitment for the five Edwards kernels of the handle
    path, bn254 G1 for the five Weierstrass ones (the ladder
@@ -87,8 +87,9 @@ Phases, each fatal on failure:
    fresh directory under ``build/`` for (iv) alone): (i) the ristretto255 2^20 handle written in the
    reference's raw format (4.0 GB) and read back reproduces the pinned
    digest, the bn254 G1 2^20 one (2.1 GB) the oracle's collapsed sum; (ii)
-   npz round trips at 2^16 and w = 16 raw files of 64 generators
-   re-windowed to 8, on all four curves; (iii) packed and vlen queries at
+   npz round trips at 2^16 (the ristretto255 write one ``ed_niels_points``
+   launch a chunk, no ``fmul`` or ``finvert`` launch) and w = 16 raw files
+   of 64 generators re-windowed to 8, on all four curves; (iii) packed and vlen queries at
    2^20 with Proof-of-SQL's widths [1, 8, 16, 32, 64, 128, 256] on the
    handles read back in (i): each output equals the fixed MSM of its own
    scalars (bn254 G1: and the oracle); every Weierstrass raw write makes one
@@ -97,10 +98,11 @@ Phases, each fatal on failure:
    launch a chunk, every raw read one ``ed_file_entries`` launch, the npz
    read one ``ed_to_niels`` launch, none of them an ``fmul`` or ``finvert``
    launch; (iv) 2^20 generators derived and
-   saved, then loaded with the in-memory cache cleared (the same points),
-   and a cold 2^20 commitment over them (the pinned digest); a legacy
-   extended file of 2^16 of them loaded (one ``finvert`` launch). Every file is
-   deleted once read, the directory at exit;
+   saved (one ``ed_affine`` launch, no ``fmul`` or ``finvert``), then loaded
+   with the in-memory cache cleared (the same points; one ``fmul``), and a
+   cold 2^20 commitment over them (the pinned digest); a legacy extended
+   file of 2^16 of them loaded (one ``ed_affine`` launch, no ``fmul`` or
+   ``finvert``). Every file is deleted once read, the directory at exit;
 15. ``fmul``, ``finvert`` and ``mont_mul_ew`` in the two Weierstrass base
    fields against their plain versions at every element count phase 14
    launched them at, ``fmul`` and ``fsq`` (on no path) also at a table
@@ -110,21 +112,26 @@ Phases, each fatal on failure:
    (``finvert_operands``); ``w_affine`` at
    every (curve, entries) phase 14 launched it at and at a 2^22-entry chunk
    of each Weierstrass curve, against its plain version on every row
-   (tolerance 0 on the file's words); ``ed_to_niels``, ``ed_file_rows`` and
-   ``ed_file_entries`` at every element count phase 14 launched them at,
-   against their plain versions on every entry (tolerance 0 on the words);
-   ``fmul``, ``finvert``, ``w_affine`` in each curve, the three
-   conversions and both base-field instantiations of ``mont_mul_ew`` must
-   have launched in phase 14;
+   (tolerance 0 on the file's words); ``ed_to_niels``, ``ed_file_rows``,
+   ``ed_file_entries``, ``ed_niels_points`` and ``ed_affine`` at every
+   element count phase 14 launched them at, against their plain versions on
+   every entry (tolerance 0 on the words and canonical limbs); ``fmul``,
+   ``w_affine`` in each curve, the five conversions and both base-field
+   instantiations of ``mont_mul_ew`` must have launched in phase 14
+   (``finvert`` runs on no path since the cache's conversions are one
+   ``ed_affine`` launch);
 16. the bucket engine (``BLITZAR_TPU_TORCH_MSM_ENGINE=bucket`` set for this
    phase alone; counts from 0, empty handle caches): the pinned ristretto255
    digests at 2^16, 2^20 (cold, warm, split into sort, gather, slab reduce,
-   scan and Horner) and 100000 x 10; a signed 8-byte 2^20 column and a
+   window sums and Horner) and 100000 x 10; a signed 8-byte 2^20 column and a
    skewed 2^16 column (one scalar everywhere: many rounds) against the
    default engine; bn254 G1 at 2^16 against the oracle's collapsed sum;
-   each commitment's Horner must be one ``ed_horner`` or ``w_horner`` launch
-   and nothing else, ``ed_double`` and ``wdouble`` must not launch there,
-   and ``tree_reduce_lanes`` and ``ed_add`` must;
+   each commitment's combine must be one ``ed_window_sums`` or
+   ``w_window_sums`` launch and one ``ed_horner`` or ``w_horner`` launch and
+   nothing else (no ``ed_add``, ``wadd`` or ``tree_reduce_lanes``),
+   ``ed_double`` and ``wdouble`` must not launch on the path, and
+   ``tree_reduce_lanes`` (the slabs) and ``ed_add`` (the skewed column's
+   round adds) must;
 17. the few-row partition query (counts from 0, empty handle caches): 1-byte
    and 8-byte counter columns over 2^20 canonical generators through the
    default commitment entry equal the same commitment through
@@ -142,7 +149,9 @@ Phases, each fatal on failure:
    launches x (time - bound) summed over the shapes; ``ed_horner`` and
    ``w_horner`` at every (outputs, windows) phase 16 launched them at,
    limb for limb their plain versions in the kernel's segments, timed and
-   bounded;
+   bounded; ``ed_window_sums`` and ``w_window_sums`` at every (curve, rows)
+   phase 16 launched them at, the same points as their plain versions (the
+   reverse scan and tree), timed and bounded;
 19. ``tree_reduce_lanes`` at every (curve, size, cols) the paths of phases
    3-17 launched it at (counted by path as those phases ran, the bucket and
    few-row paths inside their main-path calls alone): timed, bounded and
@@ -534,10 +543,11 @@ def affine_sum_ptxas(log_text: str, built_here: bool) -> dict:
     return out
 
 
-# the kernels of the table conversions and the bucket engine's Horner: no
-# spill allowed
-CONVERSION_HORNER_SOURCES = {"ed_to_niels/ed_file_rows/ed_file_entries": "ed_convert.cu",
-                             "ed_horner": "ed_horner.cu", "w_horner": "w_horner.cu"}
+# the kernels of the table conversions and the bucket engine's window sums
+# and Horner: no spill allowed
+CONVERSION_HORNER_SOURCES = {
+    "ed_to_niels/ed_file_rows/ed_file_entries/ed_niels_points/ed_affine": "ed_convert.cu",
+    "ed_horner": "ed_horner.cu", "w_horner": "w_horner.cu", "ed_window_sums/w_window_sums": "window_sums.cu"}
 
 
 # the few-row query's column sums and the batch finvert: no spill allowed
@@ -1813,15 +1823,19 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
 
 # the field kernels of these paths, w_affine (a Weierstrass raw file's
 # affine rows) and the ristretto255 table conversions, which must launch
-# there, and mont_mul_ew's instantiations in the Weierstrass base fields (a
-# raw file read back); fsq is held against plain beside fmul but runs on no
-# path
-ED_FILE_KERNELS = ("ed_to_niels", "ed_file_rows", "ed_file_entries")
+# there (fmul: the affine cache file's load), and mont_mul_ew's
+# instantiations in the Weierstrass base fields (a raw file read back); fsq
+# and finvert are held against plain beside fmul but run on no path
+ED_FILE_KERNELS = ("ed_to_niels", "ed_file_rows", "ed_file_entries", "ed_niels_points", "ed_affine")
 FILE_KERNELS = ("fmul", "fsq", "finvert", "w_affine") + ED_FILE_KERNELS
-FILE_PATH_KERNELS = ("fmul", "finvert", "w_affine") + ED_FILE_KERNELS
+FILE_PATH_KERNELS = ("fmul", "w_affine") + ED_FILE_KERNELS
 # the kernels a ristretto255 table's conversion (a raw write or read, an npz
-# read) ran on before they took one launch a chunk
+# read or write) and the disk cache's save and legacy load ran on before
+# they took one launch a chunk
 ED_FILE_CHAINS = ("fmul", "finvert")
+# the launcher argument that holds the element count, where it is not the
+# third from the end
+ELEMENT_ARG = {"ed_niels_points": 1, "ed_affine": 4}
 FILE_INSTANCES = ("mont_mul_ew/bn254_fp", "mont_mul_ew/bls12381_fp", "w_affine/bls12_381_g1", "w_affine/bn254_g1",
                   "w_affine/grumpkin")
 # Proof-of-SQL's column widths (505 bits, 64 bytes a generator) and lengths
@@ -1834,9 +1848,11 @@ FILES_NPZ_N = 1 << 16
 # the plain versions of the field kernels run on at most this many elements
 # of a shape, spread over all of them (2^20 at a kernel's headline shape)
 FIELD_SAMPLE = 1 << 16
-# finvert's counts beside the files path's: a cache save's 2^20 generators
-# and a legacy extended file's load of the smallest prefix a save writes
+# finvert's counts, the element counts it ran at on the files path before
+# ed_affine: a cache save's 2^20 generators and a legacy extended file's
+# load of the smallest prefix a save writes
 FINVERT_COUNTS = (1 << 16, 1 << 20)
+LEGACY_N = FINVERT_COUNTS[0]
 # 16-bit limbs of p = 2^255 - 19, of 2p, and of p with its lowest limb
 # carried from the next (limbs below 2^17): three forms of 0
 P_LIMBS = [0xFFED] + [0xFFFF] * 14 + [0x7FFF]
@@ -1982,7 +1998,11 @@ def phase_files(torch, timings: dict, work: str) -> None:
         if curve is not ed:  # the built handle's own commitment (phase 6 holds it to the oracle)
             want = answer(api.fixed_multiexponentiation(handle, rows16[None]))
         path = os.path.join(work, f"{name}.npz")
+        before = dict(cp.LAUNCHES)
         _, w_ms = timed(torch, lambda: api.multiexp_handle_write_to_file(handle, path))
+        if curve is ed:
+            one_a_chunk(before, "ed_niels_points", len(fixed.table_chunks(handle.num_groups, 256)),
+                        f"(ii) the {name} 2^16 npz write")
         size = os.path.getsize(path)
         before = dict(cp.LAUNCHES)
         back, r_ms = timed(torch, lambda: api.multiexp_handle_new_from_file(cid, path))
@@ -2044,8 +2064,10 @@ def phase_files(torch, timings: dict, work: str) -> None:
     ref, timings["generators_2^20_derive_ms"] = timed(torch, lambda: generators.ristretto_generators(n, 0, dev))
     cache_dir = os.path.join(work, "gencache")
     generators.DISK_DIR = cache_dir
+    before = dict(cp.LAUNCHES)
     _, timings["generators_2^20_derive_and_save_ms"] = timed(
         torch, lambda: generators.ristretto_generators(n, 0, dev))
+    one_a_chunk(before, "ed_affine", 1, "(iv) the 2^20 cache save")
     saved = os.path.join(cache_dir, f"ristretto_gen_a_{n}.npy")
     check(os.path.exists(saved), f"(iv) 2^20 generators saved to the disk cache "
                                  f"({timings['generators_2^20_derive_and_save_ms']:.1f} ms with the derivation, "
@@ -2063,17 +2085,18 @@ def phase_files(torch, timings: dict, work: str) -> None:
           f"(iv) a cold 2^20 commitment over cache-loaded generators equals the pinned digest ({ms:.1f} ms)")
     timings["commit_2^20_cold_from_disk_cache_ms"] = ms
     # a legacy extended file (blitzar_tpu's (4, 16, n) uint32 limbs) of the
-    # first 2^16 generators, z as derived: its load normalises z by finvert
-    legacy_n = FINVERT_COUNTS[0]
+    # first 2^16 generators, z as derived: its load normalises z by ed_affine
+    legacy_n = LEGACY_N
     np.save(os.path.join(cache_dir, f"ristretto_gen_{legacy_n}.npy"),
             np.stack([F.canonicalize(c[:, :legacy_n]).cpu().numpy().astype(np.uint32) for c in ref]))
     generators.CACHE.reset()
-    inverted = cp.LAUNCHES["finvert"]
+    before = dict(cp.LAUNCHES)
     legacy, timings["generators_2^16_legacy_load_ms"] = timed(
         torch, lambda: generators.get_precomputed_generators(legacy_n, 0, dev))
-    check(cp.LAUNCHES["elligator_form"] == derived and cp.LAUNCHES["finvert"] == inverted + 1
+    one_a_chunk(before, "ed_affine", 1, "(iv) the legacy 2^16 load")
+    check(cp.LAUNCHES["elligator_form"] == derived
           and bool(ed.points_equal(legacy, ed.index_batch(ref, slice(0, legacy_n))).all()),
-          f"(iv) a legacy extended file of 2^16 generators loads with one finvert launch: the same points "
+          f"(iv) a legacy extended file of 2^16 generators loads with one ed_affine launch: the same points "
           f"({timings['generators_2^16_legacy_load_ms']:.1f} ms)")
     generators.DISK_DIR = ""
     generators.CACHE.reset()
@@ -2147,7 +2170,7 @@ def launch_shapes(counts: dict):
     kernels, the ristretto255 conversions and mont_mul_ew by kernel (and
     instantiation) and element count into ``counts``: {"fmul": {elements:
     launches}, ...}. The element count is the launcher's third argument
-    from the end."""
+    from the end, or ``ELEMENT_ARG``'s."""
     from blitzar_tpu_torch.ops import cuda_field as cf
     from blitzar_tpu_torch.ops import cuda_mont as cm
     from blitzar_tpu_torch.ops import cuda_point as cp
@@ -2158,7 +2181,8 @@ def launch_shapes(counts: dict):
         inner(name, fn, *args, instance=instance)
         if name in FILE_KERNELS or name == "mont_mul_ew":
             by = counts.setdefault(f"{name}/{instance}" if instance else name, {})
-            by[int(args[-3])] = by.get(int(args[-3]), 0) + 1
+            elements = int(args[ELEMENT_ARG.get(name, -3)])
+            by[elements] = by.get(elements, 0) + 1
 
     cf._launch = cm._launch = cp._launch = launch
     try:
@@ -2288,14 +2312,24 @@ def phase_field_kernels(torch, dev, path_shapes: dict, affine_shapes: dict) -> d
     return results
 
 
-# field multiplies a ristretto255 table conversion needs an entry at its
-# least, and the bytes it moves an entry (each input it needs read once, its
-# output written once): ed_to_niels a batch inversion's 3, x/z, y/z, x*y and
+# field multiplies a ristretto255 conversion needs an entry at its least,
+# and the bytes it moves an entry (each input it needs read once, its output
+# written once): ed_to_niels a batch inversion's 3, x/z, y/z, x*y and
 # 2d*x*y (and one inversion a chunk), reading x, y and z (16 int32 limbs
 # each) and writing 96 bytes of words; ed_file_rows (a - b)/2, (a + b)/2 and
 # x*y, reading a and b and writing a 120-byte row; ed_file_entries x*y and
-# 2d*x*y, reading the row's X and Y and writing the words
-CONVERSIONS = {"ed_to_niels": (7, 3 * 64 + 96), "ed_file_rows": (3, 64 + 120), "ed_file_entries": (2, 80 + 96)}
+# 2d*x*y, reading the row's X and Y and writing the words; ed_niels_points
+# (a - b)/2, (a + b)/2 and x*y, reading a and b and writing four
+# coordinates; ed_affine a batch inversion's 3, x/z, y/z and x*y (and one
+# inversion a call), reading x, y and z and writing four coordinates
+CONVERSIONS = {"ed_to_niels": (7, 3 * 64 + 96), "ed_file_rows": (3, 64 + 120), "ed_file_entries": (2, 80 + 96),
+               "ed_niels_points": (3, 64 + 4 * 64), "ed_affine": (6, 3 * 64 + 4 * 64)}
+INVERTING = ("ed_to_niels", "ed_affine")
+# each conversion's headline: a 2^22-entry table chunk (the raw files and
+# the npz read), the 2^16 npz write's one chunk of 2^21, a cache save's 2^20
+CONVERSION_HEADS = {"ed_to_niels": 1 << 22, "ed_file_rows": 1 << 22, "ed_file_entries": 1 << 22,
+                    "ed_niels_points": 1 << 21, "ed_affine": 1 << 20}
+CONVERSION_REPLACES = {"ed_affine": 172}
 
 
 def ed_conversion_chunk(torch, dev, count: int, seed: int):
@@ -2315,20 +2349,26 @@ def ed_conversion_chunk(torch, dev, count: int, seed: int):
     return ed.reshape_batch(ed.PointP3(*(F.mul(c, k) for c in pts)), (count // entries, entries))
 
 
+def entry_rows(torch, out, count: int):
+    """A conversion's output as (count, words) rows: niels words and file
+    rows as they are, points as their four coordinates' 64 limbs an entry."""
+    if isinstance(out, torch.Tensor):
+        return out.reshape(count, -1)
+    return torch.stack([c.reshape(16, count) for c in out]).reshape(64, count).T
+
+
 def phase_conversion_kernels(torch, dev, path_shapes: dict) -> dict:
-    """ed_to_niels, ed_file_rows and ed_file_entries at every element count
-    the files path launched them at (``path_shapes``, from
-    :func:`launch_shapes`) and at a table conversion's chunk of 2^22
-    entries, their headline: device time, bound, launches, and every entry
-    against the plain version, tolerance 0 on the words (the plain
-    version's time: its sum over slices of 2^20 entries). The inputs chain:
-    a chunk of extended points, its niels words, their file rows."""
+    """The five ristretto255 conversions at every element count the files
+    path launched them at (``path_shapes``, from :func:`launch_shapes`) and
+    at their headlines (``CONVERSION_HEADS``): device time, bound, launches,
+    and every entry against the plain version, tolerance 0 on the words and
+    canonical limbs (the plain version's time: its sum over slices of 2^20
+    entries). The inputs chain: a chunk of extended points (``ed_affine``'s
+    input, flat), its niels words (``ed_niels_points``'), their file rows."""
     from blitzar_tpu_torch.curves import edwards25519 as ed
-    from blitzar_tpu_torch.msm import fixed
     from blitzar_tpu_torch.ops import cuda_point as cp
 
-    head = fixed.TABLE_CHUNK_ENTRIES
-    counts = sorted(set().union(*(path_shapes.get(k, {}) for k in ED_FILE_KERNELS)) | {head})
+    counts = sorted(set().union(*(path_shapes.get(k, {}) for k in ED_FILE_KERNELS)) | set(CONVERSION_HEADS.values()))
     by: dict = {name: {} for name in ED_FILE_KERNELS}
     step = 1 << 20
 
@@ -2336,29 +2376,32 @@ def phase_conversion_kernels(torch, dev, path_shapes: dict) -> dict:
         if name == "ed_to_niels":
             v = x.x.shape[2]
             return ed.index_batch(x, slice(lo // v, hi // v))
-        return x.reshape(-1, 3, 8)[lo:hi] if name == "ed_file_rows" else x[lo:hi]
+        if name == "ed_affine":
+            return ed.index_batch(x, slice(lo, hi))
+        return x.reshape(-1, 3, 8)[lo:hi] if name in ("ed_file_rows", "ed_niels_points") else x[lo:hi]
 
     for count in counts:
         chunk = ed_conversion_chunk(torch, dev, count, 48)
         words = cp.ed_to_niels(chunk)
-        inputs = {"ed_to_niels": chunk, "ed_file_rows": words, "ed_file_entries": cp.ed_file_rows(words)}
+        inputs = {"ed_to_niels": chunk, "ed_file_rows": words, "ed_file_entries": cp.ed_file_rows(words),
+                  "ed_niels_points": words, "ed_affine": ed.reshape_batch(chunk, (count,))}
         for name in ED_FILE_KERNELS:
             launched = path_shapes.get(name, {})
-            if count != head and count not in launched:
+            if count != CONVERSION_HEADS[name] and count not in launched:
                 continue
             kernel, plain, x = getattr(cp, name), getattr(cp, f"{name}_plain"), inputs[name]
             ms = device_ms(torch, lambda: kernel(x), reps=5)
-            got = kernel(x).reshape(count, -1)
+            got = entry_rows(torch, kernel(x), count)
             err, plain_ms = 0, 0.0
             for lo in range(0, count, step):
                 want, t = timed(torch, lambda: plain(part(name, x, lo, lo + step)))
                 plain_ms += t
-                err = max(err, int((got[lo : lo + step] != want.reshape(-1, got.shape[1])).sum()))
+                err = max(err, int((got[lo : lo + step] != entry_rows(torch, want, min(step, count - lo))).sum()))
             muls, per_bytes = CONVERSIONS[name]
-            imads = (count * muls + (MULS_INVERT if name == "ed_to_niels" else 0)) * IMAD_PER_FIELD_MUL
+            imads = (count * muls + (MULS_INVERT if name in INVERTING else 0)) * IMAD_PER_FIELD_MUL
             b_ms, b_by = bound(count * per_bytes, imads)
             check(err == 0, f"{name} at {count} entries, {launched.get(count, 0)} launches on the files path: equal "
-                            f"to plain on every entry, tolerance 0 on the words ({ms:.4f} ms, bound {b_ms:.4f})")
+                            f"to plain on every entry, tolerance 0 ({ms:.4f} ms, bound {b_ms:.4f})")
             by[name][count] = {"elements": count, "launches": launched.get(count, 0), "ms": ms, "plain_ms": plain_ms,
                                "plain_fraction": 1.0, "max_abs_err": float(err), "bound_ms": b_ms, "bound_by": b_by,
                                "bytes": count * per_bytes, "imads": imads}
@@ -2366,9 +2409,11 @@ def phase_conversion_kernels(torch, dev, path_shapes: dict) -> dict:
         torch.cuda.empty_cache()
     results: dict = {}
     for name in ED_FILE_KERNELS:
+        head = CONVERSION_HEADS[name]
         top = by[name][head]
-        kernel_record(results, name, "blitzar_tpu/ops/pallas_point.py:130", "blitzar_tpu_torch/csrc/ed_convert.cu",
-                      top["ms"], top["plain_ms"], top["max_abs_err"], top["bytes"], top["imads"], compared="words")
+        kernel_record(results, name, f"blitzar_tpu/ops/pallas_point.py:{CONVERSION_REPLACES.get(name, 130)}",
+                      "blitzar_tpu_torch/csrc/ed_convert.cu", top["ms"], top["plain_ms"], top["max_abs_err"],
+                      top["bytes"], top["imads"], compared="words and canonical limbs")
         results[name]["elements"] = head
         results[name]["by_elements"] = {str(c): r for c, r in by[name].items()}
         results[name]["files_path_device_ms"] = sum(r["launches"] * r["ms"] for r in by[name].values())
@@ -2380,11 +2425,13 @@ def phase_conversion_kernels(torch, dev, path_shapes: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 # the kernels that only these paths launch, each required on its own path
-# (the bucket path's Horner: ed_horner, w_horner), and the one-point
-# doublings its Horner ran on before, which must not launch there
+# (the bucket path's window sums and Horner: ed_window_sums, w_window_sums,
+# ed_horner, w_horner), and the one-point doublings its Horner ran on
+# before, which must not launch there
 HORNER_KERNELS = ("ed_horner", "w_horner")
+WINDOW_KERNELS = ("ed_window_sums", "w_window_sums")
 HORNER_STEP_KERNELS = ("ed_double", "wdouble")
-BUCKET_KERNELS = HORNER_KERNELS + HORNER_STEP_KERNELS
+BUCKET_KERNELS = HORNER_KERNELS + WINDOW_KERNELS + HORNER_STEP_KERNELS
 FEWROW_KERNELS = ("niels_add", "fewrow_niels")
 MULS_NIELS_ADD = 8
 QUERY_REPS = 5
@@ -2443,6 +2490,31 @@ def horner_calls():
         yield calls
     finally:
         engine.horner = inner
+
+
+@contextlib.contextmanager
+def combine_calls():
+    """Records each call of the bucket engine's combine
+    (``engine.combine_buckets``: the window sums and the Horner) while the
+    block runs: its curve, rows and the launches the call made."""
+    from blitzar_tpu_torch.msm import engine
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    inner, calls = engine.combine_buckets, []
+
+    def recording(bucket_sums, num_outputs, num_windows, curve=engine.ed):
+        before = dict(cp.LAUNCHES)
+        out = inner(bucket_sums, num_outputs, num_windows, curve)
+        calls.append({"curve": "ristretto255" if curve is engine.ed else curve.name,
+                      "rows": int(bucket_sums.x.shape[1]),
+                      "launches": {k: v - before[k] for k, v in cp.LAUNCHES.items() if v != before[k]}})
+        return out
+
+    engine.combine_buckets = recording
+    try:
+        yield calls
+    finally:
+        engine.combine_buckets = inner
 
 
 @contextlib.contextmanager
@@ -2510,7 +2582,7 @@ def phase_bucket(torch, timings: dict) -> dict:
         timings[f"bucket_commit_2^{log_n}_ms"] = ms
     got, timings["bucket_commit_2^20_warm_ms_median"] = median_ms(torch, lambda: commit([desc], False), 3)
     stages = {"sort": [(engine, "sort_digits")], "gather": [(engine, "gather_slab")],
-              "accumulate": [(engine, "bucket_accumulate")], "scan_and_window_sums": [(engine, "window_sums")],
+              "accumulate": [(engine, "bucket_accumulate")], "window_sums": [(engine, "window_sums")],
               "horner": [(engine, "horner")]}
     with StageTimer(torch, stages) as st:
         again, total = timed(torch, lambda: commit([desc], False))
@@ -2834,6 +2906,84 @@ def phase_horner_kernels(torch, dev, counts: dict) -> dict:
     return results
 
 
+# the window sums' dependent point operations a row (window_sums.cuh: a
+# lane's run, the suffix scan, 5 doublings and an add, the halving) and the
+# adds a row takes at its least (the running-sum method, 2 x 254)
+WINDOW_CRITICAL_OPS = 13 + 5 + 6 + 5
+WINDOW_LEAST_ADDS = 2 * 254
+
+
+def window_sum_buckets(torch, curve, rows: int, dev):
+    """(rows, 255) bucket sums on the card: the first 2^16 canonical
+    generators (ristretto255) or the oracle's 521 points tiled, every
+    seventh bucket empty, the second row wholly empty and the third bucket
+    255 alone (a window whose digits are all 0 or all 255)."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+
+    k = torch.arange(rows * 255, device=dev)
+    empty = (k % 7 == 3) | (k // 255 == 1) | ((k // 255 == 2) & (k % 255 != 254))
+    if curve is ed:
+        base = generators.get_precomputed_generators(1 << 16, 0, dev)
+        pts = ed.index_batch(base, (k * 37) % base.x.shape[1])
+    else:
+        pts, _ = tiled_generators(curve, rows * 255, dev)
+    return curve.reshape_batch(curve.select(pts, curve.identity((rows * 255,), dev), empty), (rows, 255))
+
+
+def phase_window_kernels(torch, dev, counts: dict) -> dict:
+    """(e) ed_window_sums and w_window_sums at every (curve, rows) the
+    bucket path launched them at (``PATH_SHAPES``, its main-path calls):
+    the device time, the bound, the launches, and the rows as points
+    against the plain reverse scan and tree (another order of additions:
+    the same points, other coordinates; ``max_abs_err`` counts the unequal
+    rows). The headline is one 32-byte column's 32 rows, ristretto255 and
+    bn254 G1."""
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    curves = {c.name: c for c in wc.CURVES}
+    results: dict = {}
+    for name, head in (("ed_window_sums", ("ristretto255", 32)), ("w_window_sums", ("bn254_g1", 32))):
+        records = []
+        shapes = shape_paths(counts.get(name, {}))
+        for (instance, rows), paths in sorted(shapes.items()):
+            curve = curves.get(instance, ed)
+            buckets = window_sum_buckets(torch, curve, rows, dev)
+            if curve is ed:
+                kernel, muls, imad, point_bytes = cp.ed_window_sums, MULS_ADD, IMAD_PER_FIELD_MUL, 256
+            else:
+                kernel = functools.partial(cw.w_window_sums, curve)
+                muls, imad = MULS_WADD, IMAD_PER_MONT_MUL[curve.nlimbs // 2]
+                point_bytes = 3 * curve.nlimbs * 4
+            ms = device_ms(torch, lambda: kernel(buckets), reps=10)
+            plain_ms = cuda_ms(torch, lambda: cp.window_sums_plain(curve, buckets), reps=1)
+            got, want = kernel(buckets), cp.window_sums_plain(curve, buckets)
+            err = int((~curve.points_equal(got, want)).sum())
+            empty_ok = bool(curve.points_equal(curve.index_batch(got, slice(1, 2)), curve.identity((1,), dev)).all())
+            nbytes, imads = rows * (255 + 1) * point_bytes, rows * WINDOW_LEAST_ADDS * muls * imad
+            b_ms, b_by = bound(nbytes, imads)
+            launches = sum(paths.values())
+            check(err == 0 and (rows < 2 or empty_ok),
+                  f"{name}/{instance} at {rows} rows, {launches} launches {paths}: the same points as plain "
+                  f"({err} rows differ; the empty row the identity) ({ms:.4f} ms)")
+            records.append({"instance": instance, "rows": rows, "launches": launches, "launches_by_path": paths,
+                            "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
+                            "max_abs_err": float(err), "critical_path_point_ops": WINDOW_CRITICAL_OPS,
+                            "bytes": nbytes, "imads": imads, "launches_x_gap_ms": launches * (ms - b_ms)})
+            del buckets
+        top = next(r for r in records if (r["instance"], r["rows"]) == head)
+        kernel_record(results, name, "blitzar_tpu/ops/pallas_point.py:237" if name == "ed_window_sums" else
+                      "blitzar_tpu/ops/pallas_point.py:891", "blitzar_tpu_torch/csrc/window_sums.cu", top["ms"],
+                      top["plain_ms"], top["max_abs_err"], top["bytes"], top["imads"], compared="points (rows)")
+        results[name].update(rows=head[1], instance=head[0], by_shape=records,
+                             critical_path_point_ops=WINDOW_CRITICAL_OPS,
+                             launches_x_gap_ms_all_shapes=sum(r["launches_x_gap_ms"] for r in records))
+    return results
+
+
 # ---------------------------------------------------------------------------
 # tree_reduce_lanes at every shape the paths launch it at
 # ---------------------------------------------------------------------------
@@ -2884,7 +3034,9 @@ class PathShapes:
 # (curve, 3 coordinates, stride, outputs, windows, ...) by (instance,
 # outputs, windows); fewrow_niels (table, scalars, signs, outputs, n_pad,
 # row stride, nbytes, w, chunk groups, ...) by (outputs, n_pad, nbytes, w,
-# signed, chunk groups)
+# signed, chunk groups); ed_window_sums (4 coordinates, stride, rows, ...)
+# and w_window_sums (curve, 3 coordinates, stride, rows, ...) by (instance,
+# rows)
 SHAPE_KEYS = {
     "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
     "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
@@ -2893,6 +3045,8 @@ SHAPE_KEYS = {
     "w_affine": lambda instance, a: (instance, int(a[2])),
     "ed_horner": lambda instance, a: ("ristretto255", int(a[5]), int(a[6])),
     "w_horner": lambda instance, a: (instance, int(a[5]), int(a[6])),
+    "ed_window_sums": lambda instance, a: ("ristretto255", int(a[5])),
+    "w_window_sums": lambda instance, a: (instance, int(a[5])),
     "fewrow_niels": lambda instance, a: (int(a[3]), int(a[4]), int(a[6]), int(a[7]), a[2] is not None, int(a[8])),
 }
 PATH_SHAPES = PathShapes()
@@ -3207,19 +3361,26 @@ def main() -> int:
         # caches: each path's launches are those of its main-path calls
         # alone, counted from 0 around each; then their kernels against plain
         clear_handles(torch)
-        with horner_calls() as horner, PATH_SHAPES.phase("bucket", on=False):
+        with horner_calls() as horner, combine_calls() as combines, PATH_SHAPES.phase("bucket", on=False):
             bucket_launches = phase_bucket(torch, report["timings"])
         report["bucket_horner_calls"] = horner
+        report["bucket_combine_calls"] = combines
         check(horner and all(c["launches"] == {"ed_horner" if c["curve"] == "ristretto255" else "w_horner": 1}
                              for c in horner),
               f"(a) each bucket-engine commitment's Horner: one ed_horner or w_horner launch and no other "
               f"({len(horner)} calls: {sorted({(c['curve'], tuple(c['shape'])) for c in horner})})")
+        check(len(combines) == len(horner) and all(
+                  c["launches"] == ({"ed_window_sums": 1, "ed_horner": 1} if c["curve"] == "ristretto255" else
+                                    {"w_window_sums": 1, "w_horner": 1}) for c in combines),
+              f"(a) each bucket-engine commitment's combine: one window-sum and one Horner launch, no ed_add, wadd "
+              f"or tree_reduce_lanes ({len(combines)} calls: {sorted({(c['curve'], c['rows']) for c in combines})})")
         clear_handles(torch)
         with PATH_SHAPES.phase("fewrow", on=False):
             fewrow_inputs, fewrow_launches = phase_fewrow(torch, report["timings"])
         results.update(phase_fewrow_kernels(torch, torch.device("cuda"), fewrow_inputs,
                                             PATH_SHAPES.counts.get("fewrow_niels", {})))
         results.update(phase_horner_kernels(torch, torch.device("cuda"), PATH_SHAPES.counts))
+        results.update(phase_window_kernels(torch, torch.device("cuda"), PATH_SHAPES.counts))
         del fewrow_inputs
         clear_handles(torch)
         # tree_reduce_lanes at every shape the paths above launched it at
@@ -3261,12 +3422,12 @@ def main() -> int:
               f"every streamed-path kernel and instantiation launched on the large-n path: {large_instances}")
         check(all(file_launches[k] > 0 for k in FILE_PATH_KERNELS) and all(file_instances.get(k, 0) > 0
                                                                             for k in FILE_INSTANCES),
-              f"fmul, finvert, the ristretto255 conversions, and mont_mul_ew in both base fields, launched on the "
+              f"fmul, the ristretto255 conversions, and mont_mul_ew in both base fields, launched on the "
               f"files and cache path: { {k: file_launches[k] for k in FILE_KERNELS} } {file_instances}")
-        check(all(bucket_launches[k] > 0 for k in HORNER_KERNELS + ("tree_reduce_lanes", "ed_add"))
+        check(all(bucket_launches[k] > 0 for k in HORNER_KERNELS + WINDOW_KERNELS + ("tree_reduce_lanes", "ed_add"))
               and all(bucket_launches[k] == 0 for k in HORNER_STEP_KERNELS),
-              f"ed_horner, w_horner, tree_reduce_lanes and ed_add launched on the bucket engine's path, ed_double "
-              f"and wdouble not: {bucket_launches}")
+              f"ed_window_sums, w_window_sums, ed_horner, w_horner, tree_reduce_lanes and ed_add launched on the "
+              f"bucket engine's path, ed_double and wdouble not: {bucket_launches}")
         check(all(fewrow_launches[k] > 0 for k in FEWROW_KERNELS),
               f"niels_add and fewrow_niels launched on the few-row query's path: "
               f"{ {k: fewrow_launches[k] for k in FEWROW_KERNELS} }")

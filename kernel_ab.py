@@ -76,14 +76,35 @@ script's, so both trees run the same work. Cases:
   whole back to back beside the lookup's products, split by stage on the
   host clock, and its niels column sums' device time by (size, cols);
 - ``finvert`` (section ``finvert``) at chip_smoke.py's ``FINVERT_COUNTS``
-  on operands with zeros and non-canonical limbs.
+  on operands with zeros and non-canonical limbs;
+- the conversions back to points (section ``points``): the npz write's
+  point table (``fixed.niels_point_table``: the tree's ``ed_niels_points``
+  launch a chunk, or its ``fmul`` chain among plain passes) of a 2^16
+  handle (one 2^21-entry chunk) and a 2^20 one (8 chunks of 2^22), the 2^16
+  npz write whole, the generator disk cache's save of 2^20 generators
+  (``generators._disk_save``: ``ed_affine``, or ``finvert`` and ``fmul``)
+  and a legacy extended file's load of 2^16 (``generators._disk_load``);
+- the bucket engine's window sums (section ``windows``):
+  ``engine.window_sums`` (the tree's ``ed_window_sums`` / ``w_window_sums``
+  launch, or its 8 ``ed_add`` / ``wadd`` scan launches, cats and a
+  ``tree_reduce_lanes`` launch) at R = 8, 32 and 320 rows of ristretto255
+  bucket sums and 32 of bn254 G1, as points against the tree's CPU path,
+  and the bucket engine's 2^20 commitment (the pinned digest) split by
+  stage with the window sums a stage of their own.
+
+Each case of ``points`` and ``windows`` is timed whole back to back
+(``cuda_ms``, host issue included) and, queued behind a sleep once, split
+into its kernel launches, each between its own CUDA events (its device
+time), beside the device span of the whole call, whose rest is the plain
+passes between the launches (``launch_split``).
 
 Each case's result is held against its plain version (canonical limbs, or
 points for the tree reduces and the ladders; on a spread sample where the
 plain version is large); the JSON holds each case's ``ms`` and whether it
-matched. ``--sections`` runs some of the ten sections (``edwards``,
+matched. ``--sections`` runs some of the twelve sections (``edwards``,
 ``weierstrass``, ``mont``, ``trees``, ``tables``, ``ladders``, ``convert``,
-``horner``, ``fewrow``, ``finvert``). Needs one CUDA card.
+``horner``, ``fewrow``, ``finvert``, ``points``, ``windows``). Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -124,7 +145,8 @@ TREE_SHAPES = (
 TREE_CHECK_COLS = 8
 
 
-SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders", "convert", "horner", "fewrow", "finvert")
+SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders", "convert", "horner", "fewrow", "finvert",
+            "points", "windows")
 # the few-row queries of chip_smoke.py phase 17: (n, bytes of the column, w)
 FEWROW_QUERIES = ((1 << 20, 1, 8), (1 << 20, 8, 8), (1 << 20, 32, 4), (1 << 10, 1, 8))
 # the Weierstrass lookups' partials at the shapes their chunk rules give a
@@ -165,7 +187,8 @@ def main() -> int:
                         for src in ("w_lookup_msm.cu", "w_doubling_combine.cu", "wadd.cu", "wdouble.cu",
                                     "w_build_table.cu", "build_cached_table.cu", "doubling_combine.cu",
                                     "w_affine.cu", "mont_sum_round.cu", "ed_convert.cu", "ed_horner.cu",
-                                    "w_horner.cu", "fewrow_niels.cu", "niels_tree_reduce_lanes.cu", "finvert.cu")},
+                                    "w_horner.cu", "fewrow_niels.cu", "niels_tree_reduce_lanes.cu", "finvert.cu",
+                                    "window_sums.cu")},
               "cases": {}}
     cases = report["cases"]
 
@@ -679,6 +702,224 @@ def section_finvert(torch, cs, dev, case) -> None:
         run = functools.partial(cf.finvert, a)
         case(f"finvert/2^{count.bit_length() - 1}", run, torch.equal(F.canonicalize(run()), want), reps=10)
         del a, want
+
+
+
+def launch_split(torch, fn) -> dict:
+    """fn() once, queued behind a sleep, each kernel launch between its own
+    CUDA events: the launches by kernel with each one's device ms, their
+    sum, the device span of the whole call and its rest (the plain passes
+    between the launches, and any wait for the host once the sleep is
+    over) and the call's host-clock time (the sleep included). A launch
+    made after fn synchronises (a copy to the host) counts its own host
+    issue too."""
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.ops import cuda_field, cuda_mont, cuda_wpoint
+
+    modules = (cp, cuda_field, cuda_mont, cuda_wpoint)
+    inner, seen = cp._launch, []
+
+    def launch(name, f, *args, instance=None):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        inner(name, f, *args, instance=instance)
+        stop.record()
+        seen.append((name, start, stop))
+
+    fn()
+    torch.cuda.synchronize()
+    first, last = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for m in modules:
+        m._launch = launch
+    try:
+        torch.cuda._sleep(1 << 25)
+        t0 = time.perf_counter()
+        first.record()
+        fn()
+        last.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for m in modules:
+            m._launch = inner
+    by: dict = {}
+    for name, start, stop in seen:
+        by.setdefault(name, []).append(start.elapsed_time(stop))
+    launches_ms = sum(sum(v) for v in by.values())
+    span = first.elapsed_time(last)
+    return {"launches": {k: len(v) for k, v in by.items()}, "launch_device_ms": by, "launches_ms": launches_ms,
+            "span_ms": span, "rest_of_span_ms": span - launches_ms, "host_ms": host_ms}
+
+
+def split_case(torch, cs, case, name, fn, ok, kernel: bool, **extra) -> None:
+    """A path step whole back to back (``cuda_ms``) and split by
+    ``launch_split``; its ``ms`` the back-to-back time."""
+    split = launch_split(torch, fn)
+    case(name, fn, ok, ms=cs.cuda_ms(torch, fn, reps=3), one_launch=kernel, split=split, **extra)
+
+
+# the npz write's handles: one 2^21-entry chunk, and 8 chunks of 2^22
+POINTS_HANDLES = (1 << 16, 1 << 20)
+CACHE_SAVE_N = 1 << 20
+LEGACY_N = 1 << 16
+
+
+def section_points(torch, cs, dev, case) -> None:
+    import shutil
+    import tempfile
+
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    kernel = hasattr(cp, "ed_affine")
+    work = tempfile.mkdtemp(prefix="kernel_ab-", dir=os.path.join(HERE, "build"))
+    saved_dir = generators.DISK_DIR
+    try:
+        generators.DISK_DIR = ""
+        gens = generators.ristretto_generators(CACHE_SAVE_N, 0, dev)
+        for n in POINTS_HANDLES:
+            handle = fixed.MultiexpHandle(ed.index_batch(gens, slice(0, n)))
+            words = handle.table
+            table = fixed.niels_point_table(words)
+            want = fixed.niels_point_table(words[:16].cpu())
+            ok = all(torch.equal(F.canonicalize(c[:, :16]).cpu(), F.canonicalize(w)) for c, w in zip(table, want))
+            del table
+            split_case(torch, cs, case, f"points/npz_table/2^{n.bit_length() - 1}",
+                       lambda: fixed.niels_point_table(words), ok, kernel, entries=words.shape[0] * words.shape[1])
+            if n == POINTS_HANDLES[0]:
+                path = os.path.join(work, "h.npz")
+                times = []
+                for _ in range(3):
+                    _, ms = cs.timed(torch, lambda: handle.write_to_file(path))
+                    times.append(ms)
+                size = os.path.getsize(path)
+                os.remove(path)
+                case(f"points/npz_write_whole/2^{n.bit_length() - 1}", None, ok, ms=float(np.median(times)),
+                     times_ms=times, bytes=size)
+            del handle, words
+            torch.cuda.empty_cache()
+
+        # the disk cache's save of 2^20 generators, whole (D2H and disk) and split
+        generators.DISK_DIR = work
+        path = os.path.join(work, f"ristretto_gen_a_{CACHE_SAVE_N}.npy")
+
+        def save():
+            if os.path.exists(path):
+                os.remove(path)
+            generators._disk_save(gens, CACHE_SAVE_N)
+
+        save()
+        sample = slice(0, 4096)
+        part = [c[:, sample].cpu() for c in gens]
+        zinv = F.invert(part[2])
+        arr = np.load(path)
+        ok = all(np.array_equal(arr[k, :, sample], F.canonicalize(F.mul(part[k], zinv)).numpy()) for k in (0, 1))
+        times = []
+        for _ in range(3):
+            _, ms = cs.timed(torch, save)
+            times.append(ms)
+        split = launch_split(torch, save)
+        extra = {"ed_affine_device_ms": cs.device_ms(torch, lambda: cp.ed_affine(gens), reps=10)} if kernel else {}
+        case(f"points/cache_save/2^{CACHE_SAVE_N.bit_length() - 1}", None, ok, ms=float(np.median(times)),
+             times_ms=times, one_launch=kernel, split=split, **extra)
+        os.remove(path)
+
+        # a legacy extended file of 2^16 generators (z as derived), loaded
+        legacy = os.path.join(work, f"ristretto_gen_{LEGACY_N}.npy")
+        np.save(legacy, np.stack([F.canonicalize(c[:, :LEGACY_N]).cpu().numpy().astype(np.uint32) for c in gens]))
+        loaded = generators._disk_load(LEGACY_N, dev)
+        ok = bool(ed.points_equal(loaded, ed.index_batch(gens, slice(0, LEGACY_N))).all())
+        times = []
+        for _ in range(3):
+            _, ms = cs.timed(torch, lambda: generators._disk_load(LEGACY_N, dev))
+            times.append(ms)
+        split = launch_split(torch, lambda: generators._disk_load(LEGACY_N, dev))
+        extra = {}
+        if kernel:
+            part = ed.index_batch(gens, slice(0, LEGACY_N))
+            extra["ed_affine_device_ms"] = cs.device_ms(torch, lambda: cp.ed_affine(part), reps=10)
+        case(f"points/legacy_load/2^{LEGACY_N.bit_length() - 1}", None, ok, ms=float(np.median(times)),
+             times_ms=times, one_launch=kernel, split=split, **extra)
+    finally:
+        generators.DISK_DIR = saved_dir
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# the bucket engine's (output, window) rows: a signed 8-byte column, one
+# 32-byte column, ten of them (100000 x 10)
+WINDOW_ROWS = (8, 32, 320)
+BUCKET_COMMIT_N = 1 << 20  # the bucket engine's commitment split (the pinned digest)
+
+
+def window_buckets(torch, cs, curve, rows: int, dev):
+    """(rows, 255) bucket sums on the card: the first 2^16 canonical
+    generators (ristretto255) or the oracle's 521 points tiled, every
+    seventh bucket and the whole second row empty."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+
+    k = torch.arange(rows * 255, device=dev)
+    empty = (k % 7 == 3) | (k // 255 == 1)
+    if curve is ed:
+        base = generators.get_precomputed_generators(1 << 16, 0, dev)
+        pts = ed.index_batch(base, (k * 37) % base.x.shape[1])
+    else:
+        pts, _ = cs.tiled_generators(curve, rows * 255, dev)
+    pts = curve.select(pts, curve.identity((rows * 255,), dev), empty)
+    return curve.reshape_batch(pts, (rows, 255))
+
+
+def section_windows(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch import api, generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import engine
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    kernel = "ed_window_sums" in cp.KERNELS
+    bn = wc.BN254_G1
+    for curve, rows in [(ed, r) for r in WINDOW_ROWS] + [(bn, 32)]:
+        buckets = window_buckets(torch, cs, curve, rows, dev)
+        got = engine.window_sums(buckets, curve)
+        cpu = type(buckets)(*(c.cpu() for c in buckets))
+        want = engine.window_sums(cpu, curve)  # the tree's CPU path: the plain scan and tree
+        ok = bool(curve.points_equal(type(got)(*(c.cpu() for c in got)), want).all())
+        name = "ristretto255" if curve is ed else curve.name
+        fn = functools.partial(engine.window_sums, buckets, curve)
+        extra = {"device_ms": cs.device_ms(torch, fn, reps=10)} if kernel else {}
+        split_case(torch, cs, case, f"windows/{name}/{rows}", fn, ok, kernel, **extra)
+        del buckets, cpu
+
+    # the bucket engine's 2^20 commitment, split by stage (host clock, each
+    # stage synchronised), the window sums a stage of their own
+    n = BUCKET_COMMIT_N
+    api.init("gpu")
+    generators.get_precomputed_generators(n, 0, dev)
+    desc = api.SequenceDescriptor(32, n, cs.counter_scalars(n, 32))
+    os.environ[engine.ENGINE_VAR] = "bucket"
+    try:
+        commit = functools.partial(api.compute_curve25519_commitments, [desc])
+        pinned = cs.PINNED_RISTRETTO_MSM[n.bit_length() - 1]
+        ok = cs.digest(commit()) == pinned
+        times = []
+        for _ in range(3):
+            _, ms = cs.timed(torch, commit)
+            times.append(ms)
+        stages = {"sort": [(engine, "sort_digits")], "gather": [(engine, "gather_slab")],
+                  "accumulate": [(engine, "bucket_accumulate")], "window_sums": [(engine, "window_sums")],
+                  "horner": [(engine, "horner")]}
+        with cs.StageTimer(torch, stages) as st:
+            again, total = cs.timed(torch, commit)
+        ok = ok and cs.digest(again) == pinned
+        split = dict(st.ms)
+        split["slab_reduce_and_round_adds"] = split.pop("accumulate") - split["sort"] - split["gather"]
+        split = {"total": total, **split, "host_and_rest": total - sum(split.values())}
+        case(f"windows/bucket_commit/2^{n.bit_length() - 1}", None, ok, ms=float(np.median(times)), times_ms=times, split=split)
+    finally:
+        os.environ.pop(engine.ENGINE_VAR, None)
 
 
 if __name__ == "__main__":

@@ -444,12 +444,13 @@ def test_packed_and_vlen_on_cuda_match_cpu(dev, curve):
 
 
 def test_generator_cache_on_cuda(dev, tmp_path, monkeypatch):
-    """Saved from the card (finvert, fmul), loaded on the card (fmul): the
-    same points as the CPU derivation."""
+    """Saved from the card (one ed_affine launch), loaded on the card
+    (fmul): the same points as the CPU derivation; a legacy extended file
+    loads with one ed_affine launch and no finvert or fmul."""
     monkeypatch.setattr(generators, "DISK_CHUNK", 64)
     monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path))
     want = generators.ristretto_generators(128, 0, "cpu")
-    before = {k: cp.LAUNCHES[k] for k in ("fmul", "fsq", "finvert", "elligator_form")}
+    before = {k: cp.LAUNCHES[k] for k in ("fmul", "fsq", "finvert", "elligator_form", "ed_affine")}
     made = generators.ristretto_generators(128, 0, dev)  # loads the CPU's save
     loaded = generators.ristretto_generators(100, 0, dev)
     assert cp.LAUNCHES["elligator_form"] == before["elligator_form"]
@@ -458,7 +459,16 @@ def test_generator_cache_on_cuda(dev, tmp_path, monkeypatch):
     assert bool(ed.points_equal(_on(loaded, "cpu"), ed.index_batch(want, slice(0, 100))).all())
     monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path / "card"))
     generators.ristretto_generators(64, 0, dev)  # derived and saved on the card
-    assert cp.LAUNCHES["finvert"] > before["finvert"]
+    assert cp.LAUNCHES["ed_affine"] == before["ed_affine"] + 1 and cp.LAUNCHES["finvert"] == before["finvert"]
+    legacy = tmp_path / "legacy"
+    legacy.mkdir()
+    np.save(legacy / "ristretto_gen_64.npy", np.stack([F.canonicalize(c[:, :64]).numpy().astype(np.uint32)
+                                                       for c in want]))
+    monkeypatch.setattr(generators, "DISK_DIR", str(legacy))
+    fmul = cp.LAUNCHES["fmul"]
+    got = generators.ristretto_generators(64, 0, dev)
+    assert (cp.LAUNCHES["ed_affine"], cp.LAUNCHES["fmul"]) == (before["ed_affine"] + 2, fmul)
+    assert _same(got, cp.ed_affine_plain(ed.index_batch(want, slice(0, 64))))
     monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path / "card"))
     assert bool(ed.points_equal(generators.ristretto_generators(64, 0, "cpu"), ed.index_batch(want, slice(0, 64))).all())
 
@@ -966,18 +976,54 @@ def test_ed_file_rows_and_entries_kernels(dev):
 
 
 def test_ristretto_files_paths_launch_one_conversion_a_chunk(dev, tmp_path):
-    """A 40-point handle's raw write, raw read and npz read on the card: one
-    ed_file_rows, ed_file_entries and ed_to_niels launch each, and no fmul
-    or finvert."""
+    """A 40-point handle's npz write, raw write, raw read and npz read on the
+    card: one ed_niels_points, ed_file_rows, ed_file_entries and ed_to_niels
+    launch each, and no fmul or finvert."""
     card = tfixed.MultiexpHandle(_on(cp.elligator_form_plain(*_r(40, 35)), dev))
-    card.write_to_file(str(tmp_path / "h.npz"))
     cp.reset_launches()
+    card.write_to_file(str(tmp_path / "h.npz"))
     tinterop.write_reference_file(card, tmp_path / "h.raw")
     raw = tfixed.MultiexpHandle.new_from_file(str(tmp_path / "h.raw"), ed, dev)
     npz = tfixed.MultiexpHandle.new_from_file(str(tmp_path / "h.npz"), ed, dev)
-    made = {k: cp.LAUNCHES[k] for k in ("ed_file_rows", "ed_file_entries", "ed_to_niels", "fmul", "finvert")}
-    assert made == {"ed_file_rows": 1, "ed_file_entries": 1, "ed_to_niels": 1, "fmul": 0, "finvert": 0}
+    made = {k: cp.LAUNCHES[k] for k in ("ed_niels_points", "ed_file_rows", "ed_file_entries", "ed_to_niels", "fmul",
+                                        "finvert")}
+    assert made == {"ed_niels_points": 1, "ed_file_rows": 1, "ed_file_entries": 1, "ed_to_niels": 1, "fmul": 0,
+                    "finvert": 0}
     assert torch.equal(raw.table, card.table) and torch.equal(npz.table, card.table)
+
+
+@pytest.mark.parametrize("groups, entries", [(1, 16), (3, 256), (4096, 256), (16385, 256)])
+def test_ed_niels_points_kernel(dev, groups, entries):
+    """One launch a call, limb for limb the plain version on a table's words
+    (identity entries among them); 2^22 + 256 entries take the grid-stride
+    loop past one pass; a chunk written in place into its slice of a larger
+    table, the rest untouched."""
+    w = entries.bit_length() - 1
+    table = cp.build_niels_table(generators.ristretto_generators(groups * w, 0, dev), w)
+    before = cp.LAUNCHES["ed_niels_points"]
+    got = cp.ed_niels_points(table)
+    assert cp.LAUNCHES["ed_niels_points"] == before + 1
+    assert _same(got, cp.ed_niels_points_plain(table))
+    out = ed.PointP3(*(torch.full((16, groups + 1, entries), -1, dtype=torch.int32, device=dev) for _ in range(4)))
+    cp.ed_niels_points(table, out=ed.index_batch(out, slice(1, None)))
+    assert all(torch.equal(o[:, 1:], g) for o, g in zip(out, got))
+    assert all(bool((o[:, 0] == -1).all()) for o in out)
+
+
+@pytest.mark.parametrize("count", [5, 1000, 2**18 + 5, 2**19 + 7, 2**20, 2**20 + 33])
+def test_ed_affine_kernel(dev, count):
+    """One launch, limb for limb the plain version: 8 entries a thread up
+    to 2^18, 16 up to 2^19, 32 up to 2^20, 64 above (short last tiles), z
+    far from 1, t not read; and on a strided view."""
+    pts = _ed_chunk(dev, 1, count, 7)
+    pts = ed.PointP3(pts.x[:, 0], pts.y[:, 0], pts.z[:, 0], torch.zeros_like(pts.t[:, 0]))
+    before = cp.LAUNCHES["ed_affine"]
+    got = cp.ed_affine(pts)
+    assert cp.LAUNCHES["ed_affine"] == before + 1
+    want = cp.ed_affine_plain(pts)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    view = ed.index_batch(pts, slice(1, None, 2))
+    assert all(torch.equal(g, w) for g, w in zip(cp.ed_affine(view), ed.index_batch(want, slice(1, None, 2))))
 
 
 HORNER_SHAPES = [(1, 1), (3, 4), (2, 9), (1, 32), (10, 32)]
@@ -1014,9 +1060,70 @@ def test_w_horner_kernel(dev, curve, outputs, windows):
     assert bool(curve.points_equal(_on(got, "cpu"), loop).all())
 
 
+def _window_buckets(curve, rows: int, seed: int):
+    """(rows, 255) bucket sums: seeded points, every seventh bucket empty,
+    row 1 all empty, row 2 bucket 255 alone."""
+    k = torch.arange(rows * 255)
+    pick = (k * 13 + seed) % 97
+    empty = (k % 7 == 3) | ((k // 255 == 1) & (rows > 1)) | ((k // 255 == 2) & (k % 255 != 254))
+    if curve is ed:
+        pool = cp.elligator_form_plain(*_r(97, seed))
+        ident = ed.identity((rows * 255,))
+    else:
+        pool = curve.from_affine_ints(curve.oracle.random_points(97, seed=seed), "cpu")
+        ident = curve.identity((rows * 255,))
+    pts = curve.select(curve.index_batch(pool, pick), ident, empty)
+    return curve.reshape_batch(pts, (rows, 255))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 32, 320])
+@pytest.mark.parametrize("curve", [ed] + list(wc.CURVES), ids=lambda c: getattr(c, "name", "ristretto255"))
+def test_window_sums_kernel(dev, curve, rows):
+    """One launch for all rows (8: a signed 8-byte column; 32: a 32-byte
+    one; 320: ten of them), the same points as the plain scan and tree; the
+    empty row the identity; on a view of every other row."""
+    buckets = _window_buckets(curve, rows, rows)
+    name = "ed_window_sums" if curve is ed else "w_window_sums"
+    card = _on(buckets, dev)
+    before = cp.LAUNCHES[name]
+    got = engine.window_sums(card, curve)
+    assert cp.LAUNCHES[name] == before + 1
+    want = cp.window_sums_plain(curve, buckets)
+    assert bool(curve.points_equal(_on(got, "cpu"), want).all())
+    if rows > 1:
+        assert bool(curve.points_equal(curve.index_batch(_on(got, "cpu"), slice(1, 2)), curve.identity((1,))).all())
+        half = engine.window_sums(curve.index_batch(card, (slice(0, None, 2), slice(None))), curve)
+        assert bool(curve.points_equal(_on(half, "cpu"), curve.index_batch(want, slice(0, None, 2))).all())
+
+
+def test_bucket_engine_combine_is_two_launches(dev, monkeypatch):
+    """The bucket engine's combine on the card: one ed_window_sums and one
+    ed_horner launch, no ed_add and no tree_reduce_lanes launch, the same
+    commitment as on the CPU."""
+    n = 100
+    rng = np.random.default_rng(38)
+    data = [rng.integers(0, 256, size=(n, 4), dtype=np.uint8), rng.integers(0, 256, size=(n, 4), dtype=np.uint8)]
+    args = (data, [4, 4], [False, True])
+    want = rst.encode(engine.msm(generators.ristretto_generators(n, 0, "cpu"), *args)).numpy()
+    monkeypatch.setenv(engine.ENGINE_VAR, "bucket")
+    inner, made = engine.combine_buckets, []
+
+    def counting(*a, **k):
+        before = dict(cp.LAUNCHES)
+        out = inner(*a, **k)
+        made.append({name: v - before[name] for name, v in cp.LAUNCHES.items() if v != before[name]})
+        return out
+
+    monkeypatch.setattr(engine, "combine_buckets", counting)
+    got = engine.msm(generators.ristretto_generators(n, 0, dev), *args)
+    assert np.array_equal(rst.encode(got).cpu().numpy(), want)
+    assert made == [{"ed_window_sums": 1, "ed_horner": 1}]
+
+
 def test_w_bucket_engine_horner_is_one_launch(dev, monkeypatch):
     """The bucket engine on bn254 G1 (two 3-byte outputs, one signed) equals
-    the oracle, with one w_horner launch and no wdouble."""
+    the oracle, with one w_horner and one w_window_sums launch and no
+    wdouble or wadd."""
     curve, n = wc.BN254_G1, 40
     pts = curve.oracle.random_points(n, seed=36)
     rng = np.random.default_rng(37)
@@ -1025,6 +1132,7 @@ def test_w_bucket_engine_horner_is_one_launch(dev, monkeypatch):
     before = dict(cp.LAUNCHES)
     got = engine.msm(curve.from_affine_ints(pts, dev), data, [3, 3], [False, True], curve)
     assert (cp.LAUNCHES["w_horner"] - before["w_horner"], cp.LAUNCHES["wdouble"] - before["wdouble"]) == (1, 0)
+    assert (cp.LAUNCHES["w_window_sums"] - before["w_window_sums"], cp.LAUNCHES["wadd"] - before["wadd"]) == (1, 0)
     vals = [[int.from_bytes(bytes(r), "little") for r in data[0]],
             [int.from_bytes(bytes(r), "little") - (1 << 24) * (r[2] >= 0x80) for r in data[1]]]
     assert curve.to_affine_ints(_on(got, "cpu")) == [curve.oracle.msm(v, pts) for v in vals]

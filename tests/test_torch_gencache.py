@@ -22,6 +22,7 @@ from blitzar_tpu.curves import edwards25519 as jed
 from blitzar_tpu_torch import generators as tgen
 from blitzar_tpu_torch.curves import edwards25519 as ted
 from blitzar_tpu_torch.fields import fp25519 as TF
+from blitzar_tpu_torch.ops import cuda_point
 from blitzar_tpu_torch.utils.limbs import from_jax_points, to_jax_points
 
 N = 256
@@ -96,6 +97,22 @@ def test_legacy_extended_file(derived, tmp_path, monkeypatch):
     monkeypatch.setattr(tgen, "DISK_DIR", str(tmp_path))
     _no_derivation(monkeypatch)
     assert _same_points(tgen.ristretto_generators(40, 0, "cpu"), ted.index_batch(points, slice(0, 40)))
+
+
+def test_save_and_load_round_trip_in_both_formats(derived, tmp_path, monkeypatch):
+    """The affine file the derivation saved and a legacy extended file of
+    the derived points (z as derived) load to the derivation's canonical
+    affine points (x/z, y/z, 1, x y/z^2), limb for limb: the same
+    generators as a derivation."""
+    root, points = derived
+    want = cuda_point.ed_affine_plain(points)
+    assert _same_points(want, points)
+    np.save(tmp_path / f"ristretto_gen_{N}.npy", to_jax_points(points))
+    _no_derivation(monkeypatch)
+    for where in (root / "port", tmp_path):
+        monkeypatch.setattr(tgen, "DISK_DIR", str(where))
+        got = tgen.ristretto_generators(N, 0, "cpu")
+        assert all(torch.equal(TF.canonicalize(g), w) for g, w in zip(got, want)), where
 
 
 def test_disabled_offsets_unwritable_and_corrupt(derived, tmp_path, monkeypatch):
