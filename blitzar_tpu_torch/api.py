@@ -22,11 +22,11 @@ import torch
 
 from . import generators as _gen
 from .curves import edwards25519 as ed
-from .curves import ristretto as rst
 from .curves import weierstrass as wc
 from .msm import engine as _engine
 from .msm import fixed as _fixed
 from .ops import cuda_mont as _cm
+from .ops import cuda_point as _cp
 from .proof import ceil_log2
 from .proof import inner_product as _ipa
 from .proof import sumcheck as _sc
@@ -131,14 +131,16 @@ def get_curve25519_one_commit(n: int) -> ed.PointP3:
 
 
 def compress_ristretto255(points: ed.PointP3) -> np.ndarray:
-    """(n,) point batch -> (n, 32) uint8 canonical encodings."""
-    return rst.encode(points).cpu().numpy().T.copy()
+    """(n,) point batch -> (n, 32) uint8 canonical encodings (the
+    ``ristretto_encode`` kernel on the card)."""
+    return _cp.ristretto_encode(points).cpu().numpy().T.copy()
 
 
 def decompress_ristretto255(data: np.ndarray):
-    """(n, 32) uint8 -> (PointP3 on the backend's device, valid bool array)."""
+    """(n, 32) uint8 -> (PointP3 on the backend's device, valid bool array)
+    (the ``ristretto_decode`` kernel on the card)."""
     raw = torch.from_numpy(np.ascontiguousarray(np.asarray(data, np.uint8).T)).to(device())
-    pts, valid = rst.decode(raw)
+    pts, valid = _cp.ristretto_decode(raw)
     return pts, valid.cpu().numpy()
 
 

@@ -1,9 +1,10 @@
-// curve25519 in twisted-Edwards form (a = -1), extended coordinates, and the
-// ristretto255 elligator map: the group law every kernel of
-// blitzar_tpu_torch runs. Formulas and their order are those of
-// blitzar_tpu/curves/edwards25519.py (_add_impl, _double_impl, _madd_impl)
-// and blitzar_tpu/curves/ristretto.py (sqrt_ratio_m1, elligator), so a kernel
-// and its plain PyTorch version give the same canonical coordinates.
+// curve25519 in twisted-Edwards form (a = -1), extended coordinates, the
+// ristretto255 elligator map and the ristretto255 encode and decode: the
+// group law every kernel of blitzar_tpu_torch runs. Formulas and their order
+// are those of blitzar_tpu/curves/edwards25519.py (_add_impl, _double_impl,
+// _madd_impl) and blitzar_tpu/curves/ristretto.py (sqrt_ratio_m1,
+// elligator, encode, decode), so a kernel and its plain PyTorch version give
+// the same canonical coordinates.
 #pragma once
 
 #include "fp25519.cuh"
@@ -169,17 +170,19 @@ BTT_HD ge_cached ge_to_cached(const ge_p3& p, Mul mul = Mul()) {
 
 // SQRT_RATIO_M1 of ristretto255: x = sqrt(u/v) if u/v is square, else
 // sqrt(sqrt(-1) * u/v); x is non-negative. Returns whether u/v was square.
-BTT_HD bool sqrt_ratio_m1(const fe& u, const fe& v, fe& x_out) {
+// Mul as the adds' (fp25519.cuh); inlined by default (elligator_form.cu).
+template <class Mul = fe_mul_op>
+BTT_HD bool sqrt_ratio_m1(const fe& u, const fe& v, fe& x_out, Mul mul = Mul()) {
   fe sqrtm1 = fe_sqrt_m1();
-  fe v3 = fe_mul(fe_sq(v), v);
-  fe x = fe_mul(fe_mul(fe_sq(v3), v), u);  // u * v^7
-  x = fe_pow22523(x);
-  x = fe_mul(fe_mul(x, v3), u);
-  fe vxx = fe_mul(fe_sq(x), v);
+  fe v3 = mul(mul(v, v), v);
+  fe x = mul(mul(mul(v3, v3), v), u);  // u * v^7
+  x = fe_pow22523(x, mul);
+  x = mul(mul(x, v3), u);
+  fe vxx = mul(mul(x, x), v);
   bool has_m = fe_is_zero(fe_sub(vxx, u));
   bool has_p = fe_is_zero(fe_add(vxx, u));
-  bool has_f = fe_is_zero(fe_add(vxx, fe_mul(u, sqrtm1)));
-  x = fe_select(x, fe_mul(x, sqrtm1), has_p || has_f);
+  bool has_f = fe_is_zero(fe_add(vxx, mul(u, sqrtm1)));
+  x = fe_select(x, mul(x, sqrtm1), has_p || has_f);
   x_out = fe_abs(x);
   return has_m || has_p;
 }
@@ -211,6 +214,67 @@ BTT_HD ge_p3 elligator(const fe& t) {
   out.Z = fe_mul(w1, w3);
   out.T = fe_mul(w0, w2);
   return out;
+}
+
+// 1/sqrt(a - d) with a = -1 (libsodium's ed25519_invsqrtamd).
+BTT_HD fe fe_invsqrt_a_minus_d() {
+  return fe_const(0x805d40eau, 0x99c8fdaau, 0x5a4172beu, 0x9d2f1617u,
+                  0xfe01d840u, 0x16c27b91u, 0xcfaffca2u, 0x786c8905u);
+}
+
+// The canonical ristretto255 encoding of p as the canonical field element
+// s (libsodium's ristretto255 encode; blitzar_tpu/curves/ristretto.py:
+// encode, its formulas in its order): one sqrt_ratio_m1 (273 multiplies)
+// and 14 more. The identity encodes to 0.
+template <class Mul = fe_mul_op>
+BTT_HD fe ristretto_encode_s(const ge_p3& p, Mul mul = Mul()) {
+  const fe u1 = mul(fe_add(p.Z, p.Y), fe_sub(p.Z, p.Y));
+  const fe u2 = mul(p.X, p.Y);
+  fe inv_sqrt;
+  sqrt_ratio_m1(fe_one(), mul(u1, mul(u2, u2)), inv_sqrt, mul);
+  const fe den1 = mul(inv_sqrt, u1);
+  const fe den2 = mul(inv_sqrt, u2);
+  const fe z_inv = mul(mul(den1, den2), p.T);
+  const fe ix = mul(p.X, fe_sqrt_m1());
+  const fe iy = mul(p.Y, fe_sqrt_m1());
+  const fe eden = mul(den1, fe_invsqrt_a_minus_d());
+  const bool rotate = fe_is_negative(mul(p.T, z_inv));
+  const fe x = fe_select(p.X, iy, rotate);
+  fe y = fe_select(p.Y, ix, rotate);
+  const fe den_inv = fe_select(den2, eden, rotate);
+  y = fe_select(y, fe_neg(y), fe_is_negative(mul(x, z_inv)));
+  return fe_canonical(fe_abs(mul(den_inv, fe_sub(p.Z, y))));
+}
+
+// The point of a ristretto255 encoding (blitzar_tpu/curves/ristretto.py:
+// decode): bytes are the encoding's 32 bytes as eight little-endian words.
+// Returns whether it is valid: canonical (s < p, even, bit 255 clear), its
+// square root exists, t is non-negative and y is not 0. out is (x, y, 1,
+// x y); it holds junk where the encoding is not valid.
+template <class Mul = fe_mul_op>
+BTT_HD bool ristretto_decode_s(const fe& bytes, ge_p3& out, Mul mul = Mul()) {
+  fe s = bytes;
+  s.v[7] &= 0x7fffffffu;
+  const fe c = fe_canonical(s);
+  uint32_t diff = (bytes.v[7] >> 31) | (s.v[0] & 1u);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) diff |= c.v[k] ^ s.v[k];
+  const fe one = fe_one();
+  const fe ss = mul(s, s);
+  const fe u1 = fe_sub(one, ss);
+  const fe u2 = fe_add(one, ss);
+  const fe u1u1 = mul(u1, u1);
+  const fe u2u2 = mul(u2, u2);
+  const fe v = fe_sub(fe_neg(mul(u1u1, fe_d())), u2u2);
+  fe inv_sqrt;
+  const bool was_square = sqrt_ratio_m1(one, mul(v, u2u2), inv_sqrt, mul);
+  const fe den_x = mul(inv_sqrt, u2);
+  const fe den_y = mul(mul(inv_sqrt, den_x), v);
+  out.X = fe_abs(fe_mul_small(mul(s, den_x), 2));
+  out.Y = mul(u1, den_y);
+  out.Z = one;
+  out.T = mul(out.X, out.Y);
+  return diff == 0 && was_square && !fe_is_negative(out.T) && !fe_is_zero(out.Y);
 }
 
 // A point batch in the public layout: four (16, *batch) int32 coordinate

@@ -268,10 +268,11 @@ BTT_HD fe fe_invert(const fe& a, Mul mul = Mul()) {
 }
 
 // a^((p - 5) / 8) = a^(2^252 - 3).
-BTT_HD fe fe_pow22523(const fe& a) {
+template <class Mul = fe_mul_op>
+BTT_HD fe fe_pow22523(const fe& a, Mul mul = Mul()) {
   fe z2_250_0, z11;
-  fe_pow_chain_250(a, z2_250_0, z11);
-  return fe_mul(fe_pow2k(z2_250_0, 2), a);
+  fe_pow_chain_250(a, z2_250_0, z11, mul);
+  return mul(fe_pow2k(z2_250_0, 2, mul), a);
 }
 
 // Full reduction to [0, p). A stored value is below 2^256 = 2p + 38, so at

@@ -3,7 +3,8 @@
 // fp25519.cuh, field_batch.cuh, edwards25519.cuh, niels_tree.cuh,
 // table_build.cuh, lookup.cuh, mont.cuh, weierstrass.cuh, ladder.cuh,
 // sumcheck.cuh, tree_reduce.cuh, w_affine.cuh, ed_convert.cuh and
-// window_sums.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
+// window_sums.cuh (edwards25519.cuh with ristretto.cu's codec bodies) are
+// compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
@@ -11,7 +12,7 @@
 // (3, 16, n), a cached batch (4, 16, n), a Weierstrass point batch (3,
 // nlimbs, n), a sumcheck MLE table (16, m, 2 mid), a Weierstrass table
 // chunk (count, 3, K) words, a ristretto255 one (count, 3, 8) words, a raw
-// file's rows (count, 15) u64 words.
+// file's rows (count, 15) u64 words, ristretto255 encodings (32, n) bytes.
 #include "ed_convert.cuh"
 #include "edwards25519.cuh"
 #include "field_batch.cuh"
@@ -780,6 +781,32 @@ int btt_host_window_sums(int curve, const int32_t* buckets, int64_t rows, int32_
     case Bn254G1::id: run(Bn254G1(), 16); return 0;
     case Grumpkin::id: run(Grumpkin(), 16); return 0;
     default: return -1;
+  }
+}
+
+// points (4, 16, n) -> (32, n) uint8 encodings, ristretto.cu's
+// ristretto_encode (every multiply one call of fe_mul_call, as there).
+void btt_host_ristretto_encode(const int32_t* points, int64_t n, uint8_t* out) {
+  const point_ptrs p = in_points(points, n);
+  for (int64_t i = 0; i < n; ++i) {
+    const fe s = ristretto_encode_s(ge_load(p, i), fe_mul_call_op());
+    for (int k = 0; k < 32; ++k) out[k * n + i] = (uint8_t)(s.v[k >> 2] >> (8 * (k & 3)));
+  }
+}
+
+// (32, n) uint8 encodings -> (4, 16, n) points and n valid bytes,
+// ristretto.cu's ristretto_decode.
+void btt_host_ristretto_decode(const uint8_t* data, int64_t n, int32_t* out, uint8_t* valid) {
+  const point_out_ptrs oo = out_points(out, n);
+  for (int64_t i = 0; i < n; ++i) {
+    fe bytes;
+    for (int w = 0; w < 8; ++w) {
+      bytes.v[w] = 0;
+      for (int j = 0; j < 4; ++j) bytes.v[w] |= (uint32_t)data[(4 * w + j) * n + i] << (8 * j);
+    }
+    ge_p3 q;
+    valid[i] = ristretto_decode_s(bytes, q, fe_mul_call_op());
+    ge_store(oo, i, q);
   }
 }
 

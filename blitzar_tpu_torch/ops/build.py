@@ -55,6 +55,8 @@ SIGNATURES = {
     "btt_ed_affine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _P],
     "btt_ed_horner": [_P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P],
     "btt_ed_window_sums": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+    "btt_ristretto_encode": [_P, _P, _P, _P, _I64, _I64, _P, _P],
+    "btt_ristretto_decode": [_P, _I64, _P, _P, _P, _P, _P, _P],
     # the Weierstrass kernels take the curve's C ABI id first
     "btt_w_build_table": [_I, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "btt_w_lookup_msm": [_I, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _I64, _P, _P, _P, _P],

@@ -40,6 +40,10 @@ wrapper                 replaces                                 source
                         :237 (the bucket engine's Horner)
 ``ed_window_sums``      ``_add_tiled`` :237 (the bucket engine's  window_sums.cu
                         scan) + ``_tree_tiled`` :344
+``ristretto_encode``    ``_fmul_tiled`` :130 + ``_fsq_tiled``     ristretto.cu
+                        :144 (the ristretto255 encode's chain)
+``ristretto_decode``    ``_fmul_tiled`` :130 + ``_fsq_tiled``     ristretto.cu
+                        :144 (the ristretto255 decode's chain)
 ======================  ======================================  =====================
 
 ``ed_to_niels``, ``ed_file_rows`` and ``ed_file_entries`` convert a chunk
@@ -56,6 +60,12 @@ a step, where the engine launched ``ed_double`` 8 times and ``ed_add``
 once a window; ``ed_window_sums`` its sums over the buckets of every
 (output, window) row as one launch, where 8 ``ed_add`` scan launches, 8
 plain cats and a ``tree_reduce_lanes`` launch ran.
+
+``ristretto_encode`` and ``ristretto_decode`` are the ristretto255 codec
+(``api.compress_ristretto255``, ``decompress_ristretto255``, every
+ristretto255 commitment's result, the IPA's L and R and its verifier), one
+launch each where the plain encode ran ~280 field multiplies of ~50 small
+launches each; blitzar_tpu computes them as plain ``jnp``.
 
 ``ed_lookup_msm`` counts its launches on a cached table (a streamed chunk's)
 as ``ed_lookup_msm_cached``. The Weierstrass kernels (``w_build_table``,
@@ -102,6 +112,8 @@ KERNELS = (
     "ed_affine",
     "ed_horner",
     "ed_window_sums",
+    "ristretto_encode",
+    "ristretto_decode",
     "fmul",
     "fsq",
     "finvert",
@@ -1151,3 +1163,73 @@ def ed_window_sums(buckets: ed.PointP3) -> ed.PointP3:
             *_ptrs(coords), stride, rows, *_ptrs(out), _stream(device),
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# ristretto_encode, ristretto_decode (the ristretto255 codec: chains of
+# pallas_point.py:_fmul_tiled :130 and _fsq_tiled :144)
+# ---------------------------------------------------------------------------
+
+
+def ristretto_encode_plain(points: ed.PointP3) -> torch.Tensor:
+    return rst.encode(points)
+
+
+def ristretto_encode(points: ed.PointP3) -> torch.Tensor:
+    """(16, *batch) extended points, limbs below 2^17 at any limb-major
+    layout -> (32, *batch) uint8 canonical ristretto255 encodings
+    (``curves/ristretto.py:encode``); the identity encodes to 32 zero bytes.
+
+    Kernel csrc/ristretto.cu, one thread a point, one launch. Bound:
+    operations (~280 field multiplies a point) at a large batch; a small one
+    is the latency of one thread's ~280 dependent multiplies."""
+    if not _on_card(points.x):
+        return ristretto_encode_plain(points)
+    device = points.x.device
+    batch = tuple(points.x.shape[1:])
+    coords, stride = _point_arg(points, device, batch)
+    out = torch.empty((32,) + batch, dtype=torch.uint8, device=device)
+    count = out[0].numel()
+    if count:
+        _launch(
+            "ristretto_encode", build.library().btt_ristretto_encode,
+            *_ptrs(coords), stride, count, out.data_ptr(), _stream(device),
+        )
+    return out
+
+
+def _check_encodings(data: torch.Tensor) -> None:
+    if data.dim() < 1 or data.shape[0] != 32 or data.dtype != torch.uint8:
+        raise ValueError(f"encodings {tuple(data.shape)} {data.dtype}: expected (32, *batch) uint8")
+
+
+def ristretto_decode_plain(data: torch.Tensor) -> tuple[ed.PointP3, torch.Tensor]:
+    _check_encodings(data)
+    return rst.decode(data)
+
+
+def ristretto_decode(data: torch.Tensor) -> tuple[ed.PointP3, torch.Tensor]:
+    """(32, *batch) uint8 ristretto255 encodings -> ((16, *batch) points
+    (x, y, 1, x*y), canonical limbs; (*batch,) bool valid mask), as
+    ``curves/ristretto.py:decode``: valid means canonical (s < p, even, bit
+    255 clear), a square root, t non-negative and y nonzero; an invalid
+    slot holds junk.
+
+    Kernel csrc/ristretto.cu, one thread an encoding, one launch. Bound: as
+    :func:`ristretto_encode`'s."""
+    if not _on_card(data):
+        return ristretto_decode_plain(data)
+    _check_encodings(data)
+    device = data.device
+    batch = tuple(data.shape[1:])
+    data = data.contiguous()
+    coords = torch.empty((4, 16) + batch, dtype=torch.int32, device=device)
+    valid = torch.empty(batch, dtype=torch.bool, device=device)
+    points = ed.PointP3(*coords.unbind(0))
+    count = valid.numel()
+    if count:
+        _launch(
+            "ristretto_decode", build.library().btt_ristretto_decode,
+            data.data_ptr(), count, *_ptrs(points), valid.data_ptr(), _stream(device),
+        )
+    return points, valid

@@ -23,7 +23,7 @@ On the card every full-width scalar multiply is one ``mont_mul_ew`` launch.
 mu is kept in standard form and a, b in Montgomery form, so mu a is the
 standard-form exponent in one multiply. cL and cR are lane sums of
 ``mont_mul_ew`` products, reduced on the host, where the transcript is; L
-and R are encoded together, one ``rst.encode`` a round. The fold is lazy in
+and R are encoded together, one ``ristretto_encode`` launch a round. The fold is lazy in
 blitzar_tpu (inside the next round's program); here it follows each
 challenge, and the last round's fold of a, which gives ap, runs on the
 host on the two values left.
@@ -42,12 +42,11 @@ import numpy as np
 import torch
 
 from ..curves import edwards25519 as ed
-from ..curves import ristretto as rst
 from ..fields import params
 from ..fields.mont import limbs_to_rows, rows_to_limbs
 from ..msm import engine
 from ..msm import fixed
-from ..ops import cuda_mont
+from ..ops import cuda_mont, cuda_point
 from . import ceil_log2
 from .transcript import Transcript
 
@@ -220,7 +219,7 @@ def prove_inner_product(transcript: Transcript, a_vector, b_vector, g_vector: ed
         mid = a.shape[1] // 2
         c_l, c_r = _cross_terms(a, b, mid)
         q_scalars = torch.from_numpy(np.stack([_int_row(c_l), _int_row(c_r)])[:, None]).to(dev)
-        lr = rst.encode(_query([(g_source, _round_exponents(a, mu, mid)), (q_handle, q_scalars)], 2)).cpu().numpy().T
+        lr = cuda_point.ristretto_encode(_query([(g_source, _round_exponents(a, mu, mid)), (q_handle, q_scalars)], 2)).cpu().numpy().T
         l_out[k], r_out[k] = lr
         x = _round_challenge(transcript, bytes(lr[0]), bytes(lr[1]))
         xinv = pow(x, -1, ORDER)
@@ -289,7 +288,7 @@ def verify_inner_product(
     prod_check = _lane_sum_int(cuda_mont.mont_mul_ew(S, g_exps[:, :n], _mont_rows(b_rows, n, dev)))
 
     if num_rounds:
-        lr_pts, lr_valid = rst.decode(torch.from_numpy(np.concatenate([l_vector, r_vector]).T.copy()).to(dev))
+        lr_pts, lr_valid = cuda_point.ristretto_decode(torch.from_numpy(np.concatenate([l_vector, r_vector]).T.copy()).to(dev))
         if not bool(lr_valid.all()):
             return False
     else:
@@ -309,5 +308,5 @@ def verify_inner_product(
     qlr_scalars = torch.from_numpy(np.stack([_int_row(v) for v in exps])[None]).to(dev)
     g_scalars = limbs_to_rows(g_exps)[None]
     check = _query([(_g_source(g_vector, np_), g_scalars), (fixed.MultiexpHandle(qlr), qlr_scalars)], 1)
-    enc = rst.encode(ed.cat([check, a_commit])).cpu().numpy().T
+    enc = cuda_point.ristretto_encode(ed.cat([check, a_commit])).cpu().numpy().T
     return bytes(enc[0]) == bytes(enc[1])

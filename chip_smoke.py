@@ -7,11 +7,12 @@ one GPU.
 
 Phases, each fatal on failure:
 
-1. build the kernels of the twenty-five CUDA sources in ``blitzar_tpu_torch/csrc``
+1. build the kernels of the twenty-six CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
    registers and spills (none allowed in ``ed_convert.cu``, ``ed_horner.cu``,
-   ``w_horner.cu``, ``fewrow_niels.cu``, ``finvert.cu`` and
-   ``window_sums.cu``) and the card's name and power limit;
+   ``w_horner.cu``, ``fewrow_niels.cu``, ``finvert.cu``,
+   ``window_sums.cu`` and ``ristretto.cu``) and the card's name and power
+   limit;
 2. run each kernel at the shapes its path gives it at full width
    (ristretto255 2^20 commitment for the five Edwards kernels of the handle
    path, bn254 G1 for the five Weierstrass ones (the ladder
@@ -37,7 +38,10 @@ Phases, each fatal on failure:
 5. ristretto255 full width: canonical generators with counter scalars at
    2^16 and 2^20 (compressed result = the pinned digest) and ten 32-byte
    outputs at n = 100000 (blake2b digest pinned), with the generator
-   derivation, the handle build and the median of five queries timed at 2^20;
+   derivation, the handle build and the median of five queries timed at 2^20,
+   a warm 2^20 commitment split by stage, its encode stage one
+   ``ristretto_encode`` launch and, by the profiler, no other kernel on the
+   device but the copy to the host;
 6. Weierstrass full width: bn254 G1 at 2^20, then Grumpkin and bls12-381 G1
    at 2^16, one column of 32-byte counter scalars over 521 oracle points
    tiled to n (a prime period: a lookup that read the wrong group could not
@@ -58,7 +62,8 @@ Phases, each fatal on failure:
    proofs and the per-stage split of one more timed;
 10. the benchmark's IPA at 2^20: the proof verifies against the port's own
    commitment to a, not with a flipped L byte or ap + 1; cold and warm
-   proofs, the per-stage split of one proof and the verifier timed;
+   proofs, the per-stage split of one proof and the verifier timed, the
+   verifier also split by stage;
 11. the proof kernels and the ristretto255 kernels the proofs use must
    have launched during phases 8-10 (the proof path, counts from 0, run
    from empty generator and handle caches: the proofs derive G and Q);
@@ -178,8 +183,18 @@ Phases, each fatal on failure:
    held against their plain versions, and launches x (time - bound)
    summed over the shapes (``kernels_by_shape``); then every kernel's
    launches x (time - bound) on its paths, largest first (``ranking``:
-   per shape where phases 15, 18, 19 and 20 time them, else at the headline
-   shape).
+   per shape where phases 15, 18, 19, 20 and 21 time them, else at the
+   headline shape);
+21. ``ristretto_encode`` and ``ristretto_decode`` (the ristretto255 codec)
+   at 1, 2, 40 and 2^16 points and at every count the paths of phases 3-17
+   launched them at: held against their plain versions (``curves/
+   ristretto.py``; bytes equal, valid flags equal, valid slots equal as
+   canonical points), the decode on encodings of sums of generators, the
+   identity first, with every fifth from the second on replaced by an
+   invalid one (s >= p, odd s, bit 255 set, no square root, negative t, y =
+   0, all ones, in turn), timed, bounded, launches x (time - bound) summed
+   over the counts; ``ristretto.cu``'s ptxas report (no spill) goes to
+   ``ptxas_codec``.
 
 The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
 its path, time, plain time, bound, error), the card as ``nvidia-smi`` names
@@ -552,6 +567,8 @@ CONVERSION_HORNER_SOURCES = {
 
 # the few-row query's column sums and the batch finvert: no spill allowed
 FEWROW_FINVERT_SOURCES = {"fewrow_niels": "fewrow_niels.cu", "finvert": "finvert.cu"}
+# the ristretto255 codec: no spill allowed
+CODEC_SOURCES = {"ristretto_encode/ristretto_decode": "ristretto.cu"}
 
 
 def conversion_horner_ptxas(log_text: str, built_here: bool, sources: dict = CONVERSION_HORNER_SOURCES) -> dict:
@@ -1043,17 +1060,31 @@ def timed(torch, fn):
 
 
 def warm_stages(torch, desc) -> dict:
-    """Host-clock times of the steps of a warm commitment, one by one."""
+    """Host-clock times of the steps of a warm commitment, one by one. The
+    encode stage (the encoding and its copy to the host) must be one
+    ``ristretto_encode`` launch and, by the profiler, run no other kernel:
+    its device activity is that kernel and the copy (``encode_profile``)."""
     from blitzar_tpu_torch import api, generators
-    from blitzar_tpu_torch.curves import ristretto as rst
     from blitzar_tpu_torch.msm import engine, fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
 
     gens = generators.get_precomputed_generators(desc.n, 0, api.device())
     (scalars, _, n), prepare_ms = timed(torch, lambda: engine.prepare_scalars([desc.rows()], [32], [False]))
     handle, cache_ms = timed(torch, lambda: engine.cached_handle(gens, n))
     result, query_ms = timed(torch, lambda: fixed.fixed_multiexponentiation(handle, scalars))
-    _, encode_ms = timed(torch, lambda: rst.encode(result).cpu())
-    return {"prepare_scalars": prepare_ms, "handle_cache_lookup": cache_ms, "query": query_ms, "encode": encode_ms}
+    before = dict(cp.LAUNCHES)
+    encoded, encode_ms = timed(torch, lambda: cp.ristretto_encode(result).cpu())
+    launches = {k: v - before[k] for k, v in cp.LAUNCHES.items() if v != before[k]}
+    check(launches == {"ristretto_encode": 1}, f"the warm 2^20 commitment's encode stage is one ristretto_encode "
+                                               f"launch ({encode_ms:.3f} ms; {launches})")
+    want = digest(encoded.numpy().T)
+    prof = profile_commitment(torch, lambda: cp.ristretto_encode(result).cpu(),
+                              lambda got: digest(got.numpy().T) == want, "encode stage gives the same bytes")
+    names = list(prof.get("device_ms_by_name", {}))
+    check(names and all(k == "ristretto_encode_kernel" or k.startswith("Memcpy") for k in names),
+          f"the encode stage runs ristretto_encode_kernel and no aten kernel on the device: {names or prof}")
+    return {"prepare_scalars": prepare_ms, "handle_cache_lookup": cache_ms, "query": query_ms, "encode": encode_ms,
+            "encode_launches": launches, "encode_profile": prof}
 
 
 def profile_commitment(torch, run, verify, what: str) -> dict:
@@ -1205,7 +1236,10 @@ PROOF_KERNELS = ("mont_mul_ew", "mont_fold_round", "mont_sum_round")
 # the kernels every proof path launches (the IPA's generators G and Q, its
 # handles of them, its queries and L + R; the sumcheck's rounds)
 PROOF_PATH_KERNELS = PROOF_KERNELS + ("elligator_form", "build_niels_table", "ed_lookup_msm", "ed_add",
-                                      "doubling_combine")
+                                      "doubling_combine", "ristretto_encode", "ristretto_decode")
+# the codec kernel whose path is the proof path (the IPA verifier's L and R);
+# ristretto_encode's is the commitment path (one launch a commitment)
+DECODE_KERNELS = ("ristretto_decode",)
 
 
 def merge_muls(length: int) -> int:
@@ -1473,7 +1507,8 @@ def phase_ipa_full_width(torch, timings: dict) -> None:
     a_commit the port's own commitment to a over G[0, n); the proof must
     verify, and must not with one L byte flipped or with ap + 1."""
     from blitzar_tpu_torch import api
-    from blitzar_tpu_torch.curves import ristretto as rst
+    from blitzar_tpu_torch.msm import engine
+    from blitzar_tpu_torch.ops import cuda_point as cp
     from blitzar_tpu_torch.proof import inner_product as tipa
     from blitzar_tpu_torch.proof.transcript import Transcript
 
@@ -1488,7 +1523,7 @@ def phase_ipa_full_width(torch, timings: dict) -> None:
     warm = [timed(torch, prove)[1] for _ in range(3)]
     timings["ipa_2^20_prove_warm_ms_all"] = warm
     timings["ipa_2^20_prove_warm_ms_median"] = float(np.median(warm))
-    stages = {"query": [(tipa, "_query")], "encode": [(rst, "encode")],
+    stages = {"query": [(tipa, "_query")], "encode": [(cp, "ristretto_encode")],
               "exponents_cross_terms_fold": [(tipa, "_round_exponents"), (tipa, "_cross_terms"), (tipa, "_fold")]}
     with StageTimer(torch, stages) as st:
         (l2, r2, ap2), total = timed(torch, prove)
@@ -1508,6 +1543,13 @@ def phase_ipa_full_width(torch, timings: dict) -> None:
     ok, timings["ipa_2^20_verify_ms"] = timed(torch, verify)
     check(ok, f"IPA 2^20: the proof verifies (prove {timings['ipa_2^20_prove_warm_ms_median']:.1f} ms warm, "
               f"verify {timings['ipa_2^20_verify_ms']:.1f} ms)")
+    stages = {"decode": [(cp, "ristretto_decode")], "encode": [(cp, "ristretto_encode")], "query": [(tipa, "_query")],
+              "g_exponents": [(tipa, "_g_exponents")], "b_rows": [(tipa, "_scalar_rows"), (tipa, "_mont_rows")],
+              "handle_cache_lookup": [(engine, "cached_handle")]}
+    with StageTimer(torch, stages) as st:
+        ok, total = timed(torch, verify)
+    check(ok, "IPA 2^20: the split verify accepts too")
+    timings["ipa_2^20_verify_split_ms"] = {"total": total, **st.ms, "host_and_rest": total - sum(st.ms.values())}
     flipped = l.copy()
     flipped[3, 7] ^= 0x01
     check(not verify(lv=flipped), "IPA 2^20: one flipped L byte is rejected")
@@ -1609,7 +1651,7 @@ def phase_large_n(torch, timings: dict) -> dict:
           f"warm {timings['commit_2^24_warm_ms_median']:.1f} ms)")
     stages = {"upload": [(fixed, "_device_rows")], "chunk_builds": [(cp, "build_cached_table")],
               "lookups": [(cp, "ed_lookup_msm")], "reduces": [(cp, "tree_reduce_lanes")],
-              "combine": [(cp, "doubling_combine")], "encode": [(rst, "encode")]}
+              "combine": [(cp, "doubling_combine")], "encode": [(cp, "ristretto_encode")]}
     with StageTimer(torch, stages) as st:
         again, total = timed(torch, lambda: api.compute_curve25519_commitments([desc]))
     check(np.array_equal(again, got), "(c) the split 2^24 commitment equals the cold one")
@@ -1881,10 +1923,10 @@ def comparable(curve, points):
     """Result points as comparable values: compressed encodings for
     ristretto255, affine ints for a Weierstrass curve."""
     from blitzar_tpu_torch.curves import edwards25519 as ed
-    from blitzar_tpu_torch.curves import ristretto as rst
+    from blitzar_tpu_torch.ops import cuda_point as cp
 
     if curve is ed:
-        return [bytes(r) for r in rst.encode(points).cpu().numpy().T]
+        return [bytes(r) for r in cp.ristretto_encode(points).cpu().numpy().T]
     return curve.to_affine_ints(points)
 
 
@@ -2648,7 +2690,6 @@ def phase_fewrow(torch, timings: dict) -> tuple:
     launches of the default-entry commitments and the w = 4 query, one
     call each (not the handle build, the references or the timing reps)."""
     from blitzar_tpu_torch import api, generators
-    from blitzar_tpu_torch.curves import ristretto as rst
     from blitzar_tpu_torch.curves import weierstrass as wc
     from blitzar_tpu_torch.msm import engine, fixed
     from blitzar_tpu_torch.ops import cuda_point as cp
@@ -2719,7 +2760,7 @@ def phase_fewrow(torch, timings: dict) -> tuple:
         torch, lambda: fixed.fewrow_products(handle.table, scalars, None, 4))
     lookup, timings["lookup_query_w4_2^20_32B_ms_median"] = median_ms(
         torch, lambda: fixed.sum_leading(cp.ed_lookup_msm(handle.table, scalars, None, 4)))
-    check(digest(rst.encode(fixed.doubling_combine(lookup, 1, 256)).cpu().numpy().T) == PINNED_RISTRETTO_MSM[20],
+    check(digest(cp.ristretto_encode(fixed.doubling_combine(lookup, 1, 256)).cpu().numpy().T) == PINNED_RISTRETTO_MSM[20],
           "(b) the w = 4 handle through ed_lookup_msm equals the pinned digest too")
     del handle
 
@@ -3036,7 +3077,8 @@ class PathShapes:
 # row stride, nbytes, w, chunk groups, ...) by (outputs, n_pad, nbytes, w,
 # signed, chunk groups); ed_window_sums (4 coordinates, stride, rows, ...)
 # and w_window_sums (curve, 3 coordinates, stride, rows, ...) by (instance,
-# rows)
+# rows); ristretto_encode (4 coordinates, stride, count, ...) and
+# ristretto_decode (bytes, count, ...) by count
 SHAPE_KEYS = {
     "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
     "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
@@ -3048,6 +3090,8 @@ SHAPE_KEYS = {
     "ed_window_sums": lambda instance, a: ("ristretto255", int(a[5])),
     "w_window_sums": lambda instance, a: (instance, int(a[5])),
     "fewrow_niels": lambda instance, a: (int(a[3]), int(a[4]), int(a[6]), int(a[7]), a[2] is not None, int(a[8])),
+    "ristretto_encode": lambda instance, a: int(a[5]),
+    "ristretto_decode": lambda instance, a: int(a[1]),
 }
 PATH_SHAPES = PathShapes()
 TREE_SAMPLE_COLS = 64
@@ -3226,6 +3270,112 @@ def phase_ranked_shapes(torch, dev, counts: dict) -> dict:
     return out
 
 
+# the ristretto255 codec (phase 21): the counts it is held at besides the
+# paths' (a commitment's one column, an IPA round's L and R, the IPA 2^20
+# verifier's 40 L and R, a compress of a 2^16 batch); field multiplies a
+# point (squares counted; multiplies by 2 not): sqrt_ratio_m1's 273 (the
+# pow22523 chain's 262 and 11 around it) and the encode's 14 more, the
+# decode's 11; bytes a point (four coordinates of 16 int32 limbs and 32
+# bytes; the decode's valid byte); each kernel's headline count (its path's
+# shape: one column; the verifier's 40)
+CODEC_COUNTS = (1, 2, 40, 1 << 16)
+MULS_CODEC = {"ristretto_encode": 287, "ristretto_decode": 284}
+CODEC_BYTES = {"ristretto_encode": 256 + 32, "ristretto_decode": 32 + 256 + 1}
+CODEC_HEADLINE = {"ristretto_encode": 1, "ristretto_decode": 40}
+# even canonical s whose decode fails for one reason each, the first of each
+# from s = 2 up (tests/test_torch_ristretto_codec.py's search): no square
+# root, a negative t
+CODEC_NOT_SQUARE, CODEC_NEGATIVE_T = 8, 2
+
+
+def codec_inputs(torch, dev, count: int):
+    """count points on the card (sums of two canonical generators each, z
+    far from 1, the identity first), their plain encodings, and the bytes
+    the decode is held at: the encodings with every fifth from the second
+    on replaced by an invalid one, the kinds in turn (s = p + 1, s = 1, bit
+    255 set on the slot's own encoding, no square root, a negative t, s = p
+    - 1 (y = 0), all ones); and the valid mask the bytes must decode to."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import ristretto as rst
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    r0, r1 = generators._xorshift_limbs(torch.arange(1000, 1000 + 2 * count, device=dev))
+    gens = cp.elligator_form(r0, r1)
+    pts = cp.ed_add(ed.index_batch(gens, slice(0, count)), ed.index_batch(gens, slice(count, 2 * count)))
+    pts = ed.cat([ed.identity((1,), dev), ed.index_batch(pts, slice(1, count))])
+    enc = rst.encode(pts)  # the plain encode (ristretto_encode_plain), in any tree kernel_ab.py times
+    data = enc.cpu().numpy().copy()
+    values = {0: F.P + 1, 1: 1, 3: CODEC_NOT_SQUARE, 4: CODEC_NEGATIVE_T, 5: F.P - 1}
+    bad = np.arange(1, count, 5)
+    for j, col in enumerate(bad):
+        kind = j % 7
+        if kind == 2:
+            data[31, col] |= 0x80
+        elif kind == 6:
+            data[:, col] = 0xFF
+        else:
+            data[:, col] = np.frombuffer(values[kind].to_bytes(32, "little"), np.uint8)
+    valid = np.ones(count, bool)
+    valid[bad] = False
+    return pts, enc, torch.from_numpy(data).to(dev), valid
+
+
+def phase_codec_kernels(torch, dev, counts: dict) -> dict:
+    """ristretto_encode and ristretto_decode at CODEC_COUNTS and at every
+    count the paths launched them at (``counts``, PATH_SHAPES's): bytes
+    equal to the plain encode; the plain decode's valid flags, which must be
+    the inputs' mask, and its canonical points in the valid slots; each
+    count's device time, plain time (one run, back to back), bound and
+    launches on all paths, launches x (ms - bound) summed (``by_shape``);
+    the kernels line's record at the headline count."""
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    results: dict = {}
+    by_shape = {name: [] for name in MULS_CODEC}
+    records = {}
+    for count in sorted(set(CODEC_COUNTS) | {k for name in MULS_CODEC for by in counts.get(name, {}).values()
+                                              for k in by}):
+        pts, want, data, mask = codec_inputs(torch, dev, count)
+        got = cp.ristretto_encode(pts)
+        enc_err = int((got.long() - want.long()).abs().max())
+        dec, valid = cp.ristretto_decode(data)
+        plain, plain_valid = cp.ristretto_decode_plain(data)
+        check(valid.cpu().numpy().tolist() == plain_valid.cpu().numpy().tolist() == mask.tolist(),
+              f"ristretto_decode at {count}: valid flags equal the plain version's and the inputs' "
+              f"({int((~mask).sum())} invalid)")
+        ok = torch.from_numpy(mask).to(dev)
+        dec_err = max(int((F.canonicalize(c)[:, ok].long() - F.canonicalize(p)[:, ok].long()).abs().max())
+                      for c, p in zip(dec, plain))
+        runs = {"ristretto_encode": (lambda: cp.ristretto_encode(pts), lambda: cp.ristretto_encode_plain(pts), enc_err),
+                "ristretto_decode": (lambda: cp.ristretto_decode(data), lambda: cp.ristretto_decode_plain(data),
+                                     dec_err)}
+        for name, (kernel, plain_fn, err) in runs.items():
+            ms = device_ms(torch, kernel, reps=10)
+            plain_ms = cuda_ms(torch, plain_fn, reps=1)
+            b_ms, b_by = bound(count * CODEC_BYTES[name], count * MULS_CODEC[name] * IMAD_PER_FIELD_MUL)
+            launches = sum(by.get(count, 0) for by in counts.get(name, {}).values())
+            row = {"count": count, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "max_abs_err": float(err), "launches": launches, "launches_x_gap_ms": launches * (ms - b_ms),
+                   "launches_by_path": {path: by.get(count, 0) for path, by in counts.get(name, {}).items()}}
+            by_shape[name].append(row)
+            check(err == 0, f"{name} at {count} points: kernel equals plain (max abs err {err}; {ms:.4f} ms, "
+                            f"bound {b_ms:.2e} ms, plain {plain_ms:.1f} ms; {launches} launches on the paths)")
+            if count == CODEC_HEADLINE[name]:
+                records[name] = (ms, plain_ms, err, count)
+        del pts, want, data, dec, plain
+    for name, (ms, plain_ms, err, count) in records.items():
+        kernel_record(results, name, "blitzar_tpu/ops/pallas_point.py:130 + :144", "blitzar_tpu_torch/csrc/ristretto.cu",
+                      ms, plain_ms, err, count * CODEC_BYTES[name], count * MULS_CODEC[name] * IMAD_PER_FIELD_MUL,
+                      compared="bytes" if name == "ristretto_encode" else "valid flags and canonical limbs")
+        results[name]["headline_count"] = count
+        results[name]["by_shape"] = by_shape[name]
+        results[name]["critical_path_muls"] = MULS_CODEC[name]
+    return results
+
+
 def ranking(kernels: list, shapes: dict, tree_shapes: dict) -> list:
     """Every kernel's launches x (ms - bound), largest first: over every
     path and every shape a path launched it at for the kernels timed by
@@ -3301,6 +3451,7 @@ def main() -> int:
         report["ptxas_affine_and_sum_round"] = affine_sum_ptxas(log, built_here)
         report["ptxas_conversions_and_horner"] = conversion_horner_ptxas(log, built_here)
         report["ptxas_fewrow_and_finvert"] = conversion_horner_ptxas(log, built_here, FEWROW_FINVERT_SOURCES)
+        report["ptxas_codec"] = conversion_horner_ptxas(log, built_here, CODEC_SOURCES)
         PATH_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
@@ -3393,10 +3544,13 @@ def main() -> int:
         for name, rec in ranked.items():
             results[name]["launches_x_gap_ms_all_shapes"] = rec["launches_x_gap_ms"]
             results[name]["launches_all_paths"] = rec["launches"]
+        # the ristretto255 codec at every count the paths launched it at
+        results.update(phase_codec_kernels(torch, torch.device("cuda"), PATH_SHAPES.counts))
         results["mont_mul_ew"]["launches_files_path_by_field"] = {
             k.split("/")[1]: v for k, v in file_instances.items() if k.startswith("mont_mul_ew/")}
         for name in cp.KERNELS:
-            path = (large_launches if name in LARGE_KERNELS else proof_launches if name in PROOF_KERNELS else
+            path = (large_launches if name in LARGE_KERNELS else
+                    proof_launches if name in PROOF_KERNELS + DECODE_KERNELS else
                     file_launches if name in FILE_KERNELS else bucket_launches if name in BUCKET_KERNELS else
                     fewrow_launches if name in FEWROW_KERNELS else commit_launches)
             results[name]["launches"] = path[name]
@@ -3411,8 +3565,8 @@ def main() -> int:
             results[name]["launches_per_2^20_commitment"] = per_commitment.get(name)
         results["tree_reduce_lanes"]["launches_large_n_path_by_curve"] = {
             k.split("/")[1]: v for k, v in large_instances.items() if k.startswith("tree_reduce_lanes/")}
-        commit_kernels = [k for k in cp.KERNELS
-                          if k not in PROOF_KERNELS + LARGE_KERNELS + FILE_KERNELS + BUCKET_KERNELS + FEWROW_KERNELS]
+        commit_kernels = [k for k in cp.KERNELS if k not in PROOF_KERNELS + DECODE_KERNELS + LARGE_KERNELS
+                          + FILE_KERNELS + BUCKET_KERNELS + FEWROW_KERNELS]
         check(all(commit_launches[k] > 0 for k in commit_kernels),
               f"every commitment kernel launched on the commitment path: {commit_launches}")
         check(all(proof_launches[k] > 0 for k in PROOF_PATH_KERNELS),

@@ -92,6 +92,17 @@ script's, so both trees run the same work. Cases:
   and the bucket engine's 2^20 commitment (the pinned digest) split by
   stage with the window sums a stage of their own.
 
+- the ristretto255 codec (section ``codec``): the encode and the decode
+  (the tree's ``ristretto_encode`` / ``ristretto_decode`` launch, or its
+  plain ``curves/ristretto.py`` chain) at chip_smoke.py's ``CODEC_COUNTS``
+  (1, 2, 40, 2^16) on its ``codec_inputs`` (the decode's bytes with
+  invalid ones among them), each against the plain version on the card;
+  the warm 2^20 commitment's encode stage (the encoding and its copy to the
+  host, host clock, median of 5) and the warm commitment whole (median of
+  3); the IPA at 2^20 (chip_smoke.py phase 10's rows): prove cold, warm
+  (median of 2) with the encode's share of one more, verify, and a digest of
+  the proof, which both trees must give.
+
 Each case of ``points`` and ``windows`` is timed whole back to back
 (``cuda_ms``, host issue included) and, queued behind a sleep once, split
 into its kernel launches, each between its own CUDA events (its device
@@ -101,10 +112,10 @@ passes between the launches (``launch_split``).
 Each case's result is held against its plain version (canonical limbs, or
 points for the tree reduces and the ladders; on a spread sample where the
 plain version is large); the JSON holds each case's ``ms`` and whether it
-matched. ``--sections`` runs some of the twelve sections (``edwards``,
+matched. ``--sections`` runs some of the thirteen sections (``edwards``,
 ``weierstrass``, ``mont``, ``trees``, ``tables``, ``ladders``, ``convert``,
-``horner``, ``fewrow``, ``finvert``, ``points``, ``windows``). Needs one
-CUDA card.
+``horner``, ``fewrow``, ``finvert``, ``points``, ``windows``, ``codec``).
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -146,7 +157,7 @@ TREE_CHECK_COLS = 8
 
 
 SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders", "convert", "horner", "fewrow", "finvert",
-            "points", "windows")
+            "points", "windows", "codec")
 # the few-row queries of chip_smoke.py phase 17: (n, bytes of the column, w)
 FEWROW_QUERIES = ((1 << 20, 1, 8), (1 << 20, 8, 8), (1 << 20, 32, 4), (1 << 10, 1, 8))
 # the Weierstrass lookups' partials at the shapes their chunk rules give a
@@ -188,7 +199,7 @@ def main() -> int:
                                     "w_build_table.cu", "build_cached_table.cu", "doubling_combine.cu",
                                     "w_affine.cu", "mont_sum_round.cu", "ed_convert.cu", "ed_horner.cu",
                                     "w_horner.cu", "fewrow_niels.cu", "niels_tree_reduce_lanes.cu", "finvert.cu",
-                                    "window_sums.cu")},
+                                    "window_sums.cu", "ristretto.cu")},
               "cases": {}}
     cases = report["cases"]
 
@@ -920,6 +931,84 @@ def section_windows(torch, cs, dev, case) -> None:
         case(f"windows/bucket_commit/2^{n.bit_length() - 1}", None, ok, ms=float(np.median(times)), times_ms=times, split=split)
     finally:
         os.environ.pop(engine.ENGINE_VAR, None)
+
+
+IPA_N = 1 << 20
+
+
+def section_codec(torch, cs, dev, case) -> None:
+    import hashlib
+
+    from blitzar_tpu_torch import api, generators
+    from blitzar_tpu_torch.curves import ristretto as rst
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.msm import engine, fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+    from blitzar_tpu_torch.proof import inner_product as tipa
+    from blitzar_tpu_torch.proof.transcript import Transcript
+
+    kernel = hasattr(cp, "ristretto_encode")
+    encode = cp.ristretto_encode if kernel else rst.encode
+    decode = cp.ristretto_decode if kernel else rst.decode
+    for count in cs.CODEC_COUNTS:
+        pts, want, data, mask = cs.codec_inputs(torch, dev, count)
+        ok = torch.equal(encode(pts), want)
+        one_launch_case(torch, cs, case, f"codec/encode/{count}", functools.partial(encode, pts), ok, kernel)
+        got, valid = decode(data)
+        plain, plain_valid = rst.decode(data)
+        good = torch.from_numpy(mask).to(dev)
+        ok = (valid.cpu().numpy().tolist() == plain_valid.cpu().numpy().tolist() == mask.tolist()
+              and all(torch.equal(F.canonicalize(g)[:, good], F.canonicalize(p)[:, good]) for g, p in zip(got, plain)))
+        one_launch_case(torch, cs, case, f"codec/decode/{count}", functools.partial(decode, data), ok, kernel)
+        del pts, want, data, got, plain
+
+    # the warm 2^20 commitment: its encode stage (host clock, as chip_smoke.py's
+    # warm_stages), and whole
+    n = IPA_N
+    if not api._BACKEND.initialized:  # the windows section's, where both run
+        api.init("gpu")
+    desc = api.SequenceDescriptor(32, n, cs.counter_scalars(n, 32))
+    commit = functools.partial(api.compute_curve25519_commitments, [desc])
+    ok = cs.digest(commit()) == cs.PINNED_RISTRETTO_MSM[20]
+    gens = generators.get_precomputed_generators(n, 0, dev)
+    scalars, _, rows = engine.prepare_scalars([desc.rows()], [32], [False])
+    result = fixed.fixed_multiexponentiation(engine.cached_handle(gens, rows), scalars)
+    ok = ok and cs.digest(encode(result).cpu().numpy().T) == cs.PINNED_RISTRETTO_MSM[20]
+    stage = [cs.timed(torch, lambda: encode(result).cpu())[1] for _ in range(5)]
+    case("codec/commit_2^20_encode_stage", None, ok, ms=float(np.median(stage)), times_ms=stage)
+    warm = [cs.timed(torch, commit)[1] for _ in range(3)]
+    case("codec/commit_2^20_warm", None, ok, ms=float(np.median(warm)), times_ms=warm)
+
+    # the IPA at 2^20 (chip_smoke.py phase 10): prove, its encode's share, verify
+    rng = np.random.default_rng(3)
+    a, b = cs.bench_rows(rng, (n,)), cs.bench_rows(rng, (n,))
+
+    def prove():
+        return api.prove_inner_product(Transcript(b"bench"), n, 0, a, b)
+
+    (l, r, ap), cold = cs.timed(torch, prove)
+    warm = [cs.timed(torch, prove)[1] for _ in range(2)]
+    target = (cp, "ristretto_encode") if kernel else (rst, "encode")
+    with cs.StageTimer(torch, {"encode": [target]}) as st:
+        (l2, r2, ap2), total = cs.timed(torch, prove)
+    ok = np.array_equal(l, l2) and np.array_equal(r, r2) and ap == ap2
+    proof = hashlib.sha256(l.tobytes() + r.tobytes() + int(ap).to_bytes(32, "little")).hexdigest()
+    case("codec/ipa_2^20_prove", None, ok, ms=float(np.median(warm)), cold_ms=cold, times_ms=warm,
+         split_ms={"total": total, "encode": st.ms["encode"]}, proof_sha256=proof)
+    av = np.frombuffer(a[:, :8].tobytes(), "<u8").tolist()
+    bv = np.frombuffer(b[:, :8].tobytes(), "<u8").tolist()
+    product = sum(x * y for x, y in zip(av, bv)) % tipa.ORDER
+    a_commit, _ = api.decompress_ristretto255(api.compute_curve25519_commitments([api.SequenceDescriptor(32, n, a)]))
+
+    def verify(lv=l):
+        return api.verify_inner_product(Transcript(b"bench"), n, 0, b, product, a_commit, lv, r, ap)
+
+    verified, _ = cs.timed(torch, verify)
+    times = [cs.timed(torch, verify)[1] for _ in range(3)]
+    flipped = l.copy()
+    flipped[3, 7] ^= 0x01
+    ok = bool(verified) and not verify(lv=flipped)
+    case("codec/ipa_2^20_verify", None, ok, ms=float(np.median(times)), times_ms=times)
 
 
 if __name__ == "__main__":

@@ -43,6 +43,54 @@ def test_elligator_form_kernel(dev):
     assert _same(cp.elligator_form(r0.to(dev), r1.to(dev)), cp.elligator_form_plain(r0, r1))
 
 
+# even canonical s whose decode fails for one reason each: no square root,
+# a negative t (the first of each from s = 2 up, by
+# tests/test_torch_ristretto_codec.py's search), and p - 1 (y = 0)
+CODEC_NOT_SQUARE, CODEC_NEGATIVE_T = 8, 2
+CODEC_Y_ZERO = F.P - 1
+
+
+def codec_invalid() -> torch.Tensor:
+    """(32, 7) uint8: s = p + 1 (not canonical), 1 (odd), a valid encoding
+    with bit 255 set, no square root, a negative t, y = 0, all ones."""
+    cols = [F.P + 1, 1, CODEC_NOT_SQUARE, CODEC_NEGATIVE_T, CODEC_Y_ZERO]
+    data = np.stack([np.frombuffer(v.to_bytes(32, "little"), np.uint8) for v in cols], axis=1)
+    top = np.frombuffer(bytes.fromhex(RUST_EXPECTED_0), np.uint8).copy()
+    top[31] |= 0x80
+    return torch.from_numpy(np.concatenate([data, top[:, None], np.full((32, 1), 0xFF, np.uint8)], axis=1))
+
+
+@pytest.mark.parametrize("n", [1, 2, 40, 300])
+def test_ristretto_codec_kernels(dev, n):
+    """ristretto_encode on sums of generators (z far from 1; the identity
+    first) equals the plain encode byte for byte; ristretto_decode of those
+    bytes with invalid ones among them gives the plain version's valid
+    flags and its canonical points in the valid slots."""
+    pts = cp.ed_add_plain(*(ed.index_batch(cp.elligator_form_plain(*_r(2 * n, 21)), s)
+                            for s in (slice(0, n), slice(n, 2 * n))))
+    pts = ed.cat([ed.identity((1,)), ed.index_batch(pts, slice(1, n))])
+    enc = cp.ristretto_encode(ed.PointP3(*(c.to(dev) for c in pts)))
+    want = cp.ristretto_encode_plain(pts)
+    assert enc.dtype == torch.uint8 and torch.equal(enc.cpu(), want)
+    assert not bool(want[:, 0].any())
+    data = torch.cat([want, codec_invalid()], dim=1)
+    got, valid = cp.ristretto_decode(data.to(dev))
+    plain, plain_valid = cp.ristretto_decode_plain(data)
+    assert valid.tolist() == plain_valid.tolist() == [True] * n + [False] * 7
+    assert all(torch.equal(g.cpu()[:, :n], F.canonicalize(p)[:, :n]) for g, p in zip(got, plain))
+    assert torch.equal(cp.ristretto_encode(ed.index_batch(got, slice(0, n))).cpu(), want)
+
+
+def test_compress_and_decompress_launch_the_codec(dev):
+    api.init("gpu")
+    before = {k: cp.LAUNCHES[k] for k in ("ristretto_encode", "ristretto_decode")}
+    enc = api.compress_ristretto255(api.get_ristretto255_generators(6))
+    pts, valid = api.decompress_ristretto255(enc)
+    assert valid.all() and np.array_equal(api.compress_ristretto255(pts), enc)
+    assert cp.LAUNCHES["ristretto_encode"] - before["ristretto_encode"] == 2
+    assert cp.LAUNCHES["ristretto_decode"] - before["ristretto_decode"] == 1
+
+
 def test_ed_add_kernel_on_slices(dev):
     r0, r1 = _r(64, 1)
     pts = cp.elligator_form_plain(r0, r1)
