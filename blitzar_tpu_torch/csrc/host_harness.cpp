@@ -3,8 +3,8 @@
 // fp25519.cuh, field_batch.cuh, edwards25519.cuh, niels_tree.cuh,
 // table_build.cuh, lookup.cuh, mont.cuh, weierstrass.cuh, ladder.cuh,
 // sumcheck.cuh, tree_reduce.cuh, w_affine.cuh, ed_convert.cuh and
-// window_sums.cuh (edwards25519.cuh with ristretto.cu's codec bodies) are
-// compiled here by a host C++ compiler (BTT_HD is plain inline then), so
+// window_sums.cuh (edwards25519.cuh with ristretto.cu's codec bodies),
+// mont_rows.cuh and quad_add.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
@@ -12,13 +12,16 @@
 // (3, 16, n), a cached batch (4, 16, n), a Weierstrass point batch (3,
 // nlimbs, n), a sumcheck MLE table (16, m, 2 mid), a Weierstrass table
 // chunk (count, 3, K) words, a ristretto255 one (count, 3, 8) words, a raw
-// file's rows (count, 15) u64 words, ristretto255 encodings (32, n) bytes.
+// file's rows (count, 15) u64 words, ristretto255 encodings (32, n) bytes,
+// the proofs' ABI rows (num_mles * n, nbytes) bytes.
 #include "ed_convert.cuh"
 #include "edwards25519.cuh"
 #include "field_batch.cuh"
 #include "ladder.cuh"
 #include "lookup.cuh"
+#include "mont_rows.cuh"
 #include "niels_tree.cuh"
+#include "quad_add.cuh"
 #include "sumcheck.cuh"
 #include "table_build.cuh"
 #include "tree_reduce.cuh"
@@ -84,6 +87,30 @@ void host_mont_field(int op, const int32_t* a, const int32_t* b, int32_t* out, i
 template <class C>
 void host_mont(int op, const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
   host_mont_field<typename C::F>(op, a, b, out, n);
+}
+
+// mont_rows.cu's launcher on the host, its blocks one after another: each
+// block's run of bytes staged as the kernel stages it (16 bytes at a time
+// from a0, bytes past the input's end left out), then its columns.
+template <class F>
+void host_mont_from_rows(const uint8_t* rows, int64_t num_mles, int64_t n, int nbytes, int64_t n_pad,
+                         const int32_t* scale, int32_t* out) {
+  const int64_t col_blocks = (n_pad + kRowsThreads - 1) / kRowsThreads;
+  const int64_t total = num_mles * n * nbytes;
+  const mfe<F> c = mf_load<F>(scale, 1);
+  alignas(16) uint8_t staged[kRowsStageBytes];
+  for (int64_t block = 0; block < num_mles * col_blocks; ++block) {
+    const rows_span s = rows_span_of(block, col_blocks, n, nbytes);
+    for (int64_t o = 0; s.a0 + o < s.a1; o += 16) {
+      for (int64_t b = s.a0 + o; b < s.a0 + o + 16 && b < total; ++b) staged[b - s.a0] = rows[b];
+    }
+    for (int t = 0; t < kRowsThreads; ++t) {
+      const int64_t col = s.first + t;
+      if (col >= n_pad) break;
+      const uint8_t* row = t < s.live ? staged + s.skew + (int64_t)t * nbytes : nullptr;
+      mf_store<F>(out + s.mle * n_pad + col, num_mles * n_pad, mont_row_element<F>(row, nbytes, c));
+    }
+  }
 }
 
 // The sumcheck round of mont_sum_round.cu, its grid simulated: nblocks
@@ -370,6 +397,19 @@ int btt_host_field_mont(int field, int op, const int32_t* a, const int32_t* b, i
   }
 }
 
+// rows (num_mles * n, nbytes) bytes, scale 16 limbs (R^2 or R mod m), out
+// (16, num_mles, n_pad); returns -1 for another field or a shape the
+// launcher rejects
+int btt_host_mont_from_rows(int field, const uint8_t* rows, int64_t num_mles, int64_t n, int nbytes, int64_t n_pad,
+                            const int32_t* scale, int32_t* out) {
+  if (nbytes < 1 || nbytes > kRowsMaxBytes || n < 0 || n_pad < n || num_mles < 0) return -1;
+  switch (field) {
+    case kFieldScalar255: host_mont_from_rows<Scalar25519>(rows, num_mles, n, nbytes, n_pad, scale, out); return 0;
+    case kFieldGrumpkin: host_mont_from_rows<Bn254Fr>(rows, num_mles, n, nbytes, n_pad, scale, out); return 0;
+    default: return -1;
+  }
+}
+
 // mles (16, m, 2 mid); interp (16, (degree + 1)^2), cuda_mont.interpolation;
 // nblocks x threads the simulated grid; returns -1 for another field, a
 // product length outside 1..degree or an empty grid
@@ -487,6 +527,19 @@ void btt_host_ed_add(const int32_t* p, const int32_t* q, int32_t* out, int64_t n
   for (int64_t i = 0; i < n; ++i) ge_store(oo, i, ge_add(ge_load(pp, i), ge_load(qq, i)));
 }
 
+// ed_add.cu's quads: each pair's four lanes' stage 1 in turn, their
+// products exchanged through an array, then each lane's stages 2 and 3;
+// p, q, out (4, 16, n)
+void btt_host_ed_add_quad(const int32_t* p, const int32_t* q, int negate_q, int32_t* out, int64_t n) {
+  point_ptrs pp = in_points(p, n), qq = in_points(q, n);
+  point_out_ptrs oo = out_points(out, n);
+  for (int64_t i = 0; i < n; ++i) {
+    fe s[kQuadLanes];
+    for (int j = 0; j < kQuadLanes; ++j) s[j] = ed_add_quad_first(j, pp, qq, i, negate_q != 0, fe_mul_op());
+    for (int j = 0; j < kQuadLanes; ++j) fe_store(quad_coord(oo, j) + i, n, quad_last(j, s, fe_mul_op()));
+  }
+}
+
 void btt_host_ed_double(const int32_t* p, int32_t* out, int64_t n) {
   point_ptrs pp = in_points(p, n);
   point_out_ptrs oo = out_points(out, n);
@@ -503,6 +556,18 @@ void btt_host_ed_madd(const int32_t* p, const int32_t* niels, int32_t* out, int6
 void btt_host_niels_add(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
   point_out_ptrs oo = out_points(out, n);
   for (int64_t i = 0; i < n; ++i) ge_store(oo, i, ge_niels_add(load_niels(p, n, i), load_niels(q, n, i)));
+}
+
+// niels_add.cu's quads, as btt_host_ed_add_quad; p, q (3, 16, n), out (4,
+// 16, n)
+void btt_host_niels_add_quad(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
+  niels_ptrs pp = {{p, p + 16 * n, p + 32 * n}, n}, qq = {{q, q + 16 * n, q + 32 * n}, n};
+  point_out_ptrs oo = out_points(out, n);
+  for (int64_t i = 0; i < n; ++i) {
+    fe s[kQuadLanes];
+    for (int j = 0; j < kQuadLanes; ++j) s[j] = niels_add_quad_first(j, pp, qq, i, fe_mul_op());
+    for (int j = 0; j < kQuadLanes; ++j) fe_store(quad_coord(oo, j) + i, n, quad_last(j, s, fe_mul_op()));
+  }
 }
 
 // fewrow_niels.cu's launcher on the host, its warps one column after

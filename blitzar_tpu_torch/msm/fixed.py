@@ -413,10 +413,13 @@ def doubling_combine(products, num_outputs: int, nbits: int, curve=ed):
 
 def combine_signed(products, num_outputs: int, nbits: int, curve=ed):
     """(2 * num_outputs * nbits,) products of positive then negative rows
-    -> (num_outputs,) outputs Q_pos - Q_neg (blitzar_tpu/msm/fixed.py:655-707)."""
+    -> (num_outputs,) outputs Q_pos - Q_neg (blitzar_tpu/msm/fixed.py:655-707);
+    on ristretto255 one ``ed_add`` launch that reads Q_neg negated."""
     both = doubling_combine(products, 2 * num_outputs, nbits, curve)
     q_pos = curve.index_batch(both, slice(0, num_outputs))
     q_neg = curve.index_batch(both, slice(num_outputs, 2 * num_outputs))
+    if curve is ed:
+        return cuda_point.ed_add(q_pos, q_neg, negate_q=True)
     return curve.add(q_pos, curve.neg(q_neg))
 
 

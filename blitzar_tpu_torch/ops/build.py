@@ -40,7 +40,7 @@ SIGNATURES = {
     "btt_build_cached_table": [_P, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "btt_ed_lookup_msm": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_doubling_combine": [_P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P],
-    "btt_ed_add": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+    "btt_ed_add": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I, _I64, _P, _P, _P, _P, _P],
     "btt_ed_double": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_niels_add": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_fewrow_niels": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P, _P, _P],
@@ -72,6 +72,7 @@ SIGNATURES = {
     # the proof kernels take the field's C ABI id first
     "btt_mont_mul_ew": [_I, _P, _I64, _P, _I64, _I64, _I64, _P, _P],
     "btt_mont_fold_round": [_I, _P, _I64, _I64, _I64, _I64, _P, _I64, _P, _P],
+    "btt_mont_from_rows": [_I, _P, _I64, _I64, _I, _I64, _P, _P, _P],
     "btt_mont_sum_round": [_I, _I, _P, _I64, _I64, _I64, _P, _I, _P, _P, _P, _I64, _P, _P, _P, _P],
 }
 

@@ -21,7 +21,15 @@ wrapper              replaces                                 source
 ``mont_mul_ew``      ``mont_mul_ew`` :1139 (body :1128)       mont_mul_ew.cu
 ``mont_fold_round``  ``mont_fold_round`` :1172 (body :1110)   mont_fold_round.cu
 ``mont_sum_round``   ``mont_sum_round`` :1077 (body :1026)    mont_sum_round.cu
+``mont_from_rows``   none: blitzar_tpu's jitted               mont_rows.cu
+                     ``from_bytes_le`` (proof/
+                     inner_product.py:88-104, proof/
+                     sumcheck.py:63-87)
 ===================  ======================================  ==================
+
+``mont_from_rows`` turns the proofs' uint8 ABI rows into the Montgomery
+table on the card in one launch, where the rows were split into limbs on
+the host and copied as int32.
 
 Kernel inputs are canonical (below m), but ``mont_mul_ew``'s ``a`` may be
 any value below R: :func:`to_mont` and :func:`reduce_residues` use that to
@@ -35,7 +43,7 @@ import functools
 import torch
 
 from ..fields import params
-from ..fields.mont import MontField
+from ..fields.mont import MontField, rows_to_limbs
 from . import build
 from .cuda_point import _field_arg, _launch, _on_card, _stream
 
@@ -113,6 +121,75 @@ def reduce_residues(field: MontField, raw: torch.Tensor) -> torch.Tensor:
     """(nlimbs, W) Montgomery residues below R -> the same elements,
     canonical (times R mod m, the form of 1, then R^-1)."""
     return mont_mul_ew(field, raw, constant(field, field.r, raw.device))
+
+
+# ---------------------------------------------------------------------------
+# mont_from_rows  (replaces no Pallas kernel: blitzar_tpu's jitted
+# from_bytes_le, proof/inner_product.py:88-104, proof/sumcheck.py:63-87)
+# ---------------------------------------------------------------------------
+
+# what a row holds, by the constant its value is multiplied by (then R^-1):
+# "standard" a value below 2^256 (scalar25519 ABI bytes) times R^2 mod m,
+# its reduced Montgomery form; "residues" a Montgomery residue below 2^256
+# (Grumpkin ABI bytes) times R mod m, the same element, canonical
+ROWS_SCALES = {"standard": "r2", "residues": "r"}
+_ROWS_SCALE: dict = {}
+
+
+def _rows_scale(field: MontField, mode: str, device) -> torch.Tensor:
+    if mode not in ROWS_SCALES:
+        raise ValueError(f"rows mode {mode!r}: expected one of {list(ROWS_SCALES)}")
+    key = (field.name, mode, str(device))
+    if key not in _ROWS_SCALE:
+        _ROWS_SCALE[key] = constant(field, getattr(field, ROWS_SCALES[mode]), device)
+    return _ROWS_SCALE[key]
+
+
+def _check_rows(field: MontField, rows: torch.Tensor, num_mles: int, n_pad: int) -> int:
+    """A (num_mles * n, nbytes) uint8 row batch; returns n."""
+    if (rows.dim() != 2 or rows.dtype != torch.uint8 or not 1 <= rows.shape[1] <= 2 * field.nlimbs
+            or num_mles < 1 or rows.shape[0] % num_mles):
+        raise ValueError(f"rows {tuple(rows.shape)} {rows.dtype}: expected (num_mles * n, 1..{2 * field.nlimbs}) "
+                         f"uint8 with num_mles = {num_mles}")
+    n = rows.shape[0] // num_mles
+    if n_pad < n:
+        raise ValueError(f"n_pad {n_pad} below n {n}")
+    return n
+
+
+def mont_from_rows_plain(field: MontField, rows: torch.Tensor, num_mles: int, n_pad: int, mode: str) -> torch.Tensor:
+    """rows_to_limbs, then the multiply by the mode's constant
+    (mont_mul_ew_plain), into a zero-padded table."""
+    n = _check_rows(field, rows, num_mles, n_pad)
+    raw = rows_to_limbs(rows, field.nlimbs, rows.device)
+    reduced = mont_mul_ew_plain(field, raw, _rows_scale(field, mode, rows.device))
+    table = torch.zeros((field.nlimbs, num_mles, n_pad), dtype=torch.int32, device=rows.device)
+    table[:, :, :n] = reduced.reshape(field.nlimbs, num_mles, n)
+    return table
+
+
+def mont_from_rows(field: MontField, rows: torch.Tensor, num_mles: int, n_pad: int, mode: str) -> torch.Tensor:
+    """(num_mles * n, nbytes <= 32) uint8 little-endian rows, MLE k's n rows
+    in a run -> the (nlimbs, num_mles, n_pad) canonical Montgomery table,
+    zero in every column from n on; ``mode`` "standard" or "residues"
+    (:data:`ROWS_SCALES`). The IPA's (nlimbs, length) is num_mles = 1.
+
+    Kernel csrc/mont_rows.cu, one launch: a block's rows staged through
+    shared memory, one thread an element, the padding written by the same
+    threads. Bound: integer multiplies (one Montgomery multiply an element)."""
+    n = _check_rows(field, rows, num_mles, n_pad)
+    if not _on_card(rows):
+        return mont_from_rows_plain(field, rows, num_mles, n_pad, mode)
+    fid = _field_id(field)
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        rows = rows.clone(memory_format=torch.contiguous_format)
+    scale = _rows_scale(field, mode, rows.device)
+    out = torch.empty((field.nlimbs, num_mles, n_pad), dtype=torch.int32, device=rows.device)
+    _launch(
+        "mont_from_rows", build.library().btt_mont_from_rows,
+        fid, rows.data_ptr(), num_mles, n, rows.shape[1], n_pad, scale.data_ptr(), out.data_ptr(), _stream(rows.device),
+    )
+    return out
 
 
 # ---------------------------------------------------------------------------

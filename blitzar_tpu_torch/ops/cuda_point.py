@@ -73,8 +73,8 @@ as ``ed_lookup_msm_cached``. The Weierstrass kernels (``w_build_table``,
 ``w_horner``, ``w_window_sums`` and ``tree_reduce_lanes``'s Weierstrass
 instantiations) have their wrappers in
 ``ops/cuda_wpoint.py``,
-the proof kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``)
-in ``ops/cuda_mont.py``, the field kernels (``fmul``, ``fsq``, ``finvert``)
+the proof kernels (``mont_mul_ew``, ``mont_fold_round``, ``mont_sum_round``,
+``mont_from_rows``) in ``ops/cuda_mont.py``, the field kernels (``fmul``, ``fsq``, ``finvert``)
 in ``ops/cuda_field.py``; their launches are counted here too, so ``KERNELS``
 and ``LAUNCHES`` cover every kernel, and ``INSTANCE_LAUNCHES`` counts the
 launches of each curve's instantiation of a templated kernel.
@@ -128,6 +128,7 @@ KERNELS = (
     "mont_mul_ew",
     "mont_fold_round",
     "mont_sum_round",
+    "mont_from_rows",
 )
 
 # launches of each kernel since the last reset_launches(), and of each
@@ -466,17 +467,19 @@ def ed_affine(points: ed.PointP3) -> ed.PointP3:
 # ---------------------------------------------------------------------------
 
 
-def ed_add_plain(p: ed.PointP3, q: ed.PointP3) -> ed.PointP3:
-    return ed._add_impl(p, q)
+def ed_add_plain(p: ed.PointP3, q: ed.PointP3, negate_q: bool = False) -> ed.PointP3:
+    return ed._add_impl(p, ed.neg(q) if negate_q else q)
 
 
-def ed_add(p: ed.PointP3, q: ed.PointP3) -> ed.PointP3:
-    """Elementwise p + q (unified add-2008-hwcd-3) over equal batch shapes.
+def ed_add(p: ed.PointP3, q: ed.PointP3, negate_q: bool = False) -> ed.PointP3:
+    """Elementwise p + q (unified add-2008-hwcd-3) over equal batch shapes,
+    or p - q with ``negate_q`` (q read as (-x, y, z, -t), no pass first).
 
-    Kernel csrc/ed_add.cu, one thread per element. Bound: bytes (three
-    points of 256 bytes per element against 9 field multiplies)."""
+    Kernel csrc/ed_add.cu: four lanes of a warp a pair (csrc/quad_add.cuh).
+    Bound: the launch and one lane's 3 dependent multiplies at the paths'
+    batches; integer multiplies (12 field multiplies a pair) at large ones."""
     if not _on_card(p.x):
-        return ed_add_plain(p, q)
+        return ed_add_plain(p, q, negate_q)
     batch = tuple(p.x.shape[1:])
     pc, ps = _point_arg(p, p.x.device, batch)
     qc, qs = _point_arg(q, p.x.device, batch)
@@ -484,7 +487,8 @@ def ed_add(p: ed.PointP3, q: ed.PointP3) -> ed.PointP3:
     count = p.x[0].numel()
     _launch(
         "ed_add", build.library().btt_ed_add,
-        *_ptrs(pc), ps, *_ptrs(qc), qs, count, *_ptrs(out), _stream(p.x.device),
+        *_ptrs(pc), ps, *_ptrs(qc), qs, int(negate_q), count,
+        *_ptrs(out), _stream(p.x.device),
     )
     return out
 
@@ -529,8 +533,9 @@ def niels_add(n1: ed.Niels, n2: ed.Niels) -> ed.PointP3:
     """Elementwise n1 + n2 of two affine niels batches of one shape, as
     extended points (7 multiplies and one by 1/(2d)).
 
-    Kernel csrc/niels_add.cu, one thread per element. Bound: integer
-    multiplies (8 field multiplies per element)."""
+    Kernel csrc/niels_add.cu, four lanes of a warp a pair (csrc/quad_add.cuh).
+    Bound: the launch and one lane's 3 dependent multiplies at the few-row
+    path's batch; integer multiplies (8 field multiplies a pair) at large ones."""
     if not _on_card(n1.a):
         return niels_add_plain(n1, n2)
     batch = tuple(n1.a.shape[1:])

@@ -43,7 +43,7 @@ import torch
 
 from ..curves import edwards25519 as ed
 from ..fields import params
-from ..fields.mont import limbs_to_rows, rows_to_limbs
+from ..fields.mont import limbs_to_rows
 from ..msm import engine
 from ..msm import fixed
 from ..ops import cuda_mont, cuda_point
@@ -90,11 +90,10 @@ def _int_row(value: int) -> np.ndarray:
 
 
 def _mont_rows(rows: np.ndarray, length: int, device) -> torch.Tensor:
-    """(n, 32) rows -> (nlimbs, length) Montgomery, reduced mod l, zero-padded."""
-    raw = rows_to_limbs(rows, S.nlimbs, device)
-    if raw.shape[1] < length:
-        raw = torch.nn.functional.pad(raw, (0, length - raw.shape[1]))
-    return cuda_mont.to_mont(S, raw)
+    """(n, 32) rows -> (nlimbs, length) Montgomery, reduced mod l,
+    zero-padded: the rows cross as they are, one ``mont_from_rows`` launch."""
+    flat = torch.from_numpy(np.require(rows, np.uint8, ["C", "W"])).to(device)
+    return cuda_mont.mont_from_rows(S, flat, 1, length, "standard").reshape(S.nlimbs, length)
 
 
 def _mont_int(value: int, device) -> torch.Tensor:

@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields.mont import MontField, rows_to_limbs
+from ..fields.mont import MontField
 from ..ops import cuda_mont
 from . import ceil_log2
 from .transcript import Transcript
@@ -51,6 +51,7 @@ class FieldCodec:
     name: str
     field_id: int
     field: MontField
+    rows_mode: str  # cuda_mont.ROWS_SCALES
 
     def element_to_transcript_bytes(self, value: int) -> bytes:
         raise NotImplementedError
@@ -59,18 +60,19 @@ class FieldCodec:
         raise NotImplementedError
 
     def rows_to_mont(self, rows: np.ndarray, n_pad: int, device) -> torch.Tensor:
-        """(num_mles, n, 32) uint8 ABI rows -> (nlimbs, num_mles, n_pad)
-        canonical Montgomery table, zero-padded."""
-        num_mles, n, _ = rows.shape
-        raw = rows_to_limbs(rows.reshape(num_mles * n, -1), self.field.nlimbs, device)
-        table = torch.zeros((self.field.nlimbs, num_mles, n_pad), dtype=torch.int32, device=device)
-        table[:, :, :n] = self._reduce(raw).reshape(self.field.nlimbs, num_mles, n)
-        return table
+        """(num_mles, n, nbytes) uint8 ABI rows -> (nlimbs, num_mles, n_pad)
+        canonical Montgomery table, zero-padded: the rows cross to the
+        device as they are, and one ``mont_from_rows`` launch converts them."""
+        num_mles, n, nbytes = rows.shape
+        flat = torch.from_numpy(np.require(rows, np.uint8, ["C", "W"]).reshape(num_mles * n, nbytes))
+        return cuda_mont.mont_from_rows(self.field, flat.to(device), num_mles, n_pad, self.rows_mode)
 
 
 class _Scalar25519Codec(FieldCodec):
     name, field_id = "scalar25519", cuda_mont.SXT_FIELD_SCALAR255
     field = cuda_mont.FIELDS[field_id]
+    # the ABI bytes are standard-form values below 2^256: reduced mod l
+    rows_mode = "standard"
 
     def element_to_transcript_bytes(self, value: int) -> bytes:
         return (value % self.field.modulus).to_bytes(32, "little")
@@ -78,9 +80,6 @@ class _Scalar25519Codec(FieldCodec):
     def challenge_from_bytes(self, raw: bytes) -> int:
         return int.from_bytes(raw, "little") % self.field.modulus
 
-    def _reduce(self, raw: torch.Tensor) -> torch.Tensor:
-        # the ABI bytes are standard-form values below 2^256: reduced mod l
-        return cuda_mont.to_mont(self.field, raw)
 
 
 class _FieldGkCodec(FieldCodec):
@@ -89,6 +88,10 @@ class _FieldGkCodec(FieldCodec):
 
     name, field_id = "grumpkin", cuda_mont.SXT_FIELD_GRUMPKIN
     field = cuda_mont.FIELDS[field_id]
+    # the ABI bytes are Montgomery residues below 2^256, taken as they are;
+    # a residue at or above r stands for the same element, made canonical
+    # (the kernels assume canonical input)
+    rows_mode = "residues"
 
     def element_to_transcript_bytes(self, value: int) -> bytes:
         return (value % self.field.modulus * self.field.r % self.field.modulus).to_bytes(32, "little")
@@ -97,11 +100,6 @@ class _FieldGkCodec(FieldCodec):
         rinv = self.field.r_inv
         return int.from_bytes(raw, "little") * rinv * rinv % self.field.modulus
 
-    def _reduce(self, raw: torch.Tensor) -> torch.Tensor:
-        # the ABI bytes are Montgomery residues below 2^256, taken as limbs;
-        # a residue at or above r stands for the same element, made
-        # canonical here (the kernels assume canonical input)
-        return cuda_mont.reduce_residues(self.field, raw)
 
 
 SCALAR25519_CODEC = _Scalar25519Codec()

@@ -7,12 +7,12 @@ one GPU.
 
 Phases, each fatal on failure:
 
-1. build the kernels of the twenty-six CUDA sources in ``blitzar_tpu_torch/csrc``
+1. build the kernels of the twenty-seven CUDA sources in ``blitzar_tpu_torch/csrc``
    (nvcc, sm_90a; one process per source, all at once), print their
    registers and spills (none allowed in ``ed_convert.cu``, ``ed_horner.cu``,
    ``w_horner.cu``, ``fewrow_niels.cu``, ``finvert.cu``,
-   ``window_sums.cu`` and ``ristretto.cu``) and the card's name and power
-   limit;
+   ``window_sums.cu``, ``ristretto.cu``, ``mont_rows.cu``, ``ed_add.cu`` and
+   ``niels_add.cu``) and the card's name and power limit;
 2. run each kernel at the shapes its path gives it at full width
    (ristretto255 2^20 commitment for the five Edwards kernels of the handle
    path, bn254 G1 for the five Weierstrass ones (the ladder
@@ -21,7 +21,12 @@ Phases, each fatal on failure:
    for limb the plain version in the kernel's segments and, run in one
    segment, in blitzar_tpu's order), a 2^20 IPA round and a 2^20 sumcheck
    round
-   for the three proof kernels, in both proof fields) and hold it against
+   for the three proof kernels, in both proof fields; ``mont_from_rows`` at
+   the sumcheck's 3 x 2^20 rows and at 2^20 - 5 rows padded to 2^20, in both
+   fields; ``ed_add`` also reading q negated and at the window sums' (32,
+   255) and (320, 255), beside an empty launch's device time; its and
+   ``niels_add``'s readings at one thread a pair, constants, beside this
+   run's times in ``earlier_add_ms``, outside the kernels line) and hold it against
    its plain PyTorch version on the same inputs (canonical values must be
    equal), timing both (a kernel's time is the median device time of one
    launch, see ``device_ms``); where the plain version is too large to run
@@ -31,7 +36,10 @@ Phases, each fatal on failure:
    do ``w_affine``'s (no spill) and ``mont_sum_round``'s (no spill, no stack
    frame at any degree in either field);
 3. the upstream end-to-end vectors through ``api.compute_curve25519_commitments``
-   on the card, and a signed multi-output case against the plain CPU run;
+   on the card, and a signed multi-output case against the plain CPU run
+   (each signed ristretto255 commitment of phases 3-6 must take one
+   ``ed_add`` launch that reads Q_neg negated for Q_pos - Q_neg, and no
+   plain ``neg``);
 4. the bn254 G1, Grumpkin and bls12-381 G1 commitment entries at n = 100
    (signed and unsigned columns, three outputs) against the oracle's sums
    (``blitzar_tpu_torch/refimpl/weierstrass.py``);
@@ -58,12 +66,15 @@ Phases, each fatal on failure:
    vectors of ``tests/torch_proof_vectors.py`` through the entry points;
 9. the benchmark's sumcheck at 2^20 in both fields: the verifier accepts
    against the sum over the cube, the final sum equals the MLEs folded to
-   the evaluation point, a tampered coefficient is rejected; cold and warm
-   proofs and the per-stage split of one more timed;
+   the evaluation point, a tampered coefficient is rejected, its table is
+   one ``mont_from_rows`` launch; cold and warm proofs and the per-stage
+   split of one more timed, the table's conversion also in three parts
+   (host, copy, kernel: ``rows_parts``);
 10. the benchmark's IPA at 2^20: the proof verifies against the port's own
    commitment to a, not with a flipped L byte or ap + 1; cold and warm
    proofs, the per-stage split of one proof and the verifier timed, the
-   verifier also split by stage;
+   verifier also split by stage, its b rows in three parts; each row set
+   of the prove (a, b) and the verify (b) is one ``mont_from_rows`` launch;
 11. the proof kernels and the ristretto255 kernels the proofs use must
    have launched during phases 8-10 (the proof path, counts from 0, run
    from empty generator and handle caches: the proofs derive G and Q);
@@ -177,8 +188,8 @@ Phases, each fatal on failure:
    (constants) to ``earlier_build_ladder_ms``; none of it is in the kernels
    line;
 20. ``w_build_table`` (by curve, groups and w), ``doubling_combine`` (by
-   outputs and bits) and ``mont_sum_round`` (by field, round size, degree,
-   MLEs and products) at every shape the paths of phases 3-17 launched
+   outputs and bits), ``mont_sum_round`` (by field, round size, degree,
+   MLEs and products) and ``ed_add`` (by pairs, q negated or not) at every shape the paths of phases 3-17 launched
    them at (counted as phase 19 counts the tree reduce): timed, bounded,
    held against their plain versions, and launches x (time - bound)
    summed over the shapes (``kernels_by_shape``); then every kernel's
@@ -569,6 +580,7 @@ CONVERSION_HORNER_SOURCES = {
 FEWROW_FINVERT_SOURCES = {"fewrow_niels": "fewrow_niels.cu", "finvert": "finvert.cu"}
 # the ristretto255 codec: no spill allowed
 CODEC_SOURCES = {"ristretto_encode/ristretto_decode": "ristretto.cu"}
+ROWS_ADDS_SOURCES = {"mont_from_rows": "mont_rows.cu", "ed_add": "ed_add.cu", "niels_add": "niels_add.cu"}
 
 
 def conversion_horner_ptxas(log_text: str, built_here: bool, sources: dict = CONVERSION_HORNER_SOURCES) -> dict:
@@ -683,6 +695,20 @@ def build_ladder_times(results: dict) -> dict:
     return out
 
 
+def earlier_add_times(results: dict) -> dict:
+    """This run's ed_add and niels_add times beside their readings at one
+    thread a pair (constants)."""
+    add, shapes = results["ed_add"], results["ed_add"]["at_shapes"]
+    now = {"ed_add/512": add["ms"], "ed_add/32x255": shapes["32x255"]["ms"], "ed_add/320x255": shapes["320x255"]["ms"],
+           "niels_add/64x8": results["niels_add"]["ms"]}
+    out = {"note": "earlier_ms: readings at one thread a pair, before the four-lane design (kernel_ab.py on the "
+                   "parent tree), not measured by this run"}
+    for key, was in EARLIER_ADD_MS.items():
+        out[key] = {"ms": now[key], "earlier_ms": was}
+        print(f"    {key}: {now[key]:.4f} ms in this run (earlier reading, not this run: {was} ms)")
+    return out
+
+
 def earlier_table_build_times(results: dict) -> dict:
     """This run's table-build times beside the earlier readings."""
     out = {"note": "earlier_ms: readings before the redesign around csrc/table_build.cuh, not measured by this run"}
@@ -712,6 +738,16 @@ def lookup_work(torch, scalars, w: int, groups: int) -> tuple[int, int]:
     touched = torch.zeros((groups, 1 << w), dtype=torch.bool, device=idx.device)
     touched[torch.arange(groups, device=idx.device)[None, :].expand_as(idx), idx] = True
     return int((idx != 0).sum()), int(touched[:, 1:].sum())
+
+
+# ed_add's window-sum shapes (R, 255), and the one-thread-a-pair adds'
+# times before the four-lane design (constants: this script's readings of
+# that design on an NVIDIA H100 80GB HBM3, 700.00 W; not measured by this
+# run, so reported beside this run's under earlier_add_ms, not in the
+# kernels line)
+ED_ADD_ROWS = (32, 320)
+EARLIER_ADD_MS = {"ed_add/512": 0.010816000401973724, "ed_add/32x255": [0.0112, 0.0120],
+                  "ed_add/320x255": [0.0326, 0.0361], "niels_add/64x8": 0.010111999697983265}
 
 
 def phase_kernels(torch, dev) -> dict:
@@ -782,8 +818,27 @@ def phase_kernels(torch, dev) -> dict:
     plain_ms = cuda_ms(torch, lambda: cp.ed_add_plain(lo, hi), reps=1)
     err = ed_err(out, cp.ed_add_plain(lo, hi))
     count = lo.x[0].numel()
+    # and reading q negated (the signed Q_pos - Q_neg), and at the window
+    # sums' (R, 255) shapes, both ways, generators as the points
+    err = max(err, ed_err(cp.ed_add(lo, hi, negate_q=True), cp.ed_add_plain(lo, hi, True)))
+    by_shape = {}
+    for rows in ED_ADD_ROWS:
+        size = rows * 255
+        p = ed.reshape_batch(ed.index_batch(gens, slice(0, size)), (rows, 255))
+        q = ed.reshape_batch(ed.index_batch(gens, slice(size, 2 * size)), (rows, 255))
+        for flag in (False, True):
+            err = max(err, ed_err(cp.ed_add(p, q, negate_q=flag), cp.ed_add_plain(p, q, flag)))
+            b_ms, _ = bound(size * 3 * 256, size * MULS_ADD * IMAD_PER_FIELD_MUL)
+            by_shape[f"{rows}x255" + ("_negate_q" if flag else "")] = {
+                "ms": device_ms(torch, lambda: cp.ed_add(p, q, negate_q=flag), reps=50), "bound_ms": b_ms}
     record("ed_add", "blitzar_tpu/ops/pallas_point.py:237", "blitzar_tpu_torch/csrc/ed_add.cu",
-           ms, plain_ms, err, count * 3 * 256, count * MULS_ADD * IMAD_PER_FIELD_MUL)
+           ms, plain_ms, err, count * 3 * 256, count * MULS_ADD * IMAD_PER_FIELD_MUL,
+           compared="canonical limbs, q as it is and negated")
+    rec = results["ed_add"]
+    rec["negate_q_ms"] = device_ms(torch, lambda: cp.ed_add(lo, hi, negate_q=True), reps=100)
+    rec["at_shapes"] = by_shape
+    # the floor under any launch's device time: a launch that does nothing
+    rec["empty_launch_ms"] = device_ms(torch, lambda: torch.cuda._sleep(0), reps=100)
 
     # doubling_combine: the ladder of the 256 bit-row products of the one
     # output, and of 2, 7 and 10 outputs (an IPA round's L and R, the packed
@@ -1232,7 +1287,7 @@ SUMCHECK_BENCH = ([(1, 3), (1, 3)], [0, 1, 2, 1, 2, 0])
 # product_arrays merges products of the same MLEs)
 SUMCHECK_BENCH_ROUND = ([(2, 3)], [0, 1, 2])
 SUMCHECK_DEG5 = ([(7, 5), (11, 2)], [0, 1, 2, 3, 4, 5, 6])
-PROOF_KERNELS = ("mont_mul_ew", "mont_fold_round", "mont_sum_round")
+PROOF_KERNELS = ("mont_mul_ew", "mont_fold_round", "mont_sum_round", "mont_from_rows")
 # the kernels every proof path launches (the IPA's generators G and Q, its
 # handles of them, its queries and L + R; the sumcheck's rounds)
 PROOF_PATH_KERNELS = PROOF_KERNELS + ("elligator_form", "build_niels_table", "ed_lookup_msm", "ed_add",
@@ -1347,6 +1402,7 @@ def phase_mont_kernels(torch, dev) -> dict:
                 fr["mont_sum_round"] = sub["mont_sum_round"]
             else:
                 fr["mont_sum_round"]["degree5"] = sub["mont_sum_round"]
+        rows_record(torch, fr, field, dev)
         if index == 0:
             results = fr
         else:
@@ -1354,6 +1410,41 @@ def phase_mont_kernels(torch, dev) -> dict:
                 results[name][field.name] = fr[name]
         del a, b, table, wide
     return results
+
+
+# mont_from_rows: the sumcheck's three 2^20 MLEs, and one 2^20 column of
+# n = 2^20 - 5 rows (the padding written too)
+ROWS_SHAPES = ((3, 1 << 20, 1 << 20), (1, (1 << 20) - 5, 1 << 20))
+
+
+def rows_record(torch, fr: dict, field, dev) -> None:
+    """mont_from_rows at ROWS_SHAPES on random 32-byte rows (all 0xFF,
+    2^255 and m among them), limb for limb its plain version; the record at
+    the sumcheck's 3 x 2^20, the others by (num_mles, n, n_pad)."""
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+
+    mode = "standard" if field is cm.FIELDS[cm.SXT_FIELD_SCALAR255] else "residues"
+    by_shape = {}
+    for num_mles, n, n_pad in ROWS_SHAPES:
+        host = np.random.default_rng(n).integers(0, 256, size=(num_mles * n, 32), dtype=np.uint8)
+        for k, v in enumerate((2**256 - 1, 2**255, field.modulus)):
+            host[k] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+        rows = torch.from_numpy(host).to(dev)
+        ms = device_ms(torch, lambda: cm.mont_from_rows(field, rows, num_mles, n_pad, mode), reps=10)
+        out = cm.mont_from_rows(field, rows, num_mles, n_pad, mode)
+        plain_ms = cuda_ms(torch, lambda: cm.mont_from_rows_plain(field, rows, num_mles, n_pad, mode), reps=1)
+        err = int((out.long() - cm.mont_from_rows_plain(field, rows, num_mles, n_pad, mode).long()).abs().max())
+        check(not out[:, :, n:].any() and bool((out[:, :, :n] != 0).any(0).float().mean() > 0.99),
+              f"{field.name} mont_from_rows ({num_mles}, {n}, {n_pad}): zero padding, nonzero elements")
+        sub: dict = {}
+        kernel_record(sub, "mont_from_rows", "none: blitzar_tpu/proof/sumcheck.py:63-87 and "
+                      "blitzar_tpu/proof/inner_product.py:88-104 (jitted from_bytes_le)",
+                      "blitzar_tpu_torch/csrc/mont_rows.cu", ms, plain_ms, err,
+                      rows.numel() + out.numel() * 4, num_mles * n * IMAD_PER_MONT_MUL[8])
+        by_shape[f"{num_mles}x{n}->{n_pad}"] = sub["mont_from_rows"]
+        del rows, out
+    fr["mont_from_rows"] = dict(by_shape[f"{ROWS_SHAPES[0][0]}x{ROWS_SHAPES[0][1]}->{ROWS_SHAPES[0][2]}"])
+    fr["mont_from_rows"]["at_shapes"] = by_shape
 
 
 def phase_proof_vectors(torch) -> None:
@@ -1391,6 +1482,129 @@ def bench_rows(rng, shape) -> np.ndarray:
     return rows
 
 
+def rows_parts(torch, field, rows, num_mles: int, n_pad: int, mode: str, reps: int = 3) -> dict:
+    """The proofs' conversion of (num_mles * n, nbytes) ABI rows to the
+    (nlimbs, num_mles, n_pad) Montgomery table, in three parts, each on the
+    host clock between synchronisations (median of reps): ``host`` (the
+    host's steps), ``copy`` (to the card) and ``kernel`` (the launches),
+    as the checkout's ``blitzar_tpu_torch`` runs them: its one
+    ``mont_from_rows`` launch on the uint8 rows, or (a tree without it) the
+    numpy split ``rows_to_limbs``, the int32 limbs' copy and a
+    ``mont_mul_ew`` launch into a zeroed table. Also the table's sha256 (equal
+    on both trees) and whether it equals the plain version. Its launches
+    are measurements, not a path's: the counts are restored after it."""
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    saved = dict(cp.LAUNCHES), dict(cp.INSTANCE_LAUNCHES)
+    try:
+        return _rows_parts(torch, field, rows, num_mles, n_pad, mode, reps)
+    finally:
+        cp.LAUNCHES.update(saved[0])
+        cp.INSTANCE_LAUNCHES.clear()
+        cp.INSTANCE_LAUNCHES.update(saved[1])
+
+
+def _rows_parts(torch, field, rows, num_mles: int, n_pad: int, mode: str, reps: int) -> dict:
+    from blitzar_tpu_torch.fields.mont import rows_to_limbs
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+
+    n = rows.shape[0] // num_mles
+    kernel = hasattr(cm, "mont_from_rows")
+    scale = cm.constant(field, field.r2 if mode == "standard" else field.r, "cuda")
+
+    def host():
+        if kernel:
+            return torch.from_numpy(np.require(rows, np.uint8, ["C", "W"]))
+        return rows_to_limbs(rows, field.nlimbs, "cpu")
+
+    def convert(on_card):
+        if kernel:
+            return cm.mont_from_rows(field, on_card, num_mles, n_pad, mode)
+        table = torch.zeros((field.nlimbs, num_mles, n_pad), dtype=torch.int32, device="cuda")
+        table[:, :, :n] = cm.mont_mul_ew(field, on_card, scale).reshape(field.nlimbs, num_mles, n)
+        return table
+
+    times: dict = {"host": [], "copy": [], "kernel": []}
+    for _ in range(reps):
+        staged, ms = timed(torch, host)
+        times["host"].append(ms)
+        on_card, ms = timed(torch, lambda: staged.to("cuda"))
+        times["copy"].append(ms)
+        table, ms = timed(torch, lambda: convert(on_card))
+        times["kernel"].append(ms)
+    if kernel:
+        want = cm.mont_from_rows_plain(field, on_card, num_mles, n_pad, mode)
+    else:
+        want = torch.zeros_like(table)
+        want[:, :, :n] = field.mul(on_card, scale).reshape(field.nlimbs, num_mles, n)
+    out = {part: float(np.median(v)) for part, v in times.items()}
+    out.update(times_ms=times, one_launch=kernel, equals_plain=bool(torch.equal(table, want)),
+               table_sha256=hashlib.sha256(table.cpu().numpy().tobytes()).hexdigest(),
+               bytes_copied=int(staged.numel() * staged.element_size()))
+    if kernel:
+        out["kernel_device_ms"] = device_ms(torch, lambda: convert(on_card), reps=5)
+    return out
+
+
+@contextlib.contextmanager
+def signed_combines():
+    """Records each ristretto255 call of ``fixed.combine_signed`` (a signed
+    query's Q_pos - Q_neg) on the card while the block runs: the launches it
+    made and the plain ``ed.neg`` calls inside it."""
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.msm import fixed
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    inner, plain_neg, calls, negs = fixed.combine_signed, ed.neg, [], []
+
+    def recording(products, num_outputs, nbits, curve=ed):
+        if curve is not ed or products.x.device.type != "cuda":
+            return inner(products, num_outputs, nbits, curve)
+        before, negs_before = dict(cp.LAUNCHES), len(negs)
+        out = inner(products, num_outputs, nbits, curve)
+        calls.append({"outputs": num_outputs, "negs": len(negs) - negs_before,
+                      "launches": {k: v - before[k] for k, v in cp.LAUNCHES.items() if v != before[k]}})
+        return out
+
+    fixed.combine_signed = recording
+    ed.neg = lambda p: negs.append(1) or plain_neg(p)
+    try:
+        yield calls
+    finally:
+        fixed.combine_signed, ed.neg = inner, plain_neg
+
+
+@contextlib.contextmanager
+def launches_per_call(module, attr: str):
+    """Records the launches of each call of module.attr while the block
+    runs (the counts are read around the call, not reset); a call that
+    runs the host's limb split (``rows_to_limbs``, the plain version's)
+    records it as a launch of "rows_to_limbs"."""
+    from blitzar_tpu_torch.fields import mont
+    from blitzar_tpu_torch.ops import cuda_mont as cm
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    inner, calls, splits = getattr(module, attr), [], []
+
+    def recording(*args, **kwargs):
+        before, split_before = dict(cp.LAUNCHES), len(splits)
+        out = inner(*args, **kwargs)
+        calls.append({k: v - before[k] for k, v in cp.LAUNCHES.items() if v != before[k]})
+        if len(splits) > split_before:
+            calls[-1]["rows_to_limbs"] = len(splits) - split_before
+        return out
+
+    plain_split = mont.rows_to_limbs
+    split = lambda *a, **k: splits.append(1) or plain_split(*a, **k)  # noqa: E731
+    mont.rows_to_limbs = cm.rows_to_limbs = split
+    setattr(module, attr, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, inner)
+        mont.rows_to_limbs = cm.rows_to_limbs = plain_split
+
+
 def phase_sumcheck_full_width(torch, timings: dict) -> None:
     """The benchmark's sumcheck at n = 2^20 (three MLEs of 62-bit rows from
     seed 4, two products of degree 3) for both fields: the claimed sum
@@ -1416,7 +1630,11 @@ def phase_sumcheck_full_width(torch, timings: dict) -> None:
         def prove():
             return api.prove_sumcheck(fid, rows, ptable, pterms, n, transcript=Transcript(b"bench"))
 
-        (polys, point), ms = timed(torch, prove)
+        with launches_per_call(tsc, "mles_to_table") as table_calls:
+            (polys, point), ms = timed(torch, prove)
+        check(table_calls == [{"mont_from_rows": 1}],
+              f"sumcheck {key} 2^20: the table is one mont_from_rows launch, no mont_mul_ew, no host limb split "
+              f"({table_calls})")
         timings[f"sumcheck_{key}_2^20_cold_ms"] = ms
         warm = [timed(torch, prove)[1] for _ in range(3)]
         timings[f"sumcheck_{key}_2^20_warm_ms_all"] = warm
@@ -1429,6 +1647,10 @@ def phase_sumcheck_full_width(torch, timings: dict) -> None:
         check(again == (polys, point), f"sumcheck {key} 2^20: the timed proofs agree")
         timings[f"sumcheck_{key}_2^20_split_ms"] = {
             "total": total, "rounds": len(polys), **st.ms, "host_and_rest": total - sum(st.ms.values())}
+        parts = timings[f"sumcheck_{key}_2^20_table_parts_ms"] = rows_parts(
+            torch, field, rows.reshape(3 * n, 32), 3, n, codec.rows_mode)
+        check(parts["equals_plain"], f"sumcheck {key} 2^20: the table from rows in three parts, host "
+                                     f"{parts['host']:.2f}, copy {parts['copy']:.2f}, kernel {parts['kernel']:.2f} ms")
         # the table as the rows stand for it, by the plain field: 62-bit
         # standard-form values (scalar25519) or Montgomery residues (grumpkin)
         raw = rows_to_limbs(rows.reshape(3 * n, 32), field.nlimbs, "cuda")
@@ -1519,7 +1741,10 @@ def phase_ipa_full_width(torch, timings: dict) -> None:
     def prove():
         return api.prove_inner_product(Transcript(b"bench"), n, 0, a, b)
 
-    (l, r, ap), timings["ipa_2^20_prove_cold_ms"] = timed(torch, prove)
+    with launches_per_call(tipa, "_mont_rows") as row_calls:
+        (l, r, ap), timings["ipa_2^20_prove_cold_ms"] = timed(torch, prove)
+    check(row_calls == [{"mont_from_rows": 1}] * 2, f"IPA 2^20 prove: a and b rows one mont_from_rows launch each, "
+                                                    f"no host limb split ({row_calls})")
     warm = [timed(torch, prove)[1] for _ in range(3)]
     timings["ipa_2^20_prove_warm_ms_all"] = warm
     timings["ipa_2^20_prove_warm_ms_median"] = float(np.median(warm))
@@ -1540,7 +1765,10 @@ def phase_ipa_full_width(torch, timings: dict) -> None:
     def verify(lv=l, apv=ap):
         return api.verify_inner_product(Transcript(b"bench"), n, 0, b, product, a_commit, lv, r, apv)
 
-    ok, timings["ipa_2^20_verify_ms"] = timed(torch, verify)
+    with launches_per_call(tipa, "_mont_rows") as row_calls:
+        ok, timings["ipa_2^20_verify_ms"] = timed(torch, verify)
+    check(row_calls == [{"mont_from_rows": 1}],
+          f"IPA 2^20 verify: the b rows one mont_from_rows launch, no host limb split ({row_calls})")
     check(ok, f"IPA 2^20: the proof verifies (prove {timings['ipa_2^20_prove_warm_ms_median']:.1f} ms warm, "
               f"verify {timings['ipa_2^20_verify_ms']:.1f} ms)")
     stages = {"decode": [(cp, "ristretto_decode")], "encode": [(cp, "ristretto_encode")], "query": [(tipa, "_query")],
@@ -1550,6 +1778,9 @@ def phase_ipa_full_width(torch, timings: dict) -> None:
         ok, total = timed(torch, verify)
     check(ok, "IPA 2^20: the split verify accepts too")
     timings["ipa_2^20_verify_split_ms"] = {"total": total, **st.ms, "host_and_rest": total - sum(st.ms.values())}
+    parts = timings["ipa_2^20_b_rows_parts_ms"] = rows_parts(torch, tipa.S, b, 1, n, "standard")
+    check(parts["equals_plain"], f"IPA 2^20: the b rows in three parts, host {parts['host']:.2f}, copy "
+                                 f"{parts['copy']:.2f}, kernel {parts['kernel']:.2f} ms")
     flipped = l.copy()
     flipped[3, 7] ^= 0x01
     check(not verify(lv=flipped), "IPA 2^20: one flipped L byte is rejected")
@@ -3078,7 +3309,8 @@ class PathShapes:
 # signed, chunk groups); ed_window_sums (4 coordinates, stride, rows, ...)
 # and w_window_sums (curve, 3 coordinates, stride, rows, ...) by (instance,
 # rows); ristretto_encode (4 coordinates, stride, count, ...) and
-# ristretto_decode (bytes, count, ...) by count
+# ristretto_decode (bytes, count, ...) by count; ed_add (8 coordinates and
+# their strides, negate_q, lanes, count, ...) by (count, negate_q)
 SHAPE_KEYS = {
     "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
     "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
@@ -3092,6 +3324,7 @@ SHAPE_KEYS = {
     "fewrow_niels": lambda instance, a: (int(a[3]), int(a[4]), int(a[6]), int(a[7]), a[2] is not None, int(a[8])),
     "ristretto_encode": lambda instance, a: int(a[5]),
     "ristretto_decode": lambda instance, a: int(a[1]),
+    "ed_add": lambda instance, a: (int(a[11]), bool(a[10])),
 }
 PATH_SHAPES = PathShapes()
 TREE_SAMPLE_COLS = 64
@@ -3184,8 +3417,8 @@ def sum_round_table(m: int, products: int, degree: int):
 
 def phase_ranked_shapes(torch, dev, counts: dict) -> dict:
     """w_build_table (by curve, groups, w), doubling_combine (by outputs and
-    bits) and mont_sum_round (by field, round size, degree, MLEs, products)
-    at every shape a path launched them at, as phase 19 holds
+    bits), mont_sum_round (by field, round size, degree, MLEs, products) and
+    ed_add (by pairs, q negated or not) at every shape a path launched them at, as phase 19 holds
     tree_reduce_lanes: each shape's device time, bound, launches and
     launches x (ms - bound), held against the plain version (the table on
     up to 64 groups, the ladder in the kernel's segments and the round in
@@ -3266,6 +3499,26 @@ def phase_ranked_shapes(torch, dev, counts: dict) -> dict:
                         "launches_x_gap_ms": launches * (ms - b_ms)})
         del mles
     finish("mont_sum_round", records)
+
+    records = []
+    ed_base = generators.get_precomputed_generators(1 << 16, 0, dev)
+    for (count, negate), paths in sorted(shape_paths(counts.get("ed_add", {})).items()):
+        p, q = (ed.index_batch(ed_base, (torch.arange(count, device=dev) + k * count) % (1 << 16)) for k in (0, 1))
+        run = functools.partial(cp.ed_add, p, q, negate_q=negate)
+        ms = device_ms(torch, run, reps=20)
+        plain_ms = cuda_ms(torch, lambda: cp.ed_add_plain(p, q, negate), reps=1)
+        err = point_err(run(), cp.ed_add_plain(p, q, negate), F.canonicalize)
+        b_ms, b_by = bound(count * 3 * 256, count * MULS_ADD * IMAD_PER_FIELD_MUL)
+        launches = sum(paths.values())
+        check(err == 0, f"ed_add at {count} pairs{', q negated' if negate else ''}, {launches} launches {paths}: "
+                        f"equal to plain ({ms:.4f} ms)")
+        records.append({"pairs": count, "negate_q": negate, "launches": launches, "launches_by_path": paths,
+                        "ms": ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "plain_ms": plain_ms, "max_abs_err": float(err),
+                        "launches_x_gap_ms": launches * (ms - b_ms)})
+        del p, q
+    del ed_base
+    finish("ed_add", records)
     torch.cuda.empty_cache()
     return out
 
@@ -3452,6 +3705,7 @@ def main() -> int:
         report["ptxas_conversions_and_horner"] = conversion_horner_ptxas(log, built_here)
         report["ptxas_fewrow_and_finvert"] = conversion_horner_ptxas(log, built_here, FEWROW_FINVERT_SOURCES)
         report["ptxas_codec"] = conversion_horner_ptxas(log, built_here, CODEC_SOURCES)
+        report["ptxas_rows_and_adds"] = conversion_horner_ptxas(log, built_here, ROWS_ADDS_SOURCES)
         PATH_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
@@ -3461,13 +3715,18 @@ def main() -> int:
         # the commitment path: launches counted from 0 over phases 3-6
         api.init("gpu")
         cp.reset_launches()
-        with PATH_SHAPES.phase("commitment"):
+        with PATH_SHAPES.phase("commitment"), signed_combines() as signed_calls:
             phase_api_small(torch)
             phase_w_api_small(torch)
             per_commitment = phase_full_width(torch, report["timings"])
             per_commitment.update({k: v for k, v in phase_w_full_width(torch, report["timings"]).items()
                                    if k in W_KERNELS})
         commit_launches = dict(cp.LAUNCHES)
+        report["signed_combines_commitment_path"] = signed_calls
+        check(signed_calls and all(c["launches"] == {"doubling_combine": 1, "ed_add": 1} and c["negs"] == 0
+                                   for c in signed_calls),
+              f"each signed ristretto255 commitment's Q_pos - Q_neg: one ed_add launch reading Q_neg negated, no "
+              f"plain neg ({len(signed_calls)} calls)")
         # the proof path: launches counted from 0 over phases 8-10, from empty
         # generator and handle caches, so that the proofs derive their own G
         # and Q and build their own handles
@@ -3530,6 +3789,7 @@ def main() -> int:
             fewrow_inputs, fewrow_launches = phase_fewrow(torch, report["timings"])
         results.update(phase_fewrow_kernels(torch, torch.device("cuda"), fewrow_inputs,
                                             PATH_SHAPES.counts.get("fewrow_niels", {})))
+        report["earlier_add_ms"] = earlier_add_times(results)
         results.update(phase_horner_kernels(torch, torch.device("cuda"), PATH_SHAPES.counts))
         results.update(phase_window_kernels(torch, torch.device("cuda"), PATH_SHAPES.counts))
         del fewrow_inputs

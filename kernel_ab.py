@@ -102,6 +102,18 @@ script's, so both trees run the same work. Cases:
   3); the IPA at 2^20 (chip_smoke.py phase 10's rows): prove cold, warm
   (median of 2) with the encode's share of one more, verify, and a digest of
   the proof, which both trees must give.
+- the proofs' rows to Montgomery limbs (section ``rows``): the sumcheck's
+  3 x 2^20 rows (chip_smoke.py phase 9's) in both fields and the IPA's 2^20
+  b rows, split by ``chip_smoke.rows_parts`` into the host's steps, the
+  copy to the card and the launches (the tree's ``mont_from_rows``, or its
+  numpy split, int32 copy and ``mont_mul_ew``), with the table's digest,
+  which both trees must give; and the IPA 2^20 verify whole (median of 3);
+- the elementwise adds (section ``adds``): ``ed_add`` at the IPA's 512
+  pairs, at the skewed bucket column's 5610 and at (32, 255) and (320,
+  255) (chip_smoke.py phase 2's shapes), as it is and with q negated (the
+  tree's ``negate_q``, or a plain ``neg`` and the launch, back to back),
+  ``niels_add`` at the few-row path's 64 x 8 and at 512, each against its
+  plain version; and an empty launch's device time (the floor).
 
 Each case of ``points`` and ``windows`` is timed whole back to back
 (``cuda_ms``, host issue included) and, queued behind a sleep once, split
@@ -112,9 +124,10 @@ passes between the launches (``launch_split``).
 Each case's result is held against its plain version (canonical limbs, or
 points for the tree reduces and the ladders; on a spread sample where the
 plain version is large); the JSON holds each case's ``ms`` and whether it
-matched. ``--sections`` runs some of the thirteen sections (``edwards``,
+matched. ``--sections`` runs some of the fifteen sections (``edwards``,
 ``weierstrass``, ``mont``, ``trees``, ``tables``, ``ladders``, ``convert``,
-``horner``, ``fewrow``, ``finvert``, ``points``, ``windows``, ``codec``).
+``horner``, ``fewrow``, ``finvert``, ``points``, ``windows``, ``codec``,
+``rows``, ``adds``).
 Needs one CUDA card.
 """
 
@@ -157,7 +170,7 @@ TREE_CHECK_COLS = 8
 
 
 SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders", "convert", "horner", "fewrow", "finvert",
-            "points", "windows", "codec")
+            "points", "windows", "codec", "rows", "adds")
 # the few-row queries of chip_smoke.py phase 17: (n, bytes of the column, w)
 FEWROW_QUERIES = ((1 << 20, 1, 8), (1 << 20, 8, 8), (1 << 20, 32, 4), (1 << 10, 1, 8))
 # the Weierstrass lookups' partials at the shapes their chunk rules give a
@@ -199,7 +212,7 @@ def main() -> int:
                                     "w_build_table.cu", "build_cached_table.cu", "doubling_combine.cu",
                                     "w_affine.cu", "mont_sum_round.cu", "ed_convert.cu", "ed_horner.cu",
                                     "w_horner.cu", "fewrow_niels.cu", "niels_tree_reduce_lanes.cu", "finvert.cu",
-                                    "window_sums.cu", "ristretto.cu")},
+                                    "window_sums.cu", "ristretto.cu", "mont_rows.cu", "ed_add.cu", "niels_add.cu")},
               "cases": {}}
     cases = report["cases"]
 
@@ -1009,6 +1022,86 @@ def section_codec(torch, cs, dev, case) -> None:
     flipped[3, 7] ^= 0x01
     ok = bool(verified) and not verify(lv=flipped)
     case("codec/ipa_2^20_verify", None, ok, ms=float(np.median(times)), times_ms=times)
+
+
+
+def section_rows(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch import api
+    from blitzar_tpu_torch.proof import inner_product as tipa
+    from blitzar_tpu_torch.proof import sumcheck as tsc
+    from blitzar_tpu_torch.proof.transcript import Transcript
+
+    n = IPA_N
+    rows = cs.bench_rows(np.random.default_rng(4), (3, n)).reshape(3 * n, 32)
+    for codec in (tsc.SCALAR25519_CODEC, tsc.FIELDGK_CODEC):
+        mode = "standard" if codec is tsc.SCALAR25519_CODEC else "residues"
+        parts = cs.rows_parts(torch, codec.field, rows, 3, n, mode)
+        case(f"rows/sumcheck_{codec.name}_3x2^20", None, parts["equals_plain"],
+             ms=parts["host"] + parts["copy"] + parts["kernel"], **parts)
+    rng = np.random.default_rng(3)
+    a, b = cs.bench_rows(rng, (n,)), cs.bench_rows(rng, (n,))
+    parts = cs.rows_parts(torch, tipa.S, b, 1, n, "standard")
+    case("rows/ipa_b_2^20", None, parts["equals_plain"], ms=parts["host"] + parts["copy"] + parts["kernel"], **parts)
+
+    if not api._BACKEND.initialized:
+        api.init("gpu")
+    l, r, ap = api.prove_inner_product(Transcript(b"bench"), n, 0, a, b)
+    av = np.frombuffer(a[:, :8].tobytes(), "<u8").tolist()
+    bv = np.frombuffer(b[:, :8].tobytes(), "<u8").tolist()
+    product = sum(x * y for x, y in zip(av, bv)) % tipa.ORDER
+    a_commit, _ = api.decompress_ristretto255(api.compute_curve25519_commitments([api.SequenceDescriptor(32, n, a)]))
+
+    def verify():
+        return api.verify_inner_product(Transcript(b"bench"), n, 0, b, product, a_commit, l, r, ap)
+
+    verified, _ = cs.timed(torch, verify)
+    times = [cs.timed(torch, verify)[1] for _ in range(3)]
+    case("rows/ipa_2^20_verify", None, bool(verified), ms=float(np.median(times)), times_ms=times)
+
+
+# the elementwise adds' shapes: ed_add's (batch) at the IPA's 512 pairs, the
+# skewed bucket column's 5610 round adds (chip_smoke.py phase 20) and
+# chip_smoke.py phase 2's (R, 255); niels_add's at the few-row path's 64 x 8
+ADD_SHAPES = ((512,), (5610,), (32, 255), (320, 255))
+NIELS_ADD_SHAPES = ((64, 8), (512,))
+
+
+def section_adds(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    ed_err = functools.partial(cs.point_err, canonical=F.canonicalize)
+    flag = "negate_q" in inspect.signature(cp.ed_add).parameters
+    count = 2 * 320 * 255
+    r0, r1 = generators._xorshift_limbs(torch.arange(count, device=dev))
+    gens = cp.elligator_form(r0, r1)
+    case("adds/empty_launch", lambda: torch.cuda._sleep(0), True, reps=100)
+    for shape in ADD_SHAPES:
+        size = int(np.prod(shape))
+        p = ed.reshape_batch(ed.index_batch(gens, slice(0, size)), shape)
+        q = ed.reshape_batch(ed.index_batch(gens, slice(size, 2 * size)), shape)
+        key = "x".join(map(str, shape))
+        case(f"adds/ed_add/{key}", lambda: cp.ed_add(p, q),
+             ed_err(cp.ed_add(p, q), cp.ed_add_plain(p, q)) == 0, reps=50)
+        # p - q: the tree's one launch reading q negated (device time), or
+        # its plain neg and the launch (back to back)
+        if flag:
+            neg_fn = functools.partial(cp.ed_add, p, q, negate_q=True)
+        else:
+            neg_fn = functools.partial(lambda p, q: cp.ed_add(p, ed.neg(q)), p, q)
+        case(f"adds/ed_add_negate_q/{key}", neg_fn,
+             ed_err(neg_fn(), cp.ed_add_plain(p, ed.neg(q))) == 0, reps=50,
+             ms=None if flag else cs.cuda_ms(torch, neg_fn, reps=20), one_launch=flag,
+             back_to_back_ms=cs.cuda_ms(torch, neg_fn, reps=20))
+    entries = cp.pack_niels(ed.to_niels(ed.index_batch(gens, slice(0, 2 * 512))))
+    for shape in NIELS_ADD_SHAPES:
+        size = int(np.prod(shape))
+        n1, n2 = (ed.Niels(*(c.reshape((16,) + shape).contiguous() for c in cp.unpack_niels(entries[s])))
+                  for s in (slice(0, size), slice(512, 512 + size)))
+        case(f"adds/niels_add/{'x'.join(map(str, shape))}", lambda: cp.niels_add(n1, n2),
+             ed_err(cp.niels_add(n1, n2), cp.niels_add_plain(n1, n2)) == 0, reps=50)
 
 
 if __name__ == "__main__":

@@ -100,6 +100,42 @@ def test_ed_add_kernel_on_slices(dev):
     assert _same(got, cp.ed_add_plain(lo, hi))
 
 
+@pytest.mark.parametrize("negate_q", [False, True])
+@pytest.mark.parametrize("shape", [(1,), (7,), (33,), (32, 255), (3, 17)])
+def test_ed_add_quad_kernel(dev, negate_q, shape):
+    """Four lanes a pair: batches off a warp's eight pairs, a window-sum
+    shape and a two-axis batch, the identity, P + P and P - P among them,
+    q read negated."""
+    count = int(np.prod(shape))
+    pts = cp.elligator_form_plain(*_r(2 * count, 3))
+    p, q = (ed.reshape_batch(ed.index_batch(pts, s), shape) for s in (slice(0, count), slice(count, 2 * count)))
+    flat = [ed.reshape_batch(x, (count,)) for x in (p, q)]
+    q = ed.reshape_batch(ed.select(flat[1], flat[0], torch.arange(count) % 3 == 1), shape)
+    p = ed.reshape_batch(ed.select(flat[0], ed.identity((count,)), torch.arange(count) % 5 == 2), shape)
+    got = cp.ed_add(ed.PointP3(*(c.to(dev) for c in p)), ed.PointP3(*(c.to(dev) for c in q)), negate_q=negate_q)
+    assert _same(got, cp.ed_add_plain(p, q, negate_q))
+
+
+def test_signed_commitment_is_one_ed_add_and_no_neg(dev, monkeypatch):
+    """A signed ristretto255 commitment's Q_pos - Q_neg is one ed_add launch
+    that reads Q_neg negated: no plain neg runs."""
+    negs = []
+    plain_neg = ed.neg
+    monkeypatch.setattr(ed, "neg", lambda p: negs.append(1) or plain_neg(p))
+    vals = [-128, 127, -1, 0, 1, 5]
+    data = np.array([v % 256 for v in vals], np.uint8)
+    got = {}
+    for backend in ("cpu", "gpu"):
+        api.reset_backend_for_testing()
+        api.init(backend)
+        negs.clear()
+        before = dict(cp.LAUNCHES)
+        got[backend] = api.compute_curve25519_commitments([api.SequenceDescriptor(1, len(vals), data, True)])
+    api.reset_backend_for_testing()
+    assert np.array_equal(got["gpu"], got["cpu"])
+    assert cp.LAUNCHES["ed_add"] - before["ed_add"] == 1 and not negs
+
+
 @pytest.mark.parametrize("signed", [False, True])
 def test_table_lookup_combine_kernels(dev, signed):
     w, n = 4, 40
@@ -252,6 +288,24 @@ def test_mont_mul_ew_kernel(dev, field):
                        cm.mont_mul_ew_plain(field, view, b[:, :64]))
     raw = torch.from_numpy(np.random.default_rng(4).integers(0, 1 << 16, size=(16, 300)).astype(np.int32))
     assert torch.equal(cm.to_mont(field, raw.to(dev)).cpu(), cm.to_mont(field, raw))
+
+
+@pytest.mark.parametrize("field", PROOF_FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("num_mles, n, nbytes, n_pad", [(3, 300, 32, 512), (1, 1000, 32, 1000), (2, 37, 13, 64),
+                                                        (3, 5, 8, 300), (1, 1, 31, 1)])
+def test_mont_from_rows_kernel(dev, field, num_mles, n, nbytes, n_pad):
+    """Random rows (values above m, 2^255 and all 0xFF among them), the
+    byte and 4-byte reads, padding-only blocks, a view at an odd offset:
+    limb for limb the plain version, one launch each."""
+    mode = "standard" if field is cm.FIELDS[cm.SXT_FIELD_SCALAR255] else "residues"
+    rows = np.random.default_rng(n).integers(0, 256, size=(num_mles * n + 1, nbytes), dtype=np.uint8)
+    rows[1] = 0xFF
+    host = torch.from_numpy(rows)
+    want = cm.mont_from_rows_plain(field, host[1:], num_mles, n_pad, mode)
+    before = cp.LAUNCHES["mont_from_rows"]
+    got = cm.mont_from_rows(field, host.to(dev)[1:], num_mles, n_pad, mode)
+    assert torch.equal(got.cpu(), want)
+    assert cp.LAUNCHES["mont_from_rows"] - before == 1
 
 
 @pytest.mark.parametrize("field", PROOF_FIELDS, ids=lambda f: f.name)
