@@ -1,7 +1,8 @@
-// ed_to_niels, ed_file_rows, ed_file_entries, ed_niels_points, ed_affine:
-// a ristretto255 table's conversions between extended points, niels words
-// and the reference's raw file rows, and the generator disk cache's affine
-// form, one launch a chunk each (ed_convert.cuh holds the bodies).
+// ed_to_niels, ed_file_rows, ed_file_entries, ed_niels_points, ed_affine,
+// ed_from_affine_rows: a ristretto255 table's conversions between extended
+// points, niels words and the reference's raw file rows, and the generator
+// disk cache's affine form and its load, one launch a chunk each
+// (ed_convert.cuh holds the bodies).
 //
 // Replace, on the handle files' paths, the conversions that ran as chains
 // of blitzar_tpu/ops/pallas_point.py:_fmul_tiled (:130) launches:
@@ -17,7 +18,11 @@
 //   ed.niels_to_p3, the npz write);
 // - ed_affine: _finvert_tiled (:172) of z and 2 fmul, then plain
 //   canonicalize passes (blitzar_tpu/generators.py:132-144, the disk
-//   cache's save), or 3 fmul (a legacy extended file's load).
+//   cache's save), or 3 fmul (a legacy extended file's load);
+// - ed_from_affine_rows: a device-side astype of the file's uint16 rows and
+//   one fmul for t (blitzar_tpu/generators.py:62-72, _affine_to_p3_chunk,
+//   the cache's load), where the port widened the rows to int32 on the host,
+//   copied twice the file's bytes and launched fmul on them.
 //
 // Design. ed_to_niels follows w_affine.cu: thread t of a warp inverts the z
 // of entries t + 32 j of the warp's tile of 32 x per entries by
@@ -49,6 +54,11 @@
 // 16 took 0.267, 32 took 0.478 at 2^20 where 16 took 0.515; PERF.md §6),
 // 6 multiplies an entry and a thread's inversion. Bound: bytes (x, y, z
 // read, four coordinates written) over operations.
+// ed_from_affine_rows: one thread an entry in a grid-stride loop, as
+// ed_niels_points; each of the 32 limb rows read as 16-bit words, a warp's
+// 64 consecutive bytes, and widened in registers; one multiply inlined.
+// Bound: bytes (64 read, four coordinates of 16 int32 limbs written an
+// entry).
 #include <cuda_runtime.h>
 
 #include "ed_convert.cuh"
@@ -137,6 +147,13 @@ ed_niels_points_kernel(const uint32_t* words, int64_t count, point_out_ptrs out)
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+ed_from_affine_rows_kernel(const uint16_t* rows, int64_t count, point_out_ptrs out) {
+  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < count; e += (int64_t)gridDim.x * kThreads) {
+    affine_row_point_store(rows, count, out, e, fe_mul_op());
+  }
+}
+
 template <int kPer>
 __global__ void __launch_bounds__(kThreads) ed_affine_kernel(point_ptrs p, int64_t count, point_out_ptrs out) {
   const int lane = threadIdx.x & 31;
@@ -222,6 +239,18 @@ extern "C" int btt_ed_affine(const void* x, const void* y, const void* z, int64_
     } else {
       launch_affine<64>(p, count, out, s);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows: (2, 16, count) uint16 limbs (x, y), contiguous; ox, oy, oz, ot:
+// (16, count) int32 coordinates at out_stride.
+extern "C" int btt_ed_from_affine_rows(const void* rows, int64_t count, void* ox, void* oy, void* oz, void* ot,
+                                       int64_t out_stride, void* stream) {
+  if (count > 0) {
+    const point_out_ptrs out = {{(int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot}, out_stride};
+    ed_from_affine_rows_kernel<<<blocks_for(count, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint16_t*)rows, count, out);
   }
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,10 @@
 //   write's point table);
 // - ed_affine: extended points, z never 0, to canonical (x/z, y/z, 1,
 //   x y/z^2) (blitzar_tpu/generators.py:132-144, the disk cache's affine
-//   generators; a legacy extended file's z normalised to 1).
+//   generators; a legacy extended file's z normalised to 1);
+// - ed_from_affine_rows: the disk cache's affine rows, x and y as 16-bit
+//   limbs, to canonical (x, y, 1, x y) (blitzar_tpu/generators.py:62-72,
+//   _affine_to_p3_chunk, the cache's load).
 //
 // BTT_HD like fp25519.cuh, so the host harness runs the very code of the
 // kernels on the CPU (tests/test_torch_edconvert.py).
@@ -182,7 +185,7 @@ BTT_HD void file_row_niels(const uint64_t* row, uint32_t* entry, Mul mul) {
 }
 
 // ---------------------------------------------------------------------------
-// back to extended points: ed_niels_points, ed_affine
+// back to extended points: ed_niels_points, ed_affine, ed_from_affine_rows
 // ---------------------------------------------------------------------------
 
 // Niels entry -> entry e of the extended output, canonical (x, y, 1, x y):
@@ -228,6 +231,28 @@ struct AffineBatch {
   }
   BTT_HD void skip(int) {}
 };
+
+// 16 radix-2^16 limbs (uint16, each below 2^16) at base[l * stride] ->
+// element (value below 2^256).
+BTT_HD fe fe_load_u16(const uint16_t* base, int64_t stride) {
+  fe r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.v[k] = (uint32_t)base[(2 * k) * stride] | ((uint32_t)base[(2 * k + 1) * stride] << 16);
+  return r;
+}
+
+// Entry e of the cache file's affine rows (x limbs at rows[l * stride + e],
+// y limbs at rows[(16 + l) * stride + e]) -> entry e of the extended
+// output, canonical (x, y, 1, x y): one multiply.
+template <class Mul>
+BTT_HD void affine_row_point_store(const uint16_t* rows, int64_t stride, const point_out_ptrs& out, int64_t e,
+                                   Mul mul) {
+  const fe x = fe_load_u16(rows + e, stride), y = fe_load_u16(rows + 16 * stride + e, stride);
+  fe_store(out.c[0] + e, out.limb_stride, x);
+  fe_store(out.c[1] + e, out.limb_stride, y);
+  fe_store(out.c[2] + e, out.limb_stride, fe_one());
+  fe_store(out.c[3] + e, out.limb_stride, mul(x, y));
+}
 
 // One thread's entries of ed_affine with its own inversion: the kernel's
 // body, and the harness's lane. The output must not overlap the input.

@@ -4,7 +4,7 @@
 // table_build.cuh, lookup.cuh, mont.cuh, weierstrass.cuh, ladder.cuh,
 // sumcheck.cuh, tree_reduce.cuh, w_affine.cuh, ed_convert.cuh and
 // window_sums.cuh (edwards25519.cuh with ristretto.cu's codec bodies),
-// mont_rows.cuh and quad_add.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
+// mont_rows.cuh, quad_add.cuh and wadd_lanes.cuh are compiled here by a host C++ compiler (BTT_HD is plain inline then), so
 // tests/test_torch_native_arith.py can hold the very code the CUDA kernels
 // run against blitzar_tpu and the plain versions without a card. Each
 // function loops over n elements in the public layout: a field batch is a
@@ -13,7 +13,8 @@
 // nlimbs, n), a sumcheck MLE table (16, m, 2 mid), a Weierstrass table
 // chunk (count, 3, K) words, a ristretto255 one (count, 3, 8) words, a raw
 // file's rows (count, 15) u64 words, ristretto255 encodings (32, n) bytes,
-// the proofs' ABI rows (num_mles * n, nbytes) bytes.
+// the proofs' ABI rows (num_mles * n, nbytes) bytes, the disk cache's
+// affine rows (2, 16, n) uint16 limbs.
 #include "ed_convert.cuh"
 #include "edwards25519.cuh"
 #include "field_batch.cuh"
@@ -26,6 +27,7 @@
 #include "table_build.cuh"
 #include "tree_reduce.cuh"
 #include "w_affine.cuh"
+#include "wadd_lanes.cuh"
 #include "weierstrass.cuh"
 #include "window_sums.cuh"
 
@@ -208,6 +210,24 @@ void host_w(int op, const int32_t* p, const int32_t* q, int32_t* out, int64_t n)
   for (int64_t i = 0; i < n; ++i) {
     wpoint<C> a = w_load<C>(pp, i);
     w_store<C>(oo, i, op == 0 ? w_add<C>(a, w_load<C>(qq, i)) : w_double<C>(a));
+  }
+}
+
+// wadd.cu's lanes on C: each pair's six lanes' stage-1 products in turn
+// (lane k: product k), exchanged through an array, then each lane's stage-3
+// product, summed in neighbouring pairs
+template <class C>
+void host_wadd_lanes(const int32_t* p, const int32_t* q, int negate_q, int32_t* out, int64_t n) {
+  using F = typename C::F;
+  const int64_t nl = 2 * F::K;
+  const wpoint_ptrs pp = {{p, p + nl * n, p + 2 * nl * n}, n};
+  const wpoint_ptrs qq = {{q, q + nl * n, q + 2 * nl * n}, n};
+  const wpoint_out_ptrs oo = {{out, out + nl * n, out + 2 * nl * n}, n};
+  for (int64_t i = 0; i < n; ++i) {
+    mfe<F> s[kWaddProducts], r[kWaddProducts];
+    for (int k = 0; k < kWaddProducts; ++k) s[k] = w_lanes_first<C>(k, pp, qq, i, negate_q != 0, mf_mul_op<F>());
+    for (int k = 0; k < kWaddProducts; ++k) r[k] = w_lanes_last<C>(k, s, mf_mul_op<F>());
+    for (int k = 0; k < kWaddProducts; k += 2) mf_store<F>(w_coord(oo, k / 2) + i, n, w_lanes_coord<F>(k, r[k], r[k + 1]));
   }
 }
 
@@ -440,6 +460,17 @@ int btt_host_w(int curve, int op, const int32_t* p, const int32_t* q, int32_t* o
     case Bls12381G1::id: host_w<Bls12381G1>(op, p, q, out, n); return 0;
     case Bn254G1::id: host_w<Bn254G1>(op, p, q, out, n); return 0;
     case Grumpkin::id: host_w<Grumpkin>(op, p, q, out, n); return 0;
+    default: return -1;
+  }
+}
+
+// wadd.cu's eight lanes a pair on the host; p, q, out (3, nlimbs, n), q
+// read negated with negate_q != 0. Returns -1 for another curve id.
+int btt_host_wadd_lanes(int curve, const int32_t* p, const int32_t* q, int negate_q, int32_t* out, int64_t n) {
+  switch (curve) {
+    case Bls12381G1::id: host_wadd_lanes<Bls12381G1>(p, q, negate_q, out, n); return 0;
+    case Bn254G1::id: host_wadd_lanes<Bn254G1>(p, q, negate_q, out, n); return 0;
+    case Grumpkin::id: host_wadd_lanes<Grumpkin>(p, q, negate_q, out, n); return 0;
     default: return -1;
   }
 }
@@ -824,6 +855,13 @@ int btt_host_ed_affine(const int32_t* points, int64_t count, int per, int32_t* o
     }
   }
   return 0;
+}
+
+// rows (2, 16, count) uint16 x and y limbs -> (4, 16, count) (x, y, 1, x y),
+// ed_convert.cu's ed_from_affine_rows.
+void btt_host_ed_from_affine_rows(const uint16_t* rows, int64_t count, int32_t* out) {
+  const point_out_ptrs oo = out_points(out, count);
+  for (int64_t e = 0; e < count; ++e) affine_row_point_store(rows, count, oo, e, fe_mul_op());
 }
 
 // window_sums.cu on the host: curve 0 ristretto255, buckets (4, 16, rows *

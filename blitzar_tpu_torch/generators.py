@@ -17,7 +17,8 @@ off, since on the H100 a derivation is faster than a load, PERF.md),
 generators as (2, 16, n) uint16 canonical limbs. A derivation from offset 0
 of a multiple of ``DISK_CHUNK`` generators saves one (the affine form by one
 ``ed_affine`` launch); one from offset 0 loads the smallest saved prefix
-that covers it (t = ``fmul`` of x and y, z = 1), or derives if none does.
+that covers it (one ``ed_from_affine_rows`` launch on the file's uint16
+rows: z = 1, t = x y), or derives if none does.
 blitzar_tpu's legacy extended files (``ristretto_gen_<n>.npy``, (4, 16, n)
 uint32) are read too, their z normalised to 1 (one ``ed_affine`` launch).
 """
@@ -32,8 +33,7 @@ import numpy as np
 import torch
 
 from .curves import edwards25519 as ed
-from .fields import fp25519 as F
-from .ops import cuda_field, cuda_point
+from .ops import cuda_point
 
 _M32 = 0xFFFFFFFF
 
@@ -119,11 +119,11 @@ def _disk_load(n: int, device) -> ed.PointP3 | None:
     shape, dtype = ((2, 16, count), np.uint16) if affine else ((4, 16, count), np.uint32)
     if arr.shape != shape or arr.dtype != dtype:
         return None
+    if affine:  # one contiguous host copy of the prefix, widened on the device
+        return cuda_point.ed_from_affine_rows(torch.from_numpy(np.array(arr[:, :, :n], order="C")).to(device))
+    # a legacy extended file: normalise z to 1
     coords = [torch.from_numpy(arr[k, :, :n].astype(np.int32)).to(device) for k in range(shape[0])]
-    if not affine:  # a legacy extended file: normalise z to 1
-        return cuda_point.ed_affine(ed.PointP3(*coords))
-    x, y = coords
-    return ed.PointP3(x, y, F.from_int(1, (n,), device), cuda_field.fmul(x, y))
+    return cuda_point.ed_affine(ed.PointP3(*coords))
 
 
 def _disk_save(points: ed.PointP3, n: int) -> None:

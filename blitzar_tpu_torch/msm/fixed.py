@@ -35,7 +35,8 @@ each per bit).
 
 Scalar bits are LSB-first; row r = o * nbits + b; group g covers points
 g*w .. g*w + w - 1. Signed queries run the positive and the negative rows in
-one table pass and return Q_pos - Q_neg. Identity points and zero scalars
+one table pass and return Q_pos - Q_neg, one ``ed_add`` or ``wadd`` launch
+that reads Q_neg negated. Identity points and zero scalars
 pad a table to whole groups: they select entry 0.
 
 A handle goes to and comes from files (:meth:`MultiexpHandle.write_to_file`,
@@ -413,14 +414,14 @@ def doubling_combine(products, num_outputs: int, nbits: int, curve=ed):
 
 def combine_signed(products, num_outputs: int, nbits: int, curve=ed):
     """(2 * num_outputs * nbits,) products of positive then negative rows
-    -> (num_outputs,) outputs Q_pos - Q_neg (blitzar_tpu/msm/fixed.py:655-707);
-    on ristretto255 one ``ed_add`` launch that reads Q_neg negated."""
+    -> (num_outputs,) outputs Q_pos - Q_neg (blitzar_tpu/msm/fixed.py:655-707):
+    one ``ed_add`` or ``wadd`` launch that reads Q_neg negated."""
     both = doubling_combine(products, 2 * num_outputs, nbits, curve)
     q_pos = curve.index_batch(both, slice(0, num_outputs))
     q_neg = curve.index_batch(both, slice(num_outputs, 2 * num_outputs))
     if curve is ed:
         return cuda_point.ed_add(q_pos, q_neg, negate_q=True)
-    return curve.add(q_pos, curve.neg(q_neg))
+    return cuda_wpoint.wadd(curve, q_pos, q_neg, negate_q=True)
 
 
 def fixed_multiexponentiation(handle: MultiexpHandle, scalars):

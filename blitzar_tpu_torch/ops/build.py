@@ -53,6 +53,7 @@ SIGNATURES = {
     "btt_ed_file_entries": [_P, _I64, _P, _P],
     "btt_ed_niels_points": [_P, _I64, _P, _P, _P, _P, _I64, _P],
     "btt_ed_affine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _P],
+    "btt_ed_from_affine_rows": [_P, _I64, _P, _P, _P, _P, _I64, _P],
     "btt_ed_horner": [_P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P],
     "btt_ed_window_sums": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "btt_ristretto_encode": [_P, _P, _P, _P, _I64, _I64, _P, _P],
@@ -63,7 +64,7 @@ SIGNATURES = {
     # the tree reduce takes the curve's C ABI id first (0 ristretto255)
     "btt_tree_reduce_lanes": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P],
     "btt_tree_reduce_scratch": [_I, _I64, _I64, ctypes.POINTER(_I64)],
-    "btt_wadd": [_I, _P, _P, _P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    "btt_wadd": [_I, _P, _P, _P, _I64, _P, _P, _P, _I64, _I, _I64, _P, _P, _P, _P],
     "btt_wdouble": [_I, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "btt_w_doubling_combine": [_I, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P],
     "btt_w_affine": [_I, _P, _I64, _P, _P],

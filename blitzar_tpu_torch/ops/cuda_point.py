@@ -36,6 +36,8 @@ wrapper                 replaces                                 source
 ``ed_niels_points``     ``_fmul_tiled`` :130 (the npz write)     ed_convert.cu
 ``ed_affine``           ``_finvert_tiled`` :172 + ``_fmul_tiled``  ed_convert.cu
                         :130 (the generator disk cache)
+``ed_from_affine_rows`` ``_fmul_tiled`` :130 (the disk cache's   ed_convert.cu
+                        load)
 ``ed_horner``           ``_double_tiled`` :254 + ``_add_tiled``  ed_horner.cu
                         :237 (the bucket engine's Horner)
 ``ed_window_sums``      ``_add_tiled`` :237 (the bucket engine's  window_sums.cu
@@ -53,7 +55,9 @@ launches (3 x 255 scan steps and a ``finvert`` for a batch inversion);
 ``ed_niels_points`` turns niels words back into extended points (the npz
 write) and ``ed_affine`` extended points into canonical affine ones (the
 generator disk cache), one launch a chunk each, where ``fmul`` and
-``finvert`` launches ran among plain passes.
+``finvert`` launches ran among plain passes; ``ed_from_affine_rows`` turns
+the disk cache file's uint16 rows into extended points in one launch,
+where the load widened them to int32 on the host and launched ``fmul``.
 ``ed_horner`` is the bucket engine's Horner over a commitment's 8-bit
 windows as one launch, the ladder of ``doubling_combine`` with 8 doublings
 a step, where the engine launched ``ed_double`` 8 times and ``ed_add``
@@ -110,6 +114,7 @@ KERNELS = (
     "ed_file_entries",
     "ed_niels_points",
     "ed_affine",
+    "ed_from_affine_rows",
     "ed_horner",
     "ed_window_sums",
     "ristretto_encode",
@@ -458,6 +463,38 @@ def ed_affine(points: ed.PointP3) -> ed.PointP3:
     _launch(
         "ed_affine", build.library().btt_ed_affine,
         *_ptrs(coords), stride, count, *_ptrs(out), count, _stream(device),
+    )
+    return out
+
+
+def ed_from_affine_rows_plain(rows: torch.Tensor) -> ed.PointP3:
+    """:func:`ed_from_affine_rows` by the plain field ops: the limbs widened,
+    x * y, z = 1, canonical limbs."""
+    x, y = (F.canonicalize(rows[k].view(torch.int16).to(torch.int32) & 0xFFFF) for k in range(2))
+    one = F.from_int(1, tuple(rows.shape[2:]), rows.device)
+    return ed.PointP3(x, y, one, F.canonicalize(F.mul(x, y)))
+
+
+def ed_from_affine_rows(rows: torch.Tensor) -> ed.PointP3:
+    """(2, 16, n) uint16 limbs of affine x and y (the generator disk cache
+    file's rows, blitzar_tpu/generators.py:62-72) -> canonical (x, y, 1,
+    x*y), (16, n) int32 each.
+
+    Kernel csrc/ed_convert.cu, one launch: one thread a generator, its 32
+    limb rows read as 16-bit words and widened in registers, one field
+    multiply. Bound: bytes (64 read and 256 written a generator)."""
+    if rows.dim() != 3 or tuple(rows.shape[:2]) != (2, F.NLIMBS):
+        raise ValueError(f"expected (2, {F.NLIMBS}, n) rows, got {tuple(rows.shape)}")
+    if rows.dtype != torch.uint16:
+        raise TypeError(f"expected uint16 limbs, got {rows.dtype}")
+    if not _on_card(rows):
+        return ed_from_affine_rows_plain(rows)
+    rows = rows.contiguous()
+    count = rows.shape[2]
+    out = _empty_point((count,), rows.device)
+    _launch(
+        "ed_from_affine_rows", build.library().btt_ed_from_affine_rows,
+        rows.data_ptr(), count, *_ptrs(out), count, _stream(rows.device),
     )
     return out
 

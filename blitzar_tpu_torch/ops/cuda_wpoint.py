@@ -86,26 +86,28 @@ def unpack_points(entries: torch.Tensor) -> PointP2:
 # ---------------------------------------------------------------------------
 
 
-def wadd_plain(curve: WCurve, p: PointP2, q: PointP2) -> PointP2:
-    return curve._add_impl(p, q)
+def wadd_plain(curve: WCurve, p: PointP2, q: PointP2, negate_q: bool = False) -> PointP2:
+    return curve._add_impl(p, curve.neg(q) if negate_q else q)
 
 
-def wadd(curve: WCurve, p: PointP2, q: PointP2) -> PointP2:
-    """Elementwise complete p + q over equal batch shapes.
+def wadd(curve: WCurve, p: PointP2, q: PointP2, negate_q: bool = False) -> PointP2:
+    """Elementwise complete p + q over equal batch shapes, or p - q with
+    ``negate_q`` (q read as (X, -Y, Z), no pass first).
 
-    Kernel csrc/wadd.cu, one thread per element. Bound: integer multiplies
-    at large batches (12 field multiplies per element); launch latency for
-    one point (the signed query's Q_pos - Q_neg, the bucket engine)."""
+    Kernel csrc/wadd.cu: eight lanes of a warp a pair (csrc/wadd_lanes.cuh).
+    Bound: the launch and one lane's 2 dependent multiplies at the paths'
+    batches (the signed query's Q_pos - Q_neg); integer multiplies (12 field
+    multiplies a pair) at large ones (the bucket engine's round adds)."""
     if not _on_card(p.x):
-        return wadd_plain(curve, p, q)
+        return wadd_plain(curve, p, q, negate_q)
     batch = tuple(p.x.shape[1:])
     pc, ps = _point_arg(p, p.x.device, batch, curve.nlimbs)
     qc, qs = _point_arg(q, p.x.device, batch, curve.nlimbs)
     out = _empty_point(batch, p.x.device, PointP2, curve.nlimbs)
     _launch(
         "wadd", build.library().btt_wadd,
-        curve.kernel_id, *_ptrs(pc), ps, *_ptrs(qc), qs, p.x[0].numel(), *_ptrs(out), _stream(p.x.device),
-        instance=curve.name,
+        curve.kernel_id, *_ptrs(pc), ps, *_ptrs(qc), qs, int(negate_q), p.x[0].numel(), *_ptrs(out),
+        _stream(p.x.device), instance=curve.name,
     )
     return out
 

@@ -26,7 +26,8 @@ Phases, each fatal on failure:
    fields; ``ed_add`` also reading q negated and at the window sums' (32,
    255) and (320, 255), beside an empty launch's device time; its and
    ``niels_add``'s readings at one thread a pair, constants, beside this
-   run's times in ``earlier_add_ms``, outside the kernels line) and hold it against
+   run's times in ``earlier_add_ms``, outside the kernels line; ``wadd``
+   at one point both ways, beside an empty launch) and hold it against
    its plain PyTorch version on the same inputs (canonical values must be
    equal), timing both (a kernel's time is the median device time of one
    launch, see ``device_ms``); where the plain version is too large to run
@@ -42,7 +43,10 @@ Phases, each fatal on failure:
    plain ``neg``);
 4. the bn254 G1, Grumpkin and bls12-381 G1 commitment entries at n = 100
    (signed and unsigned columns, three outputs) against the oracle's sums
-   (``blitzar_tpu_torch/refimpl/weierstrass.py``);
+   (``blitzar_tpu_torch/refimpl/weierstrass.py``), the signed 8-byte column
+   also through the streamed query; each signed Weierstrass query's Q_pos
+   - Q_neg (handle and streamed, every curve) must be one ``wadd`` launch
+   that reads Q_neg negated, and no plain ``curve.neg``;
 5. ristretto255 full width: canonical generators with counter scalars at
    2^16 and 2^20 (compressed result = the pinned digest) and ten 32-byte
    outputs at n = 100000 (blake2b digest pinned), with the generator
@@ -115,13 +119,15 @@ Phases, each fatal on failure:
    read one ``ed_to_niels`` launch, none of them an ``fmul`` or ``finvert``
    launch; (iv) 2^20 generators derived and
    saved (one ``ed_affine`` launch, no ``fmul`` or ``finvert``), then loaded
-   with the in-memory cache cleared (the same points; one ``fmul``), and a
+   with the in-memory cache cleared (the same points; one
+   ``ed_from_affine_rows`` launch on the file's uint16 rows, no ``fmul``;
+   the load split afterwards into host, copy and kernel), and a
    cold 2^20 commitment over them (the pinned digest); a legacy extended
    file of 2^16 of them loaded (one ``ed_affine`` launch, no ``fmul`` or
    ``finvert``). Every file is deleted once read, the directory at exit;
 15. ``fmul``, ``finvert`` and ``mont_mul_ew`` in the two Weierstrass base
    fields against their plain versions at every element count phase 14
-   launched them at, ``fmul`` and ``fsq`` (on no path) also at a table
+   launched them at, ``fmul`` and ``fsq`` (on no path) at a table
    conversion's chunk of 2^22 entries, ``finvert`` (a batch inversion) at
    ``FINVERT_COUNTS`` (a legacy extended file's 2^16, a cache save's 2^20)
    on every element, zeros, p, 2p and non-canonical limbs among them
@@ -131,11 +137,14 @@ Phases, each fatal on failure:
    (tolerance 0 on the file's words); ``ed_to_niels``, ``ed_file_rows``,
    ``ed_file_entries``, ``ed_niels_points`` and ``ed_affine`` at every
    element count phase 14 launched them at, against their plain versions on
-   every entry (tolerance 0 on the words and canonical limbs); ``fmul``,
-   ``w_affine`` in each curve, the five conversions and both base-field
-   instantiations of ``mont_mul_ew`` must have launched in phase 14
-   (``finvert`` runs on no path since the cache's conversions are one
-   ``ed_affine`` launch);
+   every entry (tolerance 0 on the words and canonical limbs);
+   ``ed_from_affine_rows`` at every count phase 14 launched it at and 2^20,
+   against its plain version on every generator (tolerance 0 on canonical
+   limbs); ``ed_from_affine_rows``, ``w_affine`` in each curve, the five
+   conversions and both base-field instantiations of ``mont_mul_ew`` must
+   have launched in phase 14 (``finvert`` and ``fmul`` run on no path: the
+   cache's save and legacy load are one ``ed_affine`` launch, its load one
+   ``ed_from_affine_rows`` launch);
 16. the bucket engine (``BLITZAR_TPU_TORCH_MSM_ENGINE=bucket`` set for this
    phase alone; counts from 0, empty handle caches): the pinned ristretto255
    digests at 2^16, 2^20 (cold, warm, split into sort, gather, slab reduce,
@@ -189,7 +198,9 @@ Phases, each fatal on failure:
    line;
 20. ``w_build_table`` (by curve, groups and w), ``doubling_combine`` (by
    outputs and bits), ``mont_sum_round`` (by field, round size, degree,
-   MLEs and products) and ``ed_add`` (by pairs, q negated or not) at every shape the paths of phases 3-17 launched
+   MLEs and products), ``ed_add`` (by pairs, q negated or not) and
+   ``wadd`` (by curve and pairs, both ways; tolerance 0 on canonical
+   limbs) at every shape the paths of phases 3-17 launched
    them at (counted as phase 19 counts the tree reduce): timed, bounded,
    held against their plain versions, and launches x (time - bound)
    summed over the shapes (``kernels_by_shape``); then every kernel's
@@ -581,6 +592,7 @@ FEWROW_FINVERT_SOURCES = {"fewrow_niels": "fewrow_niels.cu", "finvert": "finvert
 # the ristretto255 codec: no spill allowed
 CODEC_SOURCES = {"ristretto_encode/ristretto_decode": "ristretto.cu"}
 ROWS_ADDS_SOURCES = {"mont_from_rows": "mont_rows.cu", "ed_add": "ed_add.cu", "niels_add": "niels_add.cu"}
+WADD_SOURCES = {"wadd": "wadd.cu"}
 
 
 def conversion_horner_ptxas(log_text: str, built_here: bool, sources: dict = CONVERSION_HORNER_SOURCES) -> dict:
@@ -998,9 +1010,13 @@ def phase_wkernels(torch, dev) -> dict:
     hi = curve.index_batch(partials, 1)
     ms = device_ms(torch, lambda: cw.wadd(curve, acc, nxt), reps=100)
     plain_ms = cuda_ms(torch, lambda: cw.wadd_plain(curve, acc, nxt), reps=1)
-    err = max(point_err(cw.wadd(curve, p, q), cw.wadd_plain(curve, p, q)) for p, q in ((acc, nxt), (lo, hi)))
+    err = max(point_err(cw.wadd(curve, p, q, negate_q=neg), cw.wadd_plain(curve, p, q, neg))
+              for p, q in ((acc, nxt), (lo, hi)) for neg in (False, True))
     record("wadd", "blitzar_tpu/ops/pallas_point.py:891", "blitzar_tpu_torch/csrc/wadd.cu",
            ms, plain_ms, err, 3 * point_bytes, MULS_WADD * imad)
+    # q read negated (the signed combine's), and an empty launch (the floor)
+    results["wadd"]["ms_negate_q"] = device_ms(torch, lambda: cw.wadd(curve, acc, nxt, negate_q=True), reps=100)
+    results["wadd"]["empty_launch_ms"] = device_ms(torch, lambda: torch.cuda._sleep(0), reps=100)
 
     # wdouble: timed at a ladder step's shape (one point: the lowest bit-row
     # product, not the identity), held against plain there and on all 256
@@ -1084,9 +1100,12 @@ def phase_api_small(torch) -> None:
 def phase_w_api_small(torch) -> None:
     """The three Weierstrass commitment entries on the card at n = 100: a
     signed 8-byte, a signed 16-byte (shorter) and an unsigned 32-byte
-    column against the oracle's sums."""
+    column against the oracle's sums; and the 8-byte column through the
+    streamed query (which ``engine.msm`` takes above 2^20 generators), its
+    Q_pos - Q_neg as the handle's."""
     from blitzar_tpu_torch import api
     from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.msm import fixed
 
     n = 100
     rng = np.random.default_rng(21)
@@ -1103,6 +1122,11 @@ def phase_w_api_small(torch) -> None:
         want = [curve.oracle.msm(vals, pts) for vals in (s8, s16, u32)]
         check(all(w_output_equals(curve, got, o, pt) for o, pt in enumerate(want)),
               f"{curve.name}: signed and unsigned 3-output commitment at n = {n} on cuda equals the oracle")
+        mags = np.array([[np.frombuffer(abs(v).to_bytes(8, "little"), np.uint8) for v in s8]])
+        signs = np.array([[v < 0 for v in s8]], np.uint8)
+        got = fixed.streaming_multiexponentiation(curve.from_affine_ints(pts, api.device()), mags, curve, signs=signs)
+        check(curve.to_affine_ints(got) == want[:1],
+              f"{curve.name}: the signed 8-byte column through the streamed query at n = {n} on cuda equals the oracle")
 
 
 def timed(torch, fn):
@@ -1546,32 +1570,107 @@ def _rows_parts(torch, field, rows, num_mles: int, n_pad: int, mode: str, reps: 
     return out
 
 
+def cache_load_parts(torch, path: str, n: int, reps: int = 3) -> dict:
+    """The generator disk cache's load of the first n generators from the
+    affine file at ``path`` ((2, 16, count) uint16), in three parts, each on
+    the host clock between synchronisations (median of reps): ``host``
+    (np.load of the file, memory-mapped, and the host's steps), ``copy`` (to
+    the card) and ``kernel`` (the launches), as the checkout's
+    ``generators._disk_load`` runs them: one contiguous copy of the prefix's
+    uint16 rows and one ``ed_from_affine_rows`` launch, or (a tree without
+    it) x and y widened to int32, their copy and ``fmul`` for t with z = 1.
+    Also the points' sha256 (canonical limbs, equal on both trees) and the
+    bytes copied. Its launches are measurements, not a path's: the counts
+    are restored after it."""
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    saved = dict(cp.LAUNCHES), dict(cp.INSTANCE_LAUNCHES)
+    try:
+        return _cache_load_parts(torch, path, n, reps)
+    finally:
+        cp.LAUNCHES.update(saved[0])
+        cp.INSTANCE_LAUNCHES.clear()
+        cp.INSTANCE_LAUNCHES.update(saved[1])
+
+
+def _cache_load_parts(torch, path: str, n: int, reps: int) -> dict:
+    from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.fields import fp25519 as F
+    from blitzar_tpu_torch.ops import cuda_field as cf
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    kernel = hasattr(cp, "ed_from_affine_rows")
+
+    def host():
+        arr = np.load(path, mmap_mode="r")
+        if kernel:
+            return [torch.from_numpy(np.array(arr[:, :, :n], order="C"))]
+        return [torch.from_numpy(arr[k, :, :n].astype(np.int32)) for k in range(2)]
+
+    def convert(on_card):
+        if kernel:
+            return cp.ed_from_affine_rows(on_card[0])
+        x, y = on_card
+        return ed.PointP3(x, y, F.from_int(1, (n,), "cuda"), cf.fmul(x, y))
+
+    times: dict = {"host": [], "copy": [], "kernel": []}
+    for _ in range(reps):
+        staged, ms = timed(torch, host)
+        times["host"].append(ms)
+        on_card, ms = timed(torch, lambda: [t.to("cuda") for t in staged])
+        times["copy"].append(ms)
+        points, ms = timed(torch, lambda: convert(on_card))
+        times["kernel"].append(ms)
+    canon = torch.stack([F.canonicalize(c) for c in points]).cpu().numpy()
+    out = {part: float(np.median(v)) for part, v in times.items()}
+    out.update(times_ms=times, one_launch=kernel, points_sha256=hashlib.sha256(canon.tobytes()).hexdigest(),
+               bytes_copied=int(sum(t.numel() * t.element_size() for t in staged)))
+    # the launch alone (the tree without the kernel: its fmul; z's ones are
+    # made on the host, which a device time cannot queue)
+    launch = (lambda: cp.ed_from_affine_rows(on_card[0])) if kernel else (lambda: cf.fmul(*on_card))
+    out["kernel_device_ms"] = device_ms(torch, launch, reps=5)
+    return out
+
+
 @contextlib.contextmanager
 def signed_combines():
-    """Records each ristretto255 call of ``fixed.combine_signed`` (a signed
-    query's Q_pos - Q_neg) on the card while the block runs: the launches it
-    made and the plain ``ed.neg`` calls inside it."""
+    """Records each call of ``fixed.combine_signed`` (a signed query's Q_pos
+    - Q_neg) on the card while the block runs: its curve, whether a
+    streamed query made it, the launches it made and the plain negations
+    (``ed.neg``, ``WCurve.neg``) inside it."""
     from blitzar_tpu_torch.curves import edwards25519 as ed
+    from blitzar_tpu_torch.curves import weierstrass as wc
     from blitzar_tpu_torch.msm import fixed
     from blitzar_tpu_torch.ops import cuda_point as cp
 
-    inner, plain_neg, calls, negs = fixed.combine_signed, ed.neg, [], []
+    inner, plain_neg, plain_wneg, calls, negs = fixed.combine_signed, ed.neg, wc.WCurve.neg, [], []
+    streamed_inner, streaming = fixed.streaming_multiexponentiation, []
 
     def recording(products, num_outputs, nbits, curve=ed):
-        if curve is not ed or products.x.device.type != "cuda":
+        if products.x.device.type != "cuda":
             return inner(products, num_outputs, nbits, curve)
         before, negs_before = dict(cp.LAUNCHES), len(negs)
         out = inner(products, num_outputs, nbits, curve)
-        calls.append({"outputs": num_outputs, "negs": len(negs) - negs_before,
+        calls.append({"curve": "ristretto255" if curve is ed else curve.name, "outputs": num_outputs,
+                      "streamed": bool(streaming), "negs": len(negs) - negs_before,
                       "launches": {k: v - before[k] for k, v in cp.LAUNCHES.items() if v != before[k]}})
         return out
 
-    fixed.combine_signed = recording
+    def streamed(*args, **kwargs):
+        streaming.append(1)
+        try:
+            return streamed_inner(*args, **kwargs)
+        finally:
+            streaming.pop()
+
+    fixed.combine_signed, fixed.streaming_multiexponentiation = recording, streamed
     ed.neg = lambda p: negs.append(1) or plain_neg(p)
+    wc.WCurve.neg = lambda self, p: negs.append(1) or plain_wneg(self, p)
     try:
         yield calls
     finally:
-        fixed.combine_signed, ed.neg = inner, plain_neg
+        fixed.combine_signed, fixed.streaming_multiexponentiation, ed.neg = inner, streamed_inner, plain_neg
+        wc.WCurve.neg = plain_wneg
 
 
 @contextlib.contextmanager
@@ -2094,21 +2193,22 @@ def phase_large_kernels(torch, dev, rows24) -> dict:
 # handle files, packed and vlen queries, the generator disk cache
 # ---------------------------------------------------------------------------
 
-# the field kernels of these paths, w_affine (a Weierstrass raw file's
-# affine rows) and the ristretto255 table conversions, which must launch
-# there (fmul: the affine cache file's load), and mont_mul_ew's
-# instantiations in the Weierstrass base fields (a raw file read back); fsq
-# and finvert are held against plain beside fmul but run on no path
+# the kernels of these paths, w_affine (a Weierstrass raw file's affine
+# rows), the ristretto255 table conversions and ed_from_affine_rows (the
+# affine cache file's load), which must launch there, and mont_mul_ew's
+# instantiations in the Weierstrass base fields (a raw file read back); the
+# field kernels fmul, fsq and finvert are held against plain but run on no
+# path (fmul since the cache's load is one ed_from_affine_rows launch)
 ED_FILE_KERNELS = ("ed_to_niels", "ed_file_rows", "ed_file_entries", "ed_niels_points", "ed_affine")
-FILE_KERNELS = ("fmul", "fsq", "finvert", "w_affine") + ED_FILE_KERNELS
-FILE_PATH_KERNELS = ("fmul", "w_affine") + ED_FILE_KERNELS
+FILE_KERNELS = ("fmul", "fsq", "finvert", "w_affine", "ed_from_affine_rows") + ED_FILE_KERNELS
+FILE_PATH_KERNELS = ("ed_from_affine_rows", "w_affine") + ED_FILE_KERNELS
 # the kernels a ristretto255 table's conversion (a raw write or read, an npz
 # read or write) and the disk cache's save and legacy load ran on before
 # they took one launch a chunk
 ED_FILE_CHAINS = ("fmul", "finvert")
 # the launcher argument that holds the element count, where it is not the
 # third from the end
-ELEMENT_ARG = {"ed_niels_points": 1, "ed_affine": 4}
+ELEMENT_ARG = {"ed_niels_points": 1, "ed_affine": 4, "ed_from_affine_rows": 1}
 FILE_INSTANCES = ("mont_mul_ew/bn254_fp", "mont_mul_ew/bls12381_fp", "w_affine/bls12_381_g1", "w_affine/bn254_g1",
                   "w_affine/grumpkin")
 # Proof-of-SQL's column widths (505 bits, 64 bytes a generator) and lengths
@@ -2347,10 +2447,16 @@ def phase_files(torch, timings: dict, work: str) -> None:
                                  f"{timings['generators_2^20_derive_ms']:.1f} ms without the save)")
     generators.CACHE.reset()
     derived = cp.LAUNCHES["elligator_form"]
+    before = dict(cp.LAUNCHES)
     loaded, timings["generators_2^20_load_ms"] = timed(torch, lambda: generators.get_precomputed_generators(n, 0, dev))
+    made = {k: cp.LAUNCHES[k] - before[k] for k in ("ed_from_affine_rows",) + ED_FILE_CHAINS + ("ed_affine",)}
+    check(made == {"ed_from_affine_rows": 1, "fmul": 0, "finvert": 0, "ed_affine": 0},
+          f"(iv) the 2^20 load: one ed_from_affine_rows launch on the file's uint16 rows, no fmul, finvert or "
+          f"ed_affine launch ({made})")
     check(cp.LAUNCHES["elligator_form"] == derived and bool(ed.points_equal(loaded, ref).all()),
           f"(iv) loaded, not derived, with the in-memory cache cleared: the same 2^20 points "
           f"({timings['generators_2^20_load_ms']:.1f} ms)")
+
     generators.CACHE.reset()
     desc = api.SequenceDescriptor(32, n, rows20)
     got, ms = timed(torch, lambda: api.compute_curve25519_commitments([desc]))
@@ -2582,6 +2688,59 @@ def phase_field_kernels(torch, dev, path_shapes: dict, affine_shapes: dict) -> d
     results["w_affine"]["elements"] = chunk
     results["w_affine"]["by_elements"] = by
     results["w_affine"]["files_path_device_ms"] = sum(r["launches"] * r["ms"] for r in by.values())
+    return results
+
+
+# the generator cache's load at the files path's counts and at its headline
+# (a 2^20 file): 64 bytes read and four coordinates of 16 int32 limbs
+# written a generator, one field multiply (x y)
+CACHE_LOAD_HEAD = FILES_N
+CACHE_LOAD_BYTES = 64 + 4 * 64
+
+
+def phase_cache_load_kernel(torch, dev, path_shapes: dict) -> dict:
+    """``ed_from_affine_rows`` at every element count the files path
+    launched it at (``path_shapes``, from :func:`launch_shapes`) and at
+    ``CACHE_LOAD_HEAD``: device time, bound, launches, and every generator
+    against the plain version (tolerance 0 on canonical limbs; the plain
+    version's time: its sum over slices of 2^18 generators). The rows are
+    the canonical affine x and y of the first generators, as a cache file
+    holds them, with the last 64 set to 0xFFFF limbs (2^256 - 1, a value
+    the file's limbs can hold that is not canonical)."""
+    from blitzar_tpu_torch import generators
+    from blitzar_tpu_torch.ops import cuda_point as cp
+
+    launched = path_shapes.get("ed_from_affine_rows", {})
+    by = {}
+    for count in sorted(set(launched) | {CACHE_LOAD_HEAD}):
+        affine = cp.ed_affine(generators.get_precomputed_generators(count, 0, dev))
+        host = np.stack([affine.x.cpu().numpy(), affine.y.cpu().numpy()]).astype(np.uint16)
+        host[:, :, -64:] = 0xFFFF
+        rows = torch.from_numpy(host).to(dev)
+        del affine
+        ms = device_ms(torch, lambda: cp.ed_from_affine_rows(rows), reps=5)
+        got = cp.ed_from_affine_rows(rows)
+        err, plain_ms, step = 0, 0.0, 1 << 18
+        for s0 in range(0, count, step):
+            want, t = timed(torch, lambda: cp.ed_from_affine_rows_plain(rows[:, :, s0 : s0 + step]))
+            plain_ms += t
+            err = max(err, max(int((g[:, s0 : s0 + step].long() - w.long()).abs().max()) for g, w in zip(got, want)))
+        b_ms, b_by = bound(count * CACHE_LOAD_BYTES, count * IMAD_PER_FIELD_MUL)
+        check(err == 0, f"ed_from_affine_rows at {count} generators, {launched.get(count, 0)} launches on the "
+                        f"files path: equal to plain on every generator, tolerance 0 on canonical limbs "
+                        f"({ms:.4f} ms, bound {b_ms:.4f})")
+        by[count] = {"elements": count, "launches": launched.get(count, 0), "ms": ms, "plain_ms": plain_ms,
+                     "plain_fraction": 1.0, "max_abs_err": float(err), "bound_ms": b_ms, "bound_by": b_by}
+        del rows, got
+    results: dict = {}
+    top = by[CACHE_LOAD_HEAD]
+    kernel_record(results, "ed_from_affine_rows", "blitzar_tpu/ops/pallas_point.py:130",
+                  "blitzar_tpu_torch/csrc/ed_convert.cu", top["ms"], top["plain_ms"], top["max_abs_err"],
+                  CACHE_LOAD_HEAD * CACHE_LOAD_BYTES, CACHE_LOAD_HEAD * IMAD_PER_FIELD_MUL)
+    results["ed_from_affine_rows"]["elements"] = CACHE_LOAD_HEAD
+    results["ed_from_affine_rows"]["by_elements"] = {str(c): r for c, r in by.items()}
+    results["ed_from_affine_rows"]["files_path_device_ms"] = sum(r["launches"] * r["ms"] for r in by.values())
+    torch.cuda.empty_cache()
     return results
 
 
@@ -3310,7 +3469,9 @@ class PathShapes:
 # and w_window_sums (curve, 3 coordinates, stride, rows, ...) by (instance,
 # rows); ristretto_encode (4 coordinates, stride, count, ...) and
 # ristretto_decode (bytes, count, ...) by count; ed_add (8 coordinates and
-# their strides, negate_q, lanes, count, ...) by (count, negate_q)
+# their strides, negate_q, count, ...) by (count, negate_q); wadd (curve,
+# 6 coordinates and their strides, negate_q, count, ...) by (instance, count,
+# negate_q)
 SHAPE_KEYS = {
     "tree_reduce_lanes": lambda instance, a: (instance, int(a[6]), int(a[7])),
     "w_build_table": lambda instance, a: (instance, int(a[6]), int(a[5])),
@@ -3325,6 +3486,7 @@ SHAPE_KEYS = {
     "ristretto_encode": lambda instance, a: int(a[5]),
     "ristretto_decode": lambda instance, a: int(a[1]),
     "ed_add": lambda instance, a: (int(a[11]), bool(a[10])),
+    "wadd": lambda instance, a: (instance, int(a[10]), bool(a[9])),
 }
 PATH_SHAPES = PathShapes()
 TREE_SAMPLE_COLS = 64
@@ -3417,8 +3579,9 @@ def sum_round_table(m: int, products: int, degree: int):
 
 def phase_ranked_shapes(torch, dev, counts: dict) -> dict:
     """w_build_table (by curve, groups, w), doubling_combine (by outputs and
-    bits), mont_sum_round (by field, round size, degree, MLEs, products) and
-    ed_add (by pairs, q negated or not) at every shape a path launched them at, as phase 19 holds
+    bits), mont_sum_round (by field, round size, degree, MLEs, products),
+    ed_add (by pairs, q negated or not) and wadd (by curve and pairs, both
+    ways) at every shape a path launched them at, as phase 19 holds
     tree_reduce_lanes: each shape's device time, bound, launches and
     launches x (ms - bound), held against the plain version (the table on
     up to 64 groups, the ladder in the kernel's segments and the round in
@@ -3519,6 +3682,35 @@ def phase_ranked_shapes(torch, dev, counts: dict) -> dict:
         del p, q
     del ed_base
     finish("ed_add", records)
+
+    # wadd at every (curve, pairs) a path launched it at, both ways (the
+    # launches are the path's at the way it ran), on the oracle's tiled
+    # points doubled (z != 1), against the plain version limb for limb
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    records = []
+    launched = shape_paths(counts.get("wadd", {}))
+    for instance, count in sorted({(i, c) for i, c, _ in launched}):
+        curve = curves[instance]
+        tiled, _ = tiled_generators(curve, 2 * count, dev)
+        pts = curve._double_impl(tiled)
+        p, q = curve.index_batch(pts, slice(0, count)), curve.index_batch(pts, slice(count, 2 * count))
+        imad = IMAD_PER_MONT_MUL[curve.nlimbs // 2]
+        for negate in (False, True):
+            paths = launched.get((instance, count, negate), {})
+            run = functools.partial(cw.wadd, curve, p, q, negate_q=negate)
+            ms = device_ms(torch, run, reps=20)
+            plain_ms = cuda_ms(torch, lambda: cw.wadd_plain(curve, p, q, negate), reps=1)
+            err = point_err(run(), cw.wadd_plain(curve, p, q, negate))
+            b_ms, b_by = bound(count * 3 * 3 * curve.nlimbs * 4, count * MULS_WADD * imad)
+            launches = sum(paths.values())
+            check(err == 0, f"wadd {instance} at {count} pairs{', q negated' if negate else ''}, {launches} launches "
+                            f"{paths}: equal to plain, tolerance 0 on canonical limbs ({ms:.4f} ms)")
+            records.append({"instance": instance, "pairs": count, "negate_q": negate, "launches": launches,
+                            "launches_by_path": paths, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "plain_ms": plain_ms, "max_abs_err": float(err), "launches_x_gap_ms": launches * (ms - b_ms)})
+        del tiled, pts, p, q
+    finish("wadd", records)
     torch.cuda.empty_cache()
     return out
 
@@ -3679,6 +3871,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     os.environ.pop(CACHE_VAR, None)
     from blitzar_tpu_torch import api, generators
+    from blitzar_tpu_torch.curves import weierstrass as wc
     from blitzar_tpu_torch.msm import engine
     from blitzar_tpu_torch.ops import build
     from blitzar_tpu_torch.ops import cuda_point as cp
@@ -3706,6 +3899,7 @@ def main() -> int:
         report["ptxas_fewrow_and_finvert"] = conversion_horner_ptxas(log, built_here, FEWROW_FINVERT_SOURCES)
         report["ptxas_codec"] = conversion_horner_ptxas(log, built_here, CODEC_SOURCES)
         report["ptxas_rows_and_adds"] = conversion_horner_ptxas(log, built_here, ROWS_ADDS_SOURCES)
+        report["ptxas_wadd"] = conversion_horner_ptxas(log, built_here, WADD_SOURCES)
         PATH_SHAPES.install()
 
         results = phase_kernels(torch, torch.device("cuda"))
@@ -3723,10 +3917,17 @@ def main() -> int:
                                    if k in W_KERNELS})
         commit_launches = dict(cp.LAUNCHES)
         report["signed_combines_commitment_path"] = signed_calls
-        check(signed_calls and all(c["launches"] == {"doubling_combine": 1, "ed_add": 1} and c["negs"] == 0
-                                   for c in signed_calls),
+        ed_calls = [c for c in signed_calls if c["curve"] == "ristretto255"]
+        w_calls = [c for c in signed_calls if c["curve"] != "ristretto255"]
+        check(ed_calls and all(c["launches"] == {"doubling_combine": 1, "ed_add": 1} and c["negs"] == 0
+                               for c in ed_calls),
               f"each signed ristretto255 commitment's Q_pos - Q_neg: one ed_add launch reading Q_neg negated, no "
-              f"plain neg ({len(signed_calls)} calls)")
+              f"plain neg ({len(ed_calls)} calls)")
+        check({(c["curve"], c["streamed"]) for c in w_calls} == {(c.name, s) for c in wc.CURVES for s in (False, True)}
+              and all(c["launches"] == {"w_doubling_combine": 1, "wadd": 1} and c["negs"] == 0 for c in w_calls),
+              f"each signed Weierstrass commitment's Q_pos - Q_neg (handle and streamed, every curve): one wadd "
+              f"launch reading Q_neg negated, no plain curve.neg ({len(w_calls)} calls: "
+              f"{sorted({(c['curve'], c['streamed'], c['negs']) for c in w_calls})})")
         # the proof path: launches counted from 0 over phases 8-10, from empty
         # generator and handle caches, so that the proofs derive their own G
         # and Q and build their own handles
@@ -3763,9 +3964,17 @@ def main() -> int:
             phase_files(torch, report["timings"], work)
         file_launches = dict(cp.LAUNCHES)
         file_instances = dict(cp.INSTANCE_LAUNCHES)
+        # (iv)'s 2^20 load in three parts (host, copy, kernel), outside the
+        # path's counts, as the proofs' rows are split (rows_parts)
+        parts = report["timings"]["generators_2^20_load_parts_ms"] = cache_load_parts(
+            torch, os.path.join(work, "gencache", f"ristretto_gen_a_{FILES_N}.npy"), FILES_N)
+        print(f"    (iv) the 2^20 load: host {parts['host']:.2f} ms, copy {parts['copy']:.2f} ms, kernel "
+              f"{parts['kernel']:.3f} ms ({parts['kernel_device_ms']:.4f} ms on the device), "
+              f"{parts['bytes_copied']} bytes copied", flush=True)
         results.update(phase_field_kernels(torch, torch.device("cuda"), file_shapes,
                                            PATH_SHAPES.counts.get("w_affine", {})))
         results.update(phase_conversion_kernels(torch, torch.device("cuda"), file_shapes))
+        results.update(phase_cache_load_kernel(torch, torch.device("cuda"), file_shapes))
         results["mont_mul_ew"]["base_fields"] = results.pop("mont_mul_ew_base_fields")
         # the bucket engine, then the few-row query, from empty handle
         # caches: each path's launches are those of its main-path calls
@@ -3836,8 +4045,8 @@ def main() -> int:
               f"every streamed-path kernel and instantiation launched on the large-n path: {large_instances}")
         check(all(file_launches[k] > 0 for k in FILE_PATH_KERNELS) and all(file_instances.get(k, 0) > 0
                                                                             for k in FILE_INSTANCES),
-              f"fmul, the ristretto255 conversions, and mont_mul_ew in both base fields, launched on the "
-              f"files and cache path: { {k: file_launches[k] for k in FILE_KERNELS} } {file_instances}")
+              f"ed_from_affine_rows, w_affine, the ristretto255 conversions, and mont_mul_ew in both base fields, "
+              f"launched on the files and cache path: { {k: file_launches[k] for k in FILE_KERNELS} } {file_instances}")
         check(all(bucket_launches[k] > 0 for k in HORNER_KERNELS + WINDOW_KERNELS + ("tree_reduce_lanes", "ed_add"))
               and all(bucket_launches[k] == 0 for k in HORNER_STEP_KERNELS),
               f"ed_window_sums, w_window_sums, ed_horner, w_horner, tree_reduce_lanes and ed_add launched on the "

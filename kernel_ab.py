@@ -114,6 +114,17 @@ script's, so both trees run the same work. Cases:
   tree's ``negate_q``, or a plain ``neg`` and the launch, back to back),
   ``niels_add`` at the few-row path's 64 x 8 and at 512, each against its
   plain version; and an empty launch's device time (the floor).
+- the Weierstrass add (section ``wadds``): ``wadd`` on each curve at the
+  signed combine's 1, 2, 3, 7 and 10 outputs (chip_smoke.py phases 4 and
+  12) and at 512 and (32, 255) pairs, as it is and with q negated (the
+  tree's ``negate_q``, or a plain ``curve.neg`` and the launch, back to
+  back), each against its plain version; and an empty launch's device time;
+- the generator disk cache's load (section ``cache``): 2^20 generators
+  saved by the tree's ``generators._disk_save``, then loaded, split by
+  ``chip_smoke.cache_load_parts`` into the host's steps, the copy to the
+  card and the launches (the tree's ``ed_from_affine_rows``, or its int32
+  cast, copy and ``fmul``), with the points' digest, which both trees must
+  give; and ``generators._disk_load`` whole (median of 3).
 
 Each case of ``points`` and ``windows`` is timed whole back to back
 (``cuda_ms``, host issue included) and, queued behind a sleep once, split
@@ -124,10 +135,10 @@ passes between the launches (``launch_split``).
 Each case's result is held against its plain version (canonical limbs, or
 points for the tree reduces and the ladders; on a spread sample where the
 plain version is large); the JSON holds each case's ``ms`` and whether it
-matched. ``--sections`` runs some of the fifteen sections (``edwards``,
+matched. ``--sections`` runs some of the seventeen sections (``edwards``,
 ``weierstrass``, ``mont``, ``trees``, ``tables``, ``ladders``, ``convert``,
 ``horner``, ``fewrow``, ``finvert``, ``points``, ``windows``, ``codec``,
-``rows``, ``adds``).
+``rows``, ``adds``, ``wadds``, ``cache``).
 Needs one CUDA card.
 """
 
@@ -139,6 +150,7 @@ import importlib.util
 import inspect
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -170,7 +182,7 @@ TREE_CHECK_COLS = 8
 
 
 SECTIONS = ("edwards", "weierstrass", "mont", "trees", "tables", "ladders", "convert", "horner", "fewrow", "finvert",
-            "points", "windows", "codec", "rows", "adds")
+            "points", "windows", "codec", "rows", "adds", "wadds", "cache")
 # the few-row queries of chip_smoke.py phase 17: (n, bytes of the column, w)
 FEWROW_QUERIES = ((1 << 20, 1, 8), (1 << 20, 8, 8), (1 << 20, 32, 4), (1 << 10, 1, 8))
 # the Weierstrass lookups' partials at the shapes their chunk rules give a
@@ -1102,6 +1114,66 @@ def section_adds(torch, cs, dev, case) -> None:
                   for s in (slice(0, size), slice(512, 512 + size)))
         case(f"adds/niels_add/{'x'.join(map(str, shape))}", lambda: cp.niels_add(n1, n2),
              ed_err(cp.niels_add(n1, n2), cp.niels_add_plain(n1, n2)) == 0, reps=50)
+
+
+# wadd's shapes: the signed combine's outputs on the paths (chip_smoke.py
+# phases 4 and 12), 512 pairs and the bucket engine's round adds at (32, 255)
+WADD_SHAPES = ((1,), (2,), (3,), (7,), (10,), (512,), (32, 255))
+
+
+def section_wadds(torch, cs, dev, case) -> None:
+    from blitzar_tpu_torch.curves import weierstrass as wc
+    from blitzar_tpu_torch.ops import cuda_wpoint as cw
+
+    flag = "negate_q" in inspect.signature(cw.wadd).parameters
+    count = 2 * 32 * 255
+    case("wadds/empty_launch", lambda: torch.cuda._sleep(0), True, reps=100)
+    for curve in wc.CURVES:
+        tiled, _ = cs.tiled_generators(curve, count, dev)
+        pts = curve._double_impl(curve.index_batch(tiled, torch.randperm(count, device=dev)))  # z != 1
+        for shape in WADD_SHAPES:
+            size = int(np.prod(shape))
+            p = curve.reshape_batch(curve.index_batch(pts, slice(0, size)), shape)
+            q = curve.reshape_batch(curve.index_batch(pts, slice(size, 2 * size)), shape)
+            key = f"{curve.name}/{'x'.join(map(str, shape))}"
+            case(f"wadds/wadd/{key}", lambda: cw.wadd(curve, p, q),
+                 cs.point_err(cw.wadd(curve, p, q), cw.wadd_plain(curve, p, q)) == 0, reps=50)
+            # p - q: the tree's one launch reading q negated (device time), or
+            # its plain neg and the launch (back to back)
+            if flag:
+                neg_fn = functools.partial(cw.wadd, curve, p, q, negate_q=True)
+            else:
+                neg_fn = functools.partial(lambda p, q: cw.wadd(curve, p, curve.neg(q)), p, q)
+            case(f"wadds/wadd_negate_q/{key}", neg_fn,
+                 cs.point_err(neg_fn(), cw.wadd_plain(curve, p, curve.neg(q))) == 0, reps=50,
+                 ms=None if flag else cs.cuda_ms(torch, neg_fn, reps=20), one_launch=flag,
+                 back_to_back_ms=cs.cuda_ms(torch, neg_fn, reps=20))
+        del tiled, pts
+
+
+CACHE_LOAD_N = 1 << 20
+
+
+def section_cache(torch, cs, dev, case) -> None:
+    import tempfile
+
+    from blitzar_tpu_torch import generators
+
+    work = tempfile.mkdtemp(prefix="kernel_ab-cache-", dir=os.path.join(HERE, "build"))
+    try:
+        generators.DISK_DIR = work
+        gens = generators.ristretto_generators(CACHE_LOAD_N, 0, dev)  # derived and saved
+        path = os.path.join(work, f"ristretto_gen_a_{CACHE_LOAD_N}.npy")
+        parts = cs.cache_load_parts(torch, path, CACHE_LOAD_N)
+        loaded = generators._disk_load(CACHE_LOAD_N, dev)
+        ok = bool(generators.ed.points_equal(loaded, gens).all())
+        case("cache/load_parts_2^20", None, ok, ms=parts["host"] + parts["copy"] + parts["kernel"], **parts)
+        times = [cs.timed(torch, lambda: generators._disk_load(CACHE_LOAD_N, dev))[1] for _ in range(3)]
+        case("cache/disk_load_2^20", None, ok, ms=float(np.median(times)), times_ms=times)
+    finally:
+        generators.DISK_DIR = ""
+        generators.CACHE.reset()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 if __name__ == "__main__":

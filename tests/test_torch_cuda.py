@@ -206,6 +206,52 @@ def test_wadd_wdouble_kernels_on_views(dev, curve):
     assert _w_same(cw.wdouble(curve, ghi), cw.wdouble_plain(curve, hi))
 
 
+@pytest.mark.parametrize("negate_q", [False, True])
+@pytest.mark.parametrize("shape", [(1,), (2,), (7,), (10,), (33,), (3, 17)])
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_wadd_lanes_kernel(dev, curve, shape, negate_q):
+    """Eight lanes a pair: the signed combine's 1-10 outputs, a batch off a
+    block's eight pairs and a two-axis batch, with z != 1, the identity,
+    P + P and P - P among them, q read negated; limb for limb the plain
+    version (Montgomery limbs are canonical)."""
+    count = int(np.prod(shape))
+    orc = curve.oracle
+    a, b = orc.random_points(count, seed=51), orc.random_points(count, seed=52)
+    ps = [None if i % 5 == 2 else a[i] for i in range(count)]
+    qs = [a[i] if i % 3 == 1 else orc.neg(a[i]) if i % 7 == 3 else b[i] for i in range(count)]
+    p, q = (curve.reshape_batch(curve._double_impl(curve.from_affine_ints(x, "cpu")), shape) for x in (ps, qs))
+    before = cp.LAUNCHES["wadd"]
+    got = cw.wadd(curve, _on(p, dev), _on(q, dev), negate_q=negate_q)
+    assert cp.LAUNCHES["wadd"] == before + 1
+    assert _w_same(got, cw.wadd_plain(curve, p, q, negate_q))
+
+
+@pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
+def test_w_signed_commitment_is_one_wadd_and_no_neg(dev, curve, monkeypatch):
+    """A signed Weierstrass query's Q_pos - Q_neg, on a handle and streamed,
+    is one wadd launch that reads Q_neg negated: no plain neg runs; the
+    outputs equal the oracle's."""
+    negs = []
+    plain_neg = wc.WCurve.neg
+    monkeypatch.setattr(wc.WCurve, "neg", lambda self, p: negs.append(1) or plain_neg(self, p))
+    n = 40
+    pts = curve.oracle.random_points(n, seed=53)
+    rng = np.random.default_rng(54)
+    mags = rng.integers(0, 256, size=(3, n, 8), dtype=np.uint8)
+    signs = rng.integers(0, 2, size=(3, n), dtype=np.uint8)
+    want = [curve.oracle.msm([-int.from_bytes(bytes(m), "little") if s else int.from_bytes(bytes(m), "little")
+                              for m, s in zip(mrow, srow)], pts) for mrow, srow in zip(mags, signs)]
+    points = curve.from_affine_ints(pts, dev)
+    for run in (lambda: fixed.fixed_multiexponentiation_signed(fixed.MultiexpHandle(points, curve=curve), mags, signs),
+                lambda: fixed.streaming_multiexponentiation(points, mags, curve, signs=signs)):
+        before = dict(cp.LAUNCHES)
+        negs.clear()
+        got = run()
+        assert (cp.LAUNCHES["wadd"] - before["wadd"], cp.LAUNCHES["w_doubling_combine"]
+                - before["w_doubling_combine"]) == (1, 1) and not negs
+        assert curve.to_affine_ints(_on(got, "cpu")) == want
+
+
 @pytest.mark.parametrize("curve", wc.CURVES, ids=lambda c: c.name)
 @pytest.mark.parametrize("signed", [False, True])
 def test_w_table_and_lookup_kernels(dev, curve, signed):
@@ -546,17 +592,20 @@ def test_packed_and_vlen_on_cuda_match_cpu(dev, curve):
 
 
 def test_generator_cache_on_cuda(dev, tmp_path, monkeypatch):
-    """Saved from the card (one ed_affine launch), loaded on the card
-    (fmul): the same points as the CPU derivation; a legacy extended file
-    loads with one ed_affine launch and no finvert or fmul."""
+    """Saved from the card (one ed_affine launch), loaded on the card (one
+    ed_from_affine_rows launch a load, no fmul): the same points as the CPU
+    derivation; a legacy extended file loads with one ed_affine launch and
+    no finvert or fmul."""
     monkeypatch.setattr(generators, "DISK_CHUNK", 64)
     monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path))
     want = generators.ristretto_generators(128, 0, "cpu")
-    before = {k: cp.LAUNCHES[k] for k in ("fmul", "fsq", "finvert", "elligator_form", "ed_affine")}
+    before = {k: cp.LAUNCHES[k] for k in ("fmul", "fsq", "finvert", "elligator_form", "ed_affine",
+                                          "ed_from_affine_rows")}
     made = generators.ristretto_generators(128, 0, dev)  # loads the CPU's save
     loaded = generators.ristretto_generators(100, 0, dev)
     assert cp.LAUNCHES["elligator_form"] == before["elligator_form"]
-    assert cp.LAUNCHES["fmul"] > before["fmul"]
+    assert (cp.LAUNCHES["ed_from_affine_rows"] - before["ed_from_affine_rows"], cp.LAUNCHES["fmul"]) == \
+        (2, before["fmul"])
     assert bool(ed.points_equal(_on(made, "cpu"), want).all())
     assert bool(ed.points_equal(_on(loaded, "cpu"), ed.index_batch(want, slice(0, 100))).all())
     monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path / "card"))
@@ -573,6 +622,21 @@ def test_generator_cache_on_cuda(dev, tmp_path, monkeypatch):
     assert _same(got, cp.ed_affine_plain(ed.index_batch(want, slice(0, 64))))
     monkeypatch.setattr(generators, "DISK_DIR", str(tmp_path / "card"))
     assert bool(ed.points_equal(generators.ristretto_generators(64, 0, "cpu"), ed.index_batch(want, slice(0, 64))).all())
+
+
+@pytest.mark.parametrize("count", [1, 33, 1000, 70000])
+def test_ed_from_affine_rows_kernel(dev, count):
+    """The cache file's uint16 rows to (x, y, 1, x y): random limbs (values
+    up to 2^256 - 1, most not canonical) and the rows of canonical affine
+    generators, against the plain version limb for limb."""
+    rng = np.random.default_rng(count)
+    rows = torch.from_numpy(rng.integers(0, 1 << 16, size=(2, 16, count), dtype=np.uint16))
+    gens = cp.ed_affine_plain(generators.ristretto_generators(min(count, 64), 0, "cpu"))
+    rows[:, :, : gens.x.shape[1]] = torch.from_numpy(np.stack([gens.x.numpy(), gens.y.numpy()]).astype(np.uint16))
+    before = cp.LAUNCHES["ed_from_affine_rows"]
+    got = cp.ed_from_affine_rows(rows.to(dev))
+    assert cp.LAUNCHES["ed_from_affine_rows"] == before + 1
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, cp.ed_from_affine_rows_plain(rows)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """The four-lane adds (csrc/quad_add.cuh: ed_add.cu and niels_add.cu), run
 by the host harness lane by lane through an exchange array, against
 blitzar_tpu's curves/edwards25519.py add (and add of neg, the negate_q
-flag) and its Pallas niels_add in interpret mode: the identity, P + P,
+flag) and its niels add (the plain law ``_niels_add_impl``, which
+blitzar_tpu's own tier holds its Pallas niels_add to in interpret mode,
+tests/test_pallas_kernels.py): the identity, P + P,
 P + (-P) and values at the top of the limbs' range among seeded points;
 and a signed ristretto255 commitment (its Q_pos - Q_neg one ed_add that
 reads Q_neg negated) through the port's API against blitzar_tpu's
@@ -9,6 +11,7 @@ pure-Python oracle (refimpl/core.py)."""
 
 import ctypes
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +20,6 @@ import torch
 import torch_host_harness
 from blitzar_tpu.curves import edwards25519 as jed
 from blitzar_tpu.fields import fp25519 as JF
-from blitzar_tpu.ops import pallas_point
 from blitzar_tpu.refimpl import core as R
 from blitzar_tpu_torch import api
 from blitzar_tpu_torch.curves import edwards25519 as ted
@@ -107,6 +109,10 @@ def _niels(points: np.ndarray) -> np.ndarray:
 
 
 def test_quad_niels_add_matches_pallas_interpret(harness):
+    """Held to blitzar_tpu's plain niels law, the reference of its Pallas
+    kernel (tests/test_pallas_kernels.py holds the kernel in interpret mode
+    to it, opt-in there: a cold interpret-mode compile of the kernel takes
+    ~10 minutes of XLA:CPU on eight cores)."""
     p, q = _points(23), _points(24)
     q[:, :, :2] = p[:, :, :2]  # doublings
     q[0, :, 2:4] = ints_to_limbs([(P - v) % P for v in limbs_to_ints(p[0, :, 2:4])])  # P + (-P)
@@ -122,7 +128,7 @@ def test_quad_niels_add_matches_pallas_interpret(harness):
         got = _call(harness.btt_host_niels_add_quad, first, n2, out_shape=(4, 16, COUNT))
         if want is None:
             jn1 = jed.Niels(*(jnp.asarray(c.astype(np.uint32)) for c in first))
-            want = _canon(pallas_point.niels_add(jn1, jn2, interpret=True))
+            want = _canon(jax.jit(jed._niels_add_impl)(jn1, jn2))
         assert np.array_equal(got, want)
     sums = ted.PointP3(*(to_tensor(c) for c in got))
     assert bool(ted.points_equal(ted.index_batch(sums, slice(2, 4)), ted.identity((2,))).all())
