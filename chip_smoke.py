@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build blitzar_tpu_torch's kernels and drive its commitment, proof,
-large-n (streamed), handle-file, bucket-engine and few-row query paths on
-one GPU.
+large-n (streamed), handle-file, bucket-engine and few-row query paths and
+its C ABI on one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -216,7 +216,24 @@ Phases, each fatal on failure:
    invalid one (s >= p, odd s, bit 255 set, no square root, negative t, y =
    0, all ones, in turn), timed, bounded, launches x (time - bound) summed
    over the counts; ``ristretto.cu``'s ptxas report (no spill) goes to
-   ``ptxas_codec``.
+   ``ptxas_codec``;
+22. the C ABI on the card, each part in a subprocess (the shim aborts on
+   misuse and ``sxt_init`` is one-shot): build ``libblitzar_tpu.so``
+   (``blitzar_tpu_torch/cbindings/build.py``, g++) and the pure-C consumer
+   ``abi_consumer.c`` (gcc); the consumer with ``SXT_GPU_BACKEND`` and no
+   PYTHONPATH must reproduce the upstream commitments and the pinned 2^20
+   digest (its cold and warm times kept); ``tests/torch_capi_card_driver.py``
+   with ``SXT_GPU_BACKEND`` holds every entry's bytes to the Python API's in
+   the same process (2^20 commitments, ``_with_generators`` over
+   ``sxt_ristretto255_get_generators``' structs, a handle and its packed and
+   vlen queries, a 2^16 handle file, the three Weierstrass entries, the IPA
+   and both sumchecks at 2^20; the ABI's 2^20 commitment launches the API's
+   kernels and no plain version) and times the ABI beside the API, the
+   commitment's share split into the bridge's copy, its parse and the API
+   call on the parsed descriptor; with no
+   visible card ``sxt_init(SXT_GPU_BACKEND)`` must return 1 and a commitment
+   after it must abort (no CPU fallback). Nothing falls back: a library
+   that does not build or a subprocess that fails fails the run.
 
 The last three lines are ``{"kernels": [...]}`` (per kernel: launches on
 its path, time, plain time, bound, error), the card as ``nvidia-smi`` names
@@ -3854,6 +3871,86 @@ def ranking(kernels: list, shapes: dict, tree_shapes: dict) -> list:
     return sorted(rows, key=lambda r: -r["launches_x_gap_ms"])
 
 
+# ---------------------------------------------------------------------------
+# 22. the C ABI on the card
+# ---------------------------------------------------------------------------
+
+CAPI_CARD_DRIVER = os.path.join(ROOT, "tests", "torch_capi_card_driver.py")
+ABI_CONSUMER = os.path.join(ROOT, "blitzar_tpu_torch", "cbindings", "abi_consumer.c")
+
+
+def run_part(cmd, what: str, timeout: int, **env) -> subprocess.CompletedProcess:
+    """One part of phase 22 in its own process, without PYTHONPATH (the
+    library finds the port and torch by itself)."""
+    child_env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    child_env.update(env)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([str(c) for c in cmd], capture_output=True, text=True, env=child_env, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise Failure(f"{what}: no end within {timeout} s") from None
+    print(f"    {what}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return proc
+
+
+def phase_capi(timings: dict, work: str) -> None:
+    """22: build the ABI library and the C consumer, run the consumer and the
+    ctypes driver with the GPU backend, then both with no visible card."""
+    from blitzar_tpu_torch.cbindings import build as capi_build
+
+    t0 = time.perf_counter()
+    try:
+        lib = capi_build.build()
+    except RuntimeError as e:
+        raise Failure(f"22: the ABI library does not build: {e}") from None
+    consumer = os.path.join(work, "abi_consumer")
+    cc = subprocess.run(["gcc", "-x", "c", "-std=c11", "-O2", ABI_CONSUMER, "-I", os.path.join(ROOT, "cbindings"),
+                         "-L", str(lib.parent), "-lblitzar_tpu", f"-Wl,-rpath,{lib.parent}", "-o", consumer],
+                        capture_output=True, text=True)
+    check(cc.returncode == 0, f"22: the consumer compiles against the header ({cc.stderr[-2000:]})")
+    timings["capi_build_s"] = time.perf_counter() - t0
+    print(f"ok  22: {lib} and the consumer built in {timings['capi_build_s']:.1f} s", flush=True)
+
+    proc = run_part([consumer, "2", "20"], "22 (b) the C consumer, SXT_GPU_BACKEND, 2^20", 600)
+    if proc.returncode:
+        raise Failure(f"22 (b): the C consumer exits {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(line["rust_ok"] and line["hex"] == PINNED_RISTRETTO_MSM[20],
+          f"22 (b): the C consumer reproduces the upstream commitments and the pinned 2^20 digest {line['hex']} "
+          f"(cold {line['cold_ms']:.1f} ms, warm {line['warm_ms']})")
+    timings["capi_consumer_2^20"] = line
+
+    proc = run_part([sys.executable, CAPI_CARD_DRIVER, lib, work], "22 (c) the ctypes driver, SXT_GPU_BACKEND", 900)
+    for out_line in proc.stdout.splitlines():
+        if out_line.startswith("ok  "):
+            print(f"    (c) {out_line[4:]}", flush=True)
+    result = [ln for ln in proc.stdout.splitlines() if ln.startswith("CAPI_CARD ")]
+    if proc.returncode or not result:
+        raise Failure(f"22 (c): the ctypes driver exits {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    card = json.loads(result[0][len("CAPI_CARD "):])
+    check(card["checks"] > 0, f"22 (c): every entry through the ABI equals the API's bytes ({card['checks']} checks)")
+    timings["capi_driver"] = card["timings"]
+
+    proc = run_part([consumer, "2", "4"], "22 (d) the C consumer with no visible card", 300, CUDA_VISIBLE_DEVICES="")
+    check(proc.returncode == 1 and "sxt_init(2) failed" in proc.stderr,
+          f"22 (d): with no visible card sxt_init(SXT_GPU_BACKEND) fails in the consumer (exit {proc.returncode})")
+    proc = run_part([sys.executable, CAPI_CARD_DRIVER, lib, work, "--no-card"], "22 (d) a commitment after the refusal",
+                    300, CUDA_VISIBLE_DEVICES="")
+    check(proc.returncode != 0 and "REFUSED" in proc.stdout and "NOT REACHED" not in proc.stdout
+          and "blitzar_tpu panic" in proc.stderr,
+          f"22 (d): sxt_init(SXT_GPU_BACKEND) returns 1 with no visible card and a commitment after it aborts "
+          f"(exit {proc.returncode}; no CPU fallback)")
+    t = card["timings"]
+    print(f"    22: warm 2^20 commitment ABI {t['abi_commit_2^20_warm_ms_median']:.2f} ms, API "
+          f"{t['api_commit_2^20_warm_ms_median']:.2f} ms (split: the bridge's column copy "
+          f"{t['split_commit_2^20_read_ms_median']:.2f} ms, its parse {t['split_commit_2^20_parse_ms_median']:.2f} ms, "
+          f"the API on the parsed descriptor {t['split_commit_2^20_api_on_parsed_ms_median']:.2f} ms); "
+          f"_with_generators ABI "
+          f"{t['abi_with_generators_2^20_warm_ms_median']:.2f} ms, API {t['api_with_generators_2^20_warm_ms_median']:.2f}"
+          f" ms; IPA prove ABI {t['abi_ipa_2^20_prove_ms_all']} API {t['api_ipa_2^20_prove_ms_all']} ms, verify ABI "
+          f"{t['abi_ipa_2^20_verify_ms_all']} API {t['api_ipa_2^20_verify_ms_all']} ms", flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "blitzar_tpu_torch", "csrc")):
         print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
@@ -4054,6 +4151,10 @@ def main() -> int:
         check(all(fewrow_launches[k] > 0 for k in FEWROW_KERNELS),
               f"niels_add and fewrow_niels launched on the few-row query's path: "
               f"{ {k: fewrow_launches[k] for k in FEWROW_KERNELS} }")
+        # the C ABI, in subprocesses that need the card's memory
+        clear_handles(torch)
+        torch.cuda.empty_cache()
+        phase_capi(report["timings"], work)
         report["kernels"] = [results[k] for k in cp.KERNELS]
         report["ranking"] = ranking(report["kernels"], ranked, tree_shapes)
         for row in report["ranking"][:8]:

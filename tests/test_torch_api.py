@@ -153,8 +153,11 @@ def _port_files():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
-    # the card-only tests run where jax is not installed
+    # the card-only tests run where jax is not installed, and so does the
+    # C ABI's card driver (chip_smoke.py phase 22)
     yield os.path.join(REPO, "tests", "test_torch_cuda.py")
+    yield os.path.join(REPO, "tests", "torch_capi_card_driver.py")
+    yield os.path.join(REPO, "tests", "torch_capi_structs.py")
 
 
 def test_port_sources_import_no_jax():

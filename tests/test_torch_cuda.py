@@ -1302,3 +1302,47 @@ def test_w_bucket_engine_horner_is_one_launch(dev, monkeypatch):
     vals = [[int.from_bytes(bytes(r), "little") for r in data[0]],
             [int.from_bytes(bytes(r), "little") - (1 << 24) * (r[2] >= 0x80) for r in data[1]]]
     assert curve.to_affine_ints(_on(got, "cpu")) == [curve.oracle.msm(v, pts) for v in vals]
+
+
+# ---------------------------------------------------------------------------
+# the C ABI with the GPU backend (tests/torch_capi_card_driver.py, in its
+# own process: the shim aborts on misuse and sxt_init is one-shot)
+# ---------------------------------------------------------------------------
+
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+CAPI_CARD_DRIVER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_capi_card_driver.py")
+
+
+@pytest.fixture(scope="module")
+def capi_lib(dev):
+    from blitzar_tpu_torch.cbindings import build
+
+    return build.build()
+
+
+def _capi_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(extra)
+    return env
+
+
+def test_capi_gpu_backend_matches_the_api(capi_lib, tmp_path):
+    """Every entry through the ABI with SXT_GPU_BACKEND at 2^12 (the
+    Weierstrass commitments and handle file at 2^12 too): its bytes equal
+    the API's, and its commitment launches the API's kernels and no plain
+    version."""
+    proc = subprocess.run([sys.executable, CAPI_CARD_DRIVER, str(capi_lib), str(tmp_path), "--log2-n", "12"],
+                          capture_output=True, text=True, env=_capi_env(), timeout=900)
+    assert proc.returncode == 0 and "CAPI_CARD " in proc.stdout, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+def test_capi_gpu_backend_without_a_card_is_refused(capi_lib, tmp_path):
+    """With no visible card sxt_init(SXT_GPU_BACKEND) returns 1, and a
+    commitment after it aborts: there is no CPU fallback."""
+    proc = subprocess.run([sys.executable, CAPI_CARD_DRIVER, str(capi_lib), str(tmp_path), "--no-card"],
+                          capture_output=True, text=True, env=_capi_env(CUDA_VISIBLE_DEVICES=""), timeout=300)
+    assert proc.returncode != 0 and "REFUSED" in proc.stdout and "NOT REACHED" not in proc.stdout
+    assert "blitzar_tpu panic" in proc.stderr
